@@ -1,26 +1,43 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
-Drives the port's main path — ``Predictor.from_checkpoint`` ->
-``predict_waveform_batch``, batch inference from waveform to intent
-probabilities at the full width of the reference model (3.26 M-param
-CNNAudioGRU, seeded random weights) — through the two hand-written CUDA
-kernels, and checks everything it measures:
+Drives the port's two paths at the full width of the reference model
+(3.26 M-param CNNAudioGRU, seeded random weights) through the four
+hand-written CUDA kernels, and checks everything it measures:
+
+* serving: ``Predictor.from_checkpoint`` -> ``predict_waveform_batch``,
+  batch inference from waveform to intent probabilities (K1, K2);
+* training from precomputed features: the precompute, train and evaluate
+  CLIs on a seeded synthetic tone corpus (K3 in the precompute, K2 and its
+  backward K2T in training), then the trained model served.
+
+Phases:
 
 1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc``;
 2. K1 (front-end + conv1) against its plain PyTorch version;
 3. K2 (GRU recurrence) against its plain version, bf16 and fp32;
-4. end to end: the main path once at B=256 with the launch counters reset
-   just before and read just after (K1 must launch once, K2 twice), then
-   the parity gates of the reference ``bench.py``: plain front-end vs the
-   fp64 golden (< 0.05), fused probabilities vs golden features through the
-   plain unfused folded model (< 0.02, equal argmax), and the main run's
-   rows vs the same predictor on the CPU (plain versions);
+4. serving end to end: the main path once at B=256 with the launch
+   counters reset just before and read just after (K1 must launch once, K2
+   twice), then the parity gates of the reference ``bench.py``: plain
+   front-end vs the fp64 golden (< 0.05), fused probabilities vs golden
+   features through the plain unfused folded model (< 0.02, equal argmax),
+   and the main run's rows vs the same predictor on the CPU;
 5. the ``test_model`` CLI on a WAV file;
 6. timings with CUDA events, each next to the card's name and power limit,
    K2 at every tile height it is built for;
 7. with ``--profile`` only: step-time percentiles and the per-kernel
-   breakdown of device time (``utils/profiling.py``) at B=256 and 2048.
+   breakdown of device time (``utils/profiling.py``) at B=256 and 2048, and
+   of one bf16 train step at B=256;
+8. K3 (front-end) against its plain version, f32 and bf16 out, normalized
+   and raw;
+9. K2T (GRU backward) against its plain version and against autograd
+   through the plain forward, at every tile height;
+10. one fp32 training step (two batches) on the card against the CPU;
+11. timings of K3, K2T and the bf16 train step with CUDA events;
+12. training end to end through the CLIs (precompute -> train -> evaluate
+    -> serve the best model), with the launch counters reset just before
+    and read just after each CLI (K3 in the precompute, K2 and K2T in
+    training), and the precompute rate.
 
 Every failed check raises.  Needs one card; exits non-zero without CUDA.
 The last line of standard output is the JSON device record.
@@ -40,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from speech_intent_recognizer_tpu_torch.config.schema import AudioConfig
+from speech_intent_recognizer_tpu_torch.config import AudioConfig
 from speech_intent_recognizer_tpu_torch import _build
 from speech_intent_recognizer_tpu_torch.data.audio_io import save_wav
 from speech_intent_recognizer_tpu_torch.data.labelmap import save_label_map
@@ -50,9 +67,10 @@ from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
-    log_mel_frontend, make_frontend_params, padded_samples)
+    log_mel_frontend_plain, make_frontend_params, padded_samples)
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    TILE_ROWS, _gru_layer_plain, gru_layer, tile_rows)
+    TILE_ROWS, _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
+    gru_layer_backward, tile_rows)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
 
@@ -62,6 +80,33 @@ K1_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/frontend_conv1.cu"
 K1_REPLACES = "speech_intent_recognizer_tpu/ops/frontend_pallas.py:651"
 K2_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/gru_layer.cu"
 K2_REPLACES = "speech_intent_recognizer_tpu/ops/gru_pallas.py:55"
+K3_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/frontend.cu"
+K3_REPLACES = "speech_intent_recognizer_tpu/ops/frontend_pallas.py:458"
+K2T_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/gru_layer_bwd.cu"
+K2T_REPLACES = "speech_intent_recognizer_tpu/ops/gru_pallas.py:168"
+# precompute's buffers are max_samples wide, not padded_samples
+PRECOMPUTE_WIDTH = 80000
+# K3 f32 vs its plain version: the bar JAX holds K3 to against XLA
+# (tests/test_pallas_frontend.py:62)
+K3_BAR = 2e-3
+# fp32 gradients: the bar of tests/test_gru_pallas.py:92-94 (rtol 2e-4,
+# atol 2e-5), per element for dgx; for dW and db_hn per tensor as
+# max|err| <= atol + rtol * max|want|: they sum T*B = 51,200 terms at
+# B=2048, whose fp32 summation order differs between the kernel path (one
+# GEMM) and the plain loop (25 GEMMs)
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+# train step, card vs CPU (fp32, TF32 off): loss relative, gradients per
+# tensor as above, BatchNorm running statistics absolute
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL, STEP_BN_ATOL = (
+    1e-4, 1e-3, 1e-5, 1e-5)
+# the synthetic tone corpus of the training phase
+TONE_CLASSES = 8
+CORPUS = {"train": 1024, "valid": 256, "test": 256}
+TRAIN_EPOCHS = 6
+TRAIN_BATCH = 64
+PRECOMPUTE_BATCH = 128
+VAL_ACC_BAR = 0.9
+ARGMAX_SHARE_BAR = 0.99
 MAIN_BATCH = 256
 TIMING_BATCHES = (256, 2048)
 E2E_BATCH = TIMING_BATCHES[-1]
@@ -152,6 +197,351 @@ def seeded_checkpoint(directory: str) -> tuple:
     label_path = os.path.join(directory, "label_map.json")
     save_label_map({f"intent_{i:02d}": i for i in range(31)}, label_path)
     return model_path, label_path, model.state_dict()
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def within_scaled(got, want, rtol, atol) -> bool:
+    """max|got - want| <= atol + rtol * max|want|, over the tensor: the bar
+    for a gradient that sums many terms (a weight gradient over T*B or
+    B*H*W positions), whose small elements are differences of large
+    partial sums that another summation order moves by rtol * max|want|."""
+    return max_err(got, want) <= atol + rtol * float(want.float().abs().max())
+
+
+def within_each(got, want, rtol, atol) -> bool:
+    """|got - want| <= atol + rtol * |want| at every element
+    (np.testing.assert_allclose's rule)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def check_k3(dev, fe, rng) -> float:
+    """Phase 8: K3 vs its plain version at B=256 in precompute-wide
+    buffers; f32 within K3_BAR, bf16 within one bf16 rounding (2**-8
+    relative) of the plain f32 value plus K3_BAR."""
+    lengths = CHECK_LENGTHS + list(rng.integers(
+        1, PRECOMPUTE_WIDTH + 1, MAIN_BATCH - len(CHECK_LENGTHS)))
+    buf, ln = batch(lengths, PRECOMPUTE_WIDTH, seed=300)
+    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
+    k3_err = 0.0
+    for normalize in (True, False):
+        want = log_mel_frontend_plain(wf, lt, fe, normalize)
+        got = fk.frontend(wf, lt, fe, normalize)
+        got16 = fk.frontend(wf, lt, fe, normalize, torch.bfloat16).float()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(got.shape == (MAIN_BATCH, 64, 200)
+              and bool(torch.isfinite(got).all()) and err <= K3_BAR,
+              f"K3 vs plain, B={MAIN_BATCH} normalize={normalize} f32: max "
+              f"|err| {err:.3e} <= {K3_BAR}")
+        bound = 2.0 ** -8 * want.abs() + K3_BAR
+        err16 = max_err(got16, want)
+        check(bool(((got16 - want).abs() <= bound).all()),
+              f"K3 vs plain, normalize={normalize} bf16 out: within one "
+              f"bf16 rounding + {K3_BAR} (max |err| {err16:.3e}, scale "
+              f"{float(want.abs().max()):.2f})")
+        if normalize:
+            k3_err = err
+    return k3_err
+
+
+def k2t_inputs(b: int, dtype, dev, seed: int):
+    gx, w, bn = k2_inputs(b, dtype, dev, seed)
+    r = np.random.default_rng(seed + 1)
+    dys = torch.from_numpy(r.standard_normal((2, 25, b, 256))
+                           .astype(np.float32)).to(dev, dtype)
+    return gx, w, bn, _gru_layer_plain(gx, w, bn), dys
+
+
+def check_k2t(dev, sms) -> float:
+    """Phase 9: K2T vs its plain version at every tile height (and the
+    picked one) on full and ragged tiles; fp32 also vs autograd through
+    the plain forward.  Returns the largest fp32 error."""
+    worst = 0.0
+    names = ("dgx", "dW", "db_hn")
+    for b in (64, 1030, 2048):
+        for dtype in (torch.float32, torch.bfloat16):
+            gx, w, bn, ys, dys = k2t_inputs(b, dtype, dev, seed=b)
+            want = _gru_layer_backward_plain(gx, w, bn, ys, dys)
+            refs = [("plain", want)]
+            if dtype == torch.float32:
+                leaves = [t.clone().requires_grad_() for t in (gx, w, bn)]
+                refs.append(("autograd", torch.autograd.grad(
+                    _gru_layer_plain(*leaves), leaves, dys)))
+            for rows in (None, *TILE_ROWS):
+                got = gru_layer_backward(gx, w, bn, ys, dys, rows=rows)
+                torch.cuda.synchronize()
+                picked = tile_rows(b, sms) if rows is None else rows
+                for ref_name, ref in refs:
+                    for name, g, x in zip(names, got, ref):
+                        ok = bool(torch.isfinite(g.float()).all())
+                        if dtype == torch.float32 and name == "dgx":
+                            ok = ok and within_each(g, x, GRAD_RTOL,
+                                                    GRAD_ATOL)
+                        elif dtype == torch.float32 or name == "db_hn":
+                            ok = ok and within_scaled(g, x, GRAD_RTOL,
+                                                      GRAD_ATOL)
+                        else:  # one bf16 step plus the fp32 bar
+                            bound = (2.0 ** -7 * x.float().abs() + GRAD_ATOL
+                                     + GRAD_RTOL * float(x.float().abs().max()))
+                            ok = ok and bool(((g.float() - x.float()).abs()
+                                              <= bound).all())
+                        err = max_err(g, x)
+                        check(ok, f"K2T vs {ref_name}, B={b} {dtype} "
+                              f"{picked}-row tiles{' (picked)' if rows is None else ''}"
+                              f" {name}: max |err| {err:.3e} (scale "
+                              f"{float(x.float().abs().max()):.3g})")
+                        if dtype == torch.float32:
+                            worst = max(worst, err)
+    return worst
+
+
+def check_train_step(dev) -> None:
+    """Phase 10: one training step (two batches of 16) of the full-width
+    model in fp32 with dropout 0 and augmentation off, on the card and on
+    the CPU from the same seeded weights and batches.  BatchNorm's running
+    statistics are compared after step 1, which sets them from the same
+    weights on both sides; after step 2 they are only logged: Adam's first
+    update is about lr * sign(g), so a gradient within fp32 noise of zero
+    can move its weight by 2 * lr on one side only."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from speech_intent_recognizer_tpu_torch.train.loop import cross_entropy
+    from speech_intent_recognizer_tpu_torch.train.state import (
+        create_optimizer)
+
+    cpu_model = CNNAudioGRU(num_classes=31, dropout=0.0)
+    cpu_model.reset_parameters(torch.Generator().manual_seed(11))
+    r = np.random.default_rng(12)
+    feats = torch.from_numpy(r.standard_normal((32, 64, 200))
+                             .astype(np.float32))
+    labels = torch.from_numpy(r.integers(0, 31, 32))
+    runs = {}
+    for d, model in (("cpu", cpu_model),
+                     (dev, copy.deepcopy(cpu_model).to(dev))):
+        opt = create_optimizer(model.parameters(), lr=1e-3,
+                               weight_decay=1e-4, grad_clip=1.0)
+        model.train()
+        losses, grads, stats = [], None, []
+        for step in range(2):
+            x = feats[16 * step:16 * (step + 1)].to(d)
+            y = labels[16 * step:16 * (step + 1)].to(d)
+            loss = cross_entropy(model(x), F.one_hot(y, 31).float(),
+                                 torch.ones(16, device=d))
+            opt.zero_grad()
+            loss.backward()
+            if step == 0:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+            stats.append({n: b.detach().cpu().clone()
+                          for n, b in model.named_buffers()
+                          if "running" in n})
+            opt.step()
+            losses.append(float(loss.detach()))
+        runs[str(d)] = (losses, grads, stats)
+    (l_cpu, g_cpu, s_cpu), (l_dev, g_dev, s_dev) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    check(loss_err <= STEP_LOSS_RTOL,
+          f"train step card vs CPU: losses {l_dev} vs {l_cpu}, relative "
+          f"err {loss_err:.2e} <= {STEP_LOSS_RTOL}")
+    worst = max(g_cpu, key=lambda n: max_err(g_dev[n], g_cpu[n])
+                / (STEP_GRAD_ATOL + STEP_GRAD_RTOL
+                   * float(g_cpu[n].abs().max())))
+    check(all(within_scaled(g_dev[n], g_cpu[n], STEP_GRAD_RTOL,
+                            STEP_GRAD_ATOL) for n in g_cpu),
+          f"train step card vs CPU: all {len(g_cpu)} step-1 gradients "
+          f"within rtol {STEP_GRAD_RTOL} / atol {STEP_GRAD_ATOL} of scale "
+          f"(closest to the bar: {worst}, err "
+          f"{max_err(g_dev[worst], g_cpu[worst]):.2e}, scale "
+          f"{float(g_cpu[worst].abs().max()):.3g})")
+    bn_err = [max(max_err(s_dev[k][n], s_cpu[k][n]) for n in s_cpu[k])
+              for k in range(2)]
+    check(bn_err[0] <= STEP_BN_ATOL,
+          f"train step card vs CPU: BatchNorm running stats after step 1 "
+          f"max |err| {bn_err[0]:.2e} <= {STEP_BN_ATOL} (after step 2: "
+          f"{bn_err[1]:.2e}, not held)")
+
+
+def tone_corpus(directory: str, seed: int = 7):
+    """Seeded synthetic corpus: TONE_CLASSES classes, each a tone at its
+    own frequency (random phase and level) plus noise, 1-5 s; CSV
+    manifests and a label map."""
+    rng = np.random.default_rng(seed)
+    freqs = 250.0 * 1.5 ** np.arange(TONE_CLASSES)
+    labels = [f"tone_{k}" for k in range(TONE_CLASSES)]
+    csvs = {}
+    for split, n in CORPUS.items():
+        rows = []
+        for i in range(n):
+            k = i % TONE_CLASSES
+            m = int(rng.integers(16000, 80001))
+            t = np.arange(m) / 16000.0
+            x = (rng.uniform(0.15, 0.4) * np.sin(
+                2 * np.pi * freqs[k] * t + rng.uniform(0, 2 * np.pi))
+                + 0.05 * rng.standard_normal(m))
+            path = os.path.join(directory, split, f"{i:05d}.wav")
+            save_wav(path, x.astype(np.float32), 16000)
+            rows.append(f"{path},{labels[k]}\n")
+        csvs[split] = os.path.join(directory, f"{split}.csv")
+        with open(csvs[split], "w") as f:
+            f.write("path,label\n")
+            f.writelines(rows)
+    label_map = os.path.join(directory, "label_map.json")
+    save_label_map({name: i for i, name in enumerate(labels)}, label_map)
+    return csvs, label_map
+
+
+def decode_split(csv_path: str, width: int):
+    """A split's WAVs as a zero-padded (N, width) buffer + lengths."""
+    from speech_intent_recognizer_tpu_torch.data.audio_io import load_audio
+    from speech_intent_recognizer_tpu_torch.data.manifest import (
+        read_manifest)
+
+    paths = read_manifest(csv_path).paths
+    buf = np.zeros((len(paths), width), np.float32)
+    lengths = np.zeros(len(paths), np.int32)
+    for i, path in enumerate(paths):
+        x, _ = load_audio(path, target_sample_rate=16000)
+        lengths[i] = n = min(len(x), 80000)
+        buf[i, :n] = x[:n]
+    return buf, lengths
+
+
+def train_end_to_end(tmp: str, dev) -> dict:
+    """Phase 11: precompute -> train -> evaluate through the CLIs at full
+    width with bf16 compute, then serve the best model.  Returns the
+    launches of each path and the precompute rate."""
+    from speech_intent_recognizer_tpu_torch.cli import evaluate as cli_eval
+    from speech_intent_recognizer_tpu_torch.cli import (
+        precompute_features as cli_pre)
+    from speech_intent_recognizer_tpu_torch.cli import train as cli_train
+    from speech_intent_recognizer_tpu_torch.data import cache as cache_mod
+
+    csvs, label_map = tone_corpus(os.path.join(tmp, "corpus"))
+    cache_dir = os.path.join(tmp, "cache")
+    save_path = os.path.join(tmp, "checkpoints")
+    cfg_path = os.path.join(tmp, "train.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(f"data:\n  cache_dir: {cache_dir}\n"
+                f"  precompute_batch_size: {PRECOMPUTE_BATCH}\n"
+                f"model:\n  num_labels: {TONE_CLASSES}\n"
+                f"train:\n  epochs: {TRAIN_EPOCHS}\n"
+                f"  batch_size: {TRAIN_BATCH}\n  lr: 0.001\n"
+                f"  early_stop_patience: {TRAIN_EPOCHS}\n  bf16: true\n"
+                f"  save_path: {save_path}\n")
+    n_total = sum(CORPUS.values())
+
+    # precompute: K3 once per batch of each split
+    torch.cuda.synchronize()
+    fk.frontend.launches = 0
+    t0 = time.perf_counter()
+    cli_pre.main(["--train_csv", csvs["train"], "--valid_csv", csvs["valid"],
+                  "--test_csv", csvs["test"], "--output_dir", cache_dir,
+                  "--label_map", label_map, "--config", cfg_path,
+                  "--device", str(dev)])
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+    k3_launches = fk.frontend.launches
+    want = sum(-(-n // PRECOMPUTE_BATCH) for n in CORPUS.values())
+    check(k3_launches == want,
+          f"precompute launched K3 {k3_launches}x (want {want} = sum of "
+          f"ceil(N / {PRECOMPUTE_BATCH}) over the splits)")
+    feats, _labels, _meta = cache_mod.load_cache(
+        cache_mod.cache_path_for(csvs["test"], cache_dir))
+    buf, ln = decode_split(csvs["test"], PRECOMPUTE_WIDTH)
+    sample = slice(0, 16)
+    plain = log_mel_frontend_plain(
+        torch.from_numpy(buf[sample]), torch.from_numpy(ln[sample]),
+        make_frontend_params()).numpy()
+    feat_err = float(np.abs(feats[sample] - plain).max())
+    check(feat_err <= K3_BAR + 1.5e-4,
+          f"cached features (K3, int16 fetch) vs the plain front-end on the "
+          f"CPU, 16 test utterances: max |err| {feat_err:.3e} <= "
+          f"{K3_BAR} + 1.5e-4")
+
+    # training: 2 K2 and 2 K2T launches per train step; K2 twice per eval
+    # batch besides
+    torch.cuda.synchronize()
+    gru_layer.launches = 0
+    gru_layer_backward.launches = 0
+    result = cli_train.main(["--config", cfg_path, "--train_csv",
+                             csvs["train"], "--val_csv", csvs["valid"],
+                             "--label_map", label_map, "--device", str(dev)])
+    k2_launches, k2t_launches = gru_layer.launches, gru_layer_backward.launches
+    steps = result.epochs_run * -(-CORPUS["train"] // TRAIN_BATCH)
+    eval_batches = result.epochs_run * -(-CORPUS["valid"] // (2 * TRAIN_BATCH))
+    check(k2t_launches == 2 * steps and k2_launches == 2 * steps
+          + 2 * eval_batches,
+          f"training launched K2T {k2t_launches}x and K2 {k2_launches}x over "
+          f"{steps} steps and {eval_batches} eval batches (2 each per step, "
+          f"K2 2 per eval batch)")
+    losses = [h["train_loss"] for h in result.history]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train loss finite and falling: {[round(x, 4) for x in losses]}")
+    check(result.best_val_acc >= VAL_ACC_BAR,
+          f"val accuracy {result.best_val_acc:.4f} >= {VAL_ACC_BAR} within "
+          f"{result.epochs_run} epochs (history "
+          f"{[round(h['val_acc'], 4) for h in result.history]})")
+
+    # evaluation CLI: report written, its accuracy that of evaluate_dataset
+    best = os.path.join(save_path, "best_model.pt")
+    results_dir = os.path.join(tmp, "evaluation_results")
+    ev = cli_eval.main(["--config", cfg_path, "--test_csv", csvs["test"],
+                        "--label_map", label_map, "--model_path", best,
+                        "--results_dir", results_dir, "--device", str(dev)])
+    with open(os.path.join(results_dir, "classification_report.txt")) as f:
+        head = f.readline().strip()
+    check(head == f"Test Accuracy: {ev['accuracy']:.4f}",
+          f"classification_report.txt says {head!r}; evaluate_dataset "
+          f"{ev['accuracy']:.4f}")
+
+    # the best model served (fused K1 + K2) vs its unfused eval forward
+    pred = Predictor.from_checkpoint(best, label_map, device=dev)
+    check(pred._conv1 is not None, "trained model served on the fused path")
+    sbuf, sln = decode_split(csvs["test"], padded_samples(80000))
+    probs = pred.predict_waveform_batch(sbuf, sln)
+    model = CNNAudioGRU(num_classes=TONE_CLASSES,
+                        compute_dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(best, weights_only=True))
+    model.to(dev).eval()
+    with torch.inference_mode():
+        wf = torch.from_numpy(sbuf).to(dev)
+        logits = model(fk.frontend(wf, torch.from_numpy(sln).to(dev),
+                                   make_frontend_params(device=dev)))
+        want = torch.log_softmax(logits.float(), -1).cpu().numpy()
+    logp_err = float(np.abs(np.log(np.maximum(probs, 1e-30)) - want).max())
+    share = float((probs.argmax(-1) == want.argmax(-1)).mean())
+    check(logp_err <= LOGP_BAR and share >= ARGMAX_SHARE_BAR,
+          f"best model served (fused K1 + K2) vs its unfused eval forward on "
+          f"{len(sln)} test WAVs: log-prob err {logp_err:.3e} <= {LOGP_BAR}, "
+          f"argmax equal on {share:.4f} >= {ARGMAX_SHARE_BAR}")
+    return {"k3_launches": k3_launches, "k2t_launches": k2t_launches,
+            "precompute_utt_s": n_total / precompute_s,
+            "epochs": result.epochs_run, "val_acc": result.best_val_acc,
+            "test_acc": ev["accuracy"]}
+
+
+def train_step_timer(dev, b: int):
+    """One bf16 train step (forward, backward, Adam) of the full-width
+    model at batch b from device-resident features, as a callable."""
+    from speech_intent_recognizer_tpu_torch.config import Config
+    from speech_intent_recognizer_tpu_torch.train.loop import Trainer
+
+    cfg = Config.from_dict({"bf16": True, "batch_size": b})
+    model = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(b))
+    trainer = Trainer(model.to(dev), cfg)
+    feats = torch.randn((b, 64, 200), device=dev)
+    labels = torch.randint(0, 31, (b,), device=dev)
+    perm = torch.arange(b, device=dev)[None]
+    weights = torch.ones((1, b), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return lambda: trainer.train_epoch(feats, labels, perm, weights, gen)
 
 
 def main(argv=None) -> int:
@@ -256,9 +646,9 @@ def main(argv=None) -> int:
             "main run vs the CPU predictor (plain versions), 16 rows")
 
         gate_buf, gate_ln = batch(GATE_LENGTHS, width, seed=1)
-        feats = log_mel_frontend(torch.from_numpy(gate_buf).to(dev),
-                                 torch.from_numpy(gate_ln).to(dev),
-                                 fe).cpu().numpy()
+        feats = log_mel_frontend_plain(torch.from_numpy(gate_buf).to(dev),
+                                       torch.from_numpy(gate_ln).to(dev),
+                                       fe).cpu().numpy()
         golden_feats = np.stack([
             golden.pad_or_trim_np(golden.log_mel_spectrogram_np(
                 gate_buf[i, :n]), cfg.mel_spec_length).astype(np.float32)
@@ -360,12 +750,73 @@ def main(argv=None) -> int:
                 for name, ms, count in kernels:
                     log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
 
+    # ---- 8-10. K3, K2T, a train step card vs CPU ----
+    k3_err = check_k3(dev, make_frontend_params(device=dev), rng)
+    k2t_err = check_k2t(dev, sms)
+    check_train_step(dev)
+
+    # ---- 11. timings of the training path's kernels and step ----
+    for b in (256, 2048):
+        buf, ln = batch(list(rng.integers(1, PRECOMPUTE_WIDTH + 1, b)),
+                        PRECOMPUTE_WIDTH, seed=4000)
+        wf = torch.from_numpy(buf).to(dev)
+        lt = torch.from_numpy(ln).to(dev)
+        fe_dev = make_frontend_params(device=dev)
+        iters = 20 if b <= 256 else 5
+        timings[f"k3_b{b}"] = cuda_ms(lambda: fk.frontend(wf, lt, fe_dev),
+                                      iters)
+        timings[f"k3_plain_b{b}"] = cuda_ms(
+            lambda: log_mel_frontend_plain(wf, lt, fe_dev), iters)
+        del wf, buf
+    for b in (256, 1024):
+        gx, w, bn, ys, dys = k2t_inputs(b, torch.bfloat16, dev, seed=b)
+        log(f"K2T at B={b} picks {tile_rows(b, sms)}-row tiles ({sms} SMs)")
+        timings[f"k2t_b{b}"] = cuda_ms(
+            lambda: gru_layer_backward(gx, w, bn, ys, dys), 10)
+        for rows in TILE_ROWS:
+            timings[f"k2t_b{b}_rows{rows}"] = cuda_ms(
+                lambda: gru_layer_backward(gx, w, bn, ys, dys, rows=rows), 10)
+        timings[f"k2t_plain_b{b}"] = cuda_ms(
+            lambda: _gru_layer_backward_plain(gx, w, bn, ys, dys), 5)
+        leaves = [t.clone().requires_grad_() for t in (gx, w, bn)]
+
+        def autograd_plain():
+            return torch.autograd.grad(_gru_layer_plain(*leaves), leaves, dys)
+
+        timings[f"k2t_autograd_plain_b{b}"] = cuda_ms(autograd_plain, 5)
+    for b in (16, 256, 1024):
+        step = train_step_timer(dev, b)
+        timings[f"train_step_bf16_b{b}"] = cuda_ms(step, 10)
+        if args.profile and b == 256:
+            from speech_intent_recognizer_tpu_torch.utils.profiling import (
+                kernel_breakdown, step_times)
+
+            q = step_times(step, steps=30)
+            wall, kernels = kernel_breakdown(step, steps=5)
+            busy = sum(k[1] for k in kernels)
+            log(f"profile bf16 train step B={b} on {label}: step ms median "
+                f"{q['median']:.3f} (p25 {q['p25']:.3f} / p75 {q['p75']:.3f}"
+                f" / p90 {q['p90']:.3f}), 30 steps; kernel time {busy:.3f} "
+                f"ms, idle share {1 - busy / q['median']:.3f} (profiled "
+                f"step {wall:.3f} ms)")
+            for name, ms, count in kernels[:40]:
+                log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
+        del step
+
+    # ---- 12. training end to end through the CLIs ----
+    with tempfile.TemporaryDirectory() as tmp:
+        e2e_train = train_end_to_end(tmp, dev)
+
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
         log(f"  {k}: {v:.4f}")
     log(f"  e2e predict_waveform_batch B={E2E_BATCH}, device-resident input: "
         f"{e2e_dev:.1f} utt/s; from a host NumPy buffer: {e2e_host:.1f} "
         f"utt/s")
+    log(f"  precompute CLI, {sum(CORPUS.values())} WAVs of 1-5 s (decode "
+        f"included): {e2e_train['precompute_utt_s']:.1f} utt/s; tone task "
+        f"val acc {e2e_train['val_acc']:.4f} after {e2e_train['epochs']} "
+        f"epochs, test acc {e2e_train['test_acc']:.4f}")
     print(json.dumps({"kernels": [
         {"name": "frontend_conv1", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": k1_launches,
@@ -375,6 +826,14 @@ def main(argv=None) -> int:
          "replaces": K2_REPLACES, "launches": k2_launches,
          "max_abs_err": k2_err, "ms": timings[f"k2_b{MAIN_BATCH}"],
          "plain_ms": timings[f"k2_plain_b{MAIN_BATCH}"]},
+        {"name": "frontend", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": e2e_train["k3_launches"],
+         "max_abs_err": k3_err, "ms": timings[f"k3_b{MAIN_BATCH}"],
+         "plain_ms": timings[f"k3_plain_b{MAIN_BATCH}"]},
+        {"name": "gru_layer_backward", "route": "cuda", "source": K2T_SOURCE,
+         "replaces": K2T_REPLACES, "launches": e2e_train["k2t_launches"],
+         "max_abs_err": k2t_err, "ms": timings[f"k2t_b{MAIN_BATCH}"],
+         "plain_ms": timings[f"k2t_plain_b{MAIN_BATCH}"]},
     ]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,22 @@ kernel written by hand for Hopper, with sources in ``csrc/`` built by
 :mod:`._build` at first use.  Each kernel wrapper launches its kernel for
 CUDA tensors and runs its plain PyTorch version for CPU tensors.
 
-Ported so far: batch inference from waveform to intent probabilities
-(:class:`.infer.predict.Predictor`), through the fused front-end + conv1
-kernel (``ops/frontend_kernels.py``) and the bidirectional GRU recurrence
-kernel (``ops/gru.py``).
+Ported so far:
 
-Importing this package or any of its modules imports neither JAX nor the
-JAX package: the pure-Python host code it needs (config, audio I/O, the
-NumPy golden front-end, resampling, label maps) is copied here, and
-``tests/test_torch_host.py`` pins each copy to its original.
+* batch inference from waveform to intent probabilities
+  (:class:`.infer.predict.Predictor`), through the fused front-end + conv1
+  kernel (K1, ``ops/frontend_kernels.py``) and the bidirectional GRU
+  recurrence kernel (K2, ``ops/gru.py``);
+* training from precomputed features: the precompute (``data/cache.py``,
+  through the fused front-end kernel K3), the ``train.loop.Trainer`` (K2
+  and its backward kernel under autograd), checkpoints, evaluation and the
+  ``cli`` entry points.
+
+Importing this package or any of its modules imports no JAX, and of the
+JAX package only its ``config`` (pure dataclasses and a YAML reader).  The
+other pure-Python host code it needs (audio I/O, manifests, the NumPy
+golden front-end, resampling, label maps, metrics) is copied here, and the
+``tests/test_torch_*.py`` files pin each copy to its original.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
+at once, and the objects are linked into one shared library with a plain C
+interface, loaded with :mod:`ctypes`.  The
 library is built at first use into ``_build/`` beside this file (listed in
 ``.gitignore``) under a name keyed on a hash of the sources and flags, so a
 fresh checkout builds everything on its first kernel call and an edited
@@ -23,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,14 @@ _SIGNATURES = {
                            ctypes.c_float, _P],
     "sir_gru_layer_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sir_gru_layer_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_frontend_f32": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
+                         ctypes.c_float, _P],
+    "sir_frontend_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
+                          ctypes.c_float, _P],
+    "sir_gru_layer_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P],
+    "sir_gru_layer_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P],
 }
 
 _lock = threading.Lock()
@@ -65,23 +74,41 @@ def _nvcc() -> str:
 def build(ptxas_verbose: bool = False) -> str:
     """Compile the kernels unless the library for these sources exists.
 
+    One ``nvcc`` per ``.cu`` file, all started together, then one link.
     Returns the library path.  With ``ptxas_verbose`` the build always runs
-    and returns after printing each kernel's registers, shared memory and
-    spills (``-Xptxas -v``)."""
+    and prints each kernel's registers, shared memory and spills
+    (``-Xptxas -v``)."""
     out = library_path()
     if os.path.exists(out) and not ptxas_verbose:
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[
-        p for p in _sources() if p.endswith(".cu")]]
-    if ptxas_verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if ptxas_verbose:
-        print(proc.stderr, end="")
+    tag = f"{out}.{os.getpid()}"
+    extra = ["-Xptxas", "-v"] if ptxas_verbose else []
+    units = [p for p in _sources() if p.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(p)}.o" for p in units]
+    procs = [subprocess.Popen([_nvcc(), *extra, *NVCC_FLAGS, "-c", "-o", o, p],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for p, o in zip(units, objs)]
+    errs = [proc.communicate()[1] for proc in procs]  # waits for every nvcc
+    try:
+        for path, proc, err in zip(units, procs, errs):
+            rc = proc.returncode
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {os.path.basename(path)} ({rc}):\n{err}")
+            if ptxas_verbose:
+                print(err, end="")
+        tmp = f"{tag}.tmp"
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
 

@@ -8,9 +8,8 @@ import os
 import sys
 from typing import Optional
 
-from speech_intent_recognizer_tpu_torch.config.loader import (
-    load_audio_config)
-from speech_intent_recognizer_tpu_torch.config.schema import AudioConfig
+from speech_intent_recognizer_tpu_torch.config import (
+    AudioConfig, Config, load_config)
 
 
 def setup_logging(level=logging.INFO) -> logging.Logger:
@@ -23,19 +22,26 @@ def setup_logging(level=logging.INFO) -> logging.Logger:
     return logging.getLogger("sir_torch")
 
 
-def load_config_or_default(path: Optional[str]) -> AudioConfig:
-    """The audio section of the config at ``path``, or the defaults."""
+def load_config_or_default(path: Optional[str]) -> Config:
+    """The config at ``path``, or the defaults."""
     if path and os.path.exists(path):
-        return load_audio_config(path)
+        return load_config(path)
     if path:
         raise FileNotFoundError(f"config not found: {path}")
-    return AudioConfig()
+    return Config.from_dict({})
 
 
-def add_config_arg(parser: argparse.ArgumentParser) -> None:
-    parser.add_argument("--config", type=str, default=None,
-                        help="path to YAML config (default: built-in "
-                             "defaults)")
+def add_config_arg(parser: argparse.ArgumentParser,
+                   default: Optional[str] = None) -> None:
+    parser.add_argument("--config", type=str, default=default,
+                        help="path to YAML config (default: "
+                             f"{default or 'built-in defaults'})")
+
+
+def add_device_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda runs the kernels, cpu their "
+                             "plain versions")
 
 
 def make_predictor(model_path: str, label_map_path: str,

@@ -15,7 +15,8 @@ import argparse
 import os
 
 from speech_intent_recognizer_tpu_torch.cli.common import (
-    add_config_arg, load_config_or_default, make_predictor, setup_logging)
+    add_config_arg, add_device_arg, load_config_or_default, make_predictor,
+    setup_logging)
 
 
 def _print_prediction(result: dict) -> None:
@@ -57,13 +58,12 @@ def main(argv=None):
     p.add_argument("--audio", default=None,
                    help="audio file or directory")
     p.add_argument("--interactive", action="store_true")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda runs the kernels, cpu their "
-                        "plain versions")
+    add_device_arg(p)
     args = p.parse_args(argv)
 
     cfg = load_config_or_default(args.config)
-    predictor = make_predictor(args.model, args.label_map, cfg, args.device)
+    predictor = make_predictor(args.model, args.label_map, cfg.audio,
+                               args.device)
 
     if args.interactive or not args.audio:
         interactive_loop(predictor)

@@ -1,13 +1,28 @@
-from speech_intent_recognizer_tpu_torch.config.schema import (
+"""Configuration: the JAX package's schema and reader, used as they are.
+
+``speech_intent_recognizer_tpu.config`` is pure dataclasses plus a YAML
+reader with its own mini-YAML fallback; importing it imports no JAX (the
+JAX package's ``__init__`` imports only its version).  So the port reads
+the same configs with the same validation and keeps no copy.
+"""
+
+from speech_intent_recognizer_tpu.config.loader import load_config
+from speech_intent_recognizer_tpu.config.schema import (
     AudioConfig,
+    Config,
     ConfigError,
-    audio_config_from_dict,
 )
-from speech_intent_recognizer_tpu_torch.config.loader import load_audio_config
+
+
+def load_audio_config(path: str) -> AudioConfig:
+    """The audio section of the config file at ``path``."""
+    return load_config(path).audio
+
 
 __all__ = [
     "AudioConfig",
+    "Config",
     "ConfigError",
-    "audio_config_from_dict",
     "load_audio_config",
+    "load_config",
 ]

@@ -1,0 +1,82 @@
+"""Device-resident dataset.
+
+Counterpart of ``speech_intent_recognizer_tpu/data/pipeline.py``: load the
+flat feature cache once, place it on one device, and let the training loop
+gather batches there.  :func:`build_dataset` resolves a manifest's features
+as the JAX package does: cache hit -> load; a reference ``.pt`` cache ->
+migrate; miss -> precompute (the K3 kernel on a CUDA device) and store.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from speech_intent_recognizer_tpu_torch.config import Config
+from speech_intent_recognizer_tpu_torch.data import cache as cache_mod
+from speech_intent_recognizer_tpu_torch.data.manifest import read_manifest
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class DeviceDataset:
+    """Features and labels living on one device."""
+
+    features: torch.Tensor  # (N, n_mels, T) float32
+    labels: torch.Tensor  # (N,) int64
+    num_items: int
+
+    @classmethod
+    def from_arrays(cls, features: np.ndarray, labels: np.ndarray,
+                    device: "str | torch.device") -> "DeviceDataset":
+        return cls(
+            features=torch.as_tensor(np.asarray(features, np.float32),
+                                     device=device),
+            labels=torch.as_tensor(np.asarray(labels, np.int64),
+                                   device=device),
+            num_items=int(features.shape[0]))
+
+
+def build_dataset(
+    csv_path: str,
+    label_map: Dict[str, int],
+    cfg: Config,
+    device: "str | torch.device" = "cuda",
+) -> DeviceDataset:
+    """Resolve features for a manifest: cache hit -> load; reference ``.pt``
+    cache -> migrate; miss -> compute on ``device`` (and store, when
+    ``cfg.data.use_feature_cache``), the reference's cache-or-extract flow
+    (``dataset.py:43-102``) at dataset granularity."""
+    use_cache = cfg.data.use_feature_cache
+    cache_file = cache_mod.cache_path_for(csv_path, cfg.data.cache_dir)
+
+    if use_cache and os.path.exists(cache_file) and not cfg.data.force_precompute:
+        feats, labels, _meta = cache_mod.load_cache(cache_file)
+        logger.info("loaded %d cached features from %s", len(feats), cache_file)
+        return DeviceDataset.from_arrays(feats, labels, device)
+
+    legacy = cache_file[: -len(".npz")] + ".pt"
+    if use_cache and os.path.exists(legacy) and not cfg.data.force_precompute:
+        feats, labels, _paths = cache_mod.load_torch_cache(
+            legacy, label_map, cfg.audio.mel_spec_length)
+        logger.info("migrated %d features from legacy cache %s",
+                    len(feats), legacy)
+        return DeviceDataset.from_arrays(feats, labels, device)
+
+    manifest = read_manifest(csv_path)
+    feats, labels, _ok, paths = cache_mod.precompute_features(
+        manifest, label_map, cfg.audio,
+        batch_size=cfg.data.precompute_batch_size,
+        wire_dtype=cfg.data.precompute_wire_dtype,
+        fetch_dtype=cfg.data.precompute_fetch_dtype,
+        device=device)
+    if use_cache:
+        cache_mod.save_cache(cache_file, feats, labels, paths, label_map,
+                             cfg.audio)
+    return DeviceDataset.from_arrays(feats, labels, device)

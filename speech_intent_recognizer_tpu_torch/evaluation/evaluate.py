@@ -1,0 +1,94 @@
+"""Test-set evaluation with report artifacts.
+
+Counterpart of ``speech_intent_recognizer_tpu/evaluation/evaluate.py``
+(reference ``scripts/evaluate.py:88-116``): accuracy, an sklearn-style
+``classification_report.txt``, the confusion matrix as ``.npy`` and (when
+matplotlib imports) ``.png``, and ``metrics.json``.  The model's class
+count comes from its ``fc`` layer, as the JAX version reads it from the
+checkpoint's head.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from speech_intent_recognizer_tpu_torch.evaluation import metrics as M
+
+logger = logging.getLogger(__name__)
+
+
+@torch.no_grad()
+def predict_dataset(model: torch.nn.Module, features: torch.Tensor,
+                    batch_size: int = 64):
+    """Batched argmax predictions, probabilities and logits (host NumPy)
+    for features on the model's device."""
+    model.eval()
+    logits = torch.cat([model(features[i:i + batch_size]).float()
+                        for i in range(0, int(features.shape[0]),
+                                       batch_size)])
+    probs = torch.softmax(logits, dim=-1)
+    logits, probs = logits.cpu().numpy(), probs.cpu().numpy()
+    return np.argmax(logits, axis=-1), probs, logits
+
+
+def evaluate_dataset(model: torch.nn.Module, features: torch.Tensor,
+                     labels, label_map: Dict[str, int],
+                     results_dir: Optional[str] = None,
+                     batch_size: int = 64) -> Dict:
+    """Evaluate and (optionally) write the report artifact set."""
+    inv = {v: k for k, v in label_map.items()}
+    y_true = np.asarray(torch.as_tensor(labels).cpu())
+    y_pred, probs, _ = predict_dataset(model, features, batch_size)
+
+    num_classes = probs.shape[1]
+    names = [inv.get(i, str(i)) for i in range(num_classes)]
+    report = M.classification_report_dict(y_true, y_pred, names, num_classes)
+    cm = M.confusion_matrix(y_true, y_pred, num_classes)
+    acc = report["accuracy"]
+    logger.info("test accuracy: %.4f", acc)
+
+    if results_dir is not None:
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, "classification_report.txt"),
+                  "w") as f:
+            f.write(f"Test Accuracy: {acc:.4f}\n\n")
+            f.write(M.format_classification_report(report))
+        np.save(os.path.join(results_dir, "confusion_matrix.npy"), cm)
+        with open(os.path.join(results_dir, "metrics.json"), "w") as f:
+            json.dump(report, f, indent=2)
+        _plot_confusion(cm, names,
+                        os.path.join(results_dir, "confusion_matrix.png"))
+        logger.info("evaluation artifacts written to %s", results_dir)
+
+    return {"accuracy": acc, "report": report, "confusion_matrix": cm,
+            "predictions": y_pred, "probabilities": probs}
+
+
+def _plot_confusion(cm: np.ndarray, names, path: str) -> None:
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        logger.warning("matplotlib unavailable; skipping %s", path)
+        return
+    fig, ax = plt.subplots(figsize=(10, 8))
+    im = ax.imshow(cm, cmap="Blues")
+    fig.colorbar(im, ax=ax)
+    ax.set_xticks(range(len(names)))
+    ax.set_yticks(range(len(names)))
+    ax.set_xticklabels(names, rotation=45, ha="right", fontsize=6)
+    ax.set_yticklabels(names, fontsize=6)
+    ax.set_xlabel("Predicted")
+    ax.set_ylabel("True")
+    ax.set_title("Confusion matrix")
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)

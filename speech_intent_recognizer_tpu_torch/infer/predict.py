@@ -4,8 +4,10 @@ Counterpart of ``speech_intent_recognizer_tpu/infer/predict.py``
 (``Predictor``).  ``from_checkpoint`` folds BatchNorm and, for the reference
 geometry, serves the ``conv1_external`` bf16 variant behind the fused
 front-end + conv1 kernel: on a CUDA device ``predict_waveform_batch`` always
-launches K1 once and K2 once per GRU layer.  There is no probe and no switch
-to another path at run time; CPU devices run the kernels' plain versions.
+launches K1 once and K2 once per GRU layer.  The unfused model
+(``fold_bn=False``) takes its features from ``log_mel_frontend``, the fused
+front-end kernel K3 on a CUDA device.  There is no probe and no switch to
+another path at run time; CPU devices run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from speech_intent_recognizer_tpu_torch.config.schema import AudioConfig
+from speech_intent_recognizer_tpu_torch.config import AudioConfig
 from speech_intent_recognizer_tpu_torch.data.audio_io import load_audio
 from speech_intent_recognizer_tpu_torch.evaluation.metrics import (
     top_k_predictions)

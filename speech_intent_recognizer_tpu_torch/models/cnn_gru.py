@@ -49,6 +49,45 @@ def _dropout(x: torch.Tensor, p: float,
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's (Flax's) statistics.
+
+    Both modes run in fp32 through torch's fused batch-norm kernels.  Train
+    mode normalizes with the biased batch variance, as torch and Flax both
+    do, and updates the running variance with that same *biased* variance
+    at momentum 0.1 (Flax's 0.9 kept fraction); ``nn.BatchNorm2d`` would
+    update it with the unbiased one, a factor n / (n - 1) apart per step.
+    Eval mode normalizes with the running statistics.  Parameter and
+    buffer names are ``nn.BatchNorm2d``'s (``num_batches_tracked``
+    included), so reference ``.pt`` files load.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # On the card, channels-last: torch's native kernels then spread each
+        # channel's reduction over the whole card (NCHW gives one block per
+        # channel), and the convs and pools after it run channels-last too.
+        # On the CPU, NCHW: there the channels-last backward put conv2's
+        # weight gradient 0.7 % of its largest value off an fp64 step.
+        fmt = torch.channels_last if x.is_cuda else torch.contiguous_format
+        x = x.to(torch.float32, memory_format=fmt)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked += 1
+        # Not F.batch_norm: on the card it takes cuDNN's kernels, whose
+        # backward put conv2.weight's gradient 6e-3 to 9e-3 of its largest
+        # value off the CPU's in a full-width fp32 train step at B=16
+        # (H100); the native kernels hold it to 2e-5.
+        return torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                       True, 0.0, self.eps)[0]
+
+
 class TorchGRU(nn.Module):
     """Multi-layer bidirectional GRU with PyTorch cell semantics.
 
@@ -130,7 +169,7 @@ class CNNAudioGRU(nn.Module):
                 nn.Conv2d, chans[i - 1], chans[i], 3, padding=1,
                 bias=fold_bn))
             if not fold_bn:
-                self.add_module(f"bn{i}", nn.BatchNorm2d(chans[i]))
+                self.add_module(f"bn{i}", BatchNorm2d(chans[i]))
         feat = self.conv_channels[-1] * (n_mels // 2 ** len(self.conv_channels))
         self.gru = TorchGRU(feat, gru_hidden, gru_layers, dropout,
                             compute_dtype)
@@ -157,7 +196,7 @@ class CNNAudioGRU(nn.Module):
         bias = None if conv.bias is None else conv.bias.to(dt)
         x = F.conv2d(x, conv.weight.to(dt), bias, padding=1)
         if not self.fold_bn:  # BatchNorm in fp32 under bf16 compute
-            x = getattr(self, f"bn{i}")(x.float())
+            x = getattr(self, f"bn{i}")(x)
         return F.max_pool2d(F.relu(x).to(dt), 2)
 
     def forward(self, x: torch.Tensor,

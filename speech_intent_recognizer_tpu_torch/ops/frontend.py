@@ -15,9 +15,11 @@ the true lengths; every semantic of the reference is kept:
   with ``max(cnt-1, 1)``; frames past the valid count zeroed afterwards;
   the time axis zero-padded or trimmed to ``mel_spec_length``.
 
-:func:`log_mel_frontend` is plain PyTorch (the reference's XLA path);
-:func:`log_mel_conv1_frontend` runs the fused front-end + conv1 kernel (K1,
-``ops/frontend_kernels.py``) for CUDA tensors.
+:func:`log_mel_frontend_plain` is plain PyTorch (the reference's XLA
+path).  :func:`log_mel_frontend` runs the fused front-end kernel (K3) and
+:func:`log_mel_conv1_frontend` the fused front-end + conv1 kernel (K1), both
+in ``ops/frontend_kernels.py``, for CUDA tensors, and the plain versions
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from speech_intent_recognizer_tpu_torch.config.schema import AudioConfig
+from speech_intent_recognizer_tpu_torch.config import AudioConfig
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 
 
@@ -124,17 +126,23 @@ def _frames(waveforms: torch.Tensor, lengths: torch.Tensor, n_fft: int,
     return torch.where(inside, x, 0.0)
 
 
-def log_mel_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
-                     params: FrontendParams) -> torch.Tensor:
-    """Batched waveforms -> normalized log-mel features (plain PyTorch).
+def log_mel_frontend_plain(waveforms: torch.Tensor, lengths: torch.Tensor,
+                           params: FrontendParams, normalize: bool = True,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Batched waveforms -> log-mel features (plain PyTorch).
 
     Args:
       waveforms: (B, L) float32, zero-padded beyond each true length.
       lengths: (B,) integer true sample counts.
       params: from :func:`make_frontend_params`, on the waveforms' device.
+      normalize: the masked per-utterance mean / ddof=1 std normalization;
+        without it the features are raw dB.
+      out_dtype: the features are computed in float32 and cast last.
 
-    Returns (B, n_mels, target_length) float32.  The FFT and the mel
-    projection run in float32; on CUDA the projection uses TF32 only if
+    Returns (B, n_mels, target_length) ``out_dtype``, frames past each
+    valid count zero.  The FFT and the mel projection run in float32; on
+    CUDA the projection uses TF32 only if
     ``torch.backends.cuda.matmul.allow_tf32`` is set.
     """
     hop, n_mels, target = params.hop_length, params.n_mels, params.target_length
@@ -149,15 +157,30 @@ def log_mel_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
     t_valid = 1 + lengths // hop
     mask = (torch.arange(t, device=db.device)[None, :]
             < t_valid[:, None]).to(db.dtype)[:, :, None]
-    cnt = (t_valid.to(db.dtype) * n_mels)[:, None, None]
-    mean = (db * mask).sum(dim=(1, 2), keepdim=True) / cnt
-    var = ((db - mean).square() * mask).sum(
-        dim=(1, 2), keepdim=True) / (cnt - 1.0).clamp(min=1.0)
-    db = (db - mean) / (var.sqrt() + params.norm_eps)
+    if normalize:
+        cnt = (t_valid.to(db.dtype) * n_mels)[:, None, None]
+        mean = (db * mask).sum(dim=(1, 2), keepdim=True) / cnt
+        var = ((db - mean).square() * mask).sum(
+            dim=(1, 2), keepdim=True) / (cnt - 1.0).clamp(min=1.0)
+        db = (db - mean) / (var.sqrt() + params.norm_eps)
     db = (db * mask).transpose(1, 2)  # (B, n_mels, T)
     if t >= target:
-        return db[:, :, :target].contiguous()
-    return torch.nn.functional.pad(db, (0, target - t))
+        db = db[:, :, :target].contiguous()
+    else:
+        db = torch.nn.functional.pad(db, (0, target - t))
+    return db.to(out_dtype)
+
+
+def log_mel_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
+                     params: FrontendParams, normalize: bool = True,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`log_mel_frontend_plain`'s contract; CUDA tensors run the K3
+    kernel (reference geometry only, else it raises), CPU tensors the plain
+    version."""
+    from speech_intent_recognizer_tpu_torch.ops.frontend_kernels import (
+        frontend)
+
+    return frontend(waveforms, lengths, params, normalize, out_dtype)
 
 
 def log_mel_conv1_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,

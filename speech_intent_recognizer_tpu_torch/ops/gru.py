@@ -1,15 +1,20 @@
-"""K2: the bidirectional GRU recurrence kernel — wrapper, plain version,
-counter.
+"""K2 and its backward: the bidirectional GRU recurrence kernels —
+wrappers, plain versions, counters, and the autograd function joining them.
 
-Replaces ``speech_intent_recognizer_tpu/ops/gru_pallas.py``
-(``_gru_layer_kernel``, wrappers ``_gru_layer_call`` and
-``gru_bidirectional_pallas``).  The CUDA source is ``csrc/gru_layer.cu``:
-one launch runs one layer, both directions, all T steps; h stays on chip in
-fp32, W_hh streams from L2 every step.  Its header says what bounds it on
-the H100 and how the design answers that.
+* K2, :func:`gru_layer`, replaces
+  ``speech_intent_recognizer_tpu/ops/gru_pallas.py`` (``_gru_layer_kernel``,
+  wrappers ``_gru_layer_call`` and ``gru_bidirectional_pallas``).  CUDA
+  source ``csrc/gru_layer.cu``: one launch runs one layer, both directions,
+  all T steps; h stays on chip in fp32, W_hh streams from L2 every step.
+* K2 backward, :func:`gru_layer_backward`, replaces the custom-VJP backward
+  ``_gru_layer_diff_bwd``: the exact adjoint recurrence in reversed time.
+  CUDA source ``csrc/gru_layer_bwd.cu`` produces dgx and the fp32 gate
+  adjoints dgh; dW and db_hn are one batched fp32 GEMM and a sum over them
+  here, as the JAX package leaves its weight-gradient product to XLA.
 
-Inference only: the wrapper refuses CUDA inputs that require grad (the
-``torch.autograd.Function`` with a backward kernel comes with training).
+Under autograd :func:`gru_layer` runs through :class:`_GRULayer`, which
+saves (gx, w, bn, ys) as ``_gru_layer_diff_fwd`` does.  Each source's header
+says what bounds it on the H100 and how the design answers that.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
 
     Returns (2, T, B, H) hidden states in ``gx.dtype``, direction 1 in
     reversed time.  CPU tensors take the plain version; CUDA tensors
-    (bfloat16 or float32) launch the kernel or raise.
+    (bfloat16 or float32) launch the kernel or raise.  Differentiable:
+    under autograd the backward is :func:`gru_layer_backward`.
     """
     two, steps, batch, three_h = gx.shape
     hidden = three_h // 3
@@ -76,29 +82,46 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
             or tuple(bn.shape) != (2, 1, hidden)):
         raise ValueError(f"bad GRU shapes gx {tuple(gx.shape)}, w "
                          f"{tuple(w.shape)}, bn {tuple(bn.shape)}")
-    if gx.device.type == "cpu":
-        return _gru_layer_plain(gx, w, bn)
-    if gx.device.type != "cuda":
+    if gx.device.type == "cuda":
+        if (gx.dtype not in (torch.bfloat16, torch.float32)
+                or w.dtype != gx.dtype):
+            raise ValueError(f"gx and w must both be bfloat16 or float32, "
+                             f"got {gx.dtype} / {w.dtype}")
+        if bn.dtype != torch.float32:
+            raise ValueError("bn must be float32")
+    elif gx.device.type != "cpu":
         raise ValueError(f"unsupported device {gx.device}")
-    if gx.dtype not in (torch.bfloat16, torch.float32) or w.dtype != gx.dtype:
-        raise ValueError(f"gx and w must both be bfloat16 or float32, got "
-                         f"{gx.dtype} / {w.dtype}")
-    if bn.dtype != torch.float32:
-        raise ValueError("bn must be float32")
-    if any(t.requires_grad for t in (gx, w, bn)):
-        raise RuntimeError("the GRU kernel is inference only (no backward "
-                           "yet); call it under torch.no_grad()")
-    if any(t.device != gx.device or not t.is_contiguous()
-           for t in (gx, w, bn)):
-        raise ValueError("gx, w and bn must be contiguous on one device")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gx, w, bn)):
+        return _GRULayer.apply(gx, w, bn, rows)
+    return _gru_layer_forward(gx, w, bn, rows)
+
+
+gru_layer.launches = 0
+
+
+def _cuda_rows(gx, tensors, rows):
+    """Validate CUDA operands of K2 / K2 backward; the tile height to use."""
+    hidden = gx.shape[-1] // 3
+    if any(t.device != gx.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("GRU operands must be contiguous on one device")
     if hidden % 32 or hidden > 1024:
         raise ValueError(f"hidden size {hidden} must be a multiple of 32, "
                          "at most 1024")
     if rows is None:
-        rows = tile_rows(batch, torch.cuda.get_device_properties(
+        rows = tile_rows(gx.shape[2], torch.cuda.get_device_properties(
             gx.device).multi_processor_count)
     if rows not in TILE_ROWS:
         raise ValueError(f"rows must be one of {TILE_ROWS}, got {rows}")
+    return rows
+
+
+def _gru_layer_forward(gx, w, bn, rows):
+    if gx.device.type == "cpu":
+        return _gru_layer_plain(gx, w, bn)
+    two, steps, batch, three_h = gx.shape
+    hidden = three_h // 3
+    rows = _cuda_rows(gx, (gx, w, bn), rows)
     out = torch.empty((2, steps, batch, hidden), dtype=gx.dtype,
                       device=gx.device)
     lib = _build.load()
@@ -113,7 +136,115 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
     return out
 
 
-gru_layer.launches = 0
+def _gru_layer_backward_plain(gx: torch.Tensor, w: torch.Tensor,
+                              bn: torch.Tensor, ys: torch.Tensor,
+                              dys: torch.Tensor):
+    """Plain PyTorch K2 backward: the adjoint loop of
+    ``gru_pallas._gru_layer_diff_bwd`` transcribed.  h_prev is the stored
+    ``ys`` shifted one step (zeros at t = 0); w and bn are upcast and all
+    gate and adjoint math is fp32; dgx is rounded to ``gx.dtype``, dW to
+    ``w.dtype``, dbn to ``bn.dtype``."""
+    two, steps, batch, three_h = gx.shape
+    hidden = three_h // 3
+    f32 = torch.float32
+    h_prev_seq = torch.cat([ys.new_zeros((two, 1, batch, hidden)),
+                            ys[:, :-1]], dim=1)
+    wf = w.to(f32)
+    bnf = bn.to(f32)
+    dh = gx.new_zeros((two, batch, hidden), dtype=f32)
+    dw = gx.new_zeros((two, hidden, three_h), dtype=f32)
+    dbn = gx.new_zeros((two, 1, hidden), dtype=f32)
+    dgx = []
+    for t in reversed(range(steps)):
+        g = gx[:, t].to(f32)
+        h_prev = h_prev_seq[:, t].to(f32)
+        gh = torch.bmm(h_prev, wf)
+        r = torch.sigmoid(g[..., :hidden] + gh[..., :hidden])
+        z = torch.sigmoid(g[..., hidden:2 * hidden]
+                          + gh[..., hidden:2 * hidden])
+        ghn_b = gh[..., 2 * hidden:] + bnf
+        n = torch.tanh(g[..., 2 * hidden:] + r * ghn_b)
+        dh_tot = dh + dys[:, t].to(f32)
+        dn = dh_tot * (1.0 - z)
+        dz = dh_tot * (h_prev - n)
+        da_n = dn * (1.0 - n * n)
+        dr = da_n * ghn_b
+        dghn = da_n * r
+        da_r = dr * r * (1.0 - r)
+        da_z = dz * z * (1.0 - z)
+        dgx.append(torch.cat([da_r, da_z, da_n], dim=-1))
+        dgh = torch.cat([da_r, da_z, dghn], dim=-1)
+        dh = dh_tot * z + torch.bmm(dgh, wf.transpose(1, 2))
+        dw = dw + torch.bmm(h_prev.transpose(1, 2), dgh)
+        dbn = dbn + dghn.sum(dim=1, keepdim=True)
+    dgx = torch.stack(dgx[::-1], dim=1).to(gx.dtype)
+    return dgx, dw.to(w.dtype), dbn.to(bn.dtype)
+
+
+def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
+                       ys: torch.Tensor, dys: torch.Tensor,
+                       rows: int | None = None):
+    """The adjoint of :func:`gru_layer`: -> (dgx, dw, dbn).
+
+    Args: :func:`gru_layer`'s ``gx``, ``w``, ``bn`` and ``rows``, its output
+    ``ys`` and the cotangent ``dys`` (2, T, B, H).  CPU tensors take the
+    plain version; CUDA tensors (bfloat16 or float32 operands) launch the
+    kernel, then form dW = sum h_prev^T dgh with one batched fp32 GEMM and
+    dbn = sum dgh_n, or raise.
+    """
+    if gx.device.type == "cpu":
+        return _gru_layer_backward_plain(gx, w, bn, ys, dys)
+    if gx.device.type != "cuda":
+        raise ValueError(f"unsupported device {gx.device}")
+    two, steps, batch, three_h = gx.shape
+    hidden = three_h // 3
+    if tuple(ys.shape) != (2, steps, batch, hidden) or ys.shape != dys.shape:
+        raise ValueError(f"bad GRU backward shapes ys {tuple(ys.shape)}, dys "
+                         f"{tuple(dys.shape)} for gx {tuple(gx.shape)}")
+    if w.dtype != gx.dtype or ys.dtype != gx.dtype:
+        raise ValueError("gx, w and ys must share one operand type")
+    dys = dys.to(gx.dtype).contiguous()
+    wt = w.transpose(1, 2).contiguous()
+    rows = _cuda_rows(gx, (gx, w, bn, ys, dys), rows)
+    dgx = torch.empty_like(gx)
+    dgh = torch.empty(gx.shape, dtype=torch.float32, device=gx.device)
+    lib = _build.load()
+    fn = (lib.sir_gru_layer_bwd_bf16 if gx.dtype == torch.bfloat16
+          else lib.sir_gru_layer_bwd_f32)
+    with torch.cuda.device(gx.device):
+        rc = fn(gx.data_ptr(), w.data_ptr(), wt.data_ptr(), bn.data_ptr(),
+                ys.data_ptr(), dys.data_ptr(), dgx.data_ptr(), dgh.data_ptr(),
+                steps, batch, hidden, rows,
+                torch.cuda.current_stream(gx.device).cuda_stream)
+    _build.check(rc, "gru_layer_backward")
+    gru_layer_backward.launches += 1
+    h_prev = torch.cat([ys.new_zeros((2, 1, batch, hidden)), ys[:, :-1]],
+                       dim=1).float().reshape(2, steps * batch, hidden)
+    dgh = dgh.reshape(2, steps * batch, three_h)
+    dw = torch.bmm(h_prev.transpose(1, 2), dgh)
+    dbn = dgh[..., 2 * hidden:].sum(dim=1, keepdim=True)
+    return dgx, dw.to(w.dtype), dbn.to(bn.dtype)
+
+
+gru_layer_backward.launches = 0
+
+
+class _GRULayer(torch.autograd.Function):
+    """K2 forward, K2 backward; residuals (gx, w, bn, ys) as the JAX
+    custom VJP keeps them."""
+
+    @staticmethod
+    def forward(ctx, gx, w, bn, rows):
+        ys = _gru_layer_forward(gx, w, bn, rows)
+        ctx.save_for_backward(gx, w, bn, ys)
+        ctx.rows = rows
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        gx, w, bn, ys = ctx.saved_tensors
+        dgx, dw, dbn = gru_layer_backward(gx, w, bn, ys, dys, ctx.rows)
+        return dgx, dw, dbn, None
 
 
 def gru_bidirectional(gx_fwd, gx_bwd, w_hh_fwd, w_hh_bwd, b_hh_fwd,

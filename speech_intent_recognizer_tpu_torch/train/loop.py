@@ -1,0 +1,250 @@
+"""The training loop over a device-resident feature set.
+
+Counterpart of ``speech_intent_recognizer_tpu/train/loop.py`` (reference
+``scripts/train.py:72-118,164-302``) on one device.  The whole feature set
+lives on the device; an epoch is a loop of steps that gather their batch by
+index there, so nothing crosses to the host inside an epoch.  Shuffling is
+a device ``randperm``; the last partial batch is padded with repeats that
+carry weight 0 (they still enter BatchNorm's batch statistics, as in the JAX
+version), so every sample counts once per epoch.
+
+:meth:`Trainer.train_epoch` takes ``(perm, weights)`` as the JAX
+``epoch_fn`` does, so both packages can be fed identical batches.  Each
+epoch draws its permutation, SpecAugment, mixup and dropout from one
+``torch.Generator`` seeded from ``(seed, epoch)``, so a resumed run
+continues exactly.  Early stopping and best-model tracking follow
+``train.py:263-302`` with the JAX package's rule: always export a best
+model once.
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from speech_intent_recognizer_tpu_torch.config import Config
+from speech_intent_recognizer_tpu_torch.ops.augment import mixup
+from speech_intent_recognizer_tpu_torch.ops.specaugment import spec_augment
+from speech_intent_recognizer_tpu_torch.train.state import (
+    Optimizer, create_optimizer)
+
+logger = logging.getLogger(__name__)
+
+
+def cross_entropy(logits: torch.Tensor, labels_onehot: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Weighted mean cross-entropy, log-softmax in fp32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    per_example = -(labels_onehot * logp).sum(dim=-1)
+    return (per_example * weights).sum() / weights.sum().clamp(min=1e-8)
+
+
+def pad_permutation(generator: torch.Generator, n: int, batch_size: int,
+                    device: "str | torch.device"):
+    """Device shuffle padded to whole batches: (perm (steps, B) int64,
+    weights (steps, B) f32).  Padding entries repeat the permutation from
+    its start (``jnp.resize``) and carry weight 0."""
+    steps = -(-n // batch_size)
+    total = steps * batch_size
+    perm = torch.randperm(n, generator=generator, device=device)
+    pad = perm.repeat(-(-(total - n) // n))[:total - n]
+    idx = torch.cat([perm, pad]).reshape(steps, batch_size)
+    w = (torch.arange(total, device=device) < n).float().reshape(
+        steps, batch_size)
+    return idx, w
+
+
+def sequential_batches(n: int, batch_size: int,
+                       device: "str | torch.device" = "cpu"):
+    """In-order batches; the last one padded with index n-1 at weight 0."""
+    steps = -(-n // batch_size)
+    total = steps * batch_size
+    idx = torch.arange(total, device=device).clamp(max=n - 1).reshape(
+        steps, batch_size)
+    w = (torch.arange(total, device=device) < n).float().reshape(
+        steps, batch_size)
+    return idx, w
+
+
+def epoch_generator(seed: int, epoch: int,
+                    device: "str | torch.device") -> torch.Generator:
+    """The generator of one epoch, a function of (seed, epoch) only."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+@dataclass
+class TrainResult:
+    best_val_acc: float
+    epochs_run: int
+    history: list = field(default_factory=list)
+    best_state: Optional[dict] = None
+    stopped_early: bool = False
+
+
+class Trainer:
+    """Config-driven trainer for the intent classifier on one device."""
+
+    def __init__(self, model: torch.nn.Module, cfg: Config,
+                 optimizer: Optional[Optimizer] = None,
+                 num_classes: Optional[int] = None,
+                 from_waveforms: bool = False):
+        if from_waveforms:
+            raise NotImplementedError(
+                "waveform-resident training (data.train_on_waveforms) is not "
+                "ported yet: ROADMAP.md Queue 1 item 7")
+        self.model = model
+        self.cfg = cfg
+        self.num_classes = num_classes or cfg.model.num_labels
+        self.optimizer = optimizer or create_optimizer(
+            model.parameters(), lr=cfg.train.lr,
+            weight_decay=cfg.train.weight_decay,
+            grad_clip=cfg.train.grad_clip)
+
+    def train_epoch(self, features: torch.Tensor, labels: torch.Tensor,
+                    perm: torch.Tensor, weights: torch.Tensor,
+                    generator: torch.Generator) -> dict:
+        """One optimizer step per row of ``perm`` / ``weights``; SpecAugment,
+        mixup and dropout draw from ``generator``.  -> {"loss", "acc"}
+        (weighted means)."""
+        data = self.cfg.data
+        use_mixup = data.mixup_alpha > 0 and data.use_mixup
+        model, opt = self.model, self.optimizer
+        model.train()
+        totals = torch.zeros(3, device=features.device)
+        for idx, w in zip(perm, weights):
+            x = features[idx]
+            y = labels[idx]
+            y_onehot = F.one_hot(y, self.num_classes).float()
+            if data.use_augmentation:
+                x = spec_augment(x, generator,
+                                 augment_prob=data.augment_prob,
+                                 time_mask_param=data.time_mask_param,
+                                 freq_mask_param=data.freq_mask_param)
+            if use_mixup:
+                x, y_onehot = mixup(x, y_onehot, generator, data.mixup_alpha)
+            logits = model(x, generator)
+            loss = cross_entropy(logits, y_onehot, w)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                correct = ((logits.argmax(-1) == y).float() * w).sum()
+                totals += torch.stack([loss * w.sum(), correct, w.sum()])
+        return _means(totals)
+
+    @torch.no_grad()
+    def evaluate(self, features: torch.Tensor, labels: torch.Tensor,
+                 batch_size: Optional[int] = None) -> dict:
+        bs = batch_size or (self.cfg.train.batch_size
+                            * self.cfg.train.eval_batch_multiplier)
+        n = int(features.shape[0])
+        perm, weights = sequential_batches(n, min(bs, n), features.device)
+        self.model.eval()
+        totals = torch.zeros(3, device=features.device)
+        for idx, w in zip(perm, weights):
+            y = labels[idx]
+            logits = self.model(features[idx])
+            loss = cross_entropy(logits, F.one_hot(y, self.num_classes)
+                                 .float(), w)
+            correct = ((logits.argmax(-1) == y).float() * w).sum()
+            totals += torch.stack([loss * w.sum(), correct, w.sum()])
+        return _means(totals)
+
+    def fit(self, train_features: torch.Tensor, train_labels: torch.Tensor,
+            val_features: torch.Tensor, val_labels: torch.Tensor,
+            checkpointer=None, start_epoch: int = 0,
+            best_val_acc: float = 0.0, no_improve: int = 0,
+            log: Optional[Callable[[str], None]] = None) -> TrainResult:
+        cfg = self.cfg.train
+        log = log or logger.info
+        n_train = int(train_features.shape[0])
+        bs = min(cfg.batch_size, n_train)
+        dev = train_features.device
+        result = TrainResult(best_val_acc=best_val_acc, epochs_run=start_epoch)
+
+        # SIGTERM / SIGINT request a final checkpoint at the next epoch
+        # boundary instead of dying mid-step
+        preempted = {"flag": False}
+        prev_handlers = {}
+
+        def _request_stop(signum, _frame):
+            preempted["flag"] = True
+            log(f"signal {signum}: will checkpoint and stop after this epoch")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(sig, _request_stop)
+            except ValueError:  # not the main thread
+                pass
+
+        try:
+            for epoch in range(start_epoch, cfg.epochs):
+                t0 = time.perf_counter()
+                gen = epoch_generator(cfg.seed, epoch, dev)
+                perm, weights = pad_permutation(gen, n_train, bs, dev)
+                train_m = self.train_epoch(train_features, train_labels,
+                                           perm, weights, gen)
+                val_m = self.evaluate(val_features, val_labels)
+                dt = time.perf_counter() - t0
+                entry = {"epoch": epoch + 1, "train_loss": train_m["loss"],
+                         "train_acc": train_m["acc"],
+                         "val_loss": val_m["loss"], "val_acc": val_m["acc"],
+                         "seconds": dt}
+                result.history.append(entry)
+                log(f"epoch {epoch + 1}/{cfg.epochs}: "
+                    f"train_loss={train_m['loss']:.4f} "
+                    f"val_loss={val_m['loss']:.4f} "
+                    f"val_acc={val_m['acc']:.4f} ({dt:.1f}s)")
+
+                improved = (val_m["acc"]
+                            > result.best_val_acc + cfg.early_stop_delta)
+                # always export a best model once (the reference can end a
+                # degenerate run with no checkpoint, train.py:281)
+                if (val_m["acc"] > result.best_val_acc
+                        or result.best_state is None):
+                    result.best_val_acc = val_m["acc"]
+                    result.best_state = {
+                        k: v.detach().cpu().clone()
+                        for k, v in self.model.state_dict().items()}
+                    if checkpointer is not None:
+                        checkpointer.save_best(result.best_state,
+                                               result.best_val_acc, epoch + 1)
+                if improved:
+                    no_improve = 0
+                else:
+                    no_improve += 1
+                    log(f"no improvement for {no_improve} epoch(s)")
+
+                if checkpointer is not None:
+                    checkpointer.save_state(self.model, self.optimizer,
+                                            epoch + 1, result.best_val_acc,
+                                            no_improve)
+
+                result.epochs_run = epoch + 1
+                if no_improve >= cfg.early_stop_patience:
+                    log(f"early stopping after {epoch + 1} epochs")
+                    result.stopped_early = True
+                    break
+                if preempted["flag"]:
+                    log(f"preempted; state checkpointed at epoch {epoch + 1}")
+                    result.stopped_early = True
+                    break
+        finally:
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+        log(f"training complete; best val accuracy {result.best_val_acc:.4f}")
+        return result
+
+
+def _means(totals: torch.Tensor) -> dict:
+    loss_sum, correct, count = totals.tolist()
+    count = max(count, 1.0)
+    return {"loss": loss_sum / count, "acc": correct / count}

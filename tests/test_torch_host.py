@@ -1,22 +1,16 @@
 """The port's copies of the JAX-free host code, pinned to their originals
 on the same inputs (exact equality: the copies run the same NumPy code)."""
 
-import dataclasses
-import glob
 import json
-import os
 
 import numpy as np
 import pytest
 
-from speech_intent_recognizer_tpu.config import loader as ref_loader
-from speech_intent_recognizer_tpu.config import schema as ref_schema
 from speech_intent_recognizer_tpu.data import audio_io as ref_io
 from speech_intent_recognizer_tpu.data import labelmap as ref_labelmap
 from speech_intent_recognizer_tpu.evaluation import metrics as ref_metrics
 from speech_intent_recognizer_tpu.ops import frontend_numpy as ref_golden
 from speech_intent_recognizer_tpu.ops import resample as ref_resample
-from speech_intent_recognizer_tpu_torch.config import loader, schema
 from speech_intent_recognizer_tpu_torch.data import audio_io
 from speech_intent_recognizer_tpu_torch.data import labelmap
 from speech_intent_recognizer_tpu_torch.evaluation import metrics
@@ -100,36 +94,3 @@ def test_top_k_predictions_match(rng, k):
     assert metrics.top_k_predictions(probs, inv, k) == \
         ref_metrics.top_k_predictions(probs, inv, k)
 
-
-CONFIGS = sorted(glob.glob(os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
-    "*.yaml")))
-
-
-@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
-def test_config_loader_matches(path):
-    """The audio section the port reads equals the one the full loader
-    builds, and the fallback YAML parser reads the file as the original's
-    does."""
-    assert dataclasses.asdict(loader.load_audio_config(path)) == \
-        ref_loader.load_config(path).to_dict()["audio"]
-    with open(path) as f:
-        text = f.read()
-    assert loader._mini_yaml_load(text) == ref_loader._mini_yaml_load(text)
-
-
-def test_config_defaults_and_errors_match():
-    assert dataclasses.asdict(schema.AudioConfig()) == \
-        ref_schema.Config.from_dict({}).to_dict()["audio"]
-    assert schema.AudioConfig().max_samples == \
-        ref_schema.AudioConfig().max_samples
-    flat = {"n_mels": "40", "max_duration": 3, "lr": 1e-3}
-    assert dataclasses.asdict(schema.audio_config_from_dict(flat)) == \
-        ref_schema.Config.from_dict(flat).to_dict()["audio"]
-    for bad in ({"audio": {"no_such_key": 1}}, {"audio": {"frontend": "x"}},
-                {"frontend": "x"}):
-        with pytest.raises(ValueError) as ours:
-            schema.audio_config_from_dict(bad)
-        with pytest.raises(ValueError) as theirs:
-            ref_schema.Config.from_dict(bad)
-        assert str(ours.value) == str(theirs.value)
