@@ -1,15 +1,20 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
-Drives the port's two paths at the full width of the reference model
-(3.26 M-param CNNAudioGRU, seeded random weights) through the four
+Drives the port's paths at the full width of the reference model
+(3.26 M-param CNNAudioGRU, seeded random weights) through the seven
 hand-written CUDA kernels, and checks everything it measures:
 
 * serving: ``Predictor.from_checkpoint`` -> ``predict_waveform_batch``,
   batch inference from waveform to intent probabilities (K1, K2);
 * training from precomputed features: the precompute, train and evaluate
   CLIs on a seeded synthetic tone corpus (K3 in the precompute, K2 and its
-  backward K2T in training), then the trained model served.
+  backward K2T in training), then the trained model served;
+* the two opt-in configurations of serving: conv2 + conv3 in one kernel
+  (``enable_conv23_kernel``: K1, K5, K2) and the conv epilogue kernel
+  (``pool_impl="kernel"``: K1, K6 twice, K2);
+* serving off the reference geometry (hop 256, 400 frames): the unfused
+  predictor, whose front-end frames the signal and runs K4.
 
 Phases:
 
@@ -23,21 +28,39 @@ Phases:
    features through the plain unfused folded model (< 0.02, equal argmax),
    and the main run's rows vs the same predictor on the CPU;
 5. the ``test_model`` CLI on a WAV file;
-6. timings with CUDA events, each next to the card's name and power limit,
-   K2 at every tile height it is built for;
-7. with ``--profile`` only: step-time percentiles and the per-kernel
-   breakdown of device time (``utils/profiling.py``) at B=256 and 2048, and
-   of one bf16 train step at B=256;
-8. K3 (front-end) against its plain version, f32 and bf16 out, normalized
-   and raw;
-9. K2T (GRU backward) against its plain version and against autograd
-   through the plain forward, at every tile height;
-10. one fp32 training step (two batches) on the card against the CPU;
-11. timings of K3, K2T and the bf16 train step with CUDA events;
-12. training end to end through the CLIs (precompute -> train -> evaluate
+6. K6 (conv epilogue), K4 (frames -> dB-mel) and K5 (conv2 + conv3) against
+   their plain versions;
+7. the front-end and the predictor at hop 256 / 400 frames through K4,
+   against the plain front-end and the fp64 golden (K4 once per batch, K3
+   never);
+8. the conv23 and ``pool_impl="kernel"`` configurations at B=256 against
+   the default path, with every counter reset before and read after each
+   (K1 1, K5 1, K2 2; K1 1, K6 2, K2 2), and ``test_model --conv23`` /
+   ``--pool-impl kernel`` on a WAV file;
+9. timings with CUDA events, each next to the card's name and power limit:
+   K1 and K2 (at every tile height it is built for); K4, K5, K6, their
+   plain versions and the library calls they stand beside; the three
+   serving configurations in the order A B C C B A;
+10. with ``--profile`` only: step-time percentiles and the per-kernel
+    breakdown of device time (``utils/profiling.py``) of the three serving
+    configurations at B=256 and 2048, and of one bf16 train step at B=256;
+11. K3 (front-end) against its plain version, f32 and bf16 out, normalized
+    and raw;
+12. K2T (GRU backward) against its plain version and against autograd
+    through the plain forward, at every tile height;
+13. one fp32 training step (two batches) on the card against the CPU;
+14. timings of K3, K2T and the bf16 train step with CUDA events;
+15. training end to end through the CLIs (precompute -> train -> evaluate
     -> serve the best model), with the launch counters reset just before
     and read just after each CLI (K3 in the precompute, K2 and K2T in
     training), and the precompute rate.
+
+The ``kernels`` line gives each kernel's launches on its path, its error
+against its plain version, its time, the plain version's, the least time
+the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
+or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
+bf16, whichever is larger) and, where one library call computes the same
+function, that call's time.
 
 Every failed check raises.  Needs one card; exits non-zero without CUDA.
 The last line of standard output is the JSON device record.
@@ -66,11 +89,16 @@ from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
     CNNAudioGRU, fold_batchnorm)
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
+from speech_intent_recognizer_tpu_torch.ops.conv23 import (
+    _conv23_plain, conv23, conv23_operands)
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
-    log_mel_frontend_plain, make_frontend_params, padded_samples)
+    log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
+    padded_samples)
 from speech_intent_recognizer_tpu_torch.ops.gru import (
     TILE_ROWS, _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
     gru_layer_backward, tile_rows)
+from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
+    _bias_relu_pool2_plain, bias_relu_pool2)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
 
@@ -84,6 +112,29 @@ K3_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/frontend.cu"
 K3_REPLACES = "speech_intent_recognizer_tpu/ops/frontend_pallas.py:458"
 K2T_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/gru_layer_bwd.cu"
 K2T_REPLACES = "speech_intent_recognizer_tpu/ops/gru_pallas.py:168"
+K4_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/mel_db.cu"
+K4_REPLACES = "speech_intent_recognizer_tpu/ops/frontend_pallas.py:44"
+K5_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/conv23.cu"
+K5_REPLACES = "speech_intent_recognizer_tpu/ops/conv23_pallas.py:72"
+K6_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/pool_epilogue.cu"
+K6_REPLACES = "speech_intent_recognizer_tpu/ops/pool_epilogue_pallas.py:66"
+# published peaks of one H100 SXM: HBM bytes/s, fp32 FLOP/s outside the
+# tensor cores, dense bf16 FLOP/s on them
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# K4 vs its plain version (tests/test_pallas_frontend.py:35)
+K4_RTOL, K4_ATOL = 1e-4, 1e-4
+K4_FRAMES = (1, 255, 256, 257, 300)
+# the off-reference geometry served through K4: hop 256, 400 frames
+HOP256 = dict(hop_length=256, mel_spec_length=400)
+# K5 vs its plain version (tests/test_conv23_pallas.py:73-74)
+K5_BAR = 0.02
+# K6: the shapes of tests/test_pool_epilogue.py:37-42 and the two real
+# geometries (conv2's and conv3's raw outputs at B=256), as (B, T, W, C)
+K6_SHAPES = ((3, 100, 32, 64), (2, 50, 16, 128), (9, 8, 4, 64), (1, 2, 4, 32),
+             (256, 100, 32, 64), (256, 50, 16, 128))
+# a configuration vs the default path: argmax held on rows whose top-two
+# margin exceeds this
+MARGIN = 0.02
 # precompute's buffers are max_samples wide, not padded_samples
 PRECOMPUTE_WIDTH = 80000
 # K3 f32 vs its plain version: the bar JAX holds K3 to against XLA
@@ -219,7 +270,7 @@ def within_each(got, want, rtol, atol) -> bool:
 
 
 def check_k3(dev, fe, rng) -> float:
-    """Phase 8: K3 vs its plain version at B=256 in precompute-wide
+    """Phase 11: K3 vs its plain version at B=256 in precompute-wide
     buffers; f32 within K3_BAR, bf16 within one bf16 rounding (2**-8
     relative) of the plain f32 value plus K3_BAR."""
     lengths = CHECK_LENGTHS + list(rng.integers(
@@ -257,7 +308,7 @@ def k2t_inputs(b: int, dtype, dev, seed: int):
 
 
 def check_k2t(dev, sms) -> float:
-    """Phase 9: K2T vs its plain version at every tile height (and the
+    """Phase 12: K2T vs its plain version at every tile height (and the
     picked one) on full and ragged tiles; fp32 also vs autograd through
     the plain forward.  Returns the largest fp32 error."""
     worst = 0.0
@@ -300,7 +351,7 @@ def check_k2t(dev, sms) -> float:
 
 
 def check_train_step(dev) -> None:
-    """Phase 10: one training step (two batches of 16) of the full-width
+    """Phase 13: one training step (two batches of 16) of the full-width
     model in fp32 with dropout 0 and augmentation off, on the card and on
     the CPU from the same seeded weights and batches.  BatchNorm's running
     statistics are compared after step 1, which sets them from the same
@@ -413,7 +464,7 @@ def decode_split(csv_path: str, width: int):
 
 
 def train_end_to_end(tmp: str, dev) -> dict:
-    """Phase 11: precompute -> train -> evaluate through the CLIs at full
+    """Phase 8: precompute -> train -> evaluate through the CLIs at full
     width with bf16 compute, then serve the best model.  Returns the
     launches of each path and the precompute rate."""
     from speech_intent_recognizer_tpu_torch.cli import evaluate as cli_eval
@@ -544,6 +595,330 @@ def train_step_timer(dev, b: int):
     return lambda: trainer.train_epoch(feats, labels, perm, weights, gen)
 
 
+def bound(nbytes: float, *ops) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and the
+    operations, given as (count, peak) pairs, over their peaks."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = sum(n / peak for n, peak in ops) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def frontend_flops(fe, n_frames: int) -> float:
+    """fp32 operations of n_frames windowed FFTs, powers, sparse mel sums."""
+    n = fe.n_fft
+    return n_frames * (n + 5.0 * n * np.log2(n) + 3 * (n // 2 + 1)
+                       + 2 * fe.fb_packed.numel())
+
+
+def check_k6(dev, rng) -> float:
+    """Phase 6a: K6 vs its plain version; f32 exact, bf16 within one
+    rounding; a tensor that is not channels-last raises."""
+    worst = 0.0
+    for shape in K6_SHAPES:
+        b, t, w, c = shape
+        y32 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            y = y32.to(dev, dtype).permute(0, 3, 1, 2)  # (B, C, T, W) view
+            got = bias_relu_pool2(y, bias.to(dev))
+            want = _bias_relu_pool2_plain(y, bias.to(dev))
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            if dtype == torch.float32:
+                ok = torch.equal(got, want)
+                bar = "equal"
+            else:
+                lim = float(want.float().abs().max()) * 2.0 ** -8
+                ok = err <= lim
+                bar = f"max |err| {err:.3e} <= max|want| * 2^-8 = {lim:.3e}"
+                worst = max(worst, err)
+            check(ok and got.shape == (b, c, t // 2, w // 2)
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  f"K6 vs plain, (B, T, W, C)={shape} {dtype}: {bar}")
+    y = torch.zeros((2, 64, 8, 16), device=dev)  # NCHW memory
+    try:
+        bias_relu_pool2(y, torch.zeros(64, device=dev))
+    except ValueError as e:
+        log(f"ok: K6 refuses a tensor that is not channels-last ({e})")
+    else:
+        raise AssertionError("K6 took a tensor that is not channels-last")
+    return worst
+
+
+def check_k4(dev, fe, rng) -> float:
+    """Phase 6b: K4 vs its plain version at the frame counts around its
+    tile and at a full batch of hop-256 frames (B=256 x 313 frames)."""
+    worst = 0.0
+    dft = fk.dft_matrices(fe)
+    for n in K4_FRAMES + (MAIN_BATCH * 313,):
+        frames = torch.from_numpy(rng.standard_normal((n, fe.n_fft))
+                                  .astype(np.float32)).to(dev)
+        got = fk.mel_db(frames, fe)
+        want = fk._mel_db_plain(frames, fe, dft)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(got.shape == (n, fe.n_mels)
+              and bool(torch.isfinite(got).all())
+              and within_each(got, want, K4_RTOL, K4_ATOL),
+              f"K4 vs plain, N={n} frames of {fe.n_fft}: max |err| "
+              f"{err:.3e} dB, within rtol {K4_RTOL} / atol {K4_ATOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def k5_inputs(dev, b: int, seed: int):
+    """Seeded bf16 sheet like K1's output (non-negative) and the operands
+    of seeded folded conv2 / conv3 stages at torch's default init scale."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((b, 100, 1024), generator=g).mul_(2.0).to(
+        dev, torch.bfloat16)
+    w2 = (torch.rand((64, 32, 3, 3), generator=g) * 2 - 1) / 288 ** 0.5
+    w3 = (torch.rand((128, 64, 3, 3), generator=g) * 2 - 1) / 576 ** 0.5
+    b2 = (torch.rand(64, generator=g) * 2 - 1) * 0.1
+    b3 = (torch.rand(128, generator=g) * 2 - 1) * 0.1
+    return x, tuple(o.to(dev) for o in conv23_operands(w2, b2, w3, b3))
+
+
+def check_k5(dev) -> float:
+    """Phase 6c: K5 vs its plain version at B=5 and B=256."""
+    worst = 0.0
+    for b in (5, MAIN_BATCH):
+        x, ops = k5_inputs(dev, b, seed=50 + b)
+        got = conv23(x, *ops)
+        want = _conv23_plain(x, *ops)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want), float(want.float().abs().max())
+        live = float((want > 0).float().mean())
+        check(got.shape == (b, 25, 1024) and bool(torch.isfinite(got.float())
+                                                  .all())
+              and err < K5_BAR * scale and live > 0.2,
+              f"K5 vs plain, B={b}: max |err| {err:.3e} < {K5_BAR} * max|want| "
+              f"{scale:.3f} (one bf16 step there: "
+              f"{2.0 ** (np.floor(np.log2(scale)) - 7):.3e}); "
+              f"{live:.2f} of the outputs positive")
+        worst = max(worst, err)
+    return worst
+
+
+def reset_counters() -> None:
+    for fn in (fk.frontend_conv1, fk.frontend, fk.mel_db, gru_layer,
+               gru_layer_backward, conv23, bias_relu_pool2):
+        fn.launches = 0
+
+
+def counters() -> dict:
+    return {"K1": fk.frontend_conv1.launches, "K2": gru_layer.launches,
+            "K3": fk.frontend.launches, "K2T": gru_layer_backward.launches,
+            "K4": fk.mel_db.launches, "K5": conv23.launches,
+            "K6": bias_relu_pool2.launches}
+
+
+def check_counts(got: dict, want: dict, what: str) -> None:
+    want = {**{k: 0 for k in got}, **want}
+    check(got == want, f"{what} launched {got} (want {want})")
+
+
+def check_against_default(got: np.ndarray, want: np.ndarray,
+                          what: str) -> None:
+    """A serving configuration against the default path on the same batch:
+    log-probabilities within LOGP_BAR, argmax equal on every row whose
+    top-two margin in the default path exceeds MARGIN."""
+    logp_err = float(np.abs(np.log(np.maximum(got, 1e-30))
+                            - np.log(np.maximum(want, 1e-30))).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > MARGIN
+    same = got.argmax(-1) == want.argmax(-1)
+    check(got.shape == want.shape and bool(np.isfinite(got).all())
+          and logp_err <= LOGP_BAR and bool(same[clear].all()),
+          f"{what} vs the default path: log-prob err {logp_err:.3e} <= "
+          f"{LOGP_BAR}; argmax equal on all {int(clear.sum())} rows with "
+          f"margin > {MARGIN} ({int(same.sum())} of {len(same)} rows)")
+
+
+def check_hop256(dev, model_path, label_path, rng) -> dict:
+    """Phase 7: off the reference geometry (hop 256, 400 frames) the
+    front-end runs K4.  ``log_mel_frontend`` on the card against the plain
+    front-end and the fp64 golden, then the predictor at B=256."""
+    cfg = AudioConfig(**HOP256)
+    fe = make_frontend_params(cfg, dev)
+    width = padded_samples(cfg.max_samples, cfg.hop_length)
+    buf, ln = batch(GATE_LENGTHS, width, seed=1)
+    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
+    reset_counters()
+    got = log_mel_frontend(wf, lt, fe)
+    torch.cuda.synchronize()
+    check_counts(counters(), {"K4": 1}, "log_mel_frontend at hop 256")
+    want = log_mel_frontend_plain(wf, lt, fe)
+    err = max_err(got, want)
+    check(got.shape == (len(GATE_LENGTHS), 64, 400) and err <= K3_BAR,
+          f"front-end through K4 vs the plain front-end, hop 256: max |err| "
+          f"{err:.3e} <= {K3_BAR}")
+    gold = np.stack([golden.pad_or_trim_np(golden.log_mel_spectrogram_np(
+        buf[i, :n], hop_length=256), 400).astype(np.float32)
+        for i, n in enumerate(GATE_LENGTHS)])
+    gerr = float(np.abs(got.cpu().numpy() - gold).max())
+    check(gerr < 0.05, f"front-end through K4 vs the fp64 golden, hop 256: "
+          f"feature err {gerr:.3e} < 0.05")
+
+    pred = Predictor.from_checkpoint(model_path, label_path, audio_cfg=cfg,
+                                     device=dev)
+    check(pred._conv1 is None, "hop 256 is served by the unfused predictor")
+    lengths = list(rng.integers(1, cfg.max_samples + 1, MAIN_BATCH))
+    buf, ln = batch(lengths, width, seed=600)
+    wf = torch.from_numpy(buf).to(dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    probs = pred.predict_waveform_batch(wf, ln)
+    launches = counters()
+    check_counts(launches, {"K4": 1, "K2": 2},
+                 f"predictor at hop 256, B={MAIN_BATCH}")
+    cpu_pred = Predictor.from_checkpoint(model_path, label_path,
+                                         audio_cfg=cfg, device="cpu")
+    check_probs(probs[:8], cpu_pred.predict_waveform_batch(buf[:8], ln[:8]),
+                "predictor at hop 256 vs the CPU predictor, 8 rows")
+    return launches
+
+
+def check_configurations(dev, tmp, model_path, label_path, wf_main, main_ln,
+                         default_probs) -> tuple:
+    """Phase 8: the two opt-in serving configurations at B=256 against the
+    default path.  Returns the predictors and each path's launches."""
+    from speech_intent_recognizer_tpu_torch.cli.test_model import (
+        main as cli_main)
+
+    c23 = Predictor.from_checkpoint(model_path, label_path, device=dev)
+    c23.enable_conv23_kernel()
+    pool = Predictor.from_checkpoint(model_path, label_path, device=dev,
+                                     pool_impl="kernel")
+    launches = {}
+    for name, pred, want in (
+            ("conv23", c23, {"K1": 1, "K5": 1, "K2": 2}),
+            ("pool_impl=kernel", pool, {"K1": 1, "K6": 2, "K2": 2})):
+        torch.cuda.synchronize()
+        reset_counters()
+        probs = pred.predict_waveform_batch(wf_main, main_ln)
+        launches[name] = counters()
+        check_counts(launches[name], want,
+                     f"{name} configuration, B={MAIN_BATCH}")
+        check_against_default(probs, default_probs, f"{name} configuration")
+    wav = os.path.join(tmp, "utterance2.wav")
+    save_wav(wav, speech_like(np.random.default_rng(10), 30000), 16000)
+    base = ["--model", model_path, "--label_map", label_path, "--audio", wav,
+            "--device", str(dev)]
+    want = cli_main(base)
+    for flags, counter in ((["--conv23"], conv23),
+                           (["--pool-impl", "kernel"], bias_relu_pool2)):
+        reset_counters()
+        got = cli_main(base + flags)
+        check(got is not None and counter.launches >= 1
+              and got["predicted_label"] == want["predicted_label"]
+              and abs(got["confidence"] - want["confidence"]) < PROB_GATE,
+              f"CLI {' '.join(flags)} predicted {got['predicted_label']} "
+              f"({got['confidence']:.4f}; default {want['confidence']:.4f}), "
+              f"its kernel launched {counter.launches}x")
+    return c23, pool, launches
+
+
+def time_new_kernels(dev, variant, timings, bounds) -> None:
+    """Phase 9a: K4, K5, K6 at B=256 and B=2048 beside their plain
+    versions and the library calls: for K5 the model's own two conv stages
+    on the same input, for K6 bias-add + ReLU + max-pool on the same raw
+    conv output, for K4 torch.fft.rfft + matmul on the same frames."""
+    import torch.nn.functional as F
+
+    fe = make_frontend_params(AudioConfig(**HOP256), dev)
+    dft = fk.dft_matrices(fe)
+    for b in TIMING_BATCHES:
+        iters = 20 if b <= 256 else 5
+        n = b * 313  # valid hop-256 frames of 5 s utterances
+        frames = torch.randn((n, fe.n_fft), device=dev)
+        timings[f"k4_b{b}"] = cuda_ms(lambda: fk.mel_db(frames, fe), iters)
+        timings[f"k4_plain_b{b}"] = cuda_ms(
+            lambda: fk._mel_db_plain(frames, fe, dft), iters)
+
+        def rfft_matmul():
+            spec = torch.fft.rfft(frames * fe.window, dim=-1)
+            power = spec.real.square() + spec.imag.square()
+            return 10.0 * torch.log10((power @ fe.mel_fb).clamp(min=1e-10))
+
+        timings[f"k4_library_b{b}"] = cuda_ms(rfft_matmul, iters)
+        out = fk.mel_db(frames, fe)
+        bounds[f"k4_b{b}"] = bound(nbytes(frames, out),
+                                   (frontend_flops(fe, n), FP32_FLOPS))
+        del frames, out
+
+        x, ops = k5_inputs(dev, b, seed=70)
+        timings[f"k5_b{b}"] = cuda_ms(lambda: conv23(x, *ops), iters)
+        timings[f"k5_plain_b{b}"] = cuda_ms(
+            lambda: _conv23_plain(x, *ops), iters)
+        x4 = x.view(b, 100, 32, 32).permute(0, 3, 1, 2)
+
+        def conv_pair():
+            return variant._conv(3, variant._conv(2, x4))
+
+        with torch.inference_mode():
+            timings[f"k5_library_b{b}"] = cuda_ms(conv_pair, iters)
+        flops = b * 2.0 * (100 * 32 * 64 * 288 + 50 * 16 * 128 * 576)
+        bounds[f"k5_b{b}"] = bound(nbytes(x, *ops) + b * 25 * 1024 * 2,
+                                   (flops, BF16_FLOPS))
+
+        # K6 at conv2's raw output (the larger of its two launches), then
+        # both launches of a batch together
+        with torch.inference_mode():
+            raws = []
+            y = x4
+            for i in (2, 3):
+                conv = getattr(variant, f"conv{i}")
+                raw = F.conv2d(y, conv.weight.to(torch.bfloat16), None,
+                               padding=1)
+                raws.append((raw, conv.bias))
+                y = bias_relu_pool2(raw, conv.bias)
+            raw2, bias2 = raws[0]
+            timings[f"k6_b{b}"] = cuda_ms(
+                lambda: bias_relu_pool2(raw2, bias2), iters)
+            timings[f"k6_plain_b{b}"] = cuda_ms(
+                lambda: _bias_relu_pool2_plain(raw2, bias2), iters)
+            bt = bias2.to(torch.bfloat16)[None, :, None, None]
+            timings[f"k6_library_b{b}"] = cuda_ms(
+                lambda: F.max_pool2d(F.relu(raw2 + bt), 2), iters)
+            timings[f"k6_both_stages_b{b}"] = cuda_ms(
+                lambda: [bias_relu_pool2(r, bb) for r, bb in raws], iters)
+            timings[f"k6_library_both_stages_b{b}"] = cuda_ms(
+                lambda: [F.max_pool2d(F.relu(
+                    r + bb.to(torch.bfloat16)[None, :, None, None]), 2)
+                    for r, bb in raws], iters)
+        bounds[f"k6_b{b}"] = bound(raw2.numel() * 2 * 1.25 + 128,
+                                   (raw2.numel() * 3.0, FP32_FLOPS))
+        del x, x4, raws, raw2, y
+
+
+def time_configurations(preds: dict, e2e_wf, e2e_ln) -> dict:
+    """Phase 9b: predict_waveform_batch with device-resident input on the
+    three configurations, A B C C B A, host clock around calls that end in
+    the copy of the probabilities to the host; ms per step, first and
+    second pass of each."""
+    out = {}
+    names = list(preds)
+    for b in TIMING_BATCHES:
+        wf, ln = e2e_wf[:b].contiguous(), e2e_ln[:b]
+        iters = 20 if b <= 256 else 10
+        for name in names + names[::-1]:
+            pred = preds[name]
+            for _ in range(2):
+                pred.predict_waveform_batch(wf, ln)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pred.predict_waveform_batch(wf, ln)
+            ms = (time.perf_counter() - t0) * 1e3 / iters
+            out.setdefault(f"{name}_b{b}", []).append(ms)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -626,14 +1001,11 @@ def main(argv=None) -> int:
         check(pred._conv1 is not None, "fused conv1 path enabled")
         wf_main = torch.from_numpy(main_buf).to(dev)
         torch.cuda.synchronize()
-        fk.frontend_conv1.launches = 0
-        gru_layer.launches = 0
+        reset_counters()
         probs = pred.predict_waveform_batch(wf_main, main_ln)
-        k1_launches = fk.frontend_conv1.launches
-        k2_launches = gru_layer.launches
-        check(k1_launches == 1 and k2_launches == 2,
-              f"main path launched K1 {k1_launches}x (want 1), K2 "
-              f"{k2_launches}x (want 2)")
+        main_launches = counters()
+        check_counts(main_launches, {"K1": 1, "K2": 2},
+                     f"main path, B={MAIN_BATCH}")
         check(probs.shape == (MAIN_BATCH, 31)
               and bool(np.isfinite(probs).all())
               and float(np.abs(probs.sum(-1) - 1).max()) < 1e-4,
@@ -676,7 +1048,20 @@ def main(argv=None) -> int:
         check(result is not None and result["predicted_label"]
               in pred.label_map, f"CLI predicted {result['predicted_label']}")
 
-        # ---- 6. timing (CUDA events; card and power limit beside) ----
+        # ---- 6. K6, K4, K5 vs their plain versions ----
+        k6_err = check_k6(dev, rng)
+        k4_err = check_k4(dev, make_frontend_params(AudioConfig(**HOP256),
+                                                    dev), rng)
+        k5_err = check_k5(dev)
+
+        # ---- 7. off the reference geometry: the front-end through K4 ----
+        hop256_launches = check_hop256(dev, model_path, label_path, rng)
+
+        # ---- 8. the two opt-in serving configurations ----
+        c23_pred, pool_pred, cfg_launches = check_configurations(
+            dev, tmp, model_path, label_path, wf_main, main_ln, probs)
+
+        # ---- 9. timing (CUDA events; card and power limit beside) ----
         # the timed batch is checked first: 32 rows sampled across its tiles
         e2e_buf, e2e_ln = batch(list(rng.integers(
             1, cfg.max_samples + 1, E2E_BATCH)), width, seed=2000)
@@ -690,7 +1075,7 @@ def main(argv=None) -> int:
             e2e_buf[sample], e2e_ln[sample]),
             f"timed B={E2E_BATCH} run vs the CPU predictor, 32 sampled rows")
 
-        timings = {}
+        timings, bounds = {}, {}
         for b in TIMING_BATCHES:
             buf, ln = batch(list(rng.integers(1, cfg.max_samples + 1, b)),
                             width, seed=1000)
@@ -701,9 +1086,17 @@ def main(argv=None) -> int:
                 lambda: fk.frontend_conv1(wf, lt, fe, c1w, c1b), iters)
             timings[f"k1_plain_b{b}"] = cuda_ms(
                 lambda: fk._frontend_conv1_plain(wf, lt, fe, c1w, c1b), iters)
+            n_frames = int((1 + lt.long() // cfg.hop_length).sum())
+            bounds[f"k1_b{b}"] = bound(
+                nbytes(wf, lt) + b * 100 * 1024 * 2,
+                (frontend_flops(fe, n_frames), FP32_FLOPS),
+                (b * 2.0 * 9 * 32 * 64 * 200, BF16_FLOPS))
             del wf, buf
             gx, w, bn = k2_inputs(b, torch.bfloat16, dev, seed=b)
             timings[f"k2_b{b}"] = cuda_ms(lambda: gru_layer(gx, w, bn), 20)
+            bounds[f"k2_b{b}"] = bound(
+                nbytes(gx, w, bn) + gx.numel() // 3 * 2,
+                (2.0 * gx.numel() * 256, BF16_FLOPS))
             log(f"K2 at B={b} picks {tile_rows(b, sms)}-row tiles ({sms} SMs)")
             for rows in TILE_ROWS:
                 timings[f"k2_b{b}_rows{rows}"] = cuda_ms(
@@ -718,6 +1111,15 @@ def main(argv=None) -> int:
                 timings[f"cudnn_gru_layer_b{b}"] = cuda_ms(
                     lambda: cudnn(x), 20)
 
+        time_new_kernels(dev, pred._conv1[0], timings, bounds)
+        preds = {"default": pred, "pool_impl=kernel": pool_pred,
+                 "conv23": c23_pred}
+        for name in ("pool_impl=kernel", "conv23"):
+            check_against_default(
+                preds[name].predict_waveform_batch(e2e_wf, e2e_ln), e2e_probs,
+                f"{name} configuration, timed B={E2E_BATCH} batch")
+        config_ms = time_configurations(preds, e2e_wf, e2e_ln)
+
         iters = 10
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -729,19 +1131,20 @@ def main(argv=None) -> int:
             pred.predict_waveform_batch(e2e_buf, e2e_ln)
         e2e_host = E2E_BATCH * 3 / (time.perf_counter() - t0)
 
-        # ---- 7. profile (--profile only) ----
+        # ---- 10. profile (--profile only) ----
         if args.profile:
             from speech_intent_recognizer_tpu_torch.utils.profiling import (
                 kernel_breakdown, step_times)
 
-            for b in TIMING_BATCHES:
+            for b, (name, p) in ((b, item) for b in TIMING_BATCHES
+                                 for item in preds.items()):
                 wf = e2e_wf[:b].contiguous()
                 ln = e2e_ln[:b]
-                step = lambda: pred.predict_waveform_batch(wf, ln)  # noqa: E731
+                step = lambda: p.predict_waveform_batch(wf, ln)  # noqa: E731
                 q = step_times(step, steps=30)
                 wall, kernels = kernel_breakdown(step, steps=5)
                 busy = sum(k[1] for k in kernels)
-                log(f"profile B={b} on {label}: step ms median {q['median']:.3f}"
+                log(f"profile {name} B={b} on {label}: step ms median {q['median']:.3f}"
                     f" (p25 {q['p25']:.3f} / p75 {q['p75']:.3f} / p90 "
                     f"{q['p90']:.3f}), 30 steps; {b / q['median'] * 1e3:.0f} "
                     f"utt/s at the median; kernel time {busy:.3f} ms, idle "
@@ -750,12 +1153,12 @@ def main(argv=None) -> int:
                 for name, ms, count in kernels:
                     log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
 
-    # ---- 8-10. K3, K2T, a train step card vs CPU ----
+    # ---- 11-13. K3, K2T, a train step card vs CPU ----
     k3_err = check_k3(dev, make_frontend_params(device=dev), rng)
     k2t_err = check_k2t(dev, sms)
     check_train_step(dev)
 
-    # ---- 11. timings of the training path's kernels and step ----
+    # ---- 14. timings of the training path's kernels and step ----
     for b in (256, 2048):
         buf, ln = batch(list(rng.integers(1, PRECOMPUTE_WIDTH + 1, b)),
                         PRECOMPUTE_WIDTH, seed=4000)
@@ -767,12 +1170,21 @@ def main(argv=None) -> int:
                                       iters)
         timings[f"k3_plain_b{b}"] = cuda_ms(
             lambda: log_mel_frontend_plain(wf, lt, fe_dev), iters)
+        n_frames = int((1 + lt.long() // 512).sum())
+        bounds[f"k3_b{b}"] = bound(nbytes(wf, lt) + b * 64 * 200 * 4,
+                                   (frontend_flops(fe_dev, n_frames),
+                                    FP32_FLOPS))
         del wf, buf
     for b in (256, 1024):
         gx, w, bn, ys, dys = k2t_inputs(b, torch.bfloat16, dev, seed=b)
         log(f"K2T at B={b} picks {tile_rows(b, sms)}-row tiles ({sms} SMs)")
         timings[f"k2t_b{b}"] = cuda_ms(
             lambda: gru_layer_backward(gx, w, bn, ys, dys), 10)
+        # reads gx, W, ys, dys; writes dgx, fp32 dW and db; recomputes the
+        # forward's product and takes two more (dh and dW)
+        bounds[f"k2t_b{b}"] = bound(
+            nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4,
+            (3 * 2.0 * gx.numel() * 256, BF16_FLOPS))
         for rows in TILE_ROWS:
             timings[f"k2t_b{b}_rows{rows}"] = cuda_ms(
                 lambda: gru_layer_backward(gx, w, bn, ys, dys, rows=rows), 10)
@@ -803,13 +1215,20 @@ def main(argv=None) -> int:
                 log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
         del step
 
-    # ---- 12. training end to end through the CLIs ----
+    # ---- 15. training end to end through the CLIs ----
     with tempfile.TemporaryDirectory() as tmp:
         e2e_train = train_end_to_end(tmp, dev)
 
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
         log(f"  {k}: {v:.4f}")
+    for k, (ms_bound, by) in bounds.items():
+        log(f"  bound {k}: {ms_bound:.4f} ({by})")
+    log("  predict_waveform_batch, device-resident input, host clock, ms per "
+        "step; configurations timed in the order A B C C B A, first / "
+        "second pass:")
+    for k, v in config_ms.items():
+        log(f"    {k}: {v[0]:.4f} / {v[1]:.4f}")
     log(f"  e2e predict_waveform_batch B={E2E_BATCH}, device-resident input: "
         f"{e2e_dev:.1f} utt/s; from a host NumPy buffer: {e2e_host:.1f} "
         f"utt/s")
@@ -817,23 +1236,37 @@ def main(argv=None) -> int:
         f"included): {e2e_train['precompute_utt_s']:.1f} utt/s; tone task "
         f"val acc {e2e_train['val_acc']:.4f} after {e2e_train['epochs']} "
         f"epochs, test acc {e2e_train['test_acc']:.4f}")
+    b = MAIN_BATCH
+
+    def entry(name, key, source, replaces, launches, err, library=None):
+        ms_bound, by = bounds[f"{key}_b{b}"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": timings[f"{key}_b{b}"],
+                "plain_ms": timings[f"{key}_plain_b{b}"],
+                "bound_ms": ms_bound, "bound_by": by,
+                "library_ms": None if library is None else timings[library]}
+
+    log(f"kernels at B={b} on {label}: launches on each kernel's path, error "
+        f"vs its plain version, ms per call; library_ms: cuDNN nn.GRU layer "
+        f"(K2), torch.fft.rfft + matmul on the frames (K4), the model's conv "
+        f"stages 2 and 3 (K5), bias-add + ReLU + max-pool at conv2 (K6)")
     print(json.dumps({"kernels": [
-        {"name": "frontend_conv1", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": k1_launches,
-         "max_abs_err": k1_err, "ms": timings[f"k1_b{MAIN_BATCH}"],
-         "plain_ms": timings[f"k1_plain_b{MAIN_BATCH}"]},
-        {"name": "gru_layer", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": k2_launches,
-         "max_abs_err": k2_err, "ms": timings[f"k2_b{MAIN_BATCH}"],
-         "plain_ms": timings[f"k2_plain_b{MAIN_BATCH}"]},
-        {"name": "frontend", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": e2e_train["k3_launches"],
-         "max_abs_err": k3_err, "ms": timings[f"k3_b{MAIN_BATCH}"],
-         "plain_ms": timings[f"k3_plain_b{MAIN_BATCH}"]},
-        {"name": "gru_layer_backward", "route": "cuda", "source": K2T_SOURCE,
-         "replaces": K2T_REPLACES, "launches": e2e_train["k2t_launches"],
-         "max_abs_err": k2t_err, "ms": timings[f"k2t_b{MAIN_BATCH}"],
-         "plain_ms": timings[f"k2t_plain_b{MAIN_BATCH}"]},
+        entry("frontend_conv1", "k1", K1_SOURCE, K1_REPLACES,
+              main_launches["K1"], k1_err),
+        entry("gru_layer", "k2", K2_SOURCE, K2_REPLACES, main_launches["K2"],
+              k2_err, f"cudnn_gru_layer_b{b}"),
+        entry("frontend", "k3", K3_SOURCE, K3_REPLACES,
+              e2e_train["k3_launches"], k3_err),
+        entry("gru_layer_backward", "k2t", K2T_SOURCE, K2T_REPLACES,
+              e2e_train["k2t_launches"], k2t_err),
+        entry("mel_db", "k4", K4_SOURCE, K4_REPLACES, hop256_launches["K4"],
+              k4_err, f"k4_library_b{b}"),
+        entry("conv23", "k5", K5_SOURCE, K5_REPLACES,
+              cfg_launches["conv23"]["K5"], k5_err, f"k5_library_b{b}"),
+        entry("bias_relu_pool2", "k6", K6_SOURCE, K6_REPLACES,
+              cfg_launches["pool_impl=kernel"]["K6"], k6_err,
+              f"k6_library_b{b}"),
     ]}))
     print(label)
     print(json.dumps({"ok": True, "device": {

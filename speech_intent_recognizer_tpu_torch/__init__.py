@@ -14,16 +14,19 @@ Ported so far:
 * batch inference from waveform to intent probabilities
   (:class:`.infer.predict.Predictor`), through the fused front-end + conv1
   kernel (K1, ``ops/frontend_kernels.py``) and the bidirectional GRU
-  recurrence kernel (K2, ``ops/gru.py``);
+  recurrence kernel (K2, ``ops/gru.py``); opt-in, conv2 + conv3 in one
+  kernel (K5, ``ops/conv23.py``) or the conv epilogue kernel after each
+  raw convolution (K6, ``ops/pool_epilogue.py``); off the reference
+  geometry the front-end runs the dB-mel kernel (K4);
 * training from precomputed features: the precompute (``data/cache.py``,
   through the fused front-end kernel K3), the ``train.loop.Trainer`` (K2
   and its backward kernel under autograd), checkpoints, evaluation and the
   ``cli`` entry points.
 
-Importing this package or any of its modules imports no JAX, and of the
-JAX package only its ``config`` (pure dataclasses and a YAML reader).  The
-other pure-Python host code it needs (audio I/O, manifests, the NumPy
-golden front-end, resampling, label maps, metrics) is copied here, and the
+Importing this package or any of its modules imports no JAX and nothing of
+the JAX package.  The pure-Python host code it needs (the config schema and
+reader, audio I/O, manifests, the NumPy golden front-end, resampling, label
+maps, metrics) is copied here, and the
 ``tests/test_torch_*.py`` files pin each copy to its original.
 """
 

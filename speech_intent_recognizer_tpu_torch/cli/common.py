@@ -45,8 +45,10 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
 
 
 def make_predictor(model_path: str, label_map_path: str,
-                   audio_cfg: AudioConfig, device: str = "cuda"):
+                   audio_cfg: AudioConfig, device: str = "cuda",
+                   pool_impl: str = "torch"):
     from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
 
     return Predictor.from_checkpoint(model_path, label_map_path,
-                                     audio_cfg=audio_cfg, device=device)
+                                     audio_cfg=audio_cfg, device=device,
+                                     pool_impl=pool_impl)

@@ -5,8 +5,8 @@ Mirrors the JAX package's ``cli/evaluate.py`` (reference
 --model_path`` (``--model`` is accepted too) ``--results_dir``, plus
 ``--device`` (default ``cuda``).  Reads reference-layout ``.pt`` state
 dicts of the config's model widths (the class count is read from the
-checkpoint); features come from the feature cache, computed on a miss (the
-K3 kernel on a CUDA device)::
+checkpoint); features come from the feature cache, computed on a miss (on a
+CUDA device by the K3 kernel, or K4 off the reference geometry)::
 
     python -m speech_intent_recognizer_tpu_torch.cli.evaluate \\
         --test_csv test.csv --label_map label_map.json \\

@@ -3,7 +3,7 @@
 Mirrors the JAX package's ``cli/precompute_features.py`` (reference
 ``scripts/precompute_features.py:149-179``): the same flags, the same
 ``.npz`` caches and ``cache_info.json``, plus ``--device`` (default
-``cuda``, where the K3 kernel runs)::
+``cuda``, where the K3 kernel runs, or K4 off the reference geometry)::
 
     python -m speech_intent_recognizer_tpu_torch.cli.precompute_features \\
         --train_csv train.csv --valid_csv valid.csv --test_csv test.csv \\

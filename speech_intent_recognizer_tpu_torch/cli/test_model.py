@@ -3,7 +3,10 @@
 Mirrors ``python -m scripts.test_model`` (reference
 ``scripts/test_model.py:225-281``) and the JAX package's
 ``cli/test_model.py``: ``--model --label_map --audio [--interactive]`` with
-the same top-3 console report, plus ``--device`` (default ``cuda``)::
+the same top-3 console report, plus ``--device`` (default ``cuda``) and the
+two opt-in configurations of the fused path, ``--pool-impl kernel`` (the
+conv epilogue kernel after conv2 / conv3) and ``--conv23`` (conv2 + conv3 in
+one kernel)::
 
     python -m speech_intent_recognizer_tpu_torch.cli.test_model \\
         --model best_model.pt --label_map label_map.json --audio x.wav
@@ -59,11 +62,20 @@ def main(argv=None):
                    help="audio file or directory")
     p.add_argument("--interactive", action="store_true")
     add_device_arg(p)
+    p.add_argument("--pool-impl", choices=("torch", "kernel"),
+                   default="torch",
+                   help="conv epilogue of the fused path's conv2/conv3: "
+                        "torch ops or the epilogue kernel")
+    p.add_argument("--conv23", action="store_true",
+                   help="run conv2+conv3 in the conv23 kernel (reference "
+                        "geometry and channels only)")
     args = p.parse_args(argv)
 
     cfg = load_config_or_default(args.config)
     predictor = make_predictor(args.model, args.label_map, cfg.audio,
-                               args.device)
+                               args.device, pool_impl=args.pool_impl)
+    if args.conv23:
+        predictor.enable_conv23_kernel()
 
     if args.interactive or not args.audio:
         interactive_loop(predictor)

@@ -1,13 +1,13 @@
-"""Configuration: the JAX package's schema and reader, used as they are.
+"""Configuration: the port's own schema and reader.
 
-``speech_intent_recognizer_tpu.config`` is pure dataclasses plus a YAML
-reader with its own mini-YAML fallback; importing it imports no JAX (the
-JAX package's ``__init__`` imports only its version).  So the port reads
-the same configs with the same validation and keeps no copy.
+``schema.py`` and ``loader.py`` are copies of the JAX package's
+``config/schema.py`` and ``config/loader.py`` (typed, validated sections,
+the reference's flat key names, a YAML reader with a mini-YAML fallback):
+the port imports nothing of that package and reads the same config files.
 """
 
-from speech_intent_recognizer_tpu.config.loader import load_config
-from speech_intent_recognizer_tpu.config.schema import (
+from speech_intent_recognizer_tpu_torch.config.loader import load_config
+from speech_intent_recognizer_tpu_torch.config.schema import (
     AudioConfig,
     Config,
     ConfigError,

@@ -3,8 +3,10 @@
 The same mapping as ``speech_intent_recognizer_tpu/convert/torch_export.py``
 (``export_torch_state_dict``), taking the Flax trees as numpy arrays (no JAX
 import here) and returning torch tensors.  Handles every form of the model:
-train form (``bn{i}`` + batch_stats), BN-folded (conv biases, no BN) and the
-``conv1_external`` variant (no ``conv1``).
+train form (``bn{i}`` + batch_stats), BN-folded (conv biases, no BN), the
+``conv1_external`` variant (no ``conv1``) and the ``conv_external`` head (no
+convs at all).  :func:`conv_stages_from_jax` carries the folded conv stages
+that the JAX package hands to its conv kernels' operand functions.
 
 * ``conv{i}/kernel`` (kH, kW, I, O)  -> ``conv{i}.weight`` (O, I, kH, kW)
 * ``bn{i}/scale,bias`` + stats       -> ``bn{i}.weight,bias,running_*``
@@ -14,7 +16,7 @@ train form (``bn{i}`` + batch_stats), BN-folded (conv biases, no BN) and the
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,3 +60,19 @@ def from_jax_variables(params: Mapping, batch_stats: Optional[Mapping] = None
         out[f"{head}.weight"] = t(np.asarray(params[head]["kernel"]).T)
         out[f"{head}.bias"] = t(params[head]["bias"])
     return out
+
+
+def conv_stages_from_jax(*stages) -> Tuple[torch.Tensor, ...]:
+    """Folded conv stages as the JAX package's ``conv_external_params``
+    returns them, ``(kernel, bias)`` pairs with HWIO kernels in their
+    original orientation (spatial dims mel, time), as numpy arrays ->
+    a flat tuple ``(weight, bias, weight, bias, ...)`` of float32 tensors
+    with OIHW weights, spatial axes untouched: the arguments of
+    ``ops.conv23.conv23_operands`` for (conv2, conv3) and the K1 kernel's
+    conv1 weight and bias for conv1."""
+    out = []
+    for kernel, bias in stages:
+        out.append(torch.from_numpy(np.transpose(
+            np.array(kernel, dtype=np.float32), (3, 2, 0, 1)).copy()))
+        out.append(torch.from_numpy(np.array(bias, dtype=np.float32)))
+    return tuple(out)

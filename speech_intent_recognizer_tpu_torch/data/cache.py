@@ -6,8 +6,9 @@ a single ``.npz`` of contiguous arrays — ``features (N, n_mels, T)`` f32 +
 ``labels (N,)`` i32 — plus a ``.meta.json`` sidecar with paths and config.
 
 Feature extraction is the batched device front-end
-(:func:`..ops.frontend.log_mel_frontend`: the K3 kernel on a CUDA device,
-its plain version on the CPU).  The host only decodes audio, on a worker
+(:func:`..ops.frontend.log_mel_frontend`: on a CUDA device the K3 kernel at
+the reference geometry and the K4 kernel at any other, the plain version on
+the CPU).  The host only decodes audio, on a worker
 thread, into fixed-width buffers.  A reader for the reference's ``.pt``
 caches migrates them without recompute.
 """
@@ -121,7 +122,8 @@ def precompute_features(
     Host decode runs on a worker thread (:class:`..data.prefetch.
     BackgroundLoader`); batch k + 1 is dispatched to the device before
     batch k's features are fetched.  Each batch is one front-end call, so
-    on a CUDA device K3 launches ceil(N / batch_size) times.
+    on a CUDA device K3 (off the reference geometry K4) launches
+    ceil(N / batch_size) times.
 
     Args:
       wire_dtype: "int16_packed" (default) stages only the real samples,
@@ -140,8 +142,8 @@ def precompute_features(
         occupies RAM; the returned features array is the flushed memmap.
       timings: optional dict, filled with per-stage seconds (decode /
         dispatch / fetch).
-      device: where the front-end runs ("cuda": the K3 kernel; "cpu": its
-        plain version).
+      device: where the front-end runs ("cuda": the K3 or K4 kernel;
+        "cpu": the plain version).
     """
     from speech_intent_recognizer_tpu_torch.data.prefetch import (
         BackgroundLoader)

@@ -4,9 +4,15 @@ Counterpart of ``speech_intent_recognizer_tpu/infer/predict.py``
 (``Predictor``).  ``from_checkpoint`` folds BatchNorm and, for the reference
 geometry, serves the ``conv1_external`` bf16 variant behind the fused
 front-end + conv1 kernel: on a CUDA device ``predict_waveform_batch`` always
-launches K1 once and K2 once per GRU layer.  The unfused model
+launches K1 once and K2 once per GRU layer.  Two opt-in configurations of
+that path put the rest of the conv stack into kernels too:
+``pool_impl="kernel"`` (conv2 / conv3 as ``F.conv2d`` without bias plus the
+conv epilogue kernel K6, twice per batch) and
+:meth:`Predictor.enable_conv23_kernel` (conv2 + conv3 in the K5 kernel,
+once per batch, and a GRU + attention + ``fc`` head).  The unfused model
 (``fold_bn=False``) takes its features from ``log_mel_frontend``, the fused
-front-end kernel K3 on a CUDA device.  There is no probe and no switch to
+front-end kernel K3 on a CUDA device at the reference geometry and the
+dB-mel kernel K4 at any other.  There is no probe and no switch to
 another path at run time; CPU devices run the kernels' plain versions.
 """
 
@@ -50,13 +56,21 @@ class Predictor:
         # (variant model, conv1 weight, conv1 bias) when the fused
         # front-end + conv1 path serves batch waveform inference
         self._conv1 = None
+        # (head model, conv1 weight, conv1 bias, conv23 operands) once
+        # enable_conv23_kernel() has put conv2 / conv3 into the K5 kernel
+        self._conv23 = None
+        self._folded_for_conv23 = None
 
     @classmethod
     def from_checkpoint(cls, model_path: str, label_map_path: str,
                         audio_cfg: Optional[AudioConfig] = None,
                         num_classes: Optional[int] = None,
                         fold_bn: bool = True,
-                        device: "str | torch.device" = "cuda") -> "Predictor":
+                        device: "str | torch.device" = "cuda",
+                        pool_impl: str = "torch") -> "Predictor":
+        """``pool_impl``: the conv epilogue of the fused path's conv2 /
+        conv3, ``"torch"`` (bias-add, ReLU, max-pool) or ``"kernel"`` (K6);
+        it is read only where that path serves."""
         from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
             load_model_checkpoint)
         from speech_intent_recognizer_tpu_torch.data.labelmap import (
@@ -73,14 +87,20 @@ class Predictor:
             model = CNNAudioGRU(num_classes=num_classes, fold_bn=True)
             model.load_state_dict(folded)
             pred = cls(model, label_map, audio_cfg, device)
-            pred._maybe_enable_conv1_fusion(folded)
+            pred._maybe_enable_conv1_fusion(folded, pool_impl)
             return pred
         model = CNNAudioGRU(num_classes=num_classes)
         model.load_state_dict(state)
         return cls(model, label_map, audio_cfg, device)
 
-    def _maybe_enable_conv1_fusion(self, folded: Dict[str, torch.Tensor]
-                                   ) -> None:
+    def _widths(self) -> dict:
+        """The served model's widths, for its inference variants."""
+        m = self.model
+        return dict(num_classes=m.num_classes, conv_channels=m.conv_channels,
+                    gru_hidden=m.gru.hidden_size, gru_layers=m.gru.num_layers)
+
+    def _maybe_enable_conv1_fusion(self, folded: Dict[str, torch.Tensor],
+                                   pool_impl: str = "torch") -> None:
         """Serve the fused front-end + conv1 path when the audio geometry
         and conv1 match the K1 kernel's contract (n_fft=1024, hop=512,
         64 mels, 200 frames, 32 conv1 channels)."""
@@ -96,18 +116,52 @@ class Predictor:
                 and "conv1.bias" in folded):
             return
         var_state, c1w, c1b = conv1_external_params(folded)
-        variant = CNNAudioGRU(num_classes=self.model.num_classes,
-                              compute_dtype=torch.bfloat16, fold_bn=True,
-                              conv1_external=True)
+        variant = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
+                              conv1_external=True, pool_impl=pool_impl,
+                              **self._widths())
         variant.load_state_dict(var_state)
         self._conv1 = (variant.to(self.device).eval(),
                        c1w.to(self.device, torch.bfloat16).contiguous(),
                        c1b.to(self.device, torch.bfloat16).contiguous())
+        # conv2 / conv3 may move into the K5 kernel too (opt-in, see
+        # enable_conv23_kernel) when their channels are the kernel's
+        if (tuple(folded["conv2.weight"].shape) == (64, 32, 3, 3)
+                and tuple(folded["conv3.weight"].shape) == (128, 64, 3, 3)
+                and cfg.mel_spec_length % 4 == 0):
+            self._folded_for_conv23 = folded
+
+    def enable_conv23_kernel(self) -> None:
+        """Switch the batch waveform path to the conv-stack-in-kernels
+        configuration: front-end + conv1 kernel (K1) -> conv2 + conv3
+        kernel (K5) -> GRU head."""
+        if self._folded_for_conv23 is None or self._conv1 is None:
+            raise ValueError("conv23 kernel requires the reference "
+                             "geometry and channels (32, 64, 128)")
+        from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
+            conv_external_params)
+        from speech_intent_recognizer_tpu_torch.ops.conv23 import (
+            conv23_operands)
+
+        head_state, _, (w2, b2), (w3, b3) = conv_external_params(
+            self._folded_for_conv23)
+        head = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
+                           conv_external=True, **self._widths())
+        head.load_state_dict(head_state)
+        _, c1w, c1b = self._conv1
+        self._conv23 = (head.to(self.device).eval(), c1w, c1b,
+                        conv23_operands(w2.to(self.device), b2.to(self.device),
+                                        w3.to(self.device), b3.to(self.device)))
 
     def _probabilities(self, wf: torch.Tensor, ln: torch.Tensor
                        ) -> torch.Tensor:
         fe = self.frontend_params
-        if self._conv1 is not None:
+        if self._conv23 is not None:
+            from speech_intent_recognizer_tpu_torch.ops.conv23 import conv23
+
+            head, c1w, c1b, operands = self._conv23
+            pooled = log_mel_conv1_frontend(wf, ln, fe, c1w, c1b)
+            logits = head(conv23(pooled, *operands))
+        elif self._conv1 is not None:
             variant, c1w, c1b = self._conv1
             logits = variant(log_mel_conv1_frontend(wf, ln, fe, c1w, c1b))
         else:

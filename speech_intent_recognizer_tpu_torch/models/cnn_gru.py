@@ -8,14 +8,21 @@ names follow the reference ``state_dict`` (``conv{i}.weight``, ``bn{i}.*``,
 ``gru.weight_ih_l{k}[_reverse]``, ``attention.*``, ``fc.*``), so a reference
 ``best_model.pt`` loads with ``load_state_dict``.
 
-Three forms, as in the reference package:
+Four forms, as in the reference package:
 
 * the train form with BatchNorm (``fold_bn=False``);
 * ``fold_bn=True``: BatchNorm folded into the convs (:func:`fold_batchnorm`);
 * ``conv1_external=True`` (requires ``fold_bn``): conv1 runs inside the
   front-end kernel; the input is its pooled (B, T', M'*C1) output and
   conv2/conv3 run on (T, M) with spatially transposed kernels
-  (:func:`conv1_external_params`).
+  (:func:`conv1_external_params`).  ``pool_impl="kernel"`` there runs each
+  stage as ``F.conv2d`` without bias plus the conv epilogue kernel K6
+  (``ops/pool_epilogue.py``; inference only) instead of torch's bias-add,
+  ReLU and max-pool; the parameters are the same;
+* ``conv_external=True`` (requires ``fold_bn``): the whole conv stack runs
+  in kernels (K1, then K5 of ``ops/conv23.py``); the input is K5's
+  (B, T'', M''*C3) sheet and the model is GRU + attention + ``fc`` only
+  (:func:`conv_external_params`).
 
 ``compute_dtype`` keeps the reference's cast points: convs, the GRU input
 projections and attention scores run in it (bf16 on the fast path);
@@ -33,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from speech_intent_recognizer_tpu_torch.ops.gru import gru_bidirectional
+from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
+    bias_relu_pool2)
 
 _DIRS = ("", "_reverse")
 
@@ -145,25 +154,37 @@ class TorchGRU(nn.Module):
 
 class CNNAudioGRU(nn.Module):
     """Intent classifier: ``(B, n_mels, T)`` or ``(B, 1, n_mels, T)`` log-mel
-    in (or, with ``conv1_external``, K1's pooled output) -> ``(B, C)``
-    logits."""
+    in (or, with ``conv1_external``, K1's pooled output; with
+    ``conv_external``, K5's output) -> ``(B, C)`` logits."""
 
     def __init__(self, num_classes: int,
                  conv_channels: Sequence[int] = (32, 64, 128),
                  gru_hidden: int = 256, gru_layers: int = 2,
                  dropout: float = 0.5, n_mels: int = 64,
                  compute_dtype: torch.dtype = torch.float32,
-                 fold_bn: bool = False, conv1_external: bool = False):
+                 fold_bn: bool = False, conv1_external: bool = False,
+                 conv_external: bool = False, pool_impl: str = "torch"):
         super().__init__()
         if conv1_external and not fold_bn:
             raise ValueError("conv1_external requires fold_bn=True")
+        if conv_external and not fold_bn:
+            raise ValueError("conv_external requires fold_bn=True")
+        if pool_impl not in ("torch", "kernel"):
+            raise ValueError(f"pool_impl must be 'torch' or 'kernel', got "
+                             f"{pool_impl!r}")
+        if pool_impl == "kernel" and not conv1_external:
+            raise ValueError("pool_impl='kernel' serves the conv1_external "
+                             "form")
         self.num_classes = num_classes
         self.conv_channels = tuple(conv_channels)
         self.compute_dtype = compute_dtype
         self.fold_bn = fold_bn
         self.conv1_external = conv1_external
+        self.conv_external = conv_external
+        self.pool_impl = pool_impl
         chans = (1,) + self.conv_channels
-        self._stages = range(2 if conv1_external else 1, len(chans))
+        first = len(chans) if conv_external else 2 if conv1_external else 1
+        self._stages = range(first, len(chans))
         for i in self._stages:
             self.add_module(f"conv{i}", nn.utils.skip_init(
                 nn.Conv2d, chans[i - 1], chans[i], 3, padding=1,
@@ -193,6 +214,9 @@ class CNNAudioGRU(nn.Module):
     def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
         conv = getattr(self, f"conv{i}")
         dt = self.compute_dtype
+        if self.pool_impl == "kernel":  # raw conv, then K6 in one pass
+            return bias_relu_pool2(
+                F.conv2d(x, conv.weight.to(dt), None, padding=1), conv.bias)
         bias = None if conv.bias is None else conv.bias.to(dt)
         x = F.conv2d(x, conv.weight.to(dt), bias, padding=1)
         if not self.fold_bn:  # BatchNorm in fp32 under bf16 compute
@@ -201,6 +225,8 @@ class CNNAudioGRU(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.conv_external:
+            return self._forward_conv_external(x, generator)
         if self.conv1_external:
             return self._forward_conv1_external(x, generator)
         if x.dim() == 3:
@@ -229,6 +255,19 @@ class CNNAudioGRU(nn.Module):
             x = self._conv(i, x)
         b, c, t, m = x.shape
         x = x.permute(0, 2, 1, 3).reshape(b, t, c * m)
+        return self._head(x, generator)
+
+    def _forward_conv_external(self, x: torch.Tensor,
+                               generator: Optional[torch.Generator]):
+        """GRU + attention + head for K5's output (B, T'', M''*C3), lane =
+        m * C3 + c, or already (B, T'', M'', C3): the channel-major flatten
+        of the other forms, then the head."""
+        c3 = self.conv_channels[-1]
+        if x.dim() == 3:
+            b, t, mc = x.shape
+            x = x.view(b, t, mc // c3, c3)
+        b, t, m, c = x.shape
+        x = x.to(self.compute_dtype).transpose(2, 3).reshape(b, t, c * m)
         return self._head(x, generator)
 
     def _head(self, x: torch.Tensor,
@@ -284,3 +323,18 @@ def conv1_external_params(folded: Dict[str, torch.Tensor]):
             v = v.transpose(2, 3).contiguous()
         out[key] = v
     return out, folded["conv1.weight"], folded["conv1.bias"]
+
+
+def conv_external_params(folded: Dict[str, torch.Tensor]):
+    """Split a BN-folded state dict for the conv-stack-in-kernels variant.
+
+    Returns ``(head_state, (w1, b1), (w2, b2), (w3, b3))``: the
+    ``CNNAudioGRU(conv_external=True)`` state dict (GRU, attention and
+    ``fc`` only) and the three folded conv stages in their original
+    orientation — conv1 for the K1 kernel, conv2 / conv3 for
+    ``ops.conv23.conv23_operands``.
+    """
+    head = {k: v for k, v in folded.items() if not k.startswith("conv")}
+    return (head,) + tuple(
+        (folded[f"conv{i}.weight"], folded[f"conv{i}.bias"])
+        for i in (1, 2, 3))

@@ -16,10 +16,12 @@ the true lengths; every semantic of the reference is kept:
   the time axis zero-padded or trimmed to ``mel_spec_length``.
 
 :func:`log_mel_frontend_plain` is plain PyTorch (the reference's XLA
-path).  :func:`log_mel_frontend` runs the fused front-end kernel (K3) and
-:func:`log_mel_conv1_frontend` the fused front-end + conv1 kernel (K1), both
-in ``ops/frontend_kernels.py``, for CUDA tensors, and the plain versions
-for CPU tensors.
+path).  For CUDA tensors :func:`log_mel_frontend` runs the fused front-end
+kernel (K3) at the reference geometry (n_fft 1024, hop 512, 64 mels, 200
+frames) and, off it, frames the signal, runs the dB-mel kernel (K4) on the
+frames and finishes in PyTorch; :func:`log_mel_conv1_frontend` runs the
+fused front-end + conv1 kernel (K1).  The kernels' wrappers are in
+``ops/frontend_kernels.py``; CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
@@ -126,6 +128,30 @@ def _frames(waveforms: torch.Tensor, lengths: torch.Tensor, n_fft: int,
     return torch.where(inside, x, 0.0)
 
 
+def _finish(db: torch.Tensor, lengths: torch.Tensor, params: FrontendParams,
+            normalize: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """Shared tail of the unfused paths: (B, T, n_mels) float32 dB and
+    (B,) int64 lengths -> masked per-utterance normalization, frames past
+    the valid count zeroed, (B, n_mels, target_length) ``out_dtype``."""
+    hop, n_mels, target = params.hop_length, params.n_mels, params.target_length
+    t = db.shape[1]
+    t_valid = 1 + lengths // hop
+    mask = (torch.arange(t, device=db.device)[None, :]
+            < t_valid[:, None]).to(db.dtype)[:, :, None]
+    if normalize:
+        cnt = (t_valid.to(db.dtype) * n_mels)[:, None, None]
+        mean = (db * mask).sum(dim=(1, 2), keepdim=True) / cnt
+        var = ((db - mean).square() * mask).sum(
+            dim=(1, 2), keepdim=True) / (cnt - 1.0).clamp(min=1.0)
+        db = (db - mean) / (var.sqrt() + params.norm_eps)
+    db = (db * mask).transpose(1, 2)  # (B, n_mels, T)
+    if t >= target:
+        db = db[:, :, :target].contiguous()
+    else:
+        db = torch.nn.functional.pad(db, (0, target - t))
+    return db.to(out_dtype)
+
+
 def log_mel_frontend_plain(waveforms: torch.Tensor, lengths: torch.Tensor,
                            params: FrontendParams, normalize: bool = True,
                            out_dtype: torch.dtype = torch.float32
@@ -145,42 +171,41 @@ def log_mel_frontend_plain(waveforms: torch.Tensor, lengths: torch.Tensor,
     CUDA the projection uses TF32 only if
     ``torch.backends.cuda.matmul.allow_tf32`` is set.
     """
-    hop, n_mels, target = params.hop_length, params.n_mels, params.target_length
     lengths = lengths.to(torch.int64).clamp(0, waveforms.shape[1])  # as K1
-    frames = _frames(waveforms.float(), lengths, params.n_fft, hop)
+    frames = _frames(waveforms.float(), lengths, params.n_fft,
+                     params.hop_length)
     spec = torch.fft.rfft(frames * params.window, dim=-1)
     power = spec.real.square() + spec.imag.square()
     mel = torch.matmul(power, params.mel_fb)  # (B, T, n_mels)
     db = 10.0 * torch.log10(mel.clamp(min=1e-10))
-
-    t = db.shape[1]
-    t_valid = 1 + lengths // hop
-    mask = (torch.arange(t, device=db.device)[None, :]
-            < t_valid[:, None]).to(db.dtype)[:, :, None]
-    if normalize:
-        cnt = (t_valid.to(db.dtype) * n_mels)[:, None, None]
-        mean = (db * mask).sum(dim=(1, 2), keepdim=True) / cnt
-        var = ((db - mean).square() * mask).sum(
-            dim=(1, 2), keepdim=True) / (cnt - 1.0).clamp(min=1.0)
-        db = (db - mean) / (var.sqrt() + params.norm_eps)
-    db = (db * mask).transpose(1, 2)  # (B, n_mels, T)
-    if t >= target:
-        db = db[:, :, :target].contiguous()
-    else:
-        db = torch.nn.functional.pad(db, (0, target - t))
-    return db.to(out_dtype)
+    return _finish(db, lengths, params, normalize, out_dtype)
 
 
 def log_mel_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
                      params: FrontendParams, normalize: bool = True,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """:func:`log_mel_frontend_plain`'s contract; CUDA tensors run the K3
-    kernel (reference geometry only, else it raises), CPU tensors the plain
-    version."""
-    from speech_intent_recognizer_tpu_torch.ops.frontend_kernels import (
-        frontend)
+    """:func:`log_mel_frontend_plain`'s contract.  CPU tensors take the
+    plain version.  CUDA tensors run the K3 kernel at the reference
+    geometry; at any other they are framed here, go through the K4 kernel
+    as (B * T, n_fft) frames (one launch per batch) and are finished by
+    :func:`_finish`."""
+    from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 
-    return frontend(waveforms, lengths, params, normalize, out_dtype)
+    if waveforms.device.type == "cpu" or fk.is_reference_geometry(params):
+        return fk.frontend(waveforms, lengths, params, normalize, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+    if waveforms.dim() != 2 or lengths.shape != waveforms.shape[:1]:
+        raise ValueError(f"expected (B, L) waveforms and (B,) lengths, got "
+                         f"{tuple(waveforms.shape)} / {tuple(lengths.shape)}")
+    lengths = lengths.to(torch.int64).clamp(0, waveforms.shape[1])
+    frames = _frames(waveforms.float(), lengths, params.n_fft,
+                     params.hop_length)
+    b, t, n_fft = frames.shape
+    db = fk.mel_db(frames.reshape(b * t, n_fft), params)
+    return _finish(db.view(b, t, params.n_mels), lengths, params, normalize,
+                   out_dtype)
 
 
 def log_mel_conv1_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,

@@ -12,14 +12,21 @@
   ``csrc/frontend.cu``: the same core (``csrc/frontend_core.cuh``) without
   conv1, storing (B, 64, 200) mel-major features, normalized or raw dB, in
   f32 or bf16.
+* K4, :func:`mel_db`, replaces ``_mel_db_kernel`` (wrapper
+  ``mel_db_pallas``), the kernel of the front-end off that geometry.  CUDA
+  source ``csrc/mel_db.cu``: (N, n_fft) frames -> (N, n_mels) dB-mel rows
+  through a windowed radix-2 FFT in shared memory, for any power-of-two
+  n_fft from 32 to 4096 and any n_mels.
 
 Each source's header says what bounds it on the H100 and how the design
-answers that.  Both kernels serve exactly the reference geometry:
-torchaudio mode, n_fft 1024, hop 512, 64 mels, 200 output frames (and 32
-conv1 channels for K1).
+answers that.  K1 and K3 serve exactly the reference geometry: torchaudio
+mode, n_fft 1024, hop 512, 64 mels, 200 output frames (and 32 conv1
+channels for K1).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +39,17 @@ from speech_intent_recognizer_tpu_torch.ops.frontend import (
 N_FFT, HOP, N_MELS, T_OUT, C1 = 1024, 512, 64, 200, 32
 
 
+def is_reference_geometry(params: FrontendParams) -> bool:
+    """Whether K1 and K3 serve this front-end."""
+    return (params.n_fft, params.hop_length, params.n_mels,
+            params.target_length) == (N_FFT, HOP, N_MELS, T_OUT)
+
+
 def _check_geometry(waveforms, lengths, params: FrontendParams, what: str):
     if waveforms.dim() != 2 or lengths.shape != waveforms.shape[:1]:
         raise ValueError(f"expected (B, L) waveforms and (B,) lengths, got "
                          f"{tuple(waveforms.shape)} / {tuple(lengths.shape)}")
-    if (params.n_fft, params.hop_length, params.n_mels,
-            params.target_length) != (N_FFT, HOP, N_MELS, T_OUT):
+    if not is_reference_geometry(params):
         raise ValueError(f"{what} supports n_fft=1024, hop=512, n_mels=64, "
                          "mel_spec_length=200 only")
     if 1 + waveforms.shape[1] // HOP > T_OUT:
@@ -163,3 +175,83 @@ def frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
 
 
 frontend.launches = 0
+
+
+def dft_matrices(params: FrontendParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dft_cos, dft_sin)``, each (n_fft, n_fft // 2 + 1) float32 with the
+    window folded in (computed in float64): the dense operands of the JAX
+    package's front-end, which only the plain K4 uses here."""
+    n_fft = params.n_fft
+    dev = params.window.device
+    n = torch.arange(n_fft, dtype=torch.float64, device=dev)[:, None]
+    f = torch.arange(n_fft // 2 + 1, dtype=torch.float64, device=dev)[None, :]
+    angle = 2.0 * torch.pi * n * f / n_fft
+    win = params.window.double()[:, None]
+    return ((torch.cos(angle) * win).float(),
+            (-torch.sin(angle) * win).float())
+
+
+def _mel_db_plain(frames: torch.Tensor, params: FrontendParams,
+                  dft: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """Plain PyTorch K4, the JAX kernel's arithmetic: ``frames @ dft_cos``,
+    ``frames @ dft_sin``, power, ``@ mel_fb``, dB, all float32 with TF32
+    off.  ``dft`` takes :func:`dft_matrices`' result where a caller has it
+    already."""
+    wcos, wsin = dft if dft is not None else dft_matrices(params)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        c = frames @ wcos
+        s = frames @ wsin
+        mel = (c * c + s * s) @ params.mel_fb
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return 10.0 * torch.log10(mel.clamp(min=1e-10))
+
+
+def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
+    """(N, n_fft) float32 raw frames -> (N, n_mels) float32 dB-mel:
+    window, DFT, power, mel projection, ``10 * log10(max(., 1e-10))``.
+
+    CPU tensors take the plain version (any n_fft); CUDA tensors launch the
+    kernel or raise.  The kernel transforms each frame with a radix-2 FFT,
+    so it serves the n_fft that are powers of two from 32 to 4096, with any
+    window length up to n_fft, any n_mels and any N >= 0.
+    """
+    if frames.dim() != 2 or frames.shape[1] != params.n_fft:
+        raise ValueError(f"expected (N, {params.n_fft}) frames, got "
+                         f"{tuple(frames.shape)}")
+    if frames.dtype != torch.float32:
+        raise ValueError(f"mel_db takes float32 frames, got {frames.dtype}")
+    if frames.device.type == "cpu":
+        return _mel_db_plain(frames, params)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    n_fft = params.n_fft
+    if n_fft & (n_fft - 1) or not 32 <= n_fft <= 4096:
+        raise ValueError(f"the K4 kernel transforms frames with a radix-2 "
+                         f"FFT: n_fft must be a power of two from 32 to "
+                         f"4096, got {n_fft}")
+    if not frames.is_contiguous():
+        raise ValueError("frames must be contiguous")
+    dev = frames.device
+    window, twiddle, fb_packed, fb_off, fb_lo = _filterbank_operands(
+        params, dev)
+    n = frames.shape[0]
+    out = torch.empty((n, params.n_mels), dtype=torch.float32, device=dev)
+    # a block walks over the frame tiles; four blocks fit on an SM at 1024
+    max_blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.sir_mel_db(frames.data_ptr(), n, n_fft, params.n_mels,
+                            window.data_ptr(), twiddle.data_ptr(),
+                            fb_packed.data_ptr(), fb_off.data_ptr(),
+                            fb_lo.data_ptr(), out.data_ptr(), max_blocks,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "mel_db")
+    mel_db.launches += 1
+    return out
+
+
+mel_db.launches = 0

@@ -14,11 +14,17 @@ import pytest
 import torch
 
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
+from speech_intent_recognizer_tpu_torch.ops.conv23 import (
+    _conv23_plain, conv23, conv23_operands)
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
-    log_mel_frontend_plain, make_frontend_params, padded_samples)
+    log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
+    padded_samples)
 from speech_intent_recognizer_tpu_torch.ops.gru import (
     TILE_ROWS, _gru_layer_backward_plain, _gru_layer_plain, gru_bidirectional,
     gru_layer, gru_layer_backward)
+
+from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
+    _bias_relu_pool2_plain, bias_relu_pool2)
 
 pytestmark = pytest.mark.cuda
 
@@ -209,3 +215,204 @@ def test_predictor_launches_k1_once_k2_twice(dev, tmp_path):
     want = cpu.predict_waveform_batch(wf, ln)
     assert (probs.argmax(-1) == want.argmax(-1)).all()
     np.testing.assert_allclose(probs, want, atol=2e-2)
+
+
+def _predictors(dev, tmp_path, **kw):
+    from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+
+    model = CNNAudioGRU(num_classes=31)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "m.pt")
+    (tmp_path / "lm.json").write_text(json.dumps({str(i): i
+                                                  for i in range(31)}))
+    args = (str(tmp_path / "m.pt"), str(tmp_path / "lm.json"))
+    return (Predictor.from_checkpoint(*args, device=dev, **kw),
+            Predictor.from_checkpoint(*args, device=dev))
+
+
+def _counts():
+    return {"K1": fk.frontend_conv1.launches, "K2": gru_layer.launches,
+            "K3": fk.frontend.launches, "K4": fk.mel_db.launches,
+            "K5": conv23.launches, "K6": bias_relu_pool2.launches}
+
+
+def _reset():
+    for fn in (fk.frontend_conv1, gru_layer, fk.frontend, fk.mel_db, conv23,
+               bias_relu_pool2):
+        fn.launches = 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 100, 32, 64), (2, 50, 16, 128),
+                                   (9, 8, 4, 64), (1, 2, 4, 32),
+                                   (5, 6, 64, 2), (256, 100, 32, 64)])
+def test_pool_epilogue_matches_plain(dev, shape, dtype):
+    """K6 vs its plain version on (B, T, W, C) shapes (one with C = 2, the
+    kernel's scalar instantiation): f32 equal, bf16 within one rounding of
+    the output (max|want| * 2**-8; in fact both round the same fp32 sum)."""
+    g = torch.Generator().manual_seed(sum(shape))
+    y = torch.randn(shape, generator=g).to(dev, dtype).permute(0, 3, 1, 2)
+    bias = torch.randn(shape[-1], generator=g).to(dev)
+    bias_relu_pool2.launches = 0
+    got = bias_relu_pool2(y, bias)
+    want = _bias_relu_pool2_plain(y, bias)
+    torch.cuda.synchronize()
+    assert bias_relu_pool2.launches == 1 and got.dtype == dtype
+    assert got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= \
+            float(want.float().abs().max()) * 2.0 ** -8
+
+
+def test_pool_epilogue_refuses_other_strides(dev):
+    y = torch.zeros((2, 64, 8, 16), device=dev)  # NCHW memory
+    with pytest.raises(ValueError, match="channels-last"):
+        bias_relu_pool2(y, torch.zeros(64, device=dev))
+    with pytest.raises(ValueError, match="channels-last"):
+        bias_relu_pool2(y.contiguous(memory_format=torch.channels_last)
+                        [:, :, :, ::2][:, :, :, :4], torch.zeros(64,
+                                                                 device=dev))
+
+
+def test_pool_epilogue_negative_zero_and_nan(dev):
+    """ReLU gives +0.0 for -0.0 and negatives; NaN passes through."""
+    y = torch.full((1, 32, 2, 4), -1.0, device=dev)
+    y[0, :, 0, 0] = -0.0
+    y[0, 0, 1, 3] = float("nan")
+    out = bias_relu_pool2(y.contiguous(memory_format=torch.channels_last),
+                          torch.zeros(32, device=dev))
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0, 0, 0, 1])
+    rest = out.flatten()[~torch.isnan(out.flatten())]
+    assert bool((rest == 0).all()) and not bool(torch.signbit(rest).any())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(n_fft=512, hop_length=256, n_mels=40),
+    dict(n_fft=2048, win_length=1200, n_mels=80), dict(n_fft=64, n_mels=8),
+], ids=["1024x64", "512x40", "2048x80_win1200", "64x8"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 300])
+def test_mel_db_matches_plain(dev, kw, n):
+    """K4 vs its plain version (dense fp32 products, TF32 off): rtol / atol
+    1e-4 (tests/test_pallas_frontend.py:35)."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+
+    fe = make_frontend_params(AudioConfig(**kw), dev)
+    g = torch.Generator().manual_seed(n)
+    frames = (0.1 * torch.randn((n, fe.n_fft), generator=g)).to(dev)
+    fk.mel_db.launches = 0
+    got = fk.mel_db(frames, fe)
+    want = fk._mel_db_plain(frames, fe)
+    torch.cuda.synchronize()
+    assert fk.mel_db.launches == 1 and got.shape == (n, fe.n_mels)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_mel_db_refuses_other_fft_sizes(dev):
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+
+    fe = make_frontend_params(AudioConfig(n_fft=400, hop_length=160), dev)
+    with pytest.raises(ValueError, match="power of two"):
+        fk.mel_db(torch.zeros((4, 400), device=dev), fe)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_frontend_off_reference_geometry_runs_k4(dev, normalize):
+    """hop 256 / 400 frames: one K4 launch per batch, K3 none; against the
+    plain front-end within 2e-3 (raw dB 5e-3), lengths 0..80000."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+
+    cfg = AudioConfig(hop_length=256, mel_spec_length=400)
+    fe = make_frontend_params(cfg, dev)
+    wf, ln = _waves([8000, 39999, 80000, 1025, 512, 2, 1, 0],
+                    width=padded_samples(cfg.max_samples, cfg.hop_length))
+    wf, ln = wf.to(dev), ln.to(dev)
+    _reset()
+    got = log_mel_frontend(wf, ln, fe, normalize)
+    want = log_mel_frontend_plain(wf, ln, fe, normalize)
+    torch.cuda.synchronize()
+    assert _counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 1, "K5": 0, "K6": 0}
+    assert got.shape == (8, 64, 400)
+    torch.testing.assert_close(got, want, rtol=2e-3,
+                               atol=2e-3 if normalize else 5e-3)
+    _reset()
+    log_mel_frontend(wf[:, :padded_samples(80000)].contiguous(), ln,
+                     make_frontend_params(device=dev))
+    assert _counts()["K3"] == 1 and _counts()["K4"] == 0
+
+
+@pytest.mark.parametrize("batch,t1", [(1, 100), (5, 100), (256, 100),
+                                      (3, 12), (2, 4)])
+def test_conv23_matches_plain(dev, batch, t1):
+    """K5 vs its plain version: max|err| < 0.02 * max|want|
+    (tests/test_conv23_pallas.py:73-74), on full and partial time chunks."""
+    g = torch.Generator().manual_seed(batch + t1)
+    x = (2 * torch.rand((batch, t1, 1024), generator=g)).to(dev,
+                                                            torch.bfloat16)
+    ops = [o.to(dev) for o in conv23_operands(
+        (torch.rand((64, 32, 3, 3), generator=g) * 2 - 1) / 288 ** 0.5,
+        0.1 * torch.randn(64, generator=g),
+        (torch.rand((128, 64, 3, 3), generator=g) * 2 - 1) / 576 ** 0.5,
+        0.1 * torch.randn(128, generator=g))]
+    conv23.launches = 0
+    got = conv23(x, *ops)
+    want = _conv23_plain(x, *ops)
+    torch.cuda.synchronize()
+    assert conv23.launches == 1 and got.shape == (batch, t1 // 4, 1024)
+    scale = float(want.float().abs().max())
+    assert scale > 0.1 and float((want > 0).float().mean()) > 0.2
+    assert float((got.float() - want.float()).abs().max()) < 0.02 * scale
+
+
+def test_conv23_predictor_launches(dev, tmp_path):
+    """enable_conv23_kernel: K1 once, K5 once, K2 twice, K6 never; within
+    1e-2 of the default path on log-probabilities."""
+    pred, default = _predictors(dev, tmp_path)
+    pred.enable_conv23_kernel()
+    wf, ln = _waves([24000, 80000, 3000, 41000], seed=3)
+    _reset()
+    probs = pred.predict_waveform_batch(wf, ln)
+    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 1, "K6": 0}
+    want = default.predict_waveform_batch(wf, ln)
+    assert float(np.abs(np.log(probs) - np.log(want)).max()) <= 1e-2
+
+
+def test_pool_impl_kernel_predictor_launches(dev, tmp_path):
+    """pool_impl="kernel": K1 once, K6 twice, K2 twice, K5 never."""
+    pred, default = _predictors(dev, tmp_path, pool_impl="kernel")
+    wf, ln = _waves([24000, 80000, 3000, 41000], seed=3)
+    _reset()
+    probs = pred.predict_waveform_batch(wf, ln)
+    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 0, "K6": 2}
+    want = default.predict_waveform_batch(wf, ln)
+    assert float(np.abs(np.log(probs) - np.log(want)).max()) <= 1e-2
+
+
+def test_precompute_off_reference_geometry_runs_k4(dev, tmp_path):
+    """The precompute at hop 256 / 40 mels on the card: K4 once per batch,
+    features within 2e-3 + the int16 fetch's 1.5e-4 of the CPU's."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+    from speech_intent_recognizer_tpu_torch.data.audio_io import save_wav
+    from speech_intent_recognizer_tpu_torch.data.cache import (
+        precompute_features)
+    from speech_intent_recognizer_tpu_torch.data.manifest import Manifest
+
+    cfg = AudioConfig(hop_length=256, n_mels=40, mel_spec_length=400)
+    wf, ln = _waves([16000, 30000, 52117, 80000, 9000], seed=5)
+    paths = []
+    for i, n in enumerate(ln.tolist()):
+        paths.append(str(tmp_path / f"{i}.wav"))
+        save_wav(paths[-1], wf[i, :n].numpy(), 16000)
+    manifest = Manifest(paths, ["a"] * len(paths))
+    _reset()
+    got = precompute_features(manifest, {"a": 0}, cfg, batch_size=2,
+                              progress=False, device=dev)[0]
+    assert _counts()["K4"] == 3 and _counts()["K3"] == 0
+    want = precompute_features(manifest, {"a": 0}, cfg, batch_size=2,
+                               progress=False, device="cpu")[0]
+    assert got.shape == want.shape == (5, 40, 400)
+    np.testing.assert_allclose(got, want, atol=2e-3 + 3e-4)

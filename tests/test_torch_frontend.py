@@ -4,7 +4,10 @@
   fp64 golden, and JAX ``log_mel_frontend(backend="xla")``;
 * the plain K1 (front-end + conv1 + ReLU + pool) against JAX
   ``log_mel_conv1_frontend``, whose Pallas kernel runs in interpret mode on
-  the CPU as the JAX package's own tests run it.
+  the CPU as the JAX package's own tests run it;
+* off the reference geometry, ``log_mel_frontend`` against JAX
+  ``backend="xla"`` and against the port's own plain version, raw dB and
+  bf16 out included (the shared ``_finish`` tail).
 """
 
 import os
@@ -105,3 +108,42 @@ def test_plain_k1_matches_jax_conv1_frontend(rng):
     got = got.float().numpy()
     scale = float(np.abs(want).max())
     np.testing.assert_allclose(got, want, atol=0.05 * scale, rtol=0.05)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(hop_length=256, mel_spec_length=400),
+    dict(n_fft=512, hop_length=160, win_length=400, n_mels=40,
+         mel_spec_length=300),
+], ids=["hop256", "fft512_win400"])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_other_geometries_match_jax_xla(kw, normalize):
+    """The geometries the card serves through K4: on the CPU the same
+    dispatcher takes the plain version.  Bars of
+    tests/test_pallas_frontend.py:62 and :79 (2e-3; raw dB atol 5e-3)."""
+    from speech_intent_recognizer_tpu_torch.config import (
+        AudioConfig as PortAudioConfig)
+    from speech_intent_recognizer_tpu_torch.ops.frontend import (
+        log_mel_frontend_plain)
+    from speech_intent_recognizer_tpu_torch.ops.frontend_kernels import (
+        is_reference_geometry)
+
+    cfg = PortAudioConfig(**kw)
+    params = make_frontend_params(cfg)
+    assert not is_reference_geometry(params)
+    assert is_reference_geometry(make_frontend_params())
+    lengths = [2, 513, 16000, 52117, 80000]
+    buf, ln = _batch(np.random.default_rng(31), lengths,
+                     padded_samples(cfg.max_samples, cfg.hop_length))
+    want = np.asarray(frontend_jax.log_mel_frontend(
+        jnp.asarray(buf), jnp.asarray(ln),
+        frontend_jax.make_frontend_params(AudioConfig(**kw)), backend="xla",
+        normalize=normalize))
+    args = (torch.from_numpy(buf), torch.from_numpy(ln), params, normalize)
+    got = log_mel_frontend(*args)
+    assert got.shape == (5, cfg.n_mels, cfg.mel_spec_length)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3,
+                               atol=2e-3 if normalize else 5e-3)
+    assert torch.equal(got, log_mel_frontend_plain(*args))
+    half = log_mel_frontend(*args, out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    assert torch.equal(half, got.to(torch.bfloat16))

@@ -126,15 +126,19 @@ def test_gru_layer_autograd_uses_the_backward_wrapper(rng, monkeypatch):
     assert calls == [(2, T, B, H)] and gx.grad is not None
 
 
-def test_full_model_param_grads_match_jax(rng):
+def test_full_model_param_grads_match_jax():
     """d(cross-entropy)/d(params) of the whole model (eval-mode BatchNorm)
     against JAX ``CNNAudioGRU(gru_impl="pallas")``, the setup and bar of
-    tests/test_gru_pallas.py:96-124."""
+    tests/test_gru_pallas.py:96-124.  The input comes from a generator of
+    its own, not the session's: conv1.weight's gradient sits within a few
+    1e-6 of the absolute bar, so the test must not depend on which tests
+    drew from a shared generator before it."""
     import optax
 
     model = ref_model.CNNAudioGRU(num_classes=7, gru_impl="pallas")
     variables = ref_model.init_model(model, jax.random.key(5))
-    x = rng.standard_normal((2, 64, 120)).astype(np.float32)
+    x = np.random.default_rng(42).standard_normal((2, 64, 120)).astype(
+        np.float32)
     y = np.asarray([1, 4])
 
     def loss(params):

@@ -1,16 +1,25 @@
 """The port's copies of the JAX-free host code, pinned to their originals
 on the same inputs (exact equality: the copies run the same NumPy code)."""
 
+import dataclasses
+import glob
 import json
+import os
 
 import numpy as np
 import pytest
 
+from speech_intent_recognizer_tpu import config as ref_config
+from speech_intent_recognizer_tpu.config import loader as ref_loader
+from speech_intent_recognizer_tpu.config.schema import (
+    ConfigError as RefConfigError)
 from speech_intent_recognizer_tpu.data import audio_io as ref_io
 from speech_intent_recognizer_tpu.data import labelmap as ref_labelmap
 from speech_intent_recognizer_tpu.evaluation import metrics as ref_metrics
 from speech_intent_recognizer_tpu.ops import frontend_numpy as ref_golden
 from speech_intent_recognizer_tpu.ops import resample as ref_resample
+from speech_intent_recognizer_tpu_torch import config
+from speech_intent_recognizer_tpu_torch.config import loader
 from speech_intent_recognizer_tpu_torch.data import audio_io
 from speech_intent_recognizer_tpu_torch.data import labelmap
 from speech_intent_recognizer_tpu_torch.evaluation import metrics
@@ -94,3 +103,70 @@ def test_top_k_predictions_match(rng, k):
     assert metrics.top_k_predictions(probs, inv, k) == \
         ref_metrics.top_k_predictions(probs, inv, k)
 
+
+
+CONFIGS = sorted(glob.glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "*.yaml")))
+OVERRIDES = [
+    {},
+    {"n_fft": 512, "hop_length": 256, "n_mels": 40, "lr": "5e-05",
+     "batch_size": "64", "use_amp": True, "num_workers": 4},
+    {"audio": {"win_length": 400, "n_fft": 512, "f_max": 7600.0},
+     "model": {"conv_channels": [8, 16, 16], "gru_hidden": 32},
+     "train": {"epochs": 2, "bf16": False}, "seed": 7},
+]
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+@pytest.mark.parametrize("overrides", range(len(OVERRIDES)))
+def test_config_copy_matches_original(path, overrides):
+    """The port's own config/ against the JAX package's: the same YAML and
+    the same overrides give equal dataclasses.asdict."""
+    assert loader.load_raw(path) == ref_loader.load_raw(path)
+    raw = {**ref_loader.load_raw(path), **OVERRIDES[overrides]}
+    got, want = config.Config.from_dict(raw), ref_config.Config.from_dict(raw)
+    assert type(got) is not type(want)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.to_dict() == want.to_dict()
+    assert got.audio.max_samples == want.audio.max_samples
+    assert got.audio.n_freqs == want.audio.n_freqs
+    if not overrides:
+        assert dataclasses.asdict(config.load_config(path)) == \
+            dataclasses.asdict(ref_config.load_config(path))
+
+
+def test_config_mini_yaml_reader_matches():
+    text = ("# comment\nlr: 5e-05\nuse_mixup: yes\nf: ~\nname: 'x y'\n"
+            "audio:\n  n_mels: 40  # inline\n  frontend: torchaudio\n"
+            "model:\n  conv_channels: [8, 16, 16]\nepochs: 3\n")
+    got = loader._mini_yaml_load(text)
+    assert got == ref_loader._mini_yaml_load(text)
+    assert got["audio"] == {"n_mels": 40, "frontend": "torchaudio"}
+    assert got["model"]["conv_channels"] == [8, 16, 16]
+
+
+@pytest.mark.parametrize("raw", [
+    {"learning_rate": 1e-3},              # a typo of a flat key
+    {"audio": {"n_mel": 40}},             # a typo inside a section
+    {"frontend": "kaldi"},                # unknown front-end
+    {"n_fft": 256, "audio": {"win_length": 400}},  # window longer than FFT
+    {"epochs": 0}, {"augment_prob": 1.5}, {"num_labels": 1},
+])
+def test_config_errors_match(raw):
+    with pytest.raises(RefConfigError):
+        ref_config.Config.from_dict(raw)
+    with pytest.raises(config.ConfigError):
+        config.Config.from_dict(raw)
+    assert issubclass(config.ConfigError, ValueError)
+
+
+def test_config_save_round_trip(tmp_path):
+    cfg = config.Config.from_dict({"hop_length": 256, "epochs": 2})
+    for name in ("c.yaml", "c.json"):
+        loader.save_config(cfg, str(tmp_path / name))
+        assert config.load_config(str(tmp_path / name)).to_dict() == \
+            cfg.to_dict()
+    with pytest.raises(FileNotFoundError):
+        config.load_config(str(tmp_path / "missing.yaml"))
+    assert config.load_audio_config(str(tmp_path / "c.yaml")).hop_length == 256

@@ -1,6 +1,8 @@
-"""The port's CNNAudioGRU against the Flax model in all three forms, on the
+"""The port's CNNAudioGRU against the Flax model in all its forms, on the
 same weights moved by ``convert.jax_bridge.from_jax_variables`` (pinned to
-the reference's ``export_torch_state_dict``).  fp32 logits within 1e-4."""
+the reference's ``export_torch_state_dict``).  fp32 logits within 1e-4; the
+``pool_impl="kernel"`` form against ``"torch"`` within 1e-5 on the same
+state dict (tests/test_pool_epilogue.py:107-108 holds the JAX pair so)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +14,9 @@ from speech_intent_recognizer_tpu.convert.torch_export import (
     export_torch_state_dict)
 from speech_intent_recognizer_tpu.models import cnn_gru as ref
 from speech_intent_recognizer_tpu_torch.convert.jax_bridge import (
-    from_jax_variables)
+    conv_stages_from_jax, from_jax_variables)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-    CNNAudioGRU, conv1_external_params, fold_batchnorm)
+    CNNAudioGRU, conv1_external_params, conv_external_params, fold_batchnorm)
 
 
 @pytest.fixture(scope="module")
@@ -89,6 +91,86 @@ def test_conv1_external_form_matches(variables, rng):
     got = _logits(CNNAudioGRU(31, fold_bn=True, conv1_external=True),
                   var_state, x)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_impl_kernel_matches_torch(variables, dtype):
+    """Same state-dict names for both epilogues; fp32 logits within 1e-5.
+    In bf16 on the CPU the two forms round at different points (torch's
+    CPU convolution adds the bias to its fp32 sum and rounds once; the
+    kernel form rounds the raw sum, then the biased one, as the JAX kernel
+    and the card's separate bias pass do), so they are held to the bf16 bar
+    of this file's other bf16 comparisons, 3e-2.  The kernel form also
+    against the Flax ``pool_impl="pallas"`` variant."""
+    params, stats = variables
+    var_state, _, _ = conv1_external_params(
+        fold_batchnorm(from_jax_variables(params, stats)))
+    x = np.abs(np.random.default_rng(21).standard_normal(
+        (3, 100, 1024))).astype(np.float32)
+    kw = dict(num_classes=31, compute_dtype=dtype, fold_bn=True,
+              conv1_external=True)
+    torch_form = CNNAudioGRU(**kw)
+    kernel_form = CNNAudioGRU(pool_impl="kernel", **kw)
+    assert list(kernel_form.state_dict()) == list(torch_form.state_dict())
+    want = _logits(torch_form, var_state, x)
+    got = _logits(kernel_form, var_state, x)
+    np.testing.assert_allclose(
+        got, want, atol=1e-5 if dtype == torch.float32 else 3e-2, rtol=0)
+    folded = jax.tree.map(np.asarray, ref.fold_batchnorm(params, stats))
+    var_params, _, _ = ref.conv1_external_params(folded)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    flax = np.asarray(ref.CNNAudioGRU(
+        num_classes=31, compute_dtype=jdt, fold_bn=True, conv1_external=True,
+        pool_impl="pallas").apply(
+        {"params": jax.tree.map(np.asarray, var_params)}, jnp.asarray(x),
+        train=False))
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(got, flax, rtol=tol, atol=tol)
+
+
+def test_pool_impl_kernel_is_inference_only():
+    model = CNNAudioGRU(31, fold_bn=True, conv1_external=True,
+                        pool_impl="kernel")
+    model.reset_parameters(torch.Generator().manual_seed(2))
+    x = torch.zeros((1, 100, 1024))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        model(x)
+    with torch.no_grad():
+        assert model(x).shape == (1, 31)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(conv_external=True), "conv_external requires fold_bn"),
+    (dict(fold_bn=True, pool_impl="pallas"), "pool_impl must be"),
+    (dict(fold_bn=True, pool_impl="kernel"), "conv1_external"),
+])
+def test_form_validation(kw, match):
+    with pytest.raises(ValueError, match=match):
+        CNNAudioGRU(31, **kw)
+
+
+def test_conv_external_params_match_jax(variables):
+    """The head's state dict and the three conv stages in their original
+    orientation, against the JAX split carried through the bridge."""
+    params, stats = variables
+    folded = jax.tree.map(np.asarray, ref.fold_batchnorm(params, stats))
+    head_params, *stages = ref.conv_external_params(folded)
+    want_head = from_jax_variables(jax.tree.map(np.asarray, head_params))
+    want_stages = conv_stages_from_jax(
+        *[(np.asarray(k), np.asarray(b)) for k, b in stages])
+    head, *got_stages = conv_external_params(
+        fold_batchnorm(from_jax_variables(params, stats)))
+    assert set(head) == set(want_head)
+    assert set(head) == set(CNNAudioGRU(31, fold_bn=True,
+                                        conv_external=True).state_dict())
+    for k, v in want_head.items():
+        np.testing.assert_array_equal(head[k].numpy(), v.numpy(), err_msg=k)
+    flat = [t for pair in got_stages for t in pair]
+    assert [tuple(t.shape) for t in flat] == [
+        (32, 1, 3, 3), (32,), (64, 32, 3, 3), (64,), (128, 64, 3, 3), (128,)]
+    for got, want in zip(flat, want_stages):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_seeded_init_is_reproducible():

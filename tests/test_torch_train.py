@@ -149,18 +149,26 @@ def test_optimizer_from_config_matches_jax(path):
 
 
 def test_config_is_the_jax_packages(tmp_path):
-    """The port reads configs with the JAX package's own schema and
-    loader: same objects, same validation errors."""
-    from speech_intent_recognizer_tpu.config import schema as ref_schema
+    """The port reads configs with its own copy of the JAX package's schema
+    and loader (it imports nothing of that package): equal sections on
+    every config, the same validation errors."""
+    import dataclasses
 
-    assert Config is RefConfig
+    from speech_intent_recognizer_tpu.config import schema as ref_schema
+    from speech_intent_recognizer_tpu_torch.config import ConfigError
+
+    assert Config is not RefConfig
+    assert Config.__module__.startswith("speech_intent_recognizer_tpu_torch.")
     for path in CONFIGS:
         assert load_config(path).to_dict() == ref_load_config(path).to_dict()
-        assert load_audio_config(path) == ref_load_config(path).audio
+        assert dataclasses.asdict(load_audio_config(path)) == \
+            dataclasses.asdict(ref_load_config(path).audio)
     bad = tmp_path / "bad.yaml"
     bad.write_text("no_such_key: 1\n")
-    with pytest.raises(ref_schema.ConfigError):
+    with pytest.raises(ConfigError):
         load_config(str(bad))
+    with pytest.raises(ref_schema.ConfigError):
+        ref_load_config(str(bad))
 
 
 def test_spec_augment_identity_and_bounds():
