@@ -42,8 +42,12 @@ _SIGNATURES = {
                                _P],
     "sir_gru_layer_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P],
-    "sir_mel_db": [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+    "sir_mel_db": [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                    _P],
+    # resources of the built front-end kernels: out = int[5] on the host
+    "sir_frontend_conv1_info": [_P],
+    "sir_frontend_info": [_I, _P],
+    "sir_mel_db_info": [_I, _I, _I, _P],
     "sir_conv23": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "sir_pool_epilogue_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sir_pool_epilogue_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],

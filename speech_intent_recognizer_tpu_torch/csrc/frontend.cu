@@ -9,25 +9,28 @@
 // 1 + len // 512 zero.
 //
 // What the block computes:
-//   1. the dB image of the valid frames (frontend_core.cuh phase 1, as K1);
+//   1. the dB image of the valid frames, one warp per frame
+//      (frontend_core.cuh phase 1, as K1);
 //   2. with normalize, the masked mean and ddof=1 std (phase 2, as K1);
 //   3. the store: threads run along time, so each mel row of 200 values is
 //      written contiguously (coalesced), reading the time-major image with
 //      a stride of 64 floats.  FP32 throughout; the only rounding is the
 //      final cast when the output is bf16.
 //
-// What bounds it on the H100: as for K1, the shared-memory FFT (ten
-// barrier-separated butterfly stages per four frames), not HBM: a 320 KB
-// waveform read and a 51 KB (f32) write per utterance.  K1, which runs the
-// same core plus conv1, reaches about 8 % of its FP32/HBM roofline on an
-// H100 80GB HBM3 (700 W), so the design keeps the whole chain in shared
-// memory and leaves a warp-level or tensor-core DFT to later work.  The
-// store's strided shared-memory reads conflict on one bank per warp; they
-// are 12,800 reads per utterance against the FFT's ~160,000 butterflies.
-// On an H100 80GB HBM3 (700 W), f32 out in 80,000-sample buffers: 0.89 ms
-// at B=256 and 4.18 ms at B=2048 (the plain version: 2.43 / 18.29 ms).
+// What bounds it on the H100: as for K1, the shared-memory traffic of the
+// warps' exchanges and mel sums, not HBM (a 320 KB waveform read and a 51 KB
+// f32 write per utterance) and not arithmetic. The design is K1's: the warp-
+// resident real-input FFT of warp_rfft.cuh with no block barrier inside phase
+// 1.  As built for sm_90a (cudaFuncGetAttributes and the occupancy query,
+// printed by chip_smoke.py): 96 registers a thread, no spills, 256 threads
+// and 104,944 bytes of shared memory a block, two blocks (16 warps) an SM.
+// On an H100 80GB HBM3 (700 W), f32 out, 80,000-sample buffers: 0.120 ms at
+// B=256 and 0.543 ms at B=2048 (the plain version: 2.42 / 18.3).  The store's
+// strided shared-memory reads conflict on one bank per warp; they are 12,800
+// reads per utterance, a few per cent of phase 1's traffic.
 
 #include "frontend_core.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -49,7 +52,7 @@ struct Store<__nv_bfloat16> {
 };
 
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 frontend_kernel(const float* __restrict__ wav, const int* __restrict__ lengths,
                 int width, const float* __restrict__ window,
                 const float2* __restrict__ twiddle,
@@ -121,4 +124,14 @@ extern "C" int sir_frontend_bf16(const float* wav, const int* lengths,
   return launch<__nv_bfloat16>(wav, lengths, batch, width, window, twiddle,
                                fb_packed, fb_off, fb_lo, fb_nnz, out,
                                normalize, eps, stream);
+}
+
+// Registers, local memory, shared memory, threads and resident blocks per SM
+// of the kernel as built (kernel_info.cuh); bf16 picks the bf16-out build.
+extern "C" int sir_frontend_info(int bf16, int* out) {
+  const int smem = static_cast<int>(sizeof(CoreSmem));
+  return bf16 ? sir_info::kernel_info(frontend_kernel<__nv_bfloat16>,
+                                      kThreads, smem, out)
+              : sir_info::kernel_info(frontend_kernel<float>, kThreads, smem,
+                                      out);
 }

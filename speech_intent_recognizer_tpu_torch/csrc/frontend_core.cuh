@@ -1,22 +1,29 @@
 // The log-mel core shared by K1 (frontend_conv1.cu) and K3 (frontend.cu):
-// one thread block per utterance, the whole chain in shared memory.
+// one thread block per utterance, one warp per frame, the (200, 64) dB
+// image in shared memory.
 //
 // Counterpart of speech_intent_recognizer_tpu/ops/frontend_pallas.py::
 // _frontend_core_impl.  Two phases, each a device function:
-//   1. log_mel_image: for every valid frame t < 1 + len // 512, four frames
-//      per pass, build the 1024-sample frame of the centre-padded signal by
-//      direct indexing (left reflect reads the zero-padded buffer
-//      x[512 - p]; the right reflect is x[max(len - 2 - k, 0)]; samples at
-//      or past the buffer width read as zero), apply the periodic Hann
-//      window, run a radix-2 FP32 FFT in shared memory, take |X|^2 for bins
-//      0..512, project onto the sparse HTK filterbank and take
-//      10*log10(max(., 1e-10)).  The (200, 64) f32 dB image stays in shared
-//      memory, time-major (img[t * 64 + m]).
+//   1. log_mel_image: warp w takes frames t = w, w + kWarps, ... of the
+//      valid frames t < 1 + len // 512.  It builds the frame's 1024 samples
+//      of the centre-padded signal in registers, as 512 (even, odd) pairs,
+//      16 per lane (left reflect reads the zero-padded buffer x[512 - p];
+//      the right reflect is x[max(len - 2 - k, 0)]; samples at or past the
+//      buffer width read as zero; a frame that touches neither edge is read
+//      with 8-byte loads), applies the periodic Hann window, runs the
+//      warp-resident real-input FFT of warp_rfft.cuh, and sums its mel
+//      triangles over the power row (two mels per lane) into
+//      10*log10(max(., 1e-10)).  The f32 dB image stays in shared memory,
+//      time-major (img[t * 64 + m]).  Nothing in this phase crosses warps,
+//      so it holds no block barrier but the one at its end.
 //   2. masked_moments: the per-utterance mean and 1 / (ddof=1 std + eps)
 //      over the valid frames (two block reductions).
 //
-// What bounds it on the H100: the barrier-separated FFT stages (ten per
-// four frames), not HBM; see frontend_conv1.cu for the measurement.
+// What bounds it on the H100: neither HBM (a 320 KB read per utterance) nor
+// arithmetic (8 MFLOP per utterance), but the shared-memory traffic of each
+// warp's exchanges and mel sums, overlapped by the other warps on the SM.  The 51 KB image caps that at two 8-warp blocks per SM
+// (CoreSmem is 104,944 bytes; 96 registers a thread, no spills); see
+// frontend_conv1.cu and frontend.cu for the times.
 
 #pragma once
 
@@ -25,29 +32,32 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_rfft.cuh"
+
 namespace sir_frontend {
 
-constexpr int kNfft = 1024;
+constexpr int kLog2Nfft = 10;
+constexpr int kNfft = 1 << kLog2Nfft;
 constexpr int kPad = kNfft / 2;       // centre padding
 constexpr int kHop = 512;
 constexpr int kBins = kNfft / 2 + 1;  // 513
 constexpr int kMels = 64;
 constexpr int kTout = 200;            // mel_spec_length
-constexpr int kFrames = 4;            // frames transformed per pass
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 2;       // what the image leaves room for
 constexpr int kMaxNnz = 2 * kBins;    // an FFT bin feeds at most two triangles
-constexpr int kBinsPad = 516;
+
+using Fft = sir_fft::Plan<kLog2Nfft>;
 
 struct CoreSmem {
   float img[kTout * kMels];           // dB image, time-major
-  float2 fft[kFrames][kNfft];
-  float2 tw[kNfft / 2];               // e^{-2 pi i k / 1024}
-  float win[kNfft];
-  float pw[kFrames][kBinsPad];
+  sir_fft::Tables<kLog2Nfft> tb;      // window, untangle and pass twiddles
+  float2 xbuf[kWarps][Fft::kXbuf];    // each warp's exchange buffer / power row
   float fb[kMaxNnz];                  // filterbank weights, mel-major
   int fb_off[kMels + 1];
   int fb_lo[kMels];                   // first FFT bin of each triangle
-  float red[kThreads / 32];
+  float red[kWarps];
 };
 
 // Sum over the block; every thread gets the same value.
@@ -56,7 +66,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float s = 0.f;
-  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  for (int w = 0; w < kWarps; ++w) s += red[w];
   __syncthreads();
   return s;
 }
@@ -69,11 +79,24 @@ __device__ __forceinline__ void load_constants(
     const int* __restrict__ fb_off, const int* __restrict__ fb_lo,
     int fb_nnz) {
   const int tid = threadIdx.x;
-  for (int i = tid; i < kNfft; i += kThreads) s.win[i] = window[i];
-  for (int i = tid; i < kNfft / 2; i += kThreads) s.tw[i] = twiddle[i];
+  sir_fft::load_tables<kLog2Nfft>(s.tb, window, twiddle, tid, kThreads);
   for (int i = tid; i <= kMels; i += kThreads) s.fb_off[i] = fb_off[i];
   for (int i = tid; i < kMels; i += kThreads) s.fb_lo[i] = fb_lo[i];
   for (int i = tid; i < fb_nnz; i += kThreads) s.fb[i] = fb_packed[i];
+}
+
+// Sample p of the centre-padded signal of x (width samples, true length len).
+__device__ __forceinline__ float padded_sample(const float* __restrict__ x,
+                                               int width, int len, int p) {
+  int src;
+  if (p < kPad) {
+    src = kPad - p;              // x[1:513][::-1] of the zero-padded buffer
+  } else if (p - kPad < len) {
+    src = p - kPad;
+  } else {                       // k = p - pad - len: x[max(len - 2 - k, 0)]
+    src = max(2 * len - 2 - (p - kPad), 0);
+  }
+  return src < width ? x[src] : 0.f;
 }
 
 // Phase 1: frames t < t_valid of the waveform x (width samples, true
@@ -82,60 +105,41 @@ __device__ __forceinline__ void log_mel_image(CoreSmem& s,
                                               const float* __restrict__ x,
                                               int width, int len,
                                               int t_valid) {
-  const int tid = threadIdx.x;
-  for (int t0 = 0; t0 < t_valid; t0 += kFrames) {
-    for (int i = tid; i < kFrames * kNfft; i += kThreads) {
-      const int f = i / kNfft, n = i % kNfft, t = t0 + f;
-      float v = 0.f;
-      if (t < t_valid) {
-        const int p = t * kHop + n;  // index into the centre-padded signal
-        int src;
-        if (p < kPad) {
-          src = kPad - p;            // x[1:513][::-1] of the zero-padded buffer
-        } else if (p - kPad < len) {
-          src = p - kPad;
-        } else {                     // k = p - pad - len: x[max(len - 2 - k, 0)]
-          src = max(2 * len - 2 - (p - kPad), 0);
-        }
-        v = (src < width ? x[src] : 0.f) * s.win[n];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float2* xbuf = s.xbuf[warp];
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 7) == 0;
+  for (int t = warp; t < t_valid; t += kWarps) {
+    const int p0 = t * kHop;     // the frame's first index in the padded signal
+    float2 v[Fft::kV];
+    if (t >= 1 && p0 + kPad <= len) {  // no sample of the frame is reflected
+      const float* f = x + (p0 - kPad);
+#pragma unroll
+      for (int r = 0; r < Fft::kV; ++r) {
+        const int n = lane + 32 * r;
+        v[r] = aligned ? reinterpret_cast<const float2*>(f)[n]
+                       : make_float2(f[2 * n], f[2 * n + 1]);
       }
-      s.fft[f][__brev(n) >> 22] = make_float2(v, 0.f);  // bit-reversed order
-    }
-    __syncthreads();
-    for (int half = 1; half < kNfft; half <<= 1) {
-      const int stride = kNfft / (2 * half);
-      for (int i = tid; i < kFrames * (kNfft / 2); i += kThreads) {
-        const int f = i / (kNfft / 2), j = i % (kNfft / 2);
-        const int pos = j & (half - 1);
-        const int i0 = ((j - pos) << 1) + pos;
-        const int i1 = i0 + half;
-        const float2 w = s.tw[pos * stride];
-        const float2 a = s.fft[f][i0];
-        const float2 c = s.fft[f][i1];
-        const float2 tc = make_float2(c.x * w.x - c.y * w.y,
-                                      c.x * w.y + c.y * w.x);
-        s.fft[f][i0] = make_float2(a.x + tc.x, a.y + tc.y);
-        s.fft[f][i1] = make_float2(a.x - tc.x, a.y - tc.y);
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < kFrames * kBins; i += kThreads) {
-      const int f = i / kBins, k = i % kBins;
-      const float2 X = s.fft[f][k];
-      s.pw[f][k] = X.x * X.x + X.y * X.y;
-    }
-    __syncthreads();
-    for (int i = tid; i < kFrames * kMels; i += kThreads) {
-      const int f = i / kMels, m = i % kMels, t = t0 + f;
-      if (t < t_valid) {
-        const int lo = s.fb_lo[m], o0 = s.fb_off[m], o1 = s.fb_off[m + 1];
-        float acc = 0.f;
-        for (int o = o0; o < o1; ++o) acc = fmaf(s.fb[o], s.pw[f][lo + o - o0], acc);
-        s.img[t * kMels + m] = 10.f * log10f(fmaxf(acc, 1e-10f));
+    } else {
+#pragma unroll
+      for (int r = 0; r < Fft::kV; ++r) {
+        const int p = p0 + 2 * (lane + 32 * r);
+        v[r] = make_float2(padded_sample(x, width, len, p),
+                           padded_sample(x, width, len, p + 1));
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < Fft::kV; ++r) {
+      const float2 w = s.tb.win2[lane + 32 * r];
+      v[r] = make_float2(v[r].x * w.x, v[r].y * w.y);
+    }
+    sir_fft::warp_rfft_power<kLog2Nfft>(v, s.tb, xbuf, lane);
+    float* row = s.img + t * kMels;
+    sir_fft::warp_mel_db(reinterpret_cast<const float*>(xbuf), s.fb, s.fb_off,
+                         s.fb_lo, kMels, lane,
+                         [row](int m, float db) { row[m] = db; });
+    __syncwarp();  // the power row is read before the next frame overwrites it
   }
+  __syncthreads();
 }
 
 // Phase 2: (mean, 1 / (sqrt(var) + eps)) over the n_valid = t_valid * kMels

@@ -42,7 +42,10 @@ class FrontendParams(NamedTuple):
     ``window`` and ``mel_fb`` serve the plain path; ``twiddle`` and the
     packed filterbank (``fb_packed``/``fb_off``/``fb_lo``: each mel's
     nonzero weights, their offsets, and the first FFT bin of each triangle)
-    are the K1 kernel's operands."""
+    are the kernels' operands (K1, K3, K4).  ``twiddle[k]`` is
+    e^{-2 pi i k / n_fft}: the factor that untangles the kernels'
+    half-size complex transform into the real-input one, and the table
+    their pass twiddles are read from (``csrc/warp_rfft.cuh``)."""
 
     window: torch.Tensor  # (n_fft,) f32 periodic Hann
     mel_fb: torch.Tensor  # (n_freqs, n_mels) f32

@@ -4,9 +4,11 @@
   ``speech_intent_recognizer_tpu/ops/frontend_pallas.py``
   ``_fused_conv1_kernel`` (wrapper ``fused_frontend_conv1_pallas``).  CUDA
   source ``csrc/frontend_conv1.cu``: one thread block per utterance does
-  reflect padding, windowed FP32 FFT, |X|^2, HTK mel projection, dB, masked
-  mean / ddof=1 std normalization, then conv1 (3x3, 1->C, BN-folded bias,
-  bf16 operands, fp32 sums) + ReLU + 2x2 max-pool, all in shared memory.
+  reflect padding, windowed FP32 FFT (one warp per frame, a real-input
+  transform in registers, ``csrc/warp_rfft.cuh``), |X|^2, HTK mel
+  projection, dB, masked mean / ddof=1 std normalization, then conv1 (3x3,
+  1->C, BN-folded bias, bf16 operands, fp32 sums) + ReLU + 2x2 max-pool, all
+  in registers and shared memory.
 * K3, :func:`frontend`, replaces ``_fused_kernel`` (wrapper
   ``fused_frontend_pallas``), the feature precompute's kernel.  CUDA source
   ``csrc/frontend.cu``: the same core (``csrc/frontend_core.cuh``) without
@@ -15,8 +17,9 @@
 * K4, :func:`mel_db`, replaces ``_mel_db_kernel`` (wrapper
   ``mel_db_pallas``), the kernel of the front-end off that geometry.  CUDA
   source ``csrc/mel_db.cu``: (N, n_fft) frames -> (N, n_mels) dB-mel rows
-  through a windowed radix-2 FFT in shared memory, for any power-of-two
-  n_fft from 32 to 4096 and any n_mels.
+  through a windowed FFT, for any power-of-two n_fft from 32 to 4096 and any
+  n_mels: the warp-resident transform of K1 and K3 at the sizes in
+  :data:`WARP_FFT_SIZES`, radix-2 stages in shared memory at the others.
 
 Each source's header says what bounds it on the H100 and how the design
 answers that.  K1 and K3 serve exactly the reference geometry: torchaudio
@@ -26,7 +29,8 @@ channels for K1).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,8 @@ from speech_intent_recognizer_tpu_torch.ops.frontend import (
 
 # geometry compiled into csrc/frontend_core.cuh and csrc/frontend_conv1.cu
 N_FFT, HOP, N_MELS, T_OUT, C1 = 1024, 512, 64, 200, 32
+# the n_fft that csrc/mel_db.cu transforms with csrc/warp_rfft.cuh
+WARP_FFT_SIZES = (512, 1024, 2048)
 
 
 def is_reference_geometry(params: FrontendParams) -> bool:
@@ -215,9 +221,14 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
     window, DFT, power, mel projection, ``10 * log10(max(., 1e-10))``.
 
     CPU tensors take the plain version (any n_fft); CUDA tensors launch the
-    kernel or raise.  The kernel transforms each frame with a radix-2 FFT,
-    so it serves the n_fft that are powers of two from 32 to 4096, with any
-    window length up to n_fft, any n_mels and any N >= 0.
+    kernel or raise.  The kernel transforms each frame with an FFT, so it
+    serves the n_fft that are powers of two from 32 to 4096, with any
+    window length up to n_fft, any n_mels and any N >= 0.  At n_fft 512,
+    1024 and 2048 (:data:`WARP_FFT_SIZES`) one warp transforms one frame in
+    registers, as a real-input transform of half the size; at 32, 64, 128,
+    256 and 4096 a block runs radix-2 stages in shared memory.  The grid is
+    what the frames need or the card holds at once, whichever is fewer
+    (persistent blocks walk over the rest).
     """
     if frames.dim() != 2 or frames.shape[1] != params.n_fft:
         raise ValueError(f"expected (N, {params.n_fft}) frames, got "
@@ -230,9 +241,9 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
         raise ValueError(f"unsupported device {frames.device}")
     n_fft = params.n_fft
     if n_fft & (n_fft - 1) or not 32 <= n_fft <= 4096:
-        raise ValueError(f"the K4 kernel transforms frames with a radix-2 "
-                         f"FFT: n_fft must be a power of two from 32 to "
-                         f"4096, got {n_fft}")
+        raise ValueError(f"the K4 kernel transforms frames with a "
+                         f"power-of-two FFT: n_fft must be a power of two "
+                         f"from 32 to 4096, got {n_fft}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     dev = frames.device
@@ -240,14 +251,13 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
         params, dev)
     n = frames.shape[0]
     out = torch.empty((n, params.n_mels), dtype=torch.float32, device=dev)
-    # a block walks over the frame tiles; four blocks fit on an SM at 1024
-    max_blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.sir_mel_db(frames.data_ptr(), n, n_fft, params.n_mels,
                             window.data_ptr(), twiddle.data_ptr(),
                             fb_packed.data_ptr(), fb_off.data_ptr(),
-                            fb_lo.data_ptr(), out.data_ptr(), max_blocks,
+                            fb_lo.data_ptr(), fb_packed.numel(),
+                            out.data_ptr(),
                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "mel_db")
     mel_db.launches += 1
@@ -255,3 +265,32 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
 
 
 mel_db.launches = 0
+
+
+def kernel_resources(dev: "str | torch.device",
+                     mel_db_params: Tuple[FrontendParams, ...] = ()
+                     ) -> Dict[str, Dict[str, int]]:
+    """What the built K1, K3 and K4 kernels take on the card ``dev``:
+    registers per thread, bytes of local memory per thread (spills),
+    shared memory per block, threads per block, and the blocks of that
+    shape one SM holds (``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  K4 is reported for
+    each front-end of ``mel_db_params`` (its kernel and shared memory
+    depend on n_fft, n_mels and the filterbank).  Launches nothing."""
+    lib = _build.load()
+    keys = ("registers", "local_bytes", "shared_bytes", "threads",
+            "blocks_per_sm")
+
+    def query(fn, *args) -> Dict[str, int]:
+        out = (ctypes.c_int * len(keys))()
+        _build.check(fn(*args, ctypes.addressof(out)), "kernel_resources")
+        return dict(zip(keys, out))
+
+    with torch.cuda.device(dev):
+        found = {"frontend_conv1": query(lib.sir_frontend_conv1_info),
+                 "frontend_f32": query(lib.sir_frontend_info, 0),
+                 "frontend_bf16": query(lib.sir_frontend_info, 1)}
+        for p in mel_db_params:
+            found[f"mel_db_n{p.n_fft}_m{p.n_mels}"] = query(
+                lib.sir_mel_db_info, p.n_fft, p.n_mels, p.fb_packed.numel())
+    return found

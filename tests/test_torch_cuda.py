@@ -52,6 +52,68 @@ def _waves(lengths, seed=0, width=WIDTH):
     return torch.from_numpy(buf), torch.tensor(lengths, dtype=torch.int32)
 
 
+def _mixed(width):
+    """Rows that mix silence and full-scale signal (peak 1: uniform noise,
+    or a 1 kHz tone of 0.9 over noise of 0.1 so that every band stays above
+    float32 rounding noise): buffer, lengths, and where each row's signal
+    ends (exact zeros after it)."""
+    rows = ((40000, 0), (80000, 80000), (80000, 30000), (52117, 52117),
+            (1025, 0), (0, 0), (79999, 41000))
+    rng = np.random.default_rng(77)
+    buf = np.zeros((len(rows), width), np.float32)
+    for i, (_, end) in enumerate(rows):
+        noise = rng.uniform(-1.0, 1.0, end)
+        t = np.arange(end) / 16000
+        buf[i, :end] = (0.9 * np.sin(2 * np.pi * 1000 * t) + 0.1 * noise
+                        if i % 2 else noise)
+    return (torch.from_numpy(buf),
+            torch.tensor([r[0] for r in rows], dtype=torch.int32),
+            [r[1] for r in rows])
+
+
+def _assert_floor(feats, lengths, ends, hop, n_fft=1024):
+    """Raw-dB features (B, M, T): valid frames that hold only silence are
+    exactly -100 dB, frames past the valid count exactly 0."""
+    silent = 0
+    for i, (n, end) in enumerate(zip(lengths.tolist(), ends)):
+        t_valid = min(1 + n // hop, feats.shape[2])
+        first = min(-(-(end + n_fft // 2) // hop) if end else 0, t_valid)
+        assert bool((feats[i, :, first:t_valid] == -100.0).all())
+        assert bool((feats[i, :, t_valid:] == 0).all())
+        silent += t_valid - first
+    assert silent > 0
+
+
+def _assert_k1_close(got, want):
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 0.05 * scale
+    far = (got - want).abs() > 2.0 ** -7 * want.abs().clamp(min=1.0)
+    assert float(far.float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("batch", [1, 3, 257, "silence and full scale"])
+def test_frontend_conv1_odd_batches_and_silence(dev, batch):
+    """K1 at batch sizes that are a multiple of nothing, and on rows that
+    mix silence and full-scale signal; the bar of
+    test_frontend_conv1_matches_plain."""
+    if isinstance(batch, int):
+        lengths = np.random.default_rng(batch).integers(1, 80001, batch)
+        wf, ln = _waves(lengths.tolist(), seed=batch)
+    else:
+        wf, ln, _ = _mixed(WIDTH)
+    wf, ln = wf.to(dev), ln.to(dev)
+    fe = make_frontend_params(device=dev)
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn((32, 1, 3, 3), generator=g) / 3).to(dev)
+    b = (0.1 * torch.randn(32, generator=g)).to(dev)
+    got = fk.frontend_conv1(wf, ln, fe, w, b).float()
+    torch.cuda.synchronize()
+    want = fk._frontend_conv1_plain(wf, ln, fe, w, b).float()
+    assert got.shape == (len(ln), 100, 1024)
+    _assert_k1_close(got, want)
+
+
 def test_frontend_conv1_matches_plain(dev):
     """K1 vs its plain version at the bar of the reference's conv1-fusion
     test (0.05 * scale); both round the same fp32 values to bf16, so the
@@ -153,6 +215,62 @@ def test_frontend_matches_plain(dev, normalize, out_dtype):
     bound = 2e-3 if out_dtype == torch.float32 else \
         2.0 ** -8 * want.abs() + 2e-3
     assert bool(((got.float() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 3, 257])
+def test_frontend_odd_batches(dev, batch, out_dtype):
+    """K3 at batch sizes that are a multiple of nothing, in an odd-width
+    buffer (rows then start 4-byte aligned only); the bar of
+    test_frontend_matches_plain."""
+    lengths = np.random.default_rng(batch).integers(1, 79999, batch)
+    wf, ln = _waves(lengths.tolist(), seed=batch, width=79999)
+    wf, ln = wf.to(dev), ln.to(dev)
+    fe = make_frontend_params(device=dev)
+    got = fk.frontend(wf, ln, fe, True, out_dtype)
+    torch.cuda.synchronize()
+    want = log_mel_frontend_plain(wf, ln, fe, True)
+    assert got.shape == (batch, 64, 200)
+    bound = 2e-3 if out_dtype == torch.float32 else \
+        2.0 ** -8 * want.abs() + 2e-3
+    assert bool(((got.float() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_frontend_silence_and_full_scale(dev, normalize):
+    """K3 on rows that mix silence and full-scale signal: within 2e-3 of
+    the plain version, and in raw dB the silent valid frames read exactly
+    -100 and the frames past each valid count exactly 0."""
+    wf, ln, ends = _mixed(80000)
+    wf, ln = wf.to(dev), ln.to(dev)
+    fe = make_frontend_params(device=dev)
+    got = fk.frontend(wf, ln, fe, normalize)
+    torch.cuda.synchronize()
+    want = log_mel_frontend_plain(wf, ln, fe, normalize)
+    assert bool(((got - want).abs() <= 2e-3).all())
+    if not normalize:
+        _assert_floor(got.cpu(), ln.cpu(), ends, 512)
+
+
+def test_frontend_kernel_resources(dev):
+    """What K1, K3 and K4 take as built: every kernel fits an SM, K1 and
+    K3 twice (two 8-warp blocks beside the 51 KB image), none spills at
+    1024 points."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+
+    fes = tuple(make_frontend_params(AudioConfig(n_fft=n, hop_length=n // 4),
+                                     dev) for n in (256, 512, 1024, 2048))
+    found = fk.kernel_resources(dev, fes)
+    assert set(found) == {"frontend_conv1", "frontend_f32", "frontend_bf16",
+                          "mel_db_n256_m64", "mel_db_n512_m64",
+                          "mel_db_n1024_m64", "mel_db_n2048_m64"}
+    for name, r in found.items():
+        assert r["threads"] == 256 and r["blocks_per_sm"] >= 1, name
+        assert 0 < r["registers"] <= 255 and r["shared_bytes"] <= 227 * 1024
+    for name in ("frontend_conv1", "frontend_f32", "frontend_bf16"):
+        assert found[name]["blocks_per_sm"] == 2
+    for name in ("frontend_conv1", "frontend_f32", "mel_db_n1024_m64"):
+        assert found[name]["local_bytes"] == 0, name
 
 
 def test_frontend_refuses_other_geometry_on_cuda(dev):
@@ -312,6 +430,62 @@ def test_mel_db_matches_plain(dev, kw, n):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("n_mels", [40, 64, 80])
+@pytest.mark.parametrize("n_fft", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_mel_db_every_fft_size(dev, n_fft, n_mels):
+    """K4 at every n_fft it serves, with a window shorter than n_fft, at
+    N in {0, 1, 255, 256, 257, 300} and on 1031 rows of which every other
+    one is silent between full-scale ones: the bar of
+    test_mel_db_matches_plain, and the silent rows exactly -100 dB."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+
+    fe = make_frontend_params(AudioConfig(
+        n_fft=n_fft, win_length=3 * n_fft // 4, hop_length=n_fft // 4,
+        n_mels=n_mels), dev)
+    g = torch.Generator().manual_seed(n_fft + n_mels)
+    for n in (0, 1, 255, 256, 257, 300):
+        frames = (0.1 * torch.randn((n, n_fft), generator=g)).to(dev)
+        got = fk.mel_db(frames, fe)
+        torch.cuda.synchronize()
+        assert got.shape == (n, n_mels)
+        torch.testing.assert_close(got, fk._mel_db_plain(frames, fe),
+                                   rtol=1e-4, atol=1e-4)
+    frames = torch.rand((1031, n_fft), generator=g).mul_(2).sub_(1).to(dev)
+    frames[1::2] = 0.0
+    got = fk.mel_db(frames, fe)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fk._mel_db_plain(frames, fe),
+                               rtol=1e-4, atol=1e-4)
+    assert bool((got[1::2] == -100.0).all())
+
+
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
+def test_mel_db_full_batch_and_alignment(dev, n_fft):
+    """K4 on a full batch of hop-256 frames (80,128 at 1024 points, as many
+    bytes at the other sizes: more frames than the card holds warps for, so
+    persistent blocks walk over them and the last round is ragged), and on
+    a contiguous buffer that is only 4-byte aligned: the same bar."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+
+    fe = make_frontend_params(AudioConfig(n_fft=n_fft, hop_length=n_fft // 4),
+                              dev)
+    n = 80128 * 1024 // n_fft
+    frames = 0.1 * torch.randn((n, n_fft), device=dev)
+    got = fk.mel_db(frames, fe)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fk._mel_db_plain(frames, fe),
+                               rtol=1e-4, atol=1e-4)
+    part = frames[:3001]
+    flat = torch.empty(3001 * n_fft + 1, device=dev)
+    flat[1:] = part.reshape(-1)
+    shifted = flat[1:].view(3001, n_fft)
+    assert shifted.data_ptr() % 8 == 4 and shifted.is_contiguous()
+    unaligned = fk.mel_db(shifted, fe)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(unaligned, fk._mel_db_plain(shifted, fe),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_mel_db_refuses_other_fft_sizes(dev):
     from speech_intent_recognizer_tpu_torch.config import AudioConfig
 
@@ -339,6 +513,11 @@ def test_frontend_off_reference_geometry_runs_k4(dev, normalize):
     assert got.shape == (8, 64, 400)
     torch.testing.assert_close(got, want, rtol=2e-3,
                                atol=2e-3 if normalize else 5e-3)
+    if not normalize:  # silence and full scale: exact floor, exact zeros
+        mwf, mln, ends = _mixed(wf.shape[1])
+        raw = log_mel_frontend(mwf.to(dev), mln.to(dev), fe, False)
+        torch.cuda.synchronize()
+        _assert_floor(raw.cpu(), mln, ends, 256)
     _reset()
     log_mel_frontend(wf[:, :padded_samples(80000)].contiguous(), ln,
                      make_frontend_params(device=dev))
