@@ -125,10 +125,10 @@ VARIANTS = {
 }
 
 
-def apply_edits(name: str, src: str) -> None:
-    """Apply the variant's replacements to the copy of the sources in
+def replace_once(edits, src: str, name: str) -> None:
+    """Apply (file, old, new) replacements to the copy of the sources in
     ``src``; each must match exactly once."""
-    for fname, old, new in VARIANTS[name][1]:
+    for fname, old, new in edits:
         path = os.path.join(src, fname)
         with open(path) as f:
             text = f.read()
@@ -143,6 +143,12 @@ def apply_edits(name: str, src: str) -> None:
                                f"{fname}, not once")
         with open(path, "w") as f:
             f.write(text)
+
+
+def apply_edits(name: str, src: str) -> None:
+    """Apply the variant's replacements to the copy of the sources in
+    ``src``."""
+    replace_once(VARIANTS[name][1], src, name)
 
 
 def build_all(root: str) -> dict:

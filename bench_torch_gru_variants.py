@@ -1,0 +1,221 @@
+#!/usr/bin/env python
+"""Where the time of the port's tensor-core GRU kernels goes: builds
+variants of ``speech_intent_recognizer_tpu_torch/csrc/gru_layer.cu`` and
+``gru_layer_bwd.cu`` with parts cut out and times the kernels alone (the
+C entry points, without the wrappers' PyTorch work) side by side on one
+NVIDIA GPU, in one process, with CUDA events.
+
+Each variant is a copy of the sources with a few lines replaced (a
+replacement that no longer matches the source fails), compiled by its own
+``nvcc`` with ``-Xptxas -v`` and loaded with ctypes.  A variant with a part
+cut out computes wrong values; only its time is read:
+
+* K2 (``sir_gru_layer_mma``) at every tile height, B=256 and 2048, T=25:
+  as committed; without the cluster barrier; without the stores into the
+  other ranks' shared memory; with the gates' exponentials and divisions
+  replaced by one multiply-add; without the tensor-core product; without
+  the ys stores; with the ys stores placed before the arrive at the cluster
+  barrier at every tile height, and after it at every height;
+* K2T (``sir_gru_layer_bwd_mma``) at every tile height, B=256 and 1024:
+  as committed; without the lo half of dgh (one bf16 rounding); without the
+  dh product; without the gh product; without the dgx / dgh stores; without
+  the exchange of partial sums and its barrier;
+* the CUDA-core kernels of both sources at their tile heights, for scale.
+
+Prints the card's name and power limit, each tensor-core kernel's
+registers and spills as ptxas reports them, and least / median / most of
+five timed blocks in ms.  Needs one card and nvcc; imports nothing of JAX.
+
+    python3 bench_torch_gru_variants.py
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+from bench_torch_fft_variants import CSRC, blocks_ms, replace_once
+from speech_intent_recognizer_tpu_torch import _build
+from speech_intent_recognizer_tpu_torch.ops.gru import (
+    MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS)
+from speech_intent_recognizer_tpu_torch.utils.device import (
+    gpu_label, require_cuda)
+
+FWD, BWD = "gru_layer.cu", "gru_layer_bwd.cu"
+
+
+def no_barrier(unit):
+    return [(unit, "    if (t > 0) cluster_wait();\n" if unit == FWD
+             else "    if (!last) cluster_wait();\n", ""),
+            (unit, "    cluster_arrive();\n", ""),
+            # one barrier stays, so that no rank leaves while another may
+            # still write into it
+            (unit, "  if (steps > 0) cluster_wait();\n",
+             "  cluster_arrive();\n  cluster_wait();\n")]
+
+
+NO_REMOTE_H = (FWD, "          st_cluster_16(map_to_rank(mine, (rank + r) % "
+               "kCluster), v);", "          ;")
+CHEAP_GATES = [("gru_mma.cuh", "  return __fdividef(1.f, 1.f + __expf(-v));",
+                "  return 0.5f + 0.25f * v;"),
+               ("gru_mma.cuh",
+                "  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));",
+                "  return 0.5f * v;")]
+NO_PRODUCT = (FWD, "      recurrent_product<G>(acc, wf, h_cur, M, mt0, lane, "
+              "n);", "")
+NO_YS = (FWD, re.compile(r"        if \(row0 \+ row < batch\)\n"
+                         r"          \*reinterpret_cast<uint4\*>\(\n.*?"
+                         r"i \* 16\);\n", re.S), "")
+YS_SWITCH = "  constexpr bool kYsAfterArrive = MT >= 3;"
+YS_BEFORE_ARRIVE = (FWD, YS_SWITCH, YS_SWITCH.replace("MT >= 3", "false"))
+YS_AFTER_ARRIVE = (FWD, YS_SWITCH, YS_SWITCH.replace("MT >= 3", "true"))
+NO_LO_HALF = (BWD, re.compile(r"            mma_bf16\(acc2\[mt\]\[nt\], lo, .*?"
+                              r"\);\n", re.S), "")
+NO_DH_PRODUCT = (BWD, re.compile(r"      const int brow = .*?(?=      // units "
+                                 r"\[32 warp)", re.S), "")
+NO_GH_PRODUCT = (BWD, "    recurrent_product<MT>(acc, wf, smem_addr(hp), M, 0, "
+                 "lane);", "")
+NO_GRAD_STORES = (BWD, re.compile(
+    r"        if \(row0 \+ row < batch\) \{\n          const size_t o = .*?\n"
+    r"        \}\n", re.S), "")
+NO_PARTIAL_SUMS = (BWD, re.compile(r"            st_cluster_8\(box_out.*?\);\n",
+                                   re.S), "            ;\n")
+
+# name -> (the .cu to build, edits)
+VARIANTS = {
+    "K2 as committed": (FWD, []),
+    "K2 without the cluster barrier": (FWD, no_barrier(FWD)),
+    "K2 without the stores into the other ranks": (FWD, [NO_REMOTE_H]),
+    "K2 with one multiply-add for each gate function": (FWD, CHEAP_GATES),
+    "K2 without the tensor-core product": (FWD, [NO_PRODUCT]),
+    "K2 without the ys stores": (FWD, [NO_YS]),
+    "K2 with the ys stores before the arrive": (FWD, [YS_BEFORE_ARRIVE]),
+    "K2 with the ys stores after the arrive": (FWD, [YS_AFTER_ARRIVE]),
+    "K2T as committed": (BWD, []),
+    "K2T without the lo half of dgh": (BWD, [NO_LO_HALF]),
+    "K2T without the dh product": (BWD, [NO_DH_PRODUCT]),
+    "K2T without the gh product": (BWD, [NO_GH_PRODUCT]),
+    "K2T without the dgx and dgh stores": (BWD, [NO_GRAD_STORES]),
+    "K2T without the exchange of partial sums and its barrier": (
+        BWD, [NO_PARTIAL_SUMS, *no_barrier(BWD)]),
+    "K2T with one multiply-add for each gate function": (BWD, CHEAP_GATES),
+}
+
+
+def apply_edits(name: str, src: str) -> None:
+    replace_once(VARIANTS[name][1], src, name)
+
+
+def build_all(root: str) -> dict:
+    """Copy, edit and compile every variant (all nvcc at once); returns
+    name -> (ctypes library, ptxas lines of the tensor-core kernels)."""
+    procs = {}
+    for i, (name, (unit, _)) in enumerate(VARIANTS.items()):
+        src = os.path.join(root, f"v{i}")
+        shutil.copytree(CSRC, src)
+        apply_edits(name, src)
+        so = os.path.join(src, "variant.so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+             "-o", so, os.path.join(src, unit)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name!r}:\n{err[-3000:]}")
+        lines = err.splitlines()
+        used = [f"{m.group(1)}: "
+                f"{lines[k + 2].split(': ', 1)[-1]}; {lines[k + 1].strip()}"
+                for k, line in enumerate(lines) if (m := re.search(
+                    r"Function properties for \S*?(gru_layer(?:_bwd)?_mma_"
+                    r"kernelILi\d+E)", line))]
+        lib = ctypes.CDLL(so)
+        for entry, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = (lib, used)
+    return libs
+
+
+def main() -> int:
+    dev = require_cuda()
+    print(gpu_label(), flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = torch.bfloat16
+    steps, hidden = 25, 256
+
+    def checked(name, rc):
+        if rc:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+
+    with tempfile.TemporaryDirectory() as root:
+        libs = build_all(root)
+        for name, (_, used) in libs.items():
+            for line in used:
+                print(f"ptxas, {name}: {line}", flush=True)
+        for batch in (256, 2048, 1024):
+            g = torch.Generator(device=dev).manual_seed(batch)
+            gx = torch.randn((2, steps, batch, 3 * hidden), device=dev,
+                             generator=g).to(bf16)
+            w = (0.05 * torch.randn((2, hidden, 3 * hidden), device=dev,
+                                    generator=g)).to(bf16)
+            wt = w.transpose(1, 2).contiguous()
+            bn = 0.1 * torch.randn((2, 1, hidden), device=dev, generator=g)
+            ys = torch.empty((2, steps, batch, hidden), device=dev, dtype=bf16)
+            dys = torch.randn((2, steps, batch, hidden), device=dev,
+                              generator=g).to(bf16)
+            dgx = torch.empty_like(gx)
+            dgh = torch.empty(gx.shape, device=dev)
+            checked("K2", libs["K2 as committed"][0].sir_gru_layer_mma(
+                gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
+                steps, batch, hidden, 32, stream))
+            for name, (lib, _) in libs.items():
+                forward = name.startswith("K2 ")
+                if forward and batch != 1024:
+                    for rows in MMA_ROWS:
+                        print(f"{name}, B={batch}, {rows}-row tiles: " + blocks_ms(
+                            lambda: checked(name, lib.sir_gru_layer_mma(
+                                gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                                ys.data_ptr(), steps, batch, hidden, rows,
+                                stream)), 10) + " ms", flush=True)
+                elif not forward and batch != 2048:
+                    for rows in MMA_ROWS_BACKWARD:
+                        print(f"{name}, B={batch}, {rows}-row tiles: " + blocks_ms(
+                            lambda: checked(name, lib.sir_gru_layer_bwd_mma(
+                                gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                                ys.data_ptr(), dys.data_ptr(), dgx.data_ptr(),
+                                dgh.data_ptr(), steps, batch, hidden, rows,
+                                stream)), 10) + " ms", flush=True)
+            for rows in TILE_ROWS:
+                if batch != 1024:
+                    lib = libs["K2 as committed"][0]
+                    print(f"K2 CUDA-core kernel, B={batch}, {rows}-row tiles: "
+                          + blocks_ms(lambda: checked(
+                              "K2", lib.sir_gru_layer_bf16(
+                                  gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                                  ys.data_ptr(), steps, batch, hidden, rows,
+                                  stream)), 10) + " ms", flush=True)
+                if batch != 2048:
+                    lib = libs["K2T as committed"][0]
+                    print(f"K2T CUDA-core kernel, B={batch}, {rows}-row tiles: "
+                          + blocks_ms(lambda: checked(
+                              "K2T", lib.sir_gru_layer_bwd_bf16(
+                                  gx.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                                  bn.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+                                  dgx.data_ptr(), dgh.data_ptr(), steps, batch,
+                                  hidden, rows, stream)), 10) + " ms",
+                          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,12 +19,17 @@ hand-written CUDA kernels, and checks everything it measures:
 Phases:
 
 1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc``, and
-   print what K1, K3 and K4 take as built: registers, spilled bytes, shared
-   memory, threads and resident blocks per SM;
+   print what K1, K3, K4 and the tensor-core K2 and K2T take as built:
+   registers, spilled bytes, shared memory, threads and resident blocks per
+   SM, for K2 and K2T also the cluster size and resident clusters per card;
 2. K1 (front-end + conv1) against its plain PyTorch version: the check
    lengths with 1 and 0, rows that mix silence and full-scale signal,
    batches of 1, 3 and 257, the main path's B=256;
-3. K2 (GRU recurrence) against its plain version, bf16 and fp32;
+3. K2 (GRU recurrence) against its plain version, bf16 and fp32: every
+   kernel build a call can launch (tensor-core at each tile height, CUDA-core
+   at each, and the one the card picks) at B = 1 to 2048 and T = 1, 25, 40,
+   each launched twice for the same bits, then with the seeded checkpoint's
+   recurrent weights;
 4. serving end to end: the main path once at B=256 with the launch
    counters reset just before and read just after (K1 must launch once, K2
    twice), then the parity gates of the reference ``bench.py``: plain
@@ -45,10 +50,10 @@ Phases:
    (K1 1, K5 1, K2 2; K1 1, K6 2, K2 2), and ``test_model --conv23`` /
    ``--pool-impl kernel`` on a WAV file;
 9. timings with CUDA events, each next to the card's name and power limit:
-   K1 and K2 (at every tile height it is built for); K4 (also at 512 and
-   2048 points), K5, K6, their plain versions and the library calls they
-   stand beside; K1, K3, K4 and cuDNN's GRU layer (bf16 and fp16) as the
-   median of five timed blocks with the least and the most; the three serving
+   K1 and K2 (every build); K4 (also at 512 and 2048 points), K5, K6, their
+   plain versions and the library calls they stand beside; K1, K2, K2T, K3,
+   K4 and cuDNN's GRU layer (bf16 and fp16) as the median of five timed
+   blocks with the least and the most; the three serving
    configurations in the order A B C C B A;
 10. with ``--profile`` only: step-time percentiles and the per-kernel
     breakdown of device time (``utils/profiling.py``) of the three serving
@@ -57,7 +62,8 @@ Phases:
     and raw, with lengths 1 and 0, batches of 1, 3 and 257, and silent and
     padded frames in raw dB (exactly -100 and 0);
 12. K2T (GRU backward) against its plain version and against autograd
-    through the plain forward, at every tile height;
+    through the plain forward: every build, the batches and T of phase 3,
+    twice for the same bits, and the checkpoint's weights;
 13. one fp32 training step (two batches) on the card against the CPU;
 14. timings of K3, K2T and the bf16 train step with CUDA events;
 15. training end to end through the CLIs (precompute -> train -> evaluate
@@ -104,9 +110,10 @@ from speech_intent_recognizer_tpu_torch.ops.conv23 import (
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
     padded_samples)
+from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    TILE_ROWS, _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
-    gru_layer_backward, tile_rows)
+    MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan, _gru_layer_backward_plain,
+    _gru_layer_plain, gru_layer, gru_layer_backward, picked_plan)
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
 from speech_intent_recognizer_tpu_torch.utils.device import (
@@ -138,6 +145,10 @@ K4_FRAMES = (0, 1, 255, 256, 257, 300)
 K4_FFT_SIZES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 K4_MELS = (40, 64, 80)
 ODD_BATCHES = (1, 3, 257)
+# K2 and K2T vs their plain versions: (batch, steps); ragged and full tiles
+# of every height, T = 1 and a T past the model's 25
+GRU_CASES = tuple((b, 25) for b in (1, 3, 64, 256, 257, 1030, 2048)) + (
+    (3, 1), (257, 1), (3, 40), (257, 40))
 DB_FLOOR = -100.0
 # the off-reference geometry served through K4: hop 256, 400 frames
 HOP256 = dict(hop_length=256, mel_spec_length=400)
@@ -285,15 +296,87 @@ def check_probs(got: np.ndarray, want: np.ndarray, what: str) -> None:
           f"log-prob err {logp_err:.3e} <= {LOGP_BAR}")
 
 
-def k2_inputs(b: int, dtype, dev, seed: int):
+def k2_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
+    """Seeded K2 operands.  With ``state`` (a CNNAudioGRU state dict) the
+    recurrent weights and n-gate bias are those of its first GRU layer, as
+    ``gru_bidirectional`` lays them out, instead of 0.05 N(0, 1)."""
     r = np.random.default_rng(seed)
-    gx = torch.from_numpy(r.standard_normal((2, 25, b, 768))
+    gx = torch.from_numpy(r.standard_normal((2, steps, b, 768))
                           .astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((r.standard_normal((2, 256, 768)) * 0.05)
                          .astype(np.float32)).to(dev, dtype)
     bn = torch.from_numpy((r.standard_normal((2, 1, 256)) * 0.1)
                           .astype(np.float32)).to(dev)
+    if state is not None:
+        names = ("gru.weight_hh_l0", "gru.weight_hh_l0_reverse")
+        w = torch.stack([state[n].t() for n in names]).contiguous().to(
+            dev, dtype)
+        bn = torch.stack([state[n.replace("weight", "bias")][512:]
+                          for n in names])[:, None, :].float().to(dev)
     return gx, w, bn
+
+
+def gru_variants(dtype, backward: bool = False) -> list:
+    """Every ``rows=`` argument that launches a different kernel build for
+    this operand type: what the card picks (None), each tensor-core tile
+    height (bf16 only), each CUDA-core tile height."""
+    heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
+    mma = [Plan("mma", r) for r in heights] if dtype == torch.bfloat16 else []
+    return [None, *mma, *TILE_ROWS]
+
+
+def plan_name(rows, b: int, dtype, dev, backward: bool = False) -> str:
+    if rows is None:
+        p = picked_plan(b, 256, dtype, dev, backward)
+        return f"{p.kernel} {p.rows}-row tiles (picked)"
+    p = rows if isinstance(rows, Plan) else Plan("simt", rows)
+    return f"{p.kernel} {p.rows}-row tiles"
+
+
+def plan_key(rows) -> str:
+    """The timing key of a forced build: ``mma_rows64``, ``simt_rows4``."""
+    p = rows if isinstance(rows, Plan) else Plan("simt", rows)
+    return f"{p.kernel}_rows{p.rows}"
+
+
+def check_k2(dev, state) -> float:
+    """Phase 3: K2 vs its plain version, bf16 and fp32, every kernel build a
+    call can launch (tensor-core and CUDA-core, every tile height, and the
+    one the card picks) on full and ragged tiles, T = 1, 25 and 40; two
+    launches on the same inputs give the same bits; then the same with the
+    seeded checkpoint's recurrent weights.  Returns the bf16 error of the
+    picked kernel at the main path's batch."""
+    k2_err = 0.0
+    cases = [(b, steps, None) for b, steps in GRU_CASES]
+    cases += [(b, 25, state) for b in (3, MAIN_BATCH, 1030)]
+    for b, steps, st in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            gx, w, bn = k2_inputs(b, dtype, dev, seed=b, steps=steps, state=st)
+            want = _gru_layer_plain(gx, w, bn).float()
+            worst, same = 0.0, True
+            for rows in gru_variants(dtype):
+                got = gru_layer(gx, w, bn, rows=rows)
+                again = gru_layer(gx, w, bn, rows=rows)
+                torch.cuda.synchronize()
+                err = float((got.float() - want).abs().max())
+                if not (bool(torch.isfinite(got.float()).all())
+                        and err <= tol):
+                    raise AssertionError(
+                        f"K2 vs plain, B={b} T={steps} {dtype} "
+                        f"{plan_name(rows, b, dtype, dev)}: max |err| "
+                        f"{err:.3e} > {tol}")
+                same = same and bool(torch.equal(got, again))
+                worst = max(worst, err)
+                if (dtype == torch.bfloat16 and (b, steps) == (MAIN_BATCH, 25)
+                        and rows is None and st is None):
+                    k2_err = err
+            check(same, f"K2 vs plain, B={b} T={steps} {dtype}"
+                  f"{', checkpoint weights' if st is not None else ''}: "
+                  f"{len(gru_variants(dtype))} builds (picked: "
+                  f"{plan_name(None, b, dtype, dev)}) within {tol} (worst "
+                  f"{worst:.3e}), each the same bits twice")
+    return k2_err
 
 
 def seeded_checkpoint(directory: str) -> tuple:
@@ -386,54 +469,77 @@ def check_k3(dev, fe, rng) -> float:
     return k3_err
 
 
-def k2t_inputs(b: int, dtype, dev, seed: int):
-    gx, w, bn = k2_inputs(b, dtype, dev, seed)
+def k2t_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
+    gx, w, bn = k2_inputs(b, dtype, dev, seed, steps, state)
     r = np.random.default_rng(seed + 1)
-    dys = torch.from_numpy(r.standard_normal((2, 25, b, 256))
+    dys = torch.from_numpy(r.standard_normal((2, steps, b, 256))
                            .astype(np.float32)).to(dev, dtype)
     return gx, w, bn, _gru_layer_plain(gx, w, bn), dys
 
 
-def check_k2t(dev, sms) -> float:
-    """Phase 12: K2T vs its plain version at every tile height (and the
-    picked one) on full and ragged tiles; fp32 also vs autograd through
-    the plain forward.  Returns the largest fp32 error."""
+def k2t_within(dtype, name: str, g, x) -> bool:
+    """The bars of K2T against a reference: fp32 dgx per element, fp32 dW
+    and db_hn (always fp32) relative to the tensor's largest value, bf16 dgx
+    and dW within one bf16 step plus the fp32 bar."""
+    if not bool(torch.isfinite(g.float()).all()):
+        return False
+    if dtype == torch.float32 and name == "dgx":
+        return within_each(g, x, GRAD_RTOL, GRAD_ATOL)
+    if dtype == torch.float32 or name == "db_hn":
+        return within_scaled(g, x, GRAD_RTOL, GRAD_ATOL)
+    bound = (2.0 ** -7 * x.float().abs() + GRAD_ATOL
+             + GRAD_RTOL * float(x.float().abs().max()))
+    return bool(((g.float() - x.float()).abs() <= bound).all())
+
+
+def check_k2t(dev, state) -> float:
+    """Phase 12: K2T vs its plain version, every kernel build a call can
+    launch (tensor-core and CUDA-core, every tile height, and the picked
+    one) on full and ragged tiles, T = 1, 25 and 40, twice with the same
+    bits; fp32 also vs autograd through the plain forward; then with the
+    seeded checkpoint's recurrent weights.  Returns the largest fp32
+    error."""
     worst = 0.0
     names = ("dgx", "dW", "db_hn")
-    for b in (64, 1030, 2048):
+    cases = [(b, steps, None) for b, steps in GRU_CASES]
+    cases += [(b, 25, state) for b in (3, MAIN_BATCH, 1030)]
+    for b, steps, st in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            gx, w, bn, ys, dys = k2t_inputs(b, dtype, dev, seed=b)
-            want = _gru_layer_backward_plain(gx, w, bn, ys, dys)
-            refs = [("plain", want)]
-            if dtype == torch.float32:
+            gx, w, bn, ys, dys = k2t_inputs(b, dtype, dev, seed=b,
+                                            steps=steps, state=st)
+            refs = [("plain", _gru_layer_backward_plain(gx, w, bn, ys, dys))]
+            if (dtype == torch.float32 and steps == 25 and st is None
+                    and b in (64, 1030, 2048)):
                 leaves = [t.clone().requires_grad_() for t in (gx, w, bn)]
                 refs.append(("autograd", torch.autograd.grad(
                     _gru_layer_plain(*leaves), leaves, dys)))
-            for rows in (None, *TILE_ROWS):
+            same, errs = True, dict.fromkeys(names, 0.0)
+            for rows in gru_variants(dtype, backward=True):
                 got = gru_layer_backward(gx, w, bn, ys, dys, rows=rows)
+                again = gru_layer_backward(gx, w, bn, ys, dys, rows=rows)
                 torch.cuda.synchronize()
-                picked = tile_rows(b, sms) if rows is None else rows
+                same = same and all(torch.equal(a, c)
+                                    for a, c in zip(got, again))
                 for ref_name, ref in refs:
                     for name, g, x in zip(names, got, ref):
-                        ok = bool(torch.isfinite(g.float()).all())
-                        if dtype == torch.float32 and name == "dgx":
-                            ok = ok and within_each(g, x, GRAD_RTOL,
-                                                    GRAD_ATOL)
-                        elif dtype == torch.float32 or name == "db_hn":
-                            ok = ok and within_scaled(g, x, GRAD_RTOL,
-                                                      GRAD_ATOL)
-                        else:  # one bf16 step plus the fp32 bar
-                            bound = (2.0 ** -7 * x.float().abs() + GRAD_ATOL
-                                     + GRAD_RTOL * float(x.float().abs().max()))
-                            ok = ok and bool(((g.float() - x.float()).abs()
-                                              <= bound).all())
                         err = max_err(g, x)
-                        check(ok, f"K2T vs {ref_name}, B={b} {dtype} "
-                              f"{picked}-row tiles{' (picked)' if rows is None else ''}"
-                              f" {name}: max |err| {err:.3e} (scale "
-                              f"{float(x.float().abs().max()):.3g})")
+                        if not k2t_within(dtype, name, g, x):
+                            raise AssertionError(
+                                f"K2T vs {ref_name}, B={b} T={steps} {dtype} "
+                                f"{plan_name(rows, b, dtype, dev, True)} "
+                                f"{name}: max |err| {err:.3e} (scale "
+                                f"{float(x.float().abs().max()):.3g})")
+                        errs[name] = max(errs[name], err)
                         if dtype == torch.float32:
                             worst = max(worst, err)
+            check(same, f"K2T vs {' and '.join(r[0] for r in refs)}, B={b} "
+                  f"T={steps} {dtype}"
+                  f"{', checkpoint weights' if st is not None else ''}: "
+                  f"{len(gru_variants(dtype, True))} builds (picked: "
+                  f"{plan_name(None, b, dtype, dev, True)}) within the bars "
+                  f"(max |err| " + ", ".join(
+                      f"{n} {e:.3e}" for n, e in errs.items())
+                  + "), each the same bits twice")
     return worst
 
 
@@ -1087,11 +1193,16 @@ def main(argv=None) -> int:
     resources = fk.kernel_resources(dev, tuple(
         make_frontend_params(AudioConfig(n_fft=n, hop_length=n // 4), dev)
         for n in (1024, 512, 2048)))
-    check(all(r["blocks_per_sm"] >= 1 for r in resources.values()),
-          "K1, K3 and K4 as built fit an SM")
+    resources.update(gru_ops.kernel_resources(dev))
+    check(all(r["blocks_per_sm"] >= 1 for r in resources.values())
+          and all(r.get("clusters_per_card", 1) >= 1
+                  for r in resources.values()),
+          "K1, K3, K4 and the tensor-core K2 and K2T as built fit an SM, "
+          "and at least one cluster of K2 and K2T the card")
     log(f"resources on {label} (registers per thread, local (spilled) bytes per "
         f"thread, shared memory per block, threads per block, resident "
-        f"blocks per SM): " + json.dumps(resources))
+        f"blocks per SM; for K2 and K2T also blocks per cluster and resident "
+        f"clusters per card): " + json.dumps(resources))
 
     # ---- 2. K1 vs plain (check lengths, then the main path's B=256) ----
     rng = np.random.default_rng(0)
@@ -1128,29 +1239,11 @@ def main(argv=None) -> int:
               f"{K1_FAR_SHARE}")
         k1_err = max(k1_err, err)
 
-    # ---- 3. K2 vs plain: the heights the card picks (rows=None) at the
-    # main path's batch and the timed one, then every built height on a
-    # full and a ragged last tile ----
+    # ---- 3. K2 vs plain: every build, full and ragged tiles ----
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    k2_cases = [(b, dtype, None) for b in (64, MAIN_BATCH, 2048)
-                for dtype in (torch.float32, torch.bfloat16)]
-    k2_cases += [(b, dtype, rows) for rows in TILE_ROWS for b in (1030, 2048)
-                 for dtype in (torch.float32, torch.bfloat16)]
-    k2_err = 0.0
-    for b, dtype, rows in k2_cases:
-        tol = 1e-5 if dtype == torch.float32 else 1e-2
-        gx, w, bn = k2_inputs(b, dtype, dev, seed=b)
-        got = gru_layer(gx, w, bn, rows=rows).float()
-        want = _gru_layer_plain(gx, w, bn).float()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        picked = tile_rows(b, sms) if rows is None else rows
-        check(bool(torch.isfinite(got).all()) and err <= tol,
-              f"K2 vs plain, B={b} {dtype} {picked}-row tiles"
-              f"{' (picked)' if rows is None else ''}: max |err| "
-              f"{err:.3e} <= {tol}")
-        if dtype == torch.bfloat16 and b == MAIN_BATCH and rows is None:
-            k2_err = err
+    with tempfile.TemporaryDirectory() as tmp:
+        gru_state = seeded_checkpoint(tmp)[2]
+    k2_err = check_k2(dev, gru_state)
 
     # ---- 4. end to end ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -1251,14 +1344,16 @@ def main(argv=None) -> int:
                 (b * 2.0 * 9 * 32 * 64 * 200, BF16_FLOPS))
             del wf, buf
             gx, w, bn = k2_inputs(b, torch.bfloat16, dev, seed=b)
-            timings[f"k2_b{b}"] = cuda_ms(lambda: gru_layer(gx, w, bn), 20)
+            timed(timings, spreads, f"k2_b{b}",
+                  lambda: gru_layer(gx, w, bn), 20)
             bounds[f"k2_b{b}"] = bound(
                 nbytes(gx, w, bn) + gx.numel() // 3 * 2,
                 (2.0 * gx.numel() * 256, BF16_FLOPS))
-            log(f"K2 at B={b} picks {tile_rows(b, sms)}-row tiles ({sms} SMs)")
-            for rows in TILE_ROWS:
-                timings[f"k2_b{b}_rows{rows}"] = cuda_ms(
-                    lambda: gru_layer(gx, w, bn, rows=rows), 20)
+            log(f"K2 at B={b} launches "
+                f"{plan_name(None, b, torch.bfloat16, dev)} ({sms} SMs)")
+            for rows in gru_variants(torch.bfloat16)[1:]:
+                timed(timings, spreads, f"k2_b{b}_{plan_key(rows)}",
+                      lambda: gru_layer(gx, w, bn, rows=rows), 20)
             timings[f"k2_plain_b{b}"] = cuda_ms(
                 lambda: _gru_layer_plain(gx, w, bn), 5)
             # the yardstick: one cuDNN layer (its input product included),
@@ -1321,7 +1416,7 @@ def main(argv=None) -> int:
 
     # ---- 11-13. K3, K2T, a train step card vs CPU ----
     k3_err = check_k3(dev, make_frontend_params(device=dev), rng)
-    k2t_err = check_k2t(dev, sms)
+    k2t_err = check_k2t(dev, gru_state)
     check_train_step(dev)
 
     # ---- 14. timings of the training path's kernels and step ----
@@ -1343,17 +1438,19 @@ def main(argv=None) -> int:
         del wf, buf
     for b in (256, 1024):
         gx, w, bn, ys, dys = k2t_inputs(b, torch.bfloat16, dev, seed=b)
-        log(f"K2T at B={b} picks {tile_rows(b, sms)}-row tiles ({sms} SMs)")
-        timings[f"k2t_b{b}"] = cuda_ms(
-            lambda: gru_layer_backward(gx, w, bn, ys, dys), 10)
+        log(f"K2T at B={b} launches "
+            f"{plan_name(None, b, torch.bfloat16, dev, True)} ({sms} SMs)")
+        timed(timings, spreads, f"k2t_b{b}",
+              lambda: gru_layer_backward(gx, w, bn, ys, dys), 10)
         # reads gx, W, ys, dys; writes dgx, fp32 dW and db; recomputes the
         # forward's product and takes two more (dh and dW)
         bounds[f"k2t_b{b}"] = bound(
             nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4,
             (3 * 2.0 * gx.numel() * 256, BF16_FLOPS))
-        for rows in TILE_ROWS:
-            timings[f"k2t_b{b}_rows{rows}"] = cuda_ms(
-                lambda: gru_layer_backward(gx, w, bn, ys, dys, rows=rows), 10)
+        for rows in gru_variants(torch.bfloat16, backward=True)[1:]:
+            timed(timings, spreads, f"k2t_b{b}_{plan_key(rows)}",
+                  lambda: gru_layer_backward(gx, w, bn, ys, dys, rows=rows),
+                  10)
         timings[f"k2t_plain_b{b}"] = cuda_ms(
             lambda: _gru_layer_backward_plain(gx, w, bn, ys, dys), 5)
         leaves = [t.clone().requires_grad_() for t in (gx, w, bn)]

@@ -42,6 +42,12 @@ _SIGNATURES = {
                                _P],
     "sir_gru_layer_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P],
+    # tensor-core GRU kernels (bf16, hidden 256); no transposed W
+    "sir_gru_layer_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_gru_layer_bwd_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # their resources per tile height: out = int[7] on the host
+    "sir_gru_layer_mma_info": [_I, _P],
+    "sir_gru_layer_bwd_mma_info": [_I, _P],
     "sir_mel_db": [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                    _P],
     # resources of the built front-end kernels: out = int[5] on the host

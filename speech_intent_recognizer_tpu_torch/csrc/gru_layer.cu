@@ -9,27 +9,44 @@
 // recurrent product runs on operands rounded to the operand type with fp32
 // sums; h is carried in fp32 across steps and the gate math is fp32.
 //
-// Design: grid (batch tiles, 2 directions), one thread per hidden unit.
-// Thread j owns unit j of every row of its tile, so the r/z/n gates of a
-// unit are computed by the thread that accumulated them and h never leaves
-// registers except as the operand-rounded copy in shared memory that the
-// next step's product reads.  The time loop runs inside the block.
+// Two kernels; ops/gru.py::gru_plan says which one a call takes.
 //
-// What bounds it on the H100: W_hh is 256 x 768 per direction (384 KiB in
-// bf16), more than one SM's shared memory, so every step streams it from L2
-// (which holds it); each weight load feeds one FMA per row of the tile, so
-// the tile height trades L2 traffic against the number of blocks in flight.
-// Two heights are built, and the caller picks one (ops/gru.py::tile_rows)
-// from the batch and the SM count: 16 rows where that still puts a block
-// on every SM, 4 rows below.  On an H100 80GB HBM3 (700 W), one bf16 layer
-// at B=2048 takes 1.71 ms with 16-row tiles and 2.14 ms with 4-row tiles;
-// at B=256, 0.54 ms with 4-row tiles and 1.15 ms with 16-row tiles.
-// The product runs on CUDA cores in fp32; tensor cores (wgmma), weight
-// splitting across a cluster and keeping W_hh on chip are later work.
+// 1. gru_layer_mma_kernel: bf16, H = 256, the kernel that serves and
+//    trains.  What bounds the recurrence on the H100 is the serial chain of
+//    T steps, each a (rows x 256) @ (256 x 768) product followed by gate
+//    math that the next step waits for; W_hh^T (393,216 bytes per direction
+//    in bf16) fits no single SM.  The design (index maps in gru_mma.cuh):
+//    * a cluster of 4 blocks shares one tile of 16 to 128 batch rows (any
+//      multiple of 16: ops/gru.py picks the height that leaves the fewest
+//      clusters waiting for a free set of SMs); each rank keeps the r, z
+//      and n columns of its 64 hidden units in registers for the whole
+//      launch (mma.sync B fragments, loaded once per block, never per step);
+//    * the product runs on the tensor cores (mma.sync.m16n8k16, bf16
+//      operands, fp32 sums), two 16-row tiles at a time, A fragments by
+//      ldmatrix from the step's h tile in shared memory;
+//    * the thread that holds the sums of a unit holds its r, z and n, so
+//      the gates are computed in place and h stays in fp32 registers;
+//    * each rank rounds its 64 units of the new h to bf16 into its slab of
+//      the next step's h tile, then copies the slab with 16-byte stores
+//      into the three other ranks' shared memory and to ys (tall tiles
+//      store ys after the arrive at the cluster barrier); the h tile is
+//      double-buffered, so one cluster barrier per step orders everything;
+//    * the step's slice of gx (the kernel's only read from device memory)
+//      is fetched one step ahead with cp.async into a two-stage ring.
+// 2. gru_layer_kernel: fp32 or bf16 operands, any H that is a multiple of
+//    32, fp32 FMAs on CUDA cores, one thread per hidden unit, W_hh streamed
+//    from L2 at every step, tiles of 4 or 16 rows (ops/gru.py::tile_rows).
+//    It is the fp32 parity path: TF32 tensor cores would break the 1e-5 bar
+//    that holds fp32 results to the JAX package, so fp32 operands stay
+//    here, as does bf16 at any H other than 256.
+//
+// Times stand in PERF.md, each with the card's name and power limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "gru_mma.cuh"
 
 namespace {
 
@@ -159,6 +176,196 @@ int launch(const void* gx, const void* w, const float* bn, void* out,
   }
 }
 
+
+// ---- the tensor-core kernel ----
+
+using namespace gru_mma;
+
+// Shared memory of the tensor-core kernel with 16 * MT rows a tile: two h
+// tiles (rows x 512 bytes) and two gx stages (rows x 384 bytes).
+constexpr int mma_smem_bytes(int mt) { return 16 * mt * (2 * 512 + 2 * 384); }
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_layer_mma_kernel(const __nv_bfloat16* __restrict__ gx,
+                     const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ bn,
+                     __nv_bfloat16* __restrict__ out, int steps, int batch) {
+  constexpr int M = 16 * MT;            // rows of the cluster's tile
+  constexpr int G = MT < 2 ? MT : 2;    // 16-row tiles multiplied together
+                                        // (an odd MT ends on a single one)
+  // Tall tiles store ys after the arrive at the cluster barrier, so that
+  // the other ranks wait for the exchange only; short ones before it, where
+  // the stores overlap the wait (measured: PERF.md).
+  constexpr bool kYsAfterArrive = MT >= 3;
+  extern __shared__ __align__(128) unsigned char tile_mem[];
+  const uint32_t h_tiles = smem_addr(tile_mem);                // 2 x (M x 512 B)
+  const uint32_t gx_tiles = h_tiles + 2 * M * 512;         // 2 x (M x 384 B)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int rank = static_cast<int>(cluster_rank());
+  const int dir = blockIdx.y;
+  const int row0 = static_cast<int>(blockIdx.x / kCluster) * M;
+  const int unit0 = rank * kUnits + warp * 8;   // this warp's eight units
+
+  uint32_t wf[kKTiles][3][2];
+  load_w_fragments(wf, w + static_cast<size_t>(dir) * kHidden * kGates, unit0,
+                   lane);
+  const float bn0 = bn[dir * kHidden + unit0 + 2 * q];
+  const float bn1 = bn[dir * kHidden + unit0 + 2 * q + 1];
+
+  // h_{-1} = 0 in tile 0; the other tile is written before it is read
+  for (int i = tid; i < M * 32; i += kThreads)
+    reinterpret_cast<uint4*>(tile_mem)[i] = make_uint4(0, 0, 0, 0);
+  float h[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    h[mt][0] = h[mt][1] = h[mt][2] = h[mt][3] = 0.f;
+
+  const __nv_bfloat16* gxd = gx + static_cast<size_t>(dir) * steps * batch * kGates;
+  __nv_bfloat16* outd = out + static_cast<size_t>(dir) * steps * batch * kHidden;
+  load_gx_slice(gx_tiles, gxd, M, row0, batch, rank, tid);
+  cp_async_commit();
+  __syncthreads();
+  // no rank writes another's shared memory before every rank runs
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t = 0; t < steps; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    if (t + 1 < steps)
+      load_gx_slice(gx_tiles + nxt * M * 384,
+                    gxd + static_cast<size_t>(t + 1) * batch * kGates, M, row0,
+                    batch, rank, tid);
+    cp_async_commit();
+    // every rank's slab of h_{t-1} has arrived in tile `cur`
+    if (t > 0) cluster_wait();
+    cp_async_wait<1>();   // this thread's part of gx_t has landed
+    __syncthreads();      // ... and every other thread's
+
+    const uint32_t h_cur = h_tiles + cur * M * 512;
+    unsigned char* h_nxt = tile_mem + nxt * M * 512;
+    const unsigned char* g_cur = tile_mem + 2 * M * 512 + cur * M * 384;
+#pragma unroll
+    for (int mt0 = 0; mt0 < MT; mt0 += G) {
+      float acc[G][3][4];
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+          acc[i][gate][0] = acc[i][gate][1] = acc[i][gate][2] =
+              acc[i][gate][3] = 0.f;
+      const int n = MT - mt0 < G ? MT - mt0 : G;
+      recurrent_product<G>(acc, wf, h_cur, M, mt0, lane, n);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (i >= n) break;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = (mt0 + i) * 16 + g + 8 * half;
+          const unsigned char* gr = g_cur + 4 * q;
+          const uint32_t xr = *reinterpret_cast<const uint32_t*>(
+              gr + chunk_offset(row, warp, 24));
+          const uint32_t xz = *reinterpret_cast<const uint32_t*>(
+              gr + chunk_offset(row, 8 + warp, 24));
+          const uint32_t xn = *reinterpret_cast<const uint32_t*>(
+              gr + chunk_offset(row, 16 + warp, 24));
+          float hn[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int a = 2 * half + e;
+            const float rg = sigmoid_fast((e ? bf16_hi(xr) : bf16_lo(xr)) +
+                                          acc[i][0][a]);
+            const float zg = sigmoid_fast((e ? bf16_hi(xz) : bf16_lo(xz)) +
+                                          acc[i][1][a]);
+            const float ng = tanh_fast((e ? bf16_hi(xn) : bf16_lo(xn)) +
+                                       rg * (acc[i][2][a] + (e ? bn1 : bn0)));
+            hn[e] = (1.f - zg) * ng + zg * h[mt0 + i][a];
+            h[mt0 + i][a] = hn[e];
+          }
+          *reinterpret_cast<uint32_t*>(h_nxt + h_offset(M, rank, row, warp) +
+                                       4 * q) = pack_bf16(hn[0], hn[1]);
+        }
+      }
+    }
+    __syncthreads();   // this rank's slab of h_t is whole
+
+    // the slab goes to the other ranks' tiles ...
+    if (t + 1 < steps) {
+      for (int i = tid; i < M * 8; i += kThreads) {
+        const int off = rank * M * 128 + i * 16;
+        const uint4 v = *reinterpret_cast<const uint4*>(h_nxt + off);
+        const uint32_t mine = h_tiles + nxt * M * 512 + off;
+#pragma unroll
+        for (int r = 1; r < kCluster; ++r)
+          st_cluster_16(map_to_rank(mine, (rank + r) % kCluster), v);
+      }
+    }
+    // ... and, as ys[t], to device memory.  The slab is not rewritten before
+    // two more block barriers, so the stores may follow the arrive.
+    auto store_ys = [&]() {
+      __nv_bfloat16* o = outd + static_cast<size_t>(t) * batch * kHidden +
+                         rank * kUnits;
+      for (int i = tid; i < M * 8; i += kThreads) {
+        // i counts the slab's chunks as they lie; chunk is the logical one
+        const int row = i >> 3, chunk = (i & 7) ^ (row & 7);
+        if (row0 + row < batch)
+          *reinterpret_cast<uint4*>(
+              o + static_cast<size_t>(row0 + row) * kHidden + chunk * 8) =
+              *reinterpret_cast<const uint4*>(h_nxt + rank * M * 128 + i * 16);
+      }
+    };
+    if (!kYsAfterArrive) store_ys();
+    cluster_arrive();
+    if (kYsAfterArrive) store_ys();
+  }
+  // no rank leaves while another may still write into it
+  if (steps > 0) cluster_wait();
+}
+
+template <int MT>
+int launch_mma(const void* gx, const void* w, const float* bn, void* out,
+               int steps, int batch, cudaStream_t stream, int* out_info) {
+  auto kernel = gru_layer_mma_kernel<MT>;
+  const int smem = mma_smem_bytes(MT);
+  if (out_info) return cluster_info(kernel, smem, out_info);
+  static bool ready[kMaxDevices] = {};
+  const int tiles = (batch + 16 * MT - 1) / (16 * MT);
+  return static_cast<int>(launch_clusters(
+      kernel, ready, dim3(kCluster * tiles, 2), smem, stream,
+      static_cast<const __nv_bfloat16*>(gx),
+      static_cast<const __nv_bfloat16*>(w), bn,
+      static_cast<__nv_bfloat16*>(out), steps, batch));
+}
+
+int dispatch_mma(const void* gx, const void* w, const float* bn, void* out,
+                 int steps, int batch, int hidden, int rows,
+                 cudaStream_t stream, int* out_info) {
+  if (steps < 0 || batch < 0 || hidden != kHidden)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!out_info && (steps == 0 || batch == 0)) return 0;
+  switch (rows) {
+    case 16:
+      return launch_mma<1>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 32:
+      return launch_mma<2>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 48:
+      return launch_mma<3>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 64:
+      return launch_mma<4>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 80:
+      return launch_mma<5>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 96:
+      return launch_mma<6>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 112:
+      return launch_mma<7>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 128:
+      return launch_mma<8>(gx, w, bn, out, steps, batch, stream, out_info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int sir_gru_layer_bf16(const void* gx, const void* w,
@@ -174,4 +381,21 @@ extern "C" int sir_gru_layer_f32(const void* gx, const void* w,
                                  int batch, int hidden, int rows,
                                  void* stream) {
   return launch<float>(gx, w, bn, out, steps, batch, hidden, rows, stream);
+}
+
+// The tensor-core kernel: bf16, hidden = 256, rows in {16, 32, ..., 128}.
+extern "C" int sir_gru_layer_mma(const void* gx, const void* w,
+                                 const float* bn, void* out, int steps,
+                                 int batch, int hidden, int rows,
+                                 void* stream) {
+  return dispatch_mma(gx, w, bn, out, steps, batch, hidden, rows,
+                      static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// out[0..6]: registers, local bytes, shared bytes, threads, blocks per SM,
+// blocks per cluster, resident clusters per card of the tensor-core kernel
+// with `rows`-row tiles as built (gru_mma.cuh::cluster_info).
+extern "C" int sir_gru_layer_mma_info(int rows, int* out) {
+  return dispatch_mma(nullptr, nullptr, nullptr, nullptr, 0, 0, kHidden, rows,
+                      nullptr, out);
 }

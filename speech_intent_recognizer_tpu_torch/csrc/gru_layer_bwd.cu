@@ -15,32 +15,59 @@
 //
 // Inputs: gx (2, T, B, 3H) and ys, dys (2, T, B, H) in the operand type,
 // direction 1 in reversed time as the forward kernel has them; w (2, H, 3H)
-// = W_hh^T and wt (2, 3H, H) = W_hh (its transpose) in the operand type; bn
-// (2, H) f32.  Outputs: dgx (2, T, B, 3H) operand type, dgh (2, T, B, 3H)
-// f32.  The workspace at B = 1024, T = 25, H = 256 is 2 * 25 * 1024 * 768 *
-// 4 B = 157 MB.
+// = W_hh^T in the operand type; bn (2, H) f32.  The tensor-core kernel reads
+// w in both orientations; the CUDA-core kernel also takes wt (2, 3H, H), its
+// transpose, so that neighbouring threads read neighbouring addresses.
+// Outputs: dgx (2, T, B, 3H) operand type, dgh (2, T, B, 3H) f32.  The
+// workspace at B = 1024, T = 25, H = 256 is 2 * 25 * 1024 * 768 * 4 B =
+// 157 MB.
 //
-// Design: grid (batch tiles, 2 directions), one thread per hidden unit, the
-// tile heights of the forward kernel (ops/gru.py::tile_rows).  Per step, in
-// reverse: stage h_prev of the tile's rows in shared memory; thread j
-// recomputes gh[:, j], gh[:, H + j], gh[:, 2H + j] streaming W from L2 (as
-// the forward does); computes the gates and adjoints of unit j; writes
-// dgx_t and dgh_t; stages dgh of the tile's rows in shared memory; after a
-// barrier, dh_prev[j] = dh * z + sum_k dgh[k] W[j, k] reads W's row j as
-// column j of W^T, so neighbouring threads read neighbouring addresses.
-// dh is carried in fp32 registers across steps.
+// Two kernels; ops/gru.py::gru_plan says which one a call takes.
 //
-// What bounds it on the H100: the same as the forward, twice over: two
-// (rows x H) x (H x 3H) products per step on CUDA cores, each streaming
-// 384 KiB (bf16) of weights from L2 per block and step, behind two block
-// barriers; tensor cores (wgmma) and keeping W on chip are later work.
-// On an H100 80GB HBM3 (700 W), one bf16 layer takes 1.60 ms at B=256
-// with 4-row tiles (2.98 ms with 16) and 4.11 ms at B=1024 with 4-row
-// tiles (3.82 ms with 16, which the shared rule does not pick).
+// 1. gru_layer_bwd_mma_kernel: bf16, H = 256, the kernel that trains.  What
+//    bounds it on the H100 is the serial chain of T steps, each with two
+//    products: gh = h_prev @ W (rows x 256 x 768), whose operands are
+//    inputs and which therefore waits for nothing, and dh_prev = dgh @ W^T
+//    (rows x 768 x 256), which the next step waits for.  W is needed in
+//    both orientations and fits no single SM.  The design, on the machinery
+//    of the forward kernel (gru_mma.cuh: a cluster of 4 blocks per tile of
+//    16 or 32 rows, rank c owns the r, z, n columns of units [64c, 64c+64)):
+//    * the slice W[:, columns of c] is on chip twice, loaded once per block:
+//      as mma.sync B fragments in registers for gh (as in the forward), and
+//      in shared memory (98,304 bytes, rows = unit, 16-byte chunks swizzled)
+//      where ldmatrix reads the same bytes as the B fragments of the other
+//      orientation.  No transposed copy of W is made on the host;
+//    * gh, the gates and their adjoints are computed in the thread that
+//      holds the sums (as in the forward); dh stays in fp32 registers;
+//    * dh_prev sums over all 768 gate columns, which the split by unit
+//      spreads over the ranks.  Each rank multiplies ITS 192 columns of dgh
+//      by its slice, giving a partial sum for all 256 units, and sends each
+//      rank the 64 units it owns (fp32, st.shared::cluster into a double-
+//      buffered inbox); the owner adds the four partial sums in rank order.
+//      The other way, publishing dgh to every rank as the forward publishes
+//      h, would move 3x the bytes between SMs and make every warp read a
+//      (rows x 768) hi + lo operand, 4x the shared-memory traffic.  No
+//      atomics: two launches give the same bits;
+//    * dgh is an fp32 operand in the JAX package.  It is fed to the tensor
+//      cores as hi + lo bf16 halves (hi = bf16(v), lo = bf16(v - hi)), two
+//      MMAs into one accumulator, which keeps ~16 bits of each value, so
+//      the product matches the fp32 one to ~2^-17 relative;
+//    * the step's h_prev tile, gx slice and dys slice are fetched with
+//      cp.async while the dh product of the step before runs; one cluster
+//      barrier per step.
+// 2. gru_layer_bwd_kernel: fp32 or bf16 operands, any H that is a multiple
+//    of 32, fp32 FMAs on CUDA cores, one thread per hidden unit, W streamed
+//    from L2 twice a step (w for gh, wt for dh_prev).  It is the fp32 parity
+//    path (TF32 would break the per-element gradient bar that holds it to
+//    the JAX package) and serves bf16 at any H other than 256.
+//
+// Times stand in PERF.md, each with the card's name and power limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "gru_mma.cuh"
 
 namespace {
 
@@ -219,6 +246,306 @@ int launch(const void* gx, const void* w, const void* wt, const float* bn,
   }
 }
 
+
+// ---- the tensor-core kernel ----
+
+using namespace gru_mma;
+
+constexpr int kSliceBytes = kHidden * 3 * kUnits * 2;   // 98,304: W[:, rank]
+constexpr int kSliceChunks = 3 * kUnits / 8;            // 24 chunks a row
+
+// Shared memory with 16 * MT rows a tile: the W slice; the inbox (2 buffers
+// x 4 source ranks x rows x 64 fp32); dgh of this rank's columns as bf16 hi
+// | lo (rows x 768 bytes); the h_prev tile (rows x 512 bytes); the gx slice
+// (rows x 384 bytes); the dys slice (rows x 128 bytes).
+constexpr int bwd_mma_smem_bytes(int mt) {
+  return kSliceBytes + 16 * mt * (2 * 4 * 256 + 768 + 512 + 384 + 128);
+}
+
+// Granule (8 bytes = 2 units) g of inbox row `row`, swizzled so that the
+// eight rows a warp stores at once fall on different banks.
+__device__ __forceinline__ int inbox_offset(int row, int granule) {
+  return row * 256 + (granule ^ ((row & 7) << 2)) * 8;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_layer_bwd_mma_kernel(const __nv_bfloat16* __restrict__ gx,
+                         const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ bn,
+                         const __nv_bfloat16* __restrict__ ys,
+                         const __nv_bfloat16* __restrict__ dys,
+                         __nv_bfloat16* __restrict__ dgx,
+                         float* __restrict__ dgh, int steps, int batch) {
+  constexpr int M = 16 * MT;
+  extern __shared__ __align__(128) unsigned char tile_mem[];
+  unsigned char* wt = tile_mem;
+  unsigned char* inbox = wt + kSliceBytes;
+  unsigned char* dg = inbox + 2 * 4 * M * 256;
+  unsigned char* hp = dg + M * 768;
+  unsigned char* gxs = hp + M * 512;
+  unsigned char* dyt = gxs + M * 384;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int rank = static_cast<int>(cluster_rank());
+  const int dir = blockIdx.y;
+  const int row0 = static_cast<int>(blockIdx.x / kCluster) * M;
+  const int unit0 = rank * kUnits + warp * 8;
+
+  const __nv_bfloat16* wd = w + static_cast<size_t>(dir) * kHidden * kGates;
+  uint32_t wf[kKTiles][3][2];
+  load_w_fragments(wf, wd, unit0, lane);
+  const float bn0 = bn[dir * kHidden + unit0 + 2 * q];
+  const float bn1 = bn[dir * kHidden + unit0 + 2 * q + 1];
+
+  // the same slice by rows: row j holds w[j, gate * 256 + 64 rank + 8 o + u]
+  // at chunk 3 o + gate, element u: the order in which warp o's dgh lies
+  for (int i = tid; i < kHidden * kSliceChunks; i += kThreads) {
+    const int j = i / kSliceChunks, c = i % kSliceChunks;
+    cp_async_16(smem_addr(wt) + chunk_offset(j, c, kSliceChunks),
+                wd + static_cast<size_t>(j) * kGates + (c % 3) * kHidden +
+                    rank * kUnits + (c / 3) * 8,
+                true);
+  }
+
+  const size_t dir_rows = static_cast<size_t>(dir) * steps * batch;
+  const __nv_bfloat16* gxd = gx + dir_rows * kGates;
+  const __nv_bfloat16* ysd = ys + dir_rows * kHidden;
+  const __nv_bfloat16* dysd = dys + dir_rows * kHidden;
+
+  // start the copies of step t's h_prev tile, gx slice and dys slice
+  auto load_step = [&](int t) {
+    for (int i = tid; i < M * 32; i += kThreads) {
+      const int row = i >> 5, c = i & 31;
+      const bool valid = t > 0 && row0 + row < batch;
+      cp_async_16(smem_addr(hp) + h_offset(M, c >> 3, row, c & 7),
+                  ysd + (valid ? (static_cast<size_t>(t - 1) * batch + row0 +
+                                  row) * kHidden + c * 8
+                               : 0),
+                  valid);
+    }
+    load_gx_slice(smem_addr(gxs), gxd + static_cast<size_t>(t) * batch * kGates,
+                  M, row0, batch, rank, tid);
+    for (int i = tid; i < M * 8; i += kThreads) {
+      const int row = i >> 3, c = i & 7;
+      const bool valid = row0 + row < batch;
+      cp_async_16(smem_addr(dyt) + chunk_offset(row, c, 8),
+                  dysd + (valid ? (static_cast<size_t>(t) * batch + row0 +
+                                   row) * kHidden + rank * kUnits + c * 8
+                                : 0),
+                  valid);
+    }
+  };
+
+  float dhz[MT][4];   // dh_tot * z of the step after (in time) this one
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    dhz[mt][0] = dhz[mt][1] = dhz[mt][2] = dhz[mt][3] = 0.f;
+  if (steps > 0) load_step(steps - 1);
+  cp_async_commit();
+  // no rank writes another's shared memory before every rank runs
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t = steps - 1; t >= 0; --t) {
+    cp_async_wait<0>();
+    __syncthreads();   // step t's tiles (and the W slice) are whole
+
+    // gh = h_prev @ W for this warp's units: waits for no other rank
+    float acc[MT][3][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate)
+        acc[mt][gate][0] = acc[mt][gate][1] = acc[mt][gate][2] =
+            acc[mt][gate][3] = 0.f;
+    recurrent_product<MT>(acc, wf, smem_addr(hp), M, 0, lane);
+
+    const bool last = t == steps - 1;   // the first step run: dh = 0
+    // every rank's partial sums of step t + 1 are in inbox[(t + 1) & 1]
+    if (!last) cluster_wait();
+    const unsigned char* box_in = inbox + ((t + 1) & 1) * 4 * M * 256;
+    const size_t step_row = dir_rows + static_cast<size_t>(t) * batch;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = mt * 16 + g + 8 * half;
+        const uint32_t xr = *reinterpret_cast<const uint32_t*>(
+            gxs + chunk_offset(row, warp, 24) + 4 * q);
+        const uint32_t xz = *reinterpret_cast<const uint32_t*>(
+            gxs + chunk_offset(row, 8 + warp, 24) + 4 * q);
+        const uint32_t xn = *reinterpret_cast<const uint32_t*>(
+            gxs + chunk_offset(row, 16 + warp, 24) + 4 * q);
+        const uint32_t hp2 = *reinterpret_cast<const uint32_t*>(
+            hp + h_offset(M, rank, row, warp) + 4 * q);
+        const uint32_t dy2 = *reinterpret_cast<const uint32_t*>(
+            dyt + chunk_offset(row, warp, 8) + 4 * q);
+        float sum[2] = {0.f, 0.f};
+        if (!last) {
+#pragma unroll
+          for (int src = 0; src < kCluster; ++src) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                box_in + src * M * 256 + inbox_offset(row, 4 * warp + q));
+            sum[0] += p.x;
+            sum[1] += p.y;
+          }
+        }
+        float dar[2], daz[2], dan[2], dgn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int a = 2 * half + e;
+          const float rg = sigmoid_fast((e ? bf16_hi(xr) : bf16_lo(xr)) +
+                                        acc[mt][0][a]);
+          const float zg = sigmoid_fast((e ? bf16_hi(xz) : bf16_lo(xz)) +
+                                        acc[mt][1][a]);
+          const float ghn_b = acc[mt][2][a] + (e ? bn1 : bn0);
+          const float ng = tanh_fast((e ? bf16_hi(xn) : bf16_lo(xn)) +
+                                     rg * ghn_b);
+          const float hpv = e ? bf16_hi(hp2) : bf16_lo(hp2);
+          const float dh_tot = dhz[mt][a] + sum[e] +
+                               (e ? bf16_hi(dy2) : bf16_lo(dy2));
+          const float dn = dh_tot * (1.f - zg);
+          const float dz = dh_tot * (hpv - ng);
+          dan[e] = dn * (1.f - ng * ng);
+          dar[e] = dan[e] * ghn_b * rg * (1.f - rg);
+          daz[e] = dz * zg * (1.f - zg);
+          dgn[e] = dan[e] * rg;
+          dhz[mt][a] = dh_tot * zg;
+        }
+        const uint32_t hr = pack_bf16(dar[0], dar[1]);
+        const uint32_t hz = pack_bf16(daz[0], daz[1]);
+        const uint32_t hn = pack_bf16(dgn[0], dgn[1]);
+        if (row0 + row < batch) {
+          const size_t o = (step_row + row0 + row) * kGates + unit0 + 2 * q;
+          *reinterpret_cast<uint32_t*>(dgx + o) = hr;
+          *reinterpret_cast<uint32_t*>(dgx + o + kHidden) = hz;
+          *reinterpret_cast<uint32_t*>(dgx + o + 2 * kHidden) =
+              pack_bf16(dan[0], dan[1]);
+          *reinterpret_cast<float2*>(dgh + o) = make_float2(dar[0], dar[1]);
+          *reinterpret_cast<float2*>(dgh + o + kHidden) =
+              make_float2(daz[0], daz[1]);
+          *reinterpret_cast<float2*>(dgh + o + 2 * kHidden) =
+              make_float2(dgn[0], dgn[1]);
+        }
+        // dgh of these two units as hi + lo halves, in warp `warp`'s chunks
+        unsigned char* d = dg + 4 * q;
+        *reinterpret_cast<uint32_t*>(d + chunk_offset(row, 3 * warp, 48)) = hr;
+        *reinterpret_cast<uint32_t*>(d + chunk_offset(row, 3 * warp + 1, 48)) =
+            hz;
+        *reinterpret_cast<uint32_t*>(d + chunk_offset(row, 3 * warp + 2, 48)) =
+            hn;
+        *reinterpret_cast<uint32_t*>(
+            d + chunk_offset(row, kSliceChunks + 3 * warp, 48)) =
+            pack_bf16(dar[0] - bf16_lo(hr), dar[1] - bf16_hi(hr));
+        *reinterpret_cast<uint32_t*>(
+            d + chunk_offset(row, kSliceChunks + 3 * warp + 1, 48)) =
+            pack_bf16(daz[0] - bf16_lo(hz), daz[1] - bf16_hi(hz));
+        *reinterpret_cast<uint32_t*>(
+            d + chunk_offset(row, kSliceChunks + 3 * warp + 2, 48)) =
+            pack_bf16(dgn[0] - bf16_lo(hn), dgn[1] - bf16_hi(hn));
+      }
+    }
+    __syncthreads();   // dgh of the tile is whole; the step's tiles are read
+
+    if (t > 0) {
+      load_step(t - 1);
+      cp_async_commit();
+
+      // partial dh_prev[:, 32 warp .. 32 warp + 32) over this rank's columns
+      float acc2[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          acc2[mt][nt][0] = acc2[mt][nt][1] = acc2[mt][nt][2] =
+              acc2[mt][nt][3] = 0.f;
+      const int brow = 32 * warp + (lane & 7) + 8 * (lane >> 4);
+      const int bchunk = (lane >> 3) & 1;
+      const int arow = (lane & 7) + 8 * ((lane >> 3) & 1);
+      const int achunk = lane >> 4;
+#pragma unroll
+      for (int kt = 0; kt < kSliceChunks / 2; ++kt) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4(b[np], smem_addr(wt) + chunk_offset(brow + 16 * np,
+                                                          2 * kt + bchunk,
+                                                          kSliceChunks));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t hi[4], lo[4];
+          ldmatrix_x4(hi, smem_addr(dg) + chunk_offset(mt * 16 + arow,
+                                                       2 * kt + achunk, 48));
+          ldmatrix_x4(lo, smem_addr(dg) +
+                              chunk_offset(mt * 16 + arow,
+                                           kSliceChunks + 2 * kt + achunk,
+                                           48));
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            mma_bf16(acc2[mt][nt], hi, b[nt >> 1][2 * (nt & 1)],
+                     b[nt >> 1][2 * (nt & 1) + 1]);
+            mma_bf16(acc2[mt][nt], lo, b[nt >> 1][2 * (nt & 1)],
+                     b[nt >> 1][2 * (nt & 1) + 1]);
+          }
+        }
+      }
+      // units [32 warp, 32 warp + 32) belong to rank warp / 2
+      const uint32_t box_out = map_to_rank(
+          smem_addr(inbox) + ((t & 1) * 4 + rank) * M * 256, warp >> 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            st_cluster_8(box_out + inbox_offset(mt * 16 + g + 8 * half,
+                                                (warp & 1) * 16 + 4 * nt + q),
+                         acc2[mt][nt][2 * half], acc2[mt][nt][2 * half + 1]);
+    }
+    cluster_arrive();
+  }
+  // no rank leaves while another may still write into it
+  if (steps > 0) cluster_wait();
+}
+
+template <int MT>
+int launch_mma(const void* gx, const void* w, const float* bn, const void* ys,
+               const void* dys, void* dgx, float* dgh, int steps, int batch,
+               cudaStream_t stream, int* out_info) {
+  auto kernel = gru_layer_bwd_mma_kernel<MT>;
+  const int smem = bwd_mma_smem_bytes(MT);
+  if (out_info) return cluster_info(kernel, smem, out_info);
+  static bool ready[kMaxDevices] = {};
+  const int tiles = (batch + 16 * MT - 1) / (16 * MT);
+  return static_cast<int>(launch_clusters(
+      kernel, ready, dim3(kCluster * tiles, 2), smem, stream,
+      static_cast<const __nv_bfloat16*>(gx),
+      static_cast<const __nv_bfloat16*>(w), bn,
+      static_cast<const __nv_bfloat16*>(ys),
+      static_cast<const __nv_bfloat16*>(dys),
+      static_cast<__nv_bfloat16*>(dgx), dgh, steps, batch));
+}
+
+int dispatch_mma(const void* gx, const void* w, const float* bn,
+                 const void* ys, const void* dys, void* dgx, float* dgh,
+                 int steps, int batch, int hidden, int rows,
+                 cudaStream_t stream, int* out_info) {
+  if (steps < 0 || batch < 0 || hidden != kHidden)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!out_info && (steps == 0 || batch == 0)) return 0;
+  switch (rows) {
+    case 16:
+      return launch_mma<1>(gx, w, bn, ys, dys, dgx, dgh, steps, batch, stream,
+                           out_info);
+    case 32:
+      return launch_mma<2>(gx, w, bn, ys, dys, dgx, dgh, steps, batch, stream,
+                           out_info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int sir_gru_layer_bwd_bf16(const void* gx, const void* w,
@@ -239,4 +566,23 @@ extern "C" int sir_gru_layer_bwd_f32(const void* gx, const void* w,
                                      void* stream) {
   return launch<float>(gx, w, wt, bn, ys, dys, dgx, dgh, steps, batch, hidden,
                        rows, stream);
+}
+
+// The tensor-core kernel: bf16, hidden = 256, rows in {16, 32}; it reads w
+// in both orientations and takes no transposed copy.
+extern "C" int sir_gru_layer_bwd_mma(const void* gx, const void* w,
+                                     const float* bn, const void* ys,
+                                     const void* dys, void* dgx, float* dgh,
+                                     int steps, int batch, int hidden,
+                                     int rows, void* stream) {
+  return dispatch_mma(gx, w, bn, ys, dys, dgx, dgh, steps, batch, hidden,
+                      rows, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// out[0..6]: registers, local bytes, shared bytes, threads, blocks per SM,
+// blocks per cluster, resident clusters per card of the tensor-core kernel
+// with `rows`-row tiles as built (gru_mma.cuh::cluster_info).
+extern "C" int sir_gru_layer_bwd_mma_info(int rows, int* out) {
+  return dispatch_mma(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, 0, 0, kHidden, rows, nullptr, out);
 }

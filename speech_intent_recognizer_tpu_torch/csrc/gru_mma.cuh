@@ -1,0 +1,315 @@
+// Building blocks of the tensor-core GRU kernels (gru_layer.cu,
+// gru_layer_bwd.cu): H = 256, bf16 operands, fp32 sums.
+//
+// The decomposition both kernels share.  A thread-block cluster of
+// kCluster = 4 blocks owns one tile of batch rows in one direction; rank c
+// owns hidden units [64c, 64c + 64) and with them the r, z and n columns of
+// those units: a (256 x 192) slice of W_hh^T, 98,304 bytes in bf16.  The
+// slice never leaves the chip during a launch: it sits in registers as the
+// B fragments of mma.sync.m16n8k16, 96 registers in each of 256 threads.
+// Warp w of a rank owns units [64c + 8w, 64c + 8w + 8), and its three
+// 8-column MMA tiles are the r, the z and the n columns of those eight
+// units, so the thread that holds an accumulator element of unit j holds
+// r, z and n of unit j for the same row: the gate math runs where the sums
+// are, and h (or dh) stays in fp32 registers across steps.  tests/
+// test_torch_gru_plan.py models these index maps in NumPy.
+//
+// Shared-memory tiles are rows of 16-byte chunks (8 bf16).  Rows are 128,
+// 384 or 768 bytes long, all multiples of 128, so without care the eight
+// rows of an ldmatrix would hit the same banks; chunk c of row r is stored
+// at chunk c ^ (r & 7), which spreads any eight consecutive rows over all
+// 32 banks and keeps groups of eight chunks together.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gru_mma {
+
+constexpr int kHidden = 256;
+constexpr int kGates = 3 * kHidden;
+constexpr int kCluster = 4;                   // blocks per cluster
+constexpr int kUnits = kHidden / kCluster;    // hidden units per rank
+constexpr int kThreads = 256;                 // 8 warps, 8 units each
+constexpr int kKTiles = kHidden / 16;         // k16 steps of h @ W
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- the cluster ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// One barrier over every thread of the cluster, split in two: what a thread
+// wrote (also to another rank's shared memory) before its arrive is visible
+// to every thread after its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The address of this block's shared-memory location `addr` in rank `rank`.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_8(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
+               :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// ---- asynchronous copies, 16 bytes each; `valid` false fills zeros ----
+
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// ---- tensor cores ----
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col).
+// With g = lane / 4 and q = lane % 4 a thread holds a[0..3] = rows g, g + 8
+// at k = 2q, 2q + 1 then rows g, g + 8 at k = 2q + 8, 2q + 9; b0, b1 =
+// column g at k = 2q, 2q + 1 and k = 2q + 8, 2q + 9; d[0..3] = rows g
+// (d[0], d[1]) and g + 8 (d[2], d[3]) at columns 2q, 2q + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// ---- gates: fp32, fast exponential and division (absolute error ~1e-7,
+// far inside one bf16 step; the fp32 parity path keeps expf / tanhf) ----
+
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  v = fminf(fmaxf(v, -30.f), 30.f);
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+__device__ __forceinline__ float tanh_fast(float v) {
+  v = fminf(fmaxf(v, -15.f), 15.f);
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
+}
+
+// ---- tiles ----
+
+// Byte offset of logical chunk `chunk` of row `row` in a tile whose rows
+// hold `row_chunks` 16-byte chunks.
+__device__ __forceinline__ int chunk_offset(int row, int chunk,
+                                            int row_chunks) {
+  return (row * row_chunks + (chunk ^ (row & 7))) * 16;
+}
+
+// An h tile (rows x 256 bf16) is four slabs, one per rank, each rows x 64:
+// byte offset of chunk `chunk` (0..7) of row `row` in slab `slab`.
+__device__ __forceinline__ int h_offset(int rows, int slab, int row,
+                                        int chunk) {
+  return slab * rows * 128 + chunk_offset(row, chunk, 8);
+}
+
+// This warp's slice of W_hh^T as B fragments: w[kt][gate] covers k in
+// [16 kt, 16 kt + 16) and the columns gate * 256 + unit0 + (0..7), where
+// unit0 = 64 rank + 8 warp.  `wd` is one direction's (256, 768) matrix.
+__device__ __forceinline__ void load_w_fragments(
+    uint32_t (&wf)[kKTiles][3][2], const __nv_bfloat16* __restrict__ wd,
+    int unit0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int kt = 0; kt < kKTiles; ++kt) {
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate) {
+      const __nv_bfloat16* p =
+          wd + static_cast<size_t>(kt * 16 + 2 * q) * kGates + gate * kHidden +
+          unit0 + g;
+      wf[kt][gate][0] = pack_bf16(p[0], p[kGates]);
+      wf[kt][gate][1] = pack_bf16(p[8 * kGates], p[9 * kGates]);
+    }
+  }
+}
+
+// acc[i][gate] (+)= rows [16 (mt0 + i), 16 (mt0 + i) + 16) of the h tile at
+// shared address `tile` (`rows` rows) times this warp's W fragments, for
+// i < n (n <= G; a constant where the caller's loop is unrolled).
+template <int G>
+__device__ __forceinline__ void recurrent_product(
+    float (&acc)[G][3][4], const uint32_t (&wf)[kKTiles][3][2], uint32_t tile,
+    int rows, int mt0, int lane, int n = G) {
+  // ldmatrix.x4: lanes 0-7 address rows 0-7 of the first k-chunk, 8-15 rows
+  // 8-15 of it, 16-23 and 24-31 the same rows of the second k-chunk
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lchunk = lane >> 4;
+#pragma unroll
+  for (int kt = 0; kt < kKTiles; ++kt) {
+    uint32_t a[G][4];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < n)
+        ldmatrix_x4(a[i], tile + h_offset(rows, kt >> 2, (mt0 + i) * 16 + lrow,
+                                          (kt & 3) * 2 + lchunk));
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (i < n) {
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+          mma_bf16(acc[i][gate], a[i], wf[kt][gate][0], wf[kt][gate][1]);
+      }
+  }
+}
+
+// Start the copy of rank `rank`'s gx slice of one step (rows x 3 gates x 64
+// units) into a rows x 384-byte tile; rows past the batch are zero-filled.
+// `g_step` points at gx[dir, t, 0, 0].
+__device__ __forceinline__ void load_gx_slice(
+    uint32_t tile, const __nv_bfloat16* __restrict__ g_step, int rows,
+    int row0, int batch, int rank, int tid) {
+  for (int i = tid; i < rows * 24; i += kThreads) {
+    const int row = i / 24, c = i % 24, gate = c >> 3, chunk = c & 7;
+    const bool valid = row0 + row < batch;
+    const __nv_bfloat16* src =
+        g_step + (valid ? static_cast<size_t>(row0 + row) * kGates +
+                              gate * kHidden + rank * kUnits + chunk * 8
+                        : 0);
+    cp_async_16(tile + chunk_offset(row, gate * 8 + chunk, 24), src, valid);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Launch with clusters of kCluster blocks along x.  `ready[device]` records
+// that the kernel's shared-memory size is set on that device and that at
+// least one cluster of this shape fits it; a card where none fits gets
+// cudaErrorLaunchOutOfResources.
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, bool (&ready)[kMaxDevices],
+                            dim3 grid, int smem, cudaStream_t stream,
+                            Args... args) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool known = device < kMaxDevices && ready[device];
+  if (!known) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (!known) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    if (device < kMaxDevices) ready[device] = true;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// kernel_info.cuh's five numbers, then out[5] = blocks per cluster and
+// out[6] = clusters of this shape resident on the card at once.
+template <typename Kernel>
+int cluster_info(Kernel kernel, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 64, 2);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes) + smem;
+  out[3] = kThreads;
+  out[4] = blocks;
+  out[5] = kCluster;
+  out[6] = clusters;
+  return 0;
+}
+
+}  // namespace gru_mma

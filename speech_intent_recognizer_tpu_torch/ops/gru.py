@@ -5,12 +5,18 @@ wrappers, plain versions, counters, and the autograd function joining them.
   ``speech_intent_recognizer_tpu/ops/gru_pallas.py`` (``_gru_layer_kernel``,
   wrappers ``_gru_layer_call`` and ``gru_bidirectional_pallas``).  CUDA
   source ``csrc/gru_layer.cu``: one launch runs one layer, both directions,
-  all T steps; h stays on chip in fp32, W_hh streams from L2 every step.
+  all T steps; h stays on chip in fp32.
 * K2 backward, :func:`gru_layer_backward`, replaces the custom-VJP backward
   ``_gru_layer_diff_bwd``: the exact adjoint recurrence in reversed time.
   CUDA source ``csrc/gru_layer_bwd.cu`` produces dgx and the fp32 gate
   adjoints dgh; dW and db_hn are one batched fp32 GEMM and a sum over them
   here, as the JAX package leaves its weight-gradient product to XLA.
+
+Each source holds two kernels and :func:`gru_plan` says which one a call
+launches: the tensor-core kernel (``"mma"``: bf16 operands at H = 256, W_hh
+resident on chip across a cluster of four blocks; needs ``sm_90a``
+clusters), or the CUDA-core kernel (``"simt"``: fp32 operands, the parity
+path, and bf16 at any other H; W_hh streams from L2 every step).
 
 Under autograd :func:`gru_layer` runs through :class:`_GRULayer`, which
 saves (gx, w, bn, ys) as ``_gru_layer_diff_fwd`` does.  Each source's header
@@ -18,6 +24,8 @@ says what bounds it on the H100 and how the design answers that.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,19 +55,84 @@ def _gru_layer_plain(gx: torch.Tensor, w: torch.Tensor,
     return torch.stack(ys, dim=1)
 
 
-# batch rows per block that csrc/gru_layer.cu instantiates
+# batch rows per block of the CUDA-core kernels (both sources)
 TILE_ROWS = (4, 16)
+# what the tensor-core kernels take: hidden size, blocks per cluster, and the
+# batch rows per cluster that csrc/gru_layer.cu and csrc/gru_layer_bwd.cu
+# instantiate
+MMA_HIDDEN = 256
+MMA_CLUSTER = 4
+MMA_ROWS = tuple(range(16, 129, 16))
+MMA_ROWS_BACKWARD = (16, 32)
+# a step's fixed cost (barriers, exchange, gates' latency) in units of one
+# batch row's cost, forward and backward: fitted to the kernels' times on an
+# H100 at each height (bench_torch_gru_variants.py; PERF.md)
+MMA_STEP_OVERHEAD = (26, 7)
+# shared memory a block may use on sm_90
+SMEM_LIMIT = 232448
+
+
+class Plan(NamedTuple):
+    """What a call launches: ``kernel`` is ``"mma"`` (tensor cores, W_hh on
+    chip across a cluster) or ``"simt"`` (CUDA cores, W_hh from L2);
+    ``rows`` the batch rows per cluster or block."""
+    kernel: str
+    rows: int
 
 
 def tile_rows(batch: int, sm_count: int) -> int:
-    """Rows per block: 16 where that still puts a block on every SM (grid
-    = 2 directions x batch tiles), else 4.  Taller tiles read W_hh from L2
-    fewer times; shorter ones keep small batches spread over the SMs."""
+    """Rows per block of the CUDA-core kernels: 16 where that still puts a
+    block on every SM (grid = 2 directions x batch tiles), else 4.  Taller
+    tiles read W_hh from L2 fewer times; shorter ones keep small batches
+    spread over the SMs."""
     return 16 if 2 * -(-batch // 16) >= sm_count else 4
 
 
+def mma_smem_bytes(rows: int, backward: bool = False) -> int:
+    """Dynamic shared memory of a tensor-core kernel with ``rows``-row
+    tiles, as ``mma_smem_bytes`` / ``bwd_mma_smem_bytes`` in the sources
+    count it.  Forward: two h tiles (rows x 512 B) and two gx stages (rows
+    x 384 B).  Backward: the rank's slice of W (98,304 B), the inbox of
+    partial sums (2 buffers x 4 ranks x rows x 256 B), dgh as bf16 hi | lo
+    (rows x 768 B), the h_prev tile, the gx slice and the dys slice."""
+    if backward:
+        return (MMA_HIDDEN * 3 * (MMA_HIDDEN // MMA_CLUSTER) * 2
+                + rows * (2 * 4 * 256 + 768 + 512 + 384 + 128))
+    return rows * (2 * 512 + 2 * 384)
+
+
+def gru_plan(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
+             backward: bool = False, clusters: "int | None" = None) -> Plan:
+    """The kernel and tile height a CUDA call of :func:`gru_layer` (or, with
+    ``backward``, :func:`gru_layer_backward`) launches.
+
+    bf16 operands at ``hidden == MMA_HIDDEN`` take the tensor-core kernel.
+    One block fills an SM, so ``clusters`` clusters run at once (what
+    ``cudaOccupancyMaxActiveClusters`` reports: 30 on an H100 with 132 SMs,
+    whose clusters may not span two GPCs; without it, ``sm_count //
+    MMA_CLUSTER``), the 2 x ceil(batch / rows) clusters of a launch run in
+    waves, and a wave lasts T steps of about ``MMA_STEP_OVERHEAD + rows``
+    time units each.  The height with the least waves x step cost wins, the
+    shorter one on a tie.  Everything else (fp32 operands, the parity path;
+    other hidden sizes) takes the CUDA-core kernel at :func:`tile_rows`.
+    """
+    if dtype != torch.bfloat16 or hidden != MMA_HIDDEN:
+        return Plan("simt", tile_rows(batch, sm_count))
+    if clusters is None:
+        clusters = sm_count // MMA_CLUSTER
+    clusters = max(clusters, 1)
+    heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
+    overhead = MMA_STEP_OVERHEAD[backward]
+
+    def cost(rows):
+        waves = -(-2 * -(-batch // rows) // clusters)
+        return waves * (overhead + rows)
+
+    return Plan("mma", min(heights, key=lambda rows: (cost(rows), rows)))
+
+
 def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
-              rows: int | None = None) -> torch.Tensor:
+              rows: "int | Plan | None" = None) -> torch.Tensor:
     """One bidirectional GRU layer over precomputed input projections.
 
     Args:
@@ -67,8 +140,10 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
         forward time, index 1 in reversed time.
       w: (2, H, 3H) transposed recurrent weights, ``gx.dtype``.
       bn: (2, 1, H) float32 n-gate recurrent bias.
-      rows: batch rows per block, one of ``TILE_ROWS``; None picks
-        :func:`tile_rows` for the card.  Ignored on the CPU.
+      rows: None launches what :func:`gru_plan` picks for the card.  For
+        checks and timing, an int of ``TILE_ROWS`` forces the CUDA-core
+        kernel at that height and a :class:`Plan` forces that kernel and
+        height (``Plan("mma", 64)``).  Ignored on the CPU.
 
     Returns (2, T, B, H) hidden states in ``gx.dtype``, direction 1 in
     reversed time.  CPU tensors take the plain version; CUDA tensors
@@ -100,8 +175,8 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
 gru_layer.launches = 0
 
 
-def _cuda_rows(gx, tensors, rows):
-    """Validate CUDA operands of K2 / K2 backward; the tile height to use."""
+def _cuda_plan(gx, tensors, rows, backward=False) -> Plan:
+    """Validate CUDA operands of K2 / K2 backward; what to launch."""
     hidden = gx.shape[-1] // 3
     if any(t.device != gx.device or not t.is_contiguous() for t in tensors):
         raise ValueError("GRU operands must be contiguous on one device")
@@ -109,11 +184,55 @@ def _cuda_rows(gx, tensors, rows):
         raise ValueError(f"hidden size {hidden} must be a multiple of 32, "
                          "at most 1024")
     if rows is None:
-        rows = tile_rows(gx.shape[2], torch.cuda.get_device_properties(
-            gx.device).multi_processor_count)
-    if rows not in TILE_ROWS:
-        raise ValueError(f"rows must be one of {TILE_ROWS}, got {rows}")
-    return rows
+        return picked_plan(gx.shape[2], hidden, gx.dtype, gx.device, backward)
+    plan = rows if isinstance(rows, Plan) else Plan("simt", rows)
+    if plan.kernel == "simt":
+        if plan.rows not in TILE_ROWS:
+            raise ValueError(f"rows must be one of {TILE_ROWS}, got "
+                             f"{plan.rows}")
+    elif plan.kernel == "mma":
+        heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
+        if plan.rows not in heights:
+            raise ValueError(f"the tensor-core kernel takes rows of "
+                             f"{heights}, got {plan.rows}")
+        if gx.dtype != torch.bfloat16 or hidden != MMA_HIDDEN:
+            raise ValueError(f"the tensor-core kernel takes bfloat16 at "
+                             f"hidden {MMA_HIDDEN}, got {gx.dtype} at "
+                             f"{hidden}")
+    else:
+        raise ValueError(f"unknown kernel {plan.kernel!r}")
+    return plan
+
+
+_clusters: dict = {}
+
+
+def _resident_clusters(device: torch.device, backward: bool) -> int:
+    """Clusters of the tensor-core kernel (at its tallest tile) that the
+    card runs at once; asked once per device."""
+    key = (torch.device(device).index or 0, backward)
+    if key not in _clusters:
+        name = "gru_layer_bwd_mma" if backward else "gru_layer_mma"
+        rows = (MMA_ROWS_BACKWARD if backward else MMA_ROWS)[-1]
+        _clusters[key] = kernel_resources(device)[f"{name}_rows{rows}"][
+            "clusters_per_card"]
+    return _clusters[key]
+
+
+def picked_plan(batch: int, hidden: int, dtype: torch.dtype,
+                device: "str | torch.device", backward: bool = False) -> Plan:
+    """:func:`gru_plan` for the card ``device``: its SM count and, for the
+    tensor-core kernel, the clusters it runs at once."""
+    mma = dtype == torch.bfloat16 and hidden == MMA_HIDDEN
+    return gru_plan(batch, hidden, dtype,
+                    torch.cuda.get_device_properties(
+                        device).multi_processor_count, backward,
+                    _resident_clusters(device, backward) if mma else None)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernels move 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _gru_layer_forward(gx, w, bn, rows):
@@ -121,15 +240,19 @@ def _gru_layer_forward(gx, w, bn, rows):
         return _gru_layer_plain(gx, w, bn)
     two, steps, batch, three_h = gx.shape
     hidden = three_h // 3
-    rows = _cuda_rows(gx, (gx, w, bn), rows)
+    plan = _cuda_plan(gx, (gx, w, bn), rows)
     out = torch.empty((2, steps, batch, hidden), dtype=gx.dtype,
                       device=gx.device)
     lib = _build.load()
-    fn = (lib.sir_gru_layer_bf16 if gx.dtype == torch.bfloat16
-          else lib.sir_gru_layer_f32)
+    if plan.kernel == "mma":
+        fn = lib.sir_gru_layer_mma
+        gx, w = _aligned(gx), _aligned(w)
+    else:
+        fn = (lib.sir_gru_layer_bf16 if gx.dtype == torch.bfloat16
+              else lib.sir_gru_layer_f32)
     with torch.cuda.device(gx.device):
         rc = fn(gx.data_ptr(), w.data_ptr(), bn.data_ptr(), out.data_ptr(),
-                steps, batch, hidden, rows,
+                steps, batch, hidden, plan.rows,
                 torch.cuda.current_stream(gx.device).cuda_stream)
     _build.check(rc, "gru_layer")
     gru_layer.launches += 1
@@ -183,7 +306,7 @@ def _gru_layer_backward_plain(gx: torch.Tensor, w: torch.Tensor,
 
 def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
                        ys: torch.Tensor, dys: torch.Tensor,
-                       rows: int | None = None):
+                       rows: "int | Plan | None" = None):
     """The adjoint of :func:`gru_layer`: -> (dgx, dw, dbn).
 
     Args: :func:`gru_layer`'s ``gx``, ``w``, ``bn`` and ``rows``, its output
@@ -204,18 +327,26 @@ def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
     if w.dtype != gx.dtype or ys.dtype != gx.dtype:
         raise ValueError("gx, w and ys must share one operand type")
     dys = dys.to(gx.dtype).contiguous()
-    wt = w.transpose(1, 2).contiguous()
-    rows = _cuda_rows(gx, (gx, w, bn, ys, dys), rows)
+    plan = _cuda_plan(gx, (gx, w, bn, ys, dys), rows, backward=True)
     dgx = torch.empty_like(gx)
     dgh = torch.empty(gx.shape, dtype=torch.float32, device=gx.device)
     lib = _build.load()
-    fn = (lib.sir_gru_layer_bwd_bf16 if gx.dtype == torch.bfloat16
-          else lib.sir_gru_layer_bwd_f32)
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
     with torch.cuda.device(gx.device):
-        rc = fn(gx.data_ptr(), w.data_ptr(), wt.data_ptr(), bn.data_ptr(),
-                ys.data_ptr(), dys.data_ptr(), dgx.data_ptr(), dgh.data_ptr(),
-                steps, batch, hidden, rows,
-                torch.cuda.current_stream(gx.device).cuda_stream)
+        if plan.kernel == "mma":  # reads w in both orientations
+            gx, w, ys, dys = (_aligned(t) for t in (gx, w, ys, dys))
+            rc = lib.sir_gru_layer_bwd_mma(
+                gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
+                dys.data_ptr(), dgx.data_ptr(), dgh.data_ptr(), steps, batch,
+                hidden, plan.rows, stream)
+        else:  # one thread per unit: W^T too, for coalesced reads
+            wt = w.transpose(1, 2).contiguous()
+            fn = (lib.sir_gru_layer_bwd_bf16 if gx.dtype == torch.bfloat16
+                  else lib.sir_gru_layer_bwd_f32)
+            rc = fn(gx.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                    bn.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+                    dgx.data_ptr(), dgh.data_ptr(), steps, batch, hidden,
+                    plan.rows, stream)
     _build.check(rc, "gru_layer_backward")
     gru_layer_backward.launches += 1
     h_prev = torch.cat([ys.new_zeros((2, 1, batch, hidden)), ys[:, :-1]],
@@ -227,6 +358,30 @@ def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
 
 
 gru_layer_backward.launches = 0
+
+
+def kernel_resources(dev: "str | torch.device") -> dict:
+    """What the built tensor-core kernels take on the card ``dev``, per
+    tile height: registers per thread, local (spilled) bytes per thread,
+    shared memory per block, threads per block, resident blocks per SM,
+    blocks per cluster, and clusters resident on the card at once."""
+    import ctypes
+
+    lib = _build.load()
+    keys = ("registers", "local_bytes", "shared_bytes", "threads",
+            "blocks_per_sm", "cluster", "clusters_per_card")
+    found = {}
+    with torch.cuda.device(dev):
+        for name, fn, heights in (
+                ("gru_layer_mma", lib.sir_gru_layer_mma_info, MMA_ROWS),
+                ("gru_layer_bwd_mma", lib.sir_gru_layer_bwd_mma_info,
+                 MMA_ROWS_BACKWARD)):
+            for rows in heights:
+                out = (ctypes.c_int * len(keys))()
+                _build.check(fn(rows, ctypes.addressof(out)),
+                             "kernel_resources")
+                found[f"{name}_rows{rows}"] = dict(zip(keys, out))
+    return found
 
 
 class _GRULayer(torch.autograd.Function):

@@ -19,9 +19,11 @@ from speech_intent_recognizer_tpu_torch.ops.conv23 import (
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
     padded_samples)
+from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    TILE_ROWS, _gru_layer_backward_plain, _gru_layer_plain, gru_bidirectional,
-    gru_layer, gru_layer_backward)
+    MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan, _gru_layer_backward_plain,
+    _gru_layer_plain, gru_bidirectional, gru_layer, gru_layer_backward,
+    picked_plan)
 
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
@@ -153,6 +155,125 @@ def test_gru_layer_matches_plain(dev, dtype, tol, batch, rows):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _gru_operands(dev, batch, steps=25, hidden=256, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(batch + steps)
+    gx = torch.randn((2, steps, batch, 3 * hidden), generator=g).to(dev, dtype)
+    w = (0.05 * torch.randn((2, hidden, 3 * hidden), generator=g)).to(
+        dev, dtype)
+    bn = (0.1 * torch.randn((2, 1, hidden), generator=g)).to(dev)
+    dys = torch.randn((2, steps, batch, hidden), generator=g).to(dev, dtype)
+    return gx, w, bn, dys
+
+
+@pytest.mark.parametrize("rows", MMA_ROWS)
+@pytest.mark.parametrize("batch,steps", [
+    (1, 25), (3, 25), (64, 25), (256, 25), (257, 25), (1030, 25), (2048, 25),
+    (3, 1), (257, 1), (257, 40)])
+def test_gru_layer_tensor_core_kernel_matches_plain(dev, batch, steps, rows):
+    """The tensor-core K2 (bf16, H = 256) at every tile height, on full and
+    ragged tiles and T = 1, 25, 40: within 1e-2 of the plain version (the
+    same operand roundings; the fp32 summation order and the gates' fast
+    exponential differ), and the same bits on a second launch."""
+    gx, w, bn, _ = _gru_operands(dev, batch, steps)
+    got = gru_layer(gx, w, bn, rows=Plan("mma", rows))
+    again = gru_layer(gx, w, bn, rows=Plan("mma", rows))
+    want = _gru_layer_plain(gx, w, bn)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows", MMA_ROWS_BACKWARD)
+@pytest.mark.parametrize("batch,steps", [
+    (1, 25), (3, 25), (64, 25), (256, 25), (257, 25), (1030, 25), (2048, 25),
+    (3, 1), (257, 1), (257, 40)])
+def test_gru_layer_backward_tensor_core_kernel_matches_plain(dev, batch,
+                                                             steps, rows):
+    """The tensor-core K2T at every tile height: dgx and dW within one bf16
+    step (2**-7 relative) plus 2e-5 + 2e-4 * max|want|, db_hn (fp32) at
+    that bar, as test_gru_layer_backward_matches_plain holds bf16; the same
+    bits on a second launch (no atomics in the recurrence)."""
+    gx, w, bn, dys = _gru_operands(dev, batch, steps)
+    ys = _gru_layer_plain(gx, w, bn)
+    got = gru_layer_backward(gx, w, bn, ys, dys, rows=Plan("mma", rows))
+    again = gru_layer_backward(gx, w, bn, ys, dys, rows=Plan("mma", rows))
+    want = _gru_layer_backward_plain(gx, w, bn, ys, dys)
+    torch.cuda.synchronize()
+    for i, (a, b, c) in enumerate(zip(got, want, again)):
+        assert a.dtype == b.dtype and torch.equal(a, c)
+        a, b = a.float(), b.float()
+        bar = 2e-5 + 2e-4 * float(b.abs().max())
+        if i < 2:
+            assert bool(((a - b).abs() <= 2.0 ** -7 * b.abs() + bar).all())
+        else:
+            assert float((a - b).abs().max()) <= bar
+
+
+def test_gru_plan_on_the_card(dev):
+    """What a call launches: bf16 at H = 256 the tensor-core kernel, fp32
+    and any other H the CUDA-core kernel (and a forced tensor-core launch
+    of those raises); the launch counters count both kernels."""
+    for backward in (False, True):
+        heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
+        for batch in (1, 256, 1024, 2048):
+            p = picked_plan(batch, 256, torch.bfloat16, dev, backward)
+            assert p.kernel == "mma" and p.rows in heights
+        assert picked_plan(256, 256, torch.float32, dev,
+                           backward).kernel == "simt"
+        assert picked_plan(256, 128, torch.bfloat16, dev,
+                           backward).kernel == "simt"
+    gx, w, bn, dys = _gru_operands(dev, 5, 7, hidden=128)
+    gru_layer.launches = 0
+    got = gru_layer(gx, w, bn)  # bf16 at H = 128: the CUDA-core kernel
+    torch.cuda.synchronize()
+    assert gru_layer.launches == 1
+    want = _gru_layer_plain(gx, w, bn)
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        gru_layer(gx, w, bn, rows=Plan("mma", 32))
+    gx, w, bn, dys = _gru_operands(dev, 5, 7, dtype=torch.float32)
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        gru_layer_backward(gx, w, bn, _gru_layer_plain(gx, w, bn), dys,
+                           rows=Plan("mma", 32))
+    with pytest.raises(ValueError, match="rows of"):
+        gru_layer(gx.bfloat16(), w.bfloat16(), bn, rows=Plan("mma", 8))
+
+
+def test_gru_tensor_core_kernel_takes_an_offset_view(dev):
+    """Operands that start 2 bytes into their storage (contiguous, not
+    16-byte aligned) are copied, not refused and not misread."""
+    gx, w, bn, _ = _gru_operands(dev, 33, 5)
+    flat = torch.empty(gx.numel() + 1, dtype=gx.dtype, device=dev)
+    flat[1:] = gx.reshape(-1)
+    view = flat[1:].view(gx.shape)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    got = gru_layer(view, w, bn)
+    want = gru_layer(gx, w, bn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_gru_kernel_resources(dev):
+    """The tensor-core K2 and K2T as built: every tile height fits an SM
+    (one block of 256 threads), spills nothing, stays inside 227 KB of
+    shared memory at exactly the size the plan counts, and at least one
+    cluster of four fits the card."""
+    found = gru_ops.kernel_resources(dev)
+    assert set(found) == (
+        {f"gru_layer_mma_rows{r}" for r in MMA_ROWS}
+        | {f"gru_layer_bwd_mma_rows{r}" for r in MMA_ROWS_BACKWARD})
+    for name, r in found.items():
+        rows = int(name.rsplit("rows", 1)[1])
+        assert r["threads"] == 256 and r["blocks_per_sm"] == 1, name
+        assert 0 < r["registers"] <= 255 and r["local_bytes"] == 0, name
+        assert r["shared_bytes"] == gru_ops.mma_smem_bytes(
+            rows, "bwd" in name) <= gru_ops.SMEM_LIMIT, name
+        assert r["cluster"] == gru_ops.MMA_CLUSTER
+        assert r["clusters_per_card"] >= 1, name
 
 
 def test_counters_count_launches_only(dev):

@@ -1,0 +1,804 @@
+"""The decomposition and the index maps of the tensor-core GRU kernels
+(``speech_intent_recognizer_tpu_torch/csrc/gru_mma.cuh``, ``gru_layer.cu``,
+``gru_layer_bwd.cu``), modelled in NumPy where no card is present.
+
+The model below is the kernels' decomposition thread by thread: a cluster
+of C ranks owns one tile of batch rows; rank c holds the r, z and n columns
+of hidden units [c H / C, (c + 1) H / C) as ``mma.sync.m16n8k16`` B
+fragments, eight units a warp; a step's product reads the h tile through
+``ldmatrix`` at the kernel's swizzled addresses and leaves r, z and n of one
+unit in one lane's accumulators; the gates run there; the rank's slab of the
+new h goes to every rank's other tile.  The backward model adds the slice of
+W by rows in shared memory, dgh as bf16 hi | lo halves, the partial sums of
+dh_prev and their inbox.  Shared memory starts as NaN and a tile that was
+read is set to NaN again, so a read of an address nobody wrote shows.  The
+models are held against ``_gru_layer_plain`` / ``_gru_layer_backward_plain``;
+the kernels themselves are held against them on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from speech_intent_recognizer_tpu_torch import _build
+from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
+from speech_intent_recognizer_tpu_torch.ops.gru import (
+    MMA_CLUSTER, MMA_HIDDEN, MMA_ROWS, MMA_ROWS_BACKWARD, SMEM_LIMIT,
+    TILE_ROWS, Plan, _gru_layer_backward_plain, _gru_layer_plain, gru_plan,
+    mma_smem_bytes, tile_rows)
+
+H, H3 = 256, 768
+K_TILES = H // 16
+LANES = np.arange(32)
+LG, LQ = LANES >> 2, LANES & 3            # g and q of gru_mma.cuh::mma_bf16
+# chip_smoke.py's bars for an fp32 gradient (rtol, atol)
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+CSRC = os.path.join(os.path.dirname(_build.__file__), "csrc")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def bf16(x):
+    """Round to bfloat16 (nearest even) and back, as the card does."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16() \
+        .float().numpy()
+
+
+def source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+# ---- gru_mma.cuh: addresses ----
+
+def chunk_offset(row, chunk, row_chunks):
+    """``gru_mma::chunk_offset`` in bytes: chunk c of row r lies at
+    c ^ (r & 7)."""
+    return (row * row_chunks + (chunk ^ (row & 7))) * 16
+
+
+def h_offset(rows, slab, row, chunk, cluster=MMA_CLUSTER):
+    """``gru_mma::h_offset``: an h tile is one slab a rank, each rows x
+    H / C units (128 bytes a row at C = 4)."""
+    slab_chunks = H // cluster // 8
+    return slab * rows * slab_chunks * 16 + chunk_offset(row, chunk,
+                                                         slab_chunks)
+
+
+def inbox_offset(row, granule):
+    """``inbox_offset`` of gru_layer_bwd.cu: 8-byte granules of a 256-byte
+    row of fp32 partial sums."""
+    return row * 256 + (granule ^ ((row & 7) << 2)) * 8
+
+
+class Tile:
+    """A region of one block's shared memory holding 2- or 4-byte values,
+    addressed in bytes; NaN until written."""
+
+    def __init__(self, nbytes, width):
+        self.width = width
+        self.v = np.full(nbytes // width, np.nan, np.float32)
+
+    def put(self, offset, values):
+        """Store ``values`` (..., n) at byte ``offset`` (...)."""
+        offset, values = np.asarray(offset), np.asarray(values, np.float32)
+        assert (offset % (self.width * values.shape[-1]) == 0).all()
+        idx = offset[..., None] // self.width + np.arange(values.shape[-1])
+        assert idx.min() >= 0 and idx.max() < len(self.v)
+        self.v[idx] = values
+
+    def get(self, offset, n):
+        offset = np.asarray(offset)
+        assert (offset % (self.width * n) == 0).all()
+        idx = offset[..., None] // self.width + np.arange(n)
+        assert idx.min() >= 0 and idx.max() < len(self.v)
+        return self.v[idx]
+
+
+# ---- gru_mma.cuh: tensor cores ----
+
+def ldmatrix_x4(tile, addr):
+    """``ldmatrix.sync.aligned.m8n8.x4.b16``: lane 8 i + r gives the address
+    of row r (16 bytes) of matrix i; every lane receives from each matrix
+    the two values at (row g, columns 2q, 2q + 1).  -> (32, 4, 2)."""
+    mats = tile.get(addr, 8).reshape(4, 8, 8)
+    return mats[:, LG[:, None], 2 * LQ[:, None] + np.arange(2)] \
+        .transpose(1, 0, 2)
+
+
+def mma_bf16(d, a, b0, b1):
+    """``mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`` on the
+    per-lane fragments: d (32, 4) += A (16 x 16) @ B (16 x 8)."""
+    am, bm = np.empty((16, 16), np.float32), np.empty((16, 8), np.float32)
+    for e in range(2):
+        am[LG, 2 * LQ + e] = a[:, 0, e]
+        am[LG + 8, 2 * LQ + e] = a[:, 1, e]
+        am[LG, 2 * LQ + 8 + e] = a[:, 2, e]
+        am[LG + 8, 2 * LQ + 8 + e] = a[:, 3, e]
+        bm[2 * LQ + e, LG] = b0[:, e]
+        bm[2 * LQ + 8 + e, LG] = b1[:, e]
+    dm = am @ bm
+    for e in range(2):
+        d[:, e] += dm[LG, 2 * LQ + e]
+        d[:, 2 + e] += dm[LG + 8, 2 * LQ + e]
+
+
+def load_w_fragments(wd, unit0):
+    """``gru_mma::load_w_fragments``: wf[kt][gate] = (b0, b1), each (32, 2),
+    of the columns gate * H + unit0 + (0..7) of one direction's (H, 3H)."""
+    wf = []
+    for kt in range(K_TILES):
+        k = kt * 16 + 2 * LQ
+        wf.append([])
+        for gate in range(3):
+            col = gate * H + unit0 + LG
+            wf[kt].append((np.stack([wd[k, col], wd[k + 1, col]], 1),
+                           np.stack([wd[k + 8, col], wd[k + 9, col]], 1)))
+    return wf
+
+
+def recurrent_product(acc, wf, tile, rows, mt0, cluster):
+    """``gru_mma::recurrent_product``: acc[i][gate] (32, 4) += 16-row tile
+    mt0 + i of the h tile times the warp's W fragments."""
+    slab_chunks = H // cluster // 8
+    lrow = (LANES & 7) + ((LANES >> 3) & 1) * 8
+    lchunk = LANES >> 4
+    for kt in range(K_TILES):
+        slab, chunk = divmod(2 * kt, slab_chunks)
+        if cluster == 4:  # the kernel's literal expressions
+            assert (slab, chunk) == (kt >> 2, (kt & 3) * 2)
+        for i in range(len(acc)):
+            a = ldmatrix_x4(tile, h_offset(rows, slab, (mt0 + i) * 16 + lrow,
+                                           chunk + lchunk, cluster))
+            for gate in range(3):
+                mma_bf16(acc[i][gate], a, *wf[kt][gate])
+
+
+def load_gx_slice(tile, g_step, rows, row0, rank, cluster):
+    """``gru_mma::load_gx_slice``: rank's r, z, n columns of one step's gx
+    rows into a rows x 3 x (H / C) tile; rows past the batch are zeros."""
+    units = H // cluster
+    sc = units // 8
+    for i in range(rows * 3 * sc):
+        row, c = divmod(i, 3 * sc)
+        gate, chunk = divmod(c, sc)
+        col = gate * H + rank * units + chunk * 8
+        values = (g_step[row0 + row, col:col + 8]
+                  if row0 + row < len(g_step) else np.zeros(8))
+        tile.put(chunk_offset(row, gate * sc + chunk, 3 * sc), values)
+
+
+def sigmoid(v):
+    return (1.0 / (1.0 + np.exp(-v.astype(np.float64)))).astype(np.float32)
+
+
+# ---- gru_layer.cu: the tensor-core kernel ----
+
+def forward_model(gx, w, bn, rows, cluster=MMA_CLUSTER):
+    """``gru_layer_mma_kernel<rows / 16>`` for every cluster of the launch.
+    gx (2, T, B, 3H), w (2, H, 3H) hold bf16 values; -> ys (2, T, B, H)."""
+    steps, batch = gx.shape[1:3]
+    units = H // cluster
+    warps = units // 8
+    tiles16 = rows // 16
+    group = min(tiles16, 2)
+    ys = np.full((2, steps, batch, H), np.nan, np.float32)
+    for d in range(2):
+        for row0 in range(0, batch, rows):
+            h_tiles = [[Tile(rows * 2 * H, 2) for _ in range(2)]
+                       for _ in range(cluster)]
+            for rank in range(cluster):
+                h_tiles[rank][0].v[:] = 0.0       # h_{-1} = 0
+            h = np.zeros((cluster, warps, tiles16, 32, 4), np.float32)
+            wf = [[load_w_fragments(w[d], rank * units + 8 * warp)
+                   for warp in range(warps)] for rank in range(cluster)]
+            for t in range(steps):
+                cur, nxt = t & 1, (t & 1) ^ 1
+                for rank in range(cluster):
+                    gx_tile = Tile(rows * 3 * units * 2, 2)
+                    load_gx_slice(gx_tile, gx[d, t], rows, row0, rank, cluster)
+                    for warp in range(warps):
+                        unit0 = rank * units + 8 * warp
+                        b_n = bn[d, 0, unit0 + 2 * LQ[:, None] + np.arange(2)]
+                        for mt0 in range(0, tiles16, group):
+                            # an odd count of 16-row tiles ends on one
+                            n_tiles = min(group, tiles16 - mt0)
+                            acc = np.zeros((n_tiles, 3, 32, 4), np.float32)
+                            recurrent_product(acc, wf[rank][warp],
+                                              h_tiles[rank][cur], rows, mt0,
+                                              cluster)
+                            for i in range(n_tiles):
+                                for half in range(2):
+                                    row = (mt0 + i) * 16 + LG + 8 * half
+                                    x = [gx_tile.get(
+                                        chunk_offset(row, gate * warps + warp,
+                                                     3 * warps) + 4 * LQ, 2)
+                                        for gate in range(3)]
+                                    a = acc[i][:, :, 2 * half:2 * half + 2]
+                                    r = sigmoid(x[0] + a[0])
+                                    z = sigmoid(x[1] + a[1])
+                                    n = np.tanh(x[2] + r * (a[2] + b_n))
+                                    old = h[rank, warp, mt0 + i, :,
+                                            2 * half:2 * half + 2]
+                                    new = ((1.0 - z) * n + z * old).astype(
+                                        np.float32)
+                                    h[rank, warp, mt0 + i, :,
+                                      2 * half:2 * half + 2] = new
+                                    h_tiles[rank][nxt].put(
+                                        h_offset(rows, rank, row, warp,
+                                                 cluster) + 4 * LQ, bf16(new))
+                # every rank has read tile `cur`: nobody may read it again
+                # before it is rewritten
+                for rank in range(cluster):
+                    h_tiles[rank][cur].v[:] = np.nan
+                # the slab goes to the other ranks and, as ys[t], to memory
+                for rank in range(cluster):
+                    for i in range(rows * warps):
+                        row = i // warps
+                        chunk = (i % warps) ^ (row & 7)
+                        off = rank * rows * units * 2 + i * 16
+                        v = h_tiles[rank][nxt].get(off, 8)
+                        for other in range(1, cluster):
+                            h_tiles[(rank + other) % cluster][nxt].put(off, v)
+                        if row0 + row < batch:
+                            ys[d, t, row0 + row,
+                               rank * units + chunk * 8:][:8] = v
+    return ys
+
+
+# ---- gru_layer_bwd.cu: the tensor-core kernel (C = 4) ----
+
+SLICE_CHUNKS = 3 * (H // MMA_CLUSTER) // 8      # kSliceChunks
+
+
+def backward_model(gx, w, bn, ys, dys, rows, lo_half=True):
+    """``gru_layer_bwd_mma_kernel<rows / 16>`` for every cluster of the
+    launch -> (dgx (2, T, B, 3H) bf16 values, dgh (2, T, B, 3H) fp32)."""
+    cluster, units, warps = MMA_CLUSTER, H // MMA_CLUSTER, 8
+    steps, batch = gx.shape[1:3]
+    tiles16 = rows // 16
+    dgx = np.full(gx.shape, np.nan, np.float32)
+    dgh = np.full(gx.shape, np.nan, np.float32)
+    for d in range(2):
+        for row0 in range(0, batch, rows):
+            wt, wf = [], []
+            for rank in range(cluster):
+                # the slice by rows: row j, chunk 3 o + gate = the eight
+                # units of warp o in gate `gate`
+                wt.append(Tile(H * SLICE_CHUNKS * 16, 2))
+                for i in range(H * SLICE_CHUNKS):
+                    j, c = divmod(i, SLICE_CHUNKS)
+                    col = (c % 3) * H + rank * units + (c // 3) * 8
+                    wt[rank].put(chunk_offset(j, c, SLICE_CHUNKS),
+                                 w[d, j, col:col + 8])
+                wf.append([load_w_fragments(w[d], rank * units + 8 * warp)
+                           for warp in range(warps)])
+            inbox = [Tile(2 * 4 * rows * 256, 4) for _ in range(cluster)]
+            dhz = np.zeros((cluster, warps, tiles16, 32, 4), np.float32)
+            for t in reversed(range(steps)):
+                last = t == steps - 1
+                dg = [Tile(rows * 768, 2) for _ in range(cluster)]
+                for rank in range(cluster):
+                    # load_step(t): h_prev tile, gx slice, dys slice
+                    hp = Tile(rows * 512, 2)
+                    for i in range(rows * 32):
+                        row, c = divmod(i, 32)
+                        valid = t > 0 and row0 + row < batch
+                        hp.put(h_offset(rows, c >> 3, row, c & 7),
+                               ys[d, t - 1, row0 + row, c * 8:c * 8 + 8]
+                               if valid else np.zeros(8))
+                    gxs = Tile(rows * 384, 2)
+                    load_gx_slice(gxs, gx[d, t], rows, row0, rank, cluster)
+                    dyt = Tile(rows * 128, 2)
+                    for i in range(rows * 8):
+                        row, c = divmod(i, 8)
+                        col = rank * units + c * 8
+                        dyt.put(chunk_offset(row, c, 8),
+                                dys[d, t, row0 + row, col:col + 8]
+                                if row0 + row < batch else np.zeros(8))
+                    for warp in range(warps):
+                        unit0 = rank * units + 8 * warp
+                        b_n = bn[d, 0, unit0 + 2 * LQ[:, None] + np.arange(2)]
+                        acc = np.zeros((tiles16, 3, 32, 4), np.float32)
+                        recurrent_product(acc, wf[rank][warp], hp, rows, 0,
+                                          cluster)
+                        for mt in range(tiles16):
+                            for half in range(2):
+                                row = mt * 16 + LG + 8 * half
+                                x = [gxs.get(chunk_offset(row, 8 * gate + warp,
+                                                          24) + 4 * LQ, 2)
+                                     for gate in range(3)]
+                                hpv = hp.get(h_offset(rows, rank, row, warp)
+                                             + 4 * LQ, 2)
+                                dy = dyt.get(chunk_offset(row, warp, 8)
+                                             + 4 * LQ, 2)
+                                total = np.zeros((32, 2), np.float32)
+                                if not last:
+                                    for src in range(cluster):
+                                        total += inbox[rank].get(
+                                            (((t + 1) & 1) * 4 + src) * rows
+                                            * 256 + inbox_offset(
+                                                row, 4 * warp + LQ), 2)
+                                a = acc[mt][:, :, 2 * half:2 * half + 2]
+                                r = sigmoid(x[0] + a[0])
+                                z = sigmoid(x[1] + a[1])
+                                ghn_b = a[2] + b_n
+                                n = np.tanh(x[2] + r * ghn_b)
+                                carried = dhz[rank, warp, mt, :,
+                                              2 * half:2 * half + 2]
+                                dh_tot = carried + total + dy
+                                dan = dh_tot * (1 - z) * (1 - n * n)
+                                dar = dan * ghn_b * r * (1 - r)
+                                daz = dh_tot * (hpv - n) * z * (1 - z)
+                                dgn = dan * r
+                                dhz[rank, warp, mt, :,
+                                    2 * half:2 * half + 2] = dh_tot * z
+                                for gate, (v, vx) in enumerate(
+                                        ((dar, dar), (daz, daz), (dgn, dan))):
+                                    hi = bf16(v)
+                                    dg[rank].put(chunk_offset(
+                                        row, 3 * warp + gate, 48) + 4 * LQ, hi)
+                                    dg[rank].put(chunk_offset(
+                                        row, SLICE_CHUNKS + 3 * warp + gate,
+                                        48) + 4 * LQ,
+                                        bf16(v - hi) if lo_half
+                                        else np.zeros_like(hi))
+                                    for lane in range(32):
+                                        if row0 + row[lane] >= batch:
+                                            continue
+                                        o = gate * H + unit0 + 2 * LQ[lane]
+                                        dgx[d, t, row0 + row[lane],
+                                            o:o + 2] = bf16(vx[lane])
+                                        dgh[d, t, row0 + row[lane],
+                                            o:o + 2] = v[lane]
+                # the inbox buffer read in this step may be rewritten only
+                # after the next barrier: nobody reads it again before that
+                for rank in range(cluster):
+                    half_box = 4 * rows * 256 // 4
+                    read = ((t + 1) & 1) * half_box
+                    inbox[rank].v[read:read + half_box] = np.nan
+                if t == 0:
+                    break
+                # partial dh_prev over each rank's columns, sent to the owners
+                brow = (LANES & 7) + 8 * (LANES >> 4)
+                bchunk = (LANES >> 3) & 1
+                arow = (LANES & 7) + 8 * ((LANES >> 3) & 1)
+                achunk = LANES >> 4
+                for rank in range(cluster):
+                    for warp in range(warps):
+                        acc2 = np.zeros((tiles16, 4, 32, 4), np.float32)
+                        for kt in range(SLICE_CHUNKS // 2):
+                            b = [ldmatrix_x4(wt[rank], chunk_offset(
+                                32 * warp + brow + 16 * pair, 2 * kt + bchunk,
+                                SLICE_CHUNKS)) for pair in range(2)]
+                            for mt in range(tiles16):
+                                hi = ldmatrix_x4(dg[rank], chunk_offset(
+                                    mt * 16 + arow, 2 * kt + achunk, 48))
+                                lo = ldmatrix_x4(dg[rank], chunk_offset(
+                                    mt * 16 + arow,
+                                    SLICE_CHUNKS + 2 * kt + achunk, 48))
+                                for nt in range(4):
+                                    frag = b[nt >> 1][:, 2 * (nt & 1):][:, :2]
+                                    mma_bf16(acc2[mt][nt], hi, frag[:, 0],
+                                             frag[:, 1])
+                                    mma_bf16(acc2[mt][nt], lo, frag[:, 0],
+                                             frag[:, 1])
+                        owner = warp >> 1   # units [32 warp, 32 warp + 32)
+                        base = ((t & 1) * 4 + rank) * rows * 256
+                        for mt in range(tiles16):
+                            for nt in range(4):
+                                for half in range(2):
+                                    inbox[owner].put(base + inbox_offset(
+                                        mt * 16 + LG + 8 * half,
+                                        (warp & 1) * 16 + 4 * nt + LQ),
+                                        acc2[mt][nt][:, 2 * half:][:, :2])
+    return dgx, dgh
+
+
+def weight_gradients(ys, dgh):
+    """What ``gru_layer_backward`` forms from the kernel's workspace."""
+    two, steps, batch, _ = ys.shape
+    h_prev = np.concatenate([np.zeros_like(ys[:, :1]), ys[:, :-1]], 1)
+    dw = np.einsum("dtbh,dtbg->dhg", h_prev, dgh)
+    dbn = dgh[..., 2 * H:].sum((1, 2))[:, None, :]
+    return dw, dbn
+
+
+def operands(batch, steps, seed):
+    r = np.random.default_rng(seed)
+    gx = bf16(r.standard_normal((2, steps, batch, H3)))
+    w = bf16(0.05 * r.standard_normal((2, H, H3)))
+    bn = (0.1 * r.standard_normal((2, 1, H))).astype(np.float32)
+    dys = bf16(r.standard_normal((2, steps, batch, H)))
+    return gx, w, bn, dys
+
+
+def as_bf16(*arrays):
+    return [torch.from_numpy(a).bfloat16() for a in arrays]
+
+
+# ---- the column order and its split over ranks ----
+
+def staged_columns(cluster):
+    """Column of W (H, 3H) at position p of the staged order: rank, then
+    warp (8 units), then gate, then unit: r, z, n of one unit share a lane."""
+    units = H // cluster
+    return np.array([gate * H + rank * units + 8 * warp + u
+                     for rank in range(cluster) for warp in range(units // 8)
+                     for gate in range(3) for u in range(8)])
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_staged_columns_are_a_permutation_split_by_unit(cluster):
+    """Every column of W exactly once; un-permuting gives W back; rank c
+    holds 3 H / C columns, the r, z and n columns of its H / C units and of
+    no other; 393,216 / C bytes in bf16."""
+    perm = staged_columns(cluster)
+    assert sorted(perm) == list(range(H3))
+    w = np.random.default_rng(0).standard_normal((H, H3)).astype(np.float32)
+    staged = w[:, perm]
+    back = np.empty_like(w)
+    back[:, perm] = staged
+    np.testing.assert_array_equal(back, w)
+    per_rank = perm.reshape(cluster, -1)
+    units = H // cluster
+    assert per_rank.shape[1] * H * 2 == 393216 // cluster
+    for rank, cols in enumerate(per_rank):
+        assert sorted(set(cols % H)) == list(range(rank * units,
+                                                   (rank + 1) * units))
+        assert sorted(cols // H) == sorted([0, 1, 2] * units)
+        # inside a warp's 24 columns: gate-major groups of the same 8 units
+        groups = cols.reshape(-1, 3, 8)
+        assert (groups % H == groups[:, :1] % H).all()
+        assert (groups // H == np.arange(3)[None, :, None]).all()
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_w_fragments_hold_the_ranks_slice_once(cluster):
+    """The B fragments of all lanes, warps and ranks hold every element of
+    W exactly once (C x 96 registers x 32 lanes x H / (8 C) warps x 2 values
+    = H x 3H), and a lane's three accumulators of one MMA column are r, z
+    and n of one unit."""
+    w = np.arange(H * H3, dtype=np.float32).reshape(H, H3)
+    seen = []
+    units = H // cluster
+    for rank in range(cluster):
+        for warp in range(units // 8):
+            wf = load_w_fragments(w, rank * units + 8 * warp)
+            assert len(wf) * 3 * 2 == 96          # registers a thread
+            for kt in range(K_TILES):
+                cols = [np.concatenate(wf[kt][gate]) % H3 for gate in range(3)]
+                # b0 / b1 of lane (g, q): column g of each gate's tile
+                assert (cols[1] - cols[0] == H).all()
+                assert (cols[2] - cols[0] == 2 * H).all()
+                seen += [v for gate in range(3) for v in wf[kt][gate]]
+    seen = np.concatenate([v.ravel() for v in seen])
+    assert sorted(seen) == list(range(H * H3))
+
+
+def test_mma_model_is_the_matrix_product():
+    """The fragment layouts of the model (ldmatrix rows by lane, A / B / D
+    by g and q) put together give D = A @ B, with A read through the
+    swizzled h tile and B through ``load_w_fragments``."""
+    r = np.random.default_rng(1)
+    rows = 32
+    hmat = bf16(r.standard_normal((rows, H)))
+    w = bf16(r.standard_normal((H, H3)))
+    tile = Tile(rows * 2 * H, 2)
+    for row in range(rows):
+        for c in range(32):
+            tile.put(h_offset(rows, c >> 3, row, c & 7), hmat[row, 8 * c:][:8])
+    unit0 = 64 * 2 + 8 * 5
+    acc = np.zeros((2, 3, 32, 4), np.float32)
+    recurrent_product(acc, load_w_fragments(w, unit0), tile, rows, 0, 4)
+    want = hmat.astype(np.float64) @ w.astype(np.float64)
+    for i in range(2):
+        for gate in range(3):
+            for e in range(4):
+                row = 16 * i + LG + 8 * (e >> 1)
+                col = gate * H + unit0 + 2 * LQ + (e & 1)
+                np.testing.assert_allclose(acc[i, gate, :, e], want[row, col],
+                                           rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("row_chunks,rows", [(8, 128), (24, 256), (48, 32)])
+def test_swizzle_is_a_bijection_that_spreads_eight_rows(row_chunks, rows):
+    """chunk ^ (row & 7) keeps every chunk in its row and maps the chunks
+    of a tile one to one; the eight row addresses of one ldmatrix matrix
+    (eight consecutive rows, one logical chunk) cover all 32 banks."""
+    offs = np.array([[chunk_offset(r, c, row_chunks)
+                      for c in range(row_chunks)] for r in range(rows)])
+    assert sorted(offs.ravel()) == list(range(0, rows * row_chunks * 16, 16))
+    assert (offs // (row_chunks * 16) == np.arange(rows)[:, None]).all()
+    for r0 in range(0, rows, 8):
+        for c in range(row_chunks):
+            banks = {(o // 4 + k) % 32 for o in offs[r0:r0 + 8, c]
+                     for k in range(4)}
+            assert len(banks) == 32, (r0, c)
+
+
+def test_inbox_granules_are_a_bijection_without_conflicts():
+    """The fp32 partial sums of a row: 32 granules of 8 bytes mapped one to
+    one; a warp's store (rows g, granules q of one nt) and a warp's read
+    (granule 4 warp + q of rows g) touch every bank at most twice, the least
+    for 32 lanes x 8 bytes."""
+    for row in range(16):
+        offs = [inbox_offset(row, gr) for gr in range(32)]
+        assert sorted(offs) == list(range(row * 256, (row + 1) * 256, 8))
+    for base in range(0, 32, 4):
+        offs = inbox_offset(LG, base + LQ)
+        banks = np.concatenate([(offs // 4) % 32, (offs // 4 + 1) % 32])
+        assert np.bincount(banks, minlength=32).max() <= 2
+
+
+# ---- the kernels' decomposition against the plain versions ----
+
+@pytest.mark.parametrize("cluster,rows,batch,steps", [
+    (4, 16, 21, 3), (4, 32, 37, 3), (4, 48, 40, 2), (4, 80, 70, 2),
+    (4, 128, 120, 2),
+    (2, 16, 21, 3), (2, 32, 37, 2), (4, 16, 1, 2)])
+def test_forward_model_matches_plain(cluster, rows, batch, steps):
+    """Per-rank product + gates + exchange over C ranks reproduce the full
+    recurrence on full and ragged tiles: within one bf16 step of |h| < 1
+    (2**-8) of ``_gru_layer_plain``; only the fp32 summation order differs.
+    Every output element is written (none is left NaN), and no lane reads a
+    shared-memory address that was not written for that step."""
+    gx, w, bn, _ = operands(batch, steps, seed=rows + batch)
+    got = forward_model(gx, w, bn, rows, cluster)
+    want = _gru_layer_plain(*as_bf16(gx, w), torch.from_numpy(bn))
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, bf16(got))
+    np.testing.assert_allclose(got, want.float().numpy(), rtol=0,
+                               atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("rows,batch,steps", [(16, 21, 3), (32, 30, 3),
+                                              (16, 1, 2)])
+def test_backward_model_matches_plain(rows, batch, steps):
+    """The recomputed gates, the hi + lo dgh, the per-rank partial sums and
+    their exchange reproduce the adjoint recurrence: dgx and dW within one
+    bf16 step (2**-7 relative) plus the fp32 bar of scale, db_hn within the
+    fp32 bar of scale, as the card holds the kernel to its plain version."""
+    gx, w, bn, dys = operands(batch, steps, seed=rows + batch)
+    t_gx, t_w, t_dys = as_bf16(gx, w, dys)
+    t_bn = torch.from_numpy(bn)
+    ys = _gru_layer_plain(t_gx, t_w, t_bn)
+    dgx, dgh = backward_model(gx, w, bn, ys.float().numpy(), dys, rows)
+    assert np.isfinite(dgx).all() and np.isfinite(dgh).all()
+    dw, dbn = weight_gradients(ys.float().numpy(), dgh)
+    want = _gru_layer_backward_plain(t_gx, t_w, t_bn, ys, t_dys)
+    for name, got, ref in zip(("dgx", "dW", "db_hn"), (dgx, bf16(dw), dbn),
+                              want):
+        ref = ref.float().numpy()
+        bar = GRAD_ATOL + GRAD_RTOL * np.abs(ref).max()
+        if name != "db_hn":
+            bar = bar + 2.0 ** -7 * np.abs(ref)
+        assert (np.abs(got - ref) <= bar).all(), name
+
+
+def test_backward_model_needs_the_lo_half():
+    """The model's dgh workspace against the fp32 adjoint: with hi + lo
+    halves the step-0 values (which saw T - 1 products) hold the fp32 bar
+    per element relative to the tensor's scale; with dgh rounded once to
+    bf16 they miss it."""
+    rows, batch, steps = 16, 16, 4
+    gx, w, bn, dys = operands(batch, steps, seed=5)
+    t_gx, t_w, t_dys = as_bf16(gx, w, dys)
+    t_bn = torch.from_numpy(bn)
+    ys = _gru_layer_plain(t_gx, t_w, t_bn)
+    # fp32 reference of the workspace: dgx of fp32 operands holding the
+    # same values is not rounded
+    ref = _gru_layer_backward_plain(t_gx.float(), t_w.float(), t_bn,
+                                    ys.float(), t_dys.float())[0].numpy()
+    errs = []
+    for lo_half in (True, False):
+        dgh = backward_model(gx, w, bn, ys.float().numpy(), dys, rows,
+                             lo_half)[1]
+        # the r and z thirds of dgh are dgx's; compare those at t = 0
+        got, want = dgh[:, 0, :, :2 * H], ref[:, 0, :, :2 * H]
+        errs.append(np.abs(got - want).max()
+                    / (GRAD_ATOL + GRAD_RTOL * np.abs(want).max()))
+    assert errs[0] <= 1.0 < errs[1], errs
+
+
+def test_hi_lo_split_reconstructs_and_holds_the_fp32_bar():
+    """hi = bf16(v), lo = bf16(v - hi): v is rebuilt within 2**-16
+    relative, and dgh @ W^T from the two halves holds the fp32 gradient bar
+    per element where one rounding does not."""
+    r = np.random.default_rng(7)
+    v = (r.standard_normal(1 << 16)
+         * 10.0 ** r.uniform(-20, 4, 1 << 16)).astype(np.float32)
+    hi = bf16(v)
+    lo = bf16(v - hi)
+    assert (np.abs(hi.astype(np.float64) + lo - v)
+            <= 2.0 ** -16 * np.abs(v)).all()
+    dgh = r.standard_normal((64, H3)).astype(np.float32)
+    w = bf16(0.05 * r.standard_normal((H, H3))).astype(np.float64)
+    want = dgh.astype(np.float64) @ w.T
+    hi = bf16(dgh)
+    lo = bf16(dgh - hi)
+    two = (hi.astype(np.float64) + lo) @ w.T
+    one = hi.astype(np.float64) @ w.T
+    bar = GRAD_ATOL + GRAD_RTOL * np.abs(want)
+    assert (np.abs(two - want) <= bar).all()
+    assert not (np.abs(one - want) <= bar).all()
+
+
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_partial_sums_over_ranks_give_the_adjoint_product(cluster):
+    """dh_prev = dgh @ W^T sums over all 3H columns; each rank's product of
+    ITS columns of dgh with its slice, added in rank order, is that sum."""
+    r = np.random.default_rng(3)
+    dgh = r.standard_normal((16, H3))
+    w = r.standard_normal((H, H3))
+    per_rank = staged_columns(cluster).reshape(cluster, -1)
+    total = np.zeros((16, H))
+    for cols in per_rank:
+        total += dgh[:, cols] @ w[:, cols].T
+    np.testing.assert_allclose(total, dgh @ w.T, rtol=0, atol=1e-10)
+
+
+# ---- shared memory and the dispatcher ----
+
+def _eval_constexpr(src, name, **values):
+    body = re.search(name + r"\(int mt\) \{\s*return (.*?);", src,
+                     re.S).group(1)
+    return eval(body, {"kSliceBytes": 98304, **values})  # noqa: S307
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_shared_memory_of_every_tile_height_fits(backward):
+    """Every (C = 4, rows) the dispatcher can pick needs at most 232,448
+    bytes, ``mma_smem_bytes`` counts what the source's constexpr counts, and
+    the model's regions add up to it."""
+    src = source("gru_layer_bwd.cu" if backward else "gru_layer.cu")
+    fn = "bwd_mma_smem_bytes" if backward else "mma_smem_bytes"
+    for rows in (MMA_ROWS_BACKWARD if backward else MMA_ROWS):
+        need = mma_smem_bytes(rows, backward)
+        assert need <= SMEM_LIMIT
+        assert need == _eval_constexpr(src, fn, mt=rows // 16)
+        if backward:
+            regions = (H * SLICE_CHUNKS * 16 + 2 * 4 * rows * 256 + rows * 768
+                       + rows * 512 + rows * 384 + rows * 128)
+        else:
+            regions = 2 * rows * 2 * H + 2 * rows * 3 * (H // MMA_CLUSTER) * 2
+        assert regions == need
+    # the next height up does not fit (backward) / is not built (forward)
+    if backward:
+        assert mma_smem_bytes(2 * MMA_ROWS_BACKWARD[-1], True) > SMEM_LIMIT
+    else:
+        assert mma_smem_bytes(2 * MMA_ROWS[-1]) > SMEM_LIMIT
+
+
+def test_python_constants_are_the_sources():
+    head = source("gru_mma.cuh")
+    assert int(re.search(r"kHidden = (\d+);", head).group(1)) == MMA_HIDDEN
+    assert int(re.search(r"kCluster = (\d+);", head).group(1)) == MMA_CLUSTER
+    for name, heights in (("gru_layer.cu", MMA_ROWS),
+                          ("gru_layer_bwd.cu", MMA_ROWS_BACKWARD)):
+        body = source(name).split("int dispatch_mma(")[1].split("\n}\n")[0]
+        cases = re.findall(r"case (\d+):\s*return launch_mma<(\d+)>", body)
+        assert tuple(int(r) for r, _ in cases) == heights
+        assert all(int(r) == 16 * int(mt) for r, mt in cases)
+    assert SMEM_LIMIT == 232448
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("sms,clusters", [(132, 30), (132, None), (108, 27),
+                                          (8, 2), (264, 66)])
+def test_gru_plan_over_a_grid(backward, sms, clusters):
+    """bf16 at H = 256: always the tensor-core kernel at a built height
+    whose waves x (overhead + rows) is the least (the shorter on a tie); a
+    batch that fits one wave at the shortest height takes it unless a taller
+    one also fits one wave more cheaply; never more rows than the batch
+    needs once a shorter tile is as cheap."""
+    heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
+    overhead = gru_ops.MMA_STEP_OVERHEAD[backward]
+    resident = clusters if clusters is not None else sms // MMA_CLUSTER
+
+    def cost(batch, rows):
+        return -(-2 * -(-batch // rows) // resident) * (overhead + rows)
+
+    for batch in (1, 3, 16, 17, 64, 255, 256, 257, 512, 1024, 1030, 2048,
+                  4096, 10000):
+        plan = gru_plan(batch, 256, torch.bfloat16, sms, backward, clusters)
+        assert plan.kernel == "mma" and plan.rows in heights
+        best = min(cost(batch, r) for r in heights)
+        assert cost(batch, plan.rows) == best
+        assert all(cost(batch, r) > best for r in heights if r < plan.rows)
+        assert mma_smem_bytes(plan.rows, backward) <= SMEM_LIMIT
+    assert gru_plan(1, 256, torch.bfloat16, sms, backward,
+                    clusters).rows == heights[0]
+
+
+@pytest.mark.parametrize("batch,backward,rows", [
+    (1, False, 16), (64, False, 16), (256, False, 32), (257, False, 32),
+    (512, False, 48), (1030, False, 80), (2048, False, 80),
+    (4096, False, 96), (1, True, 16), (256, True, 32), (1024, True, 16),
+    (1030, True, 16), (2048, True, 32)])
+def test_gru_plan_on_an_h100(batch, backward, rows):
+    """The picks on the card the step costs were fitted on (132 SMs, 30
+    resident clusters of four)."""
+    assert gru_plan(batch, 256, torch.bfloat16, 132, backward, 30) == Plan(
+        "mma", rows)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("hidden,dtype", [
+    (256, torch.float32), (128, torch.bfloat16), (512, torch.bfloat16),
+    (128, torch.float32)])
+def test_gru_plan_keeps_the_cuda_core_kernel(hidden, dtype, backward):
+    """fp32 operands (the parity path) and any H other than 256 take the
+    CUDA-core kernel at ``tile_rows``' height, by rule and not by failure."""
+    for batch, sms in ((1, 132), (256, 132), (2048, 132), (64, 8)):
+        plan = gru_plan(batch, hidden, dtype, sms, backward, 30)
+        assert plan == Plan("simt", tile_rows(batch, sms))
+        assert plan.rows in TILE_ROWS
+
+
+# ---- entry points ----
+
+def test_gru_entry_points_match_their_ctypes_signatures():
+    """The GRU sources' ``extern "C"`` entry points are in
+    ``_build._SIGNATURES`` with a pointer type exactly where the C parameter
+    is a pointer; the tensor-core backward takes no transposed W (one
+    pointer fewer than the CUDA-core one)."""
+    found = {}
+    for name in ("gru_layer.cu", "gru_layer_bwd.cu"):
+        for entry, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                      source(name)):
+            found[entry] = ["*" in a for a in args.split(",")]
+    assert set(found) == {
+        "sir_gru_layer_bf16", "sir_gru_layer_f32", "sir_gru_layer_mma",
+        "sir_gru_layer_mma_info", "sir_gru_layer_bwd_bf16",
+        "sir_gru_layer_bwd_f32", "sir_gru_layer_bwd_mma",
+        "sir_gru_layer_bwd_mma_info"}
+    for entry, pointers in found.items():
+        assert [t is _build._P for t in _build._SIGNATURES[entry]] \
+            == pointers, entry
+    assert (sum(found["sir_gru_layer_bwd_bf16"])
+            == sum(found["sir_gru_layer_bwd_mma"]) + 1)
+    assert found["sir_gru_layer_mma"] == found["sir_gru_layer_bf16"]
+
+
+def _python(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_gru_variants_bench_edits_match_the_sources(tmp_path):
+    """``bench_torch_gru_variants.py`` builds its variants by replacing
+    lines of the kernels' sources: every replacement still matches exactly
+    once and changes them, and importing the script loads no JAX and
+    nothing of the JAX package."""
+    code = f"""
+import filecmp, os, shutil, sys
+import bench_torch_gru_variants as b
+changed = 0
+for i, name in enumerate(b.VARIANTS):
+    src = os.path.join({str(tmp_path)!r}, f'v{{i}}')
+    shutil.copytree(b.CSRC, src)
+    b.apply_edits(name, src)
+    same = filecmp.dircmp(b.CSRC, src)
+    assert bool(same.diff_files) == bool(b.VARIANTS[name][1]), name
+    changed += bool(same.diff_files)
+assert changed >= 11, changed
+bad = sorted(m for m in sys.modules if m.split('.')[0] in
+             ('jax', 'jaxlib', 'flax', 'optax', 'speech_intent_recognizer_tpu'))
+assert not bad, bad
+"""
+    r = _python(["-c", code], REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_gru_variants_bench_fails_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; this checks the host without one")
+    r = _python([os.path.join(REPO, "bench_torch_gru_variants.py")], REPO)
+    assert r.returncode != 0 and " ms" not in r.stdout
