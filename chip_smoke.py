@@ -19,7 +19,7 @@ hand-written CUDA kernels, and checks everything it measures:
 Phases:
 
 1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc``, and
-   print what K1, K3, K4 and the tensor-core K2 and K2T take as built:
+   print what K1, K3, K4, K5 and the tensor-core K2 and K2T take as built:
    registers, spilled bytes, shared memory, threads and resident blocks per
    SM, for K2 and K2T also the cluster size and resident clusters per card;
 2. K1 (front-end + conv1) against its plain PyTorch version: the check
@@ -41,7 +41,9 @@ Phases:
    their plain versions; K4 at frame counts around its tiles (0 to 80,128:
    persistent blocks with a ragged last round), an unaligned buffer, silent rows between loud ones (exactly -100 dB), and every n_fft
    it serves (32 to 4096) with a window shorter than n_fft and 40, 64 and
-   80 mels;
+   80 mels; K5 at B = 1, 5, 131, 133, 256, 2048 and T1 = 4, 8, 100, 200,
+   each at every range length its plan can pick, the plan's launch twice
+   for the same bits;
 7. the front-end and the predictor at hop 256 / 400 frames through K4,
    against the plain front-end and the fp64 golden (K4 once per batch, K3
    never), and silent utterances in raw dB (exactly the floor);
@@ -52,7 +54,8 @@ Phases:
 9. timings with CUDA events, each next to the card's name and power limit:
    K1 and K2 (every build); K4 (also at 512 and 2048 points), K5, K6, their
    plain versions and the library calls they stand beside; K1, K2, K2T, K3,
-   K4 and cuDNN's GRU layer (bf16 and fp16) as the median of five timed
+   K4, K5, cuDNN's GRU layer (bf16 and fp16), cuDNN's conv2 + conv3 pair
+   and that pair with K6 after each conv as the median of five timed
    blocks with the least and the most; the three serving
    configurations in the order A B C C B A;
 10. with ``--profile`` only: step-time percentiles and the per-kernel
@@ -105,8 +108,9 @@ from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
     CNNAudioGRU, fold_batchnorm)
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
+from speech_intent_recognizer_tpu_torch.ops import conv23 as conv23_ops
 from speech_intent_recognizer_tpu_torch.ops.conv23 import (
-    _conv23_plain, conv23, conv23_operands)
+    _conv23_plain, conv23, conv23_operands, conv23_plan, range_lengths)
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
     padded_samples)
@@ -152,8 +156,11 @@ GRU_CASES = tuple((b, 25) for b in (1, 3, 64, 256, 257, 1030, 2048)) + (
 DB_FLOOR = -100.0
 # the off-reference geometry served through K4: hop 256, 400 frames
 HOP256 = dict(hop_length=256, mel_spec_length=400)
-# K5 vs its plain version (tests/test_conv23_pallas.py:73-74)
+# K5 vs its plain version (tests/test_conv23_pallas.py:73-74), at every
+# batch and T1 below, each at every range length the plan can pick
 K5_BAR = 0.02
+K5_BATCHES = (1, 5, 131, 133, 256, 2048)
+K5_T1 = (4, 8, 100, 200)
 # K6: the shapes of tests/test_pool_epilogue.py:37-42 and the two real
 # geometries (conv2's and conv3's raw outputs at B=256), as (B, T, W, C)
 K6_SHAPES = ((3, 100, 32, 64), (2, 50, 16, 128), (9, 8, 4, 64), (1, 2, 4, 32),
@@ -900,11 +907,11 @@ def check_k4(dev, fe, rng) -> float:
     return worst
 
 
-def k5_inputs(dev, b: int, seed: int):
+def k5_inputs(dev, b: int, seed: int, t1: int = 100):
     """Seeded bf16 sheet like K1's output (non-negative) and the operands
     of seeded folded conv2 / conv3 stages at torch's default init scale."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.rand((b, 100, 1024), generator=g).mul_(2.0).to(
+    x = torch.rand((b, t1, 1024), generator=g).mul_(2.0).to(
         dev, torch.bfloat16)
     w2 = (torch.rand((64, 32, 3, 3), generator=g) * 2 - 1) / 288 ** 0.5
     w3 = (torch.rand((128, 64, 3, 3), generator=g) * 2 - 1) / 576 ** 0.5
@@ -914,23 +921,48 @@ def k5_inputs(dev, b: int, seed: int):
 
 
 def check_k5(dev) -> float:
-    """Phase 6c: K5 vs its plain version at B=5 and B=256."""
+    """Phase 6c: K5 vs its plain version at every batch of K5_BATCHES and
+    T1 of K5_T1, at the range length the plan picks and at every other one
+    it can pick (whole utterances, every even length below T1 / 4); the
+    plan's launch twice for the same bits.  Returns the largest error at
+    T1 = 100."""
     worst = 0.0
-    for b in (5, MAIN_BATCH):
-        x, ops = k5_inputs(dev, b, seed=50 + b)
-        got = conv23(x, *ops)
-        want = _conv23_plain(x, *ops)
-        torch.cuda.synchronize()
-        err, scale = max_err(got, want), float(want.float().abs().max())
-        live = float((want > 0).float().mean())
-        check(got.shape == (b, 25, 1024) and bool(torch.isfinite(got.float())
-                                                  .all())
-              and err < K5_BAR * scale and live > 0.2,
-              f"K5 vs plain, B={b}: max |err| {err:.3e} < {K5_BAR} * max|want| "
-              f"{scale:.3f} (one bf16 step there: "
-              f"{2.0 ** (np.floor(np.log2(scale)) - 7):.3e}); "
-              f"{live:.2f} of the outputs positive")
-        worst = max(worst, err)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t1 in K5_T1:
+        for b in K5_BATCHES:
+            x, ops = k5_inputs(dev, b, seed=50 + b + t1, t1=t1)
+            want = _conv23_plain(x, *ops)
+            scale = float(want.float().abs().max())
+            live = float((want > 0).float().mean())
+            picked = conv23_plan(b, t1, sms).rows
+            first = conv23(x, *ops)
+            again = conv23(x, *ops)
+            torch.cuda.synchronize()
+            check(torch.equal(first, again), f"K5, B={b} T1={t1}: two calls "
+                  f"({picked}-row ranges, the plan's) give the same bits")
+            errs = []
+            for rows in range_lengths(t1):
+                got = conv23(x, *ops, rows=rows)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                ok = (got.shape == (b, t1 // 4, 1024)
+                      and bool(torch.isfinite(got.float()).all())
+                      and err < K5_BAR * scale)
+                if not ok:
+                    raise AssertionError(
+                        f"K5 vs plain, B={b} T1={t1}, {rows}-row ranges: "
+                        f"max |err| {err:.3e}, bar {K5_BAR} * max|want| "
+                        f"{scale:.3f}")
+                errs.append(err)
+            check(live > 0.2, f"K5 vs plain, B={b} T1={t1}, at each of "
+                  f"{len(errs)} range lengths {range_lengths(t1)} (the plan "
+                  f"picks {picked}): max |err| {max(errs):.3e} < {K5_BAR} * "
+                  f"max|want| {scale:.3f} (one bf16 step there: "
+                  f"{2.0 ** (np.floor(np.log2(scale)) - 7):.3e}); "
+                  f"{live:.2f} of the outputs positive")
+            if t1 == 100:
+                worst = max(worst, max(errs))
+            del x, want, first, again
     return worst
 
 
@@ -1066,9 +1098,12 @@ def check_configurations(dev, tmp, model_path, label_path, wf_main, main_ln,
 def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
     """Phase 9a: K4, K5, K6 at B=256 and B=2048 beside their plain
     versions and the library calls: for K5 the model's own two conv stages
-    on the same input, for K6 bias-add + ReLU + max-pool on the same raw
-    conv output, for K4 torch.fft.rfft + matmul on the same frames.  K4
-    also at 512 and 2048 points, on as many bytes of frames."""
+    on the same input (cuDNN with torch's epilogue passes) and the
+    configuration K5 has to beat (raw cuDNN convs, each followed by K6),
+    K5 and both of those as medians of five timed blocks; for K6
+    bias-add + ReLU + max-pool on the same raw conv output, for K4
+    torch.fft.rfft + matmul on the same frames.  K4 also at 512 and 2048
+    points, on as many bytes of frames."""
     import torch.nn.functional as F
 
     fe = make_frontend_params(AudioConfig(**HOP256), dev)
@@ -1101,7 +1136,8 @@ def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
             del frames
 
         x, ops = k5_inputs(dev, b, seed=70)
-        timings[f"k5_b{b}"] = cuda_ms(lambda: conv23(x, *ops), iters)
+        timed(timings, spreads, f"k5_b{b}", lambda: conv23(x, *ops),
+              2 * iters)
         timings[f"k5_plain_b{b}"] = cuda_ms(
             lambda: _conv23_plain(x, *ops), iters)
         x4 = x.view(b, 100, 32, 32).permute(0, 3, 1, 2)
@@ -1109,8 +1145,19 @@ def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
         def conv_pair():
             return variant._conv(3, variant._conv(2, x4))
 
+        def conv_pair_k6():
+            y = x4
+            for i in (2, 3):
+                conv = getattr(variant, f"conv{i}")
+                y = bias_relu_pool2(F.conv2d(
+                    y, conv.weight.to(torch.bfloat16), None, padding=1),
+                    conv.bias)
+            return y
+
         with torch.inference_mode():
-            timings[f"k5_library_b{b}"] = cuda_ms(conv_pair, iters)
+            timed(timings, spreads, f"k5_library_b{b}", conv_pair, 2 * iters)
+            timed(timings, spreads, f"k5_cudnn_k6_b{b}", conv_pair_k6,
+                  2 * iters)
         flops = b * 2.0 * (100 * 32 * 64 * 288 + 50 * 16 * 128 * 576)
         bounds[f"k5_b{b}"] = bound(nbytes(x, *ops) + b * 25 * 1024 * 2,
                                    (flops, BF16_FLOPS))
@@ -1194,11 +1241,12 @@ def main(argv=None) -> int:
         make_frontend_params(AudioConfig(n_fft=n, hop_length=n // 4), dev)
         for n in (1024, 512, 2048)))
     resources.update(gru_ops.kernel_resources(dev))
+    resources.update(conv23_ops.kernel_resources(dev))
     check(all(r["blocks_per_sm"] >= 1 for r in resources.values())
           and all(r.get("clusters_per_card", 1) >= 1
                   for r in resources.values()),
-          "K1, K3, K4 and the tensor-core K2 and K2T as built fit an SM, "
-          "and at least one cluster of K2 and K2T the card")
+          "K1, K3, K4, K5 and the tensor-core K2 and K2T as built fit an "
+          "SM, and at least one cluster of K2 and K2T the card")
     log(f"resources on {label} (registers per thread, local (spilled) bytes per "
         f"thread, shared memory per block, threads per block, resident "
         f"blocks per SM; for K2 and K2T also blocks per cluster and resident "

@@ -54,7 +54,8 @@ _SIGNATURES = {
     "sir_frontend_conv1_info": [_P],
     "sir_frontend_info": [_I, _P],
     "sir_mel_db_info": [_I, _I, _I, _P],
-    "sir_conv23": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "sir_conv23": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_conv23_info": [_P],
     "sir_pool_epilogue_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sir_pool_epilogue_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -223,7 +223,7 @@ def load_audio(
     if native is not None:
         try:
             x, rate = native.decode_file(path)
-        except RuntimeError:  # formats the native decoder refuses
+        except Exception:  # whatever the native decoder refuses
             x, rate = _decode_any(path)
     else:
         x, rate = _decode_any(path)

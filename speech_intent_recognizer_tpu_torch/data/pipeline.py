@@ -63,11 +63,15 @@ def build_dataset(
 
     legacy = cache_file[: -len(".npz")] + ".pt"
     if use_cache and os.path.exists(legacy) and not cfg.data.force_precompute:
-        feats, labels, _paths = cache_mod.load_torch_cache(
-            legacy, label_map, cfg.audio.mel_spec_length)
-        logger.info("migrated %d features from legacy cache %s",
-                    len(feats), legacy)
-        return DeviceDataset.from_arrays(feats, labels, device)
+        try:
+            feats, labels, _paths = cache_mod.load_torch_cache(
+                legacy, label_map, cfg.audio.mel_spec_length)
+            logger.info("migrated %d features from legacy cache %s",
+                        len(feats), legacy)
+            return DeviceDataset.from_arrays(feats, labels, device)
+        except Exception as e:
+            logger.warning("legacy cache %s unreadable (%s); recomputing",
+                           legacy, e)
 
     manifest = read_manifest(csv_path)
     feats, labels, _ok, paths = cache_mod.precompute_features(

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import logging
 import os
-import struct
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -209,7 +208,7 @@ class Predictor:
         try:
             x, _ = load_audio(audio_path,
                               target_sample_rate=self.audio_cfg.sample_rate)
-        except (OSError, RuntimeError, struct.error) as e:  # unreadable
+        except Exception as e:  # unreadable or undecodable, as the reference
             logger.error("error processing %s: %s", audio_path, e)
             return None
         return self._result(*self._buffer(x), top_k)

@@ -19,7 +19,7 @@ from speech_intent_recognizer_tpu_torch.convert.jax_bridge import (
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
     CNNAudioGRU, conv_external_params, fold_batchnorm)
 from speech_intent_recognizer_tpu_torch.ops.conv23 import (
-    _conv23_plain, conv23, conv23_operands)
+    W2_SHAPE, W3_SHAPE, _conv23_plain, _unpack, conv23, conv23_operands)
 
 
 @pytest.fixture
@@ -96,13 +96,18 @@ def test_operands_layout_and_validation():
     w3 = torch.randn((128, 64, 3, 3), generator=g)
     p2, b2, p3, b3 = conv23_operands(w2, torch.zeros(64), w3,
                                      torch.zeros(128))
-    assert p2.shape == (9, 32, 72) and p3.shape == (9, 64, 136)
+    assert p2.shape == W2_SHAPE == (9, 2, 8, 2, 8, 8)
+    assert p3.shape == W3_SHAPE == (9, 4, 16, 2, 8, 8)
     assert p2.dtype == p3.dtype == torch.bfloat16
     assert b2.dtype == b3.dtype == torch.float32
-    # tap = kt * 3 + km of the (O, I, km, kt) reference layout
-    assert torch.equal(p2[1 * 3 + 2, :, :64].float(),
-                       w2[:, :, 2, 1].T.to(torch.bfloat16).float())
-    assert not p2[:, :, 64:].any() and not p3[:, :, 128:].any()
+    # [tap = kt * 3 + km][kk][j][h][r][e] = w[8 j + r, 16 kk + 8 h + e, km,
+    # kt] of the (O, I, km, kt) reference layout: tap (kt 1, km 2), input
+    # channel 16 + 8 + 3, output channel 8 * 5 + 6
+    assert p2[1 * 3 + 2, 1, 5, 1, 6, 3] == w2[46, 27, 2, 1].to(torch.bfloat16)
+    # one k-step's B tile is 64 x 16 values, contiguous
+    assert p2[0, 0].numel() * 2 == 2048 and p3[0, 0].numel() * 2 == 4096
+    assert torch.equal(_unpack(p2), w2.to(torch.bfloat16).float())
+    assert torch.equal(_unpack(p3), w3.to(torch.bfloat16).float())
     with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
         conv23_operands(torch.zeros((64, 16, 3, 3)), torch.zeros(64), w3,
                         torch.zeros(128))

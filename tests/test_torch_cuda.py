@@ -668,6 +668,25 @@ def test_conv23_matches_plain(dev, batch, t1):
     assert float((got.float() - want.float()).abs().max()) < 0.02 * scale
 
 
+@pytest.mark.parametrize("batch,t1", [(1, 100), (133, 100), (3, 200)])
+def test_conv23_every_range_length_gives_the_same_bits(dev, batch, t1):
+    """K5 cuts the batch into (utterance, range of output rows) items; every
+    range length its plan can pick gives the bits of whole utterances."""
+    from speech_intent_recognizer_tpu_torch.ops.conv23 import range_lengths
+
+    g = torch.Generator().manual_seed(t1 + batch)
+    x = (2 * torch.rand((batch, t1, 1024), generator=g)).to(dev,
+                                                            torch.bfloat16)
+    ops = [o.to(dev) for o in conv23_operands(
+        (torch.rand((64, 32, 3, 3), generator=g) * 2 - 1) / 288 ** 0.5,
+        0.1 * torch.randn(64, generator=g),
+        (torch.rand((128, 64, 3, 3), generator=g) * 2 - 1) / 576 ** 0.5,
+        0.1 * torch.randn(128, generator=g))]
+    whole = conv23(x, *ops, rows=t1 // 4)
+    for rows in range_lengths(t1):
+        assert torch.equal(conv23(x, *ops, rows=rows), whole), rows
+
+
 def test_conv23_predictor_launches(dev, tmp_path):
     """enable_conv23_kernel: K1 once, K5 once, K2 twice, K6 never; within
     1e-2 of the default path on log-probabilities."""
