@@ -14,12 +14,19 @@ hand-written CUDA kernels, and checks everything it measures:
   (``enable_conv23_kernel``: K1, K5, K2) and the conv epilogue kernel
   (``pool_impl="kernel"``: K1, K6 twice, K2);
 * serving off the reference geometry (hop 256, 400 frames): the unfused
-  predictor, whose front-end frames the signal and runs K4.
+  predictor, whose front-end frames the signal and runs K4;
+* streaming and serving: ``StreamingRecognizer`` sessions (K4 on the tail
+  frames at each end of speech, and on every block of frames in the
+  featurizer's ``device`` mode; the fp32 classifier with K2 twice), the
+  ``BatchFinalizer`` and ``IntentServer``, on the model that training
+  produced; and a ``.msgpack`` checkpoint read without flax or msgpack.
 
 Phases:
 
-1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc``, and
-   print what K1, K3, K4, K5 and the tensor-core K2 and K2T take as built:
+1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc`` and,
+   alongside, ``native/build.sh`` (libsirdsp, the streaming featurizer's
+   native mode) when the checkout has no build, and print what K1, K3, K4,
+   K5 and the tensor-core K2 and K2T take as built:
    registers, spilled bytes, shared memory, threads and resident blocks per
    SM, for K2 and K2T also the cluster size and resident clusters per card;
 2. K1 (front-end + conv1) against its plain PyTorch version: the check
@@ -60,7 +67,8 @@ Phases:
    configurations in the order A B C C B A;
 10. with ``--profile`` only: step-time percentiles and the per-kernel
     breakdown of device time (``utils/profiling.py``) of the three serving
-    configurations at B=256 and 2048, and of one bf16 train step at B=256;
+    configurations at B=256 and 2048, of one bf16 train step at B=256, and
+    (in phase 16) of the streaming finalize of 1 and of 16 queued sessions;
 11. K3 (front-end) against its plain version, f32 and bf16 out, normalized
     and raw, with lengths 1 and 0, batches of 1, 3 and 257, and silent and
     padded frames in raw dB (exactly -100 and 0);
@@ -72,9 +80,30 @@ Phases:
 15. training end to end through the CLIs (precompute -> train -> evaluate
     -> serve the best model), with the launch counters reset just before
     and read just after each CLI (K3 in the precompute, K2 and K2T in
-    training), and the precompute rate.
+    training), and the precompute rate;
+16. streaming on the trained model: every WAV of the test split, followed
+    by room noise, through its own ``StreamingRecognizer`` session in each
+    featurizer mode (host, native, device), the counters reset before and
+    read after each (K4 once at the finalize, in device mode also once per
+    block of frames; K2 twice; nothing else), labels equal to
+    ``predict_file``'s, accuracy >= 0.9, the finalize's operands on the card
+    within 1e-5 of the CPU; 16 files replayed as ``cli.stream --audio`` does
+    (``FileAudioSource``: digital zeros after each; ``run_live``), counters
+    as above, results within 1e-5 of the same replay on the CPU; 16
+    sessions ending in one tick through one ``BatchFinalizer`` flush (K4 1,
+    K2 2, rows within 1e-5 of their single finalize); ``IntentServer`` on a
+    Unix socket with 16 concurrent client sessions, each asking for a
+    partial hypothesis mid-utterance, partials and results equal to the
+    direct recognizer's; the committed narrow ``.msgpack`` fixture served
+    like its ``.pt`` twin; K4 at 4 / 16 / 64 frames (the streamed tails and
+    full-scale noise) and the fp32 K2 at B = 1 / 16 against their plain
+    versions; and timings: end of speech -> result p50 / p90, the feed of
+    one chunk per mode, the finalize of 1 and of 16 queued sessions (host
+    clock), K4 and the fp32 K2 at those sizes (CUDA events).
 
-The ``kernels`` line gives each kernel's launches on its path, its error
+The ``kernels`` line gives each kernel's launches on its path (K2 and K4
+also ``stream_launches``: over the test split in each featurizer mode, in
+the batched finalize of 16 and in the file replay of 16), its error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
@@ -90,8 +119,10 @@ The last line of standard output is the JSON device record.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -101,9 +132,18 @@ import torch
 
 from speech_intent_recognizer_tpu_torch.config import AudioConfig
 from speech_intent_recognizer_tpu_torch import _build
-from speech_intent_recognizer_tpu_torch.data.audio_io import save_wav
+from speech_intent_recognizer_tpu_torch.data import native
+from speech_intent_recognizer_tpu_torch.data.audio_io import (
+    load_audio, save_wav)
 from speech_intent_recognizer_tpu_torch.data.labelmap import save_label_map
+from speech_intent_recognizer_tpu_torch.infer import streaming
+from speech_intent_recognizer_tpu_torch.infer.mic import (
+    FileAudioSource, run_live)
 from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
+from speech_intent_recognizer_tpu_torch.infer.server import (
+    IntentServer, encode_chunk)
+from speech_intent_recognizer_tpu_torch.infer.streaming import (
+    BatchFinalizer, PendingResult, StreamingRecognizer, fused_finalize)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
     CNNAudioGRU, fold_batchnorm)
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
@@ -202,6 +242,37 @@ K1_FAR_SHARE = 1e-4
 # near uniform, so a probability bar alone barely sees a wrong logit
 PROB_GATE = 0.02
 LOGP_BAR = 1e-2
+# the streaming phase: the featurizer modes, the streamed accuracy bar on the
+# tone test split, the finalize on the card vs the same operands through the
+# port on the CPU (probabilities; TF32 is off for matmuls and cuDNN, set in
+# main(), as for check_hop256's unfused fp32 predictor; the bar of
+# tests/test_torch_cuda.py's finalize test), batched rows vs their single
+# finalize and the server vs the direct recognizer
+STREAM_MODES = ("host", "native", "device")
+STREAM_ACC_BAR = 0.9
+STREAM_CPU_BAR = 1e-5
+STREAM_ROW_BAR = 1e-5
+# phase 3's bar for the fp32 K2 against its plain version
+K2_FP32_TOL = 1e-5
+STREAM_SESSIONS = 16
+STREAM_CHUNK = 1024
+# what follows each streamed utterance: 1.5 s of a microphone's silence,
+# room noise at -60 dBFS (Gaussian, std 0.001: mean |x| 0.0008, under the
+# VAD's 0.01 threshold).  Digital zeros would make -100 dB frames, which the
+# tone model never saw in training and which pull the per-utterance
+# normalization far off (PERF.md §6, streaming)
+ROOM_NOISE = 0.001
+TRAILING_S = 1.5
+LATENCY_UTTERANCES = 30
+# K4 and the fp32 K2 at the streaming path's sizes: tail frames of 1, 4 and
+# 16 utterances; one session and a batched flush of 16
+STREAM_K4_FRAMES = (4, 16, 64)
+STREAM_K2_BATCHES = (1, 16)
+# each server session asks for a partial hypothesis after this chunk
+PARTIAL_AT = 8
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(ROOT, "tests", "data", "narrow_model")
+FIXTURE_LABELS = os.path.join(ROOT, "tests", "data", "narrow_label_map.json")
 
 
 def log(msg: str) -> None:
@@ -358,7 +429,7 @@ def check_k2(dev, state) -> float:
     cases += [(b, 25, state) for b in (3, MAIN_BATCH, 1030)]
     for b, steps, st in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            tol = K2_FP32_TOL if dtype == torch.float32 else 1e-2
             gx, w, bn = k2_inputs(b, dtype, dev, seed=b, steps=steps, state=st)
             want = _gru_layer_plain(gx, w, bn).float()
             worst, same = 0.0, True
@@ -774,7 +845,8 @@ def train_end_to_end(tmp: str, dev) -> dict:
     return {"k3_launches": k3_launches, "k2t_launches": k2t_launches,
             "precompute_utt_s": n_total / precompute_s,
             "epochs": result.epochs_run, "val_acc": result.best_val_acc,
-            "test_acc": ev["accuracy"]}
+            "test_acc": ev["accuracy"], "best": best,
+            "label_map": label_map, "test_csv": csvs["test"]}
 
 
 def train_step_timer(dev, b: int):
@@ -793,6 +865,426 @@ def train_step_timer(dev, b: int):
     weights = torch.ones((1, b), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     return lambda: trainer.train_epoch(feats, labels, perm, weights, gen)
+
+
+class RecordingRecognizer(StreamingRecognizer):
+    """A streaming session that keeps the operands of its last finalize,
+    so that they can be run again: on the CPU, or alone at B=1."""
+
+    def finalize_operands(self) -> tuple:
+        self.operands = super().finalize_operands()
+        return self.operands
+
+
+def stacked(operands: list) -> tuple:
+    """Finalize operands of several sessions as fused_finalize's batch."""
+    mel, count, tail, n_tail = zip(*operands)
+    return np.stack(mel), np.asarray(count), np.stack(tail), np.asarray(n_tail)
+
+
+def room_noise(rng, n: int) -> np.ndarray:
+    return (ROOM_NOISE * rng.standard_normal(n)).astype(np.float32)
+
+
+def utterance_chunks(path: str, seed: int) -> np.ndarray:
+    """A WAV as a microphone would deliver it: (n, 1024) chunks of the file
+    and then TRAILING_S of room noise (seeded)."""
+    x, _ = load_audio(path, target_sample_rate=16000)
+    n = -(-(len(x) + int(TRAILING_S * 16000)) // STREAM_CHUNK) * STREAM_CHUNK
+    x = np.concatenate([x, room_noise(np.random.default_rng(seed),
+                                      n - len(x))])
+    return x.reshape(-1, STREAM_CHUNK)
+
+
+def stream_file(pred, path: str, mode: str, seed: int) -> dict:
+    """One utterance through a fresh session, chunk by chunk
+    (:func:`utterance_chunks`), until the recognizer returns its result.
+    Times every feed (host clock); the one that returns the result is the
+    end-of-speech latency.  In device mode also counts the featurizer's K4
+    blocks (16 frames or fewer)."""
+    rec = RecordingRecognizer(pred, featurizer_mode=mode)
+    fz = rec._featurizer
+    if fz.mode != mode:
+        raise AssertionError(f"featurizer runs {fz.mode!r}, {mode!r} asked")
+    blocks = [0]
+    feed = fz.feed
+
+    def counted_feed(chunk):
+        before = fz._frames_done
+        done = feed(chunk)
+        blocks[0] += -(-(done - before) // streaming._BLOCK)
+        return done
+
+    if mode == "device":
+        fz.feed = counted_feed
+    out = {"feed_s": [], "rec": rec}
+    for chunk in utterance_chunks(path, seed):
+        recording = rec.recording
+        t0 = time.perf_counter()
+        result = rec.feed(chunk)
+        dt = time.perf_counter() - t0
+        if result is not None:
+            out.update(result=result, latency_s=dt, blocks=blocks[0])
+            return out
+        if recording:
+            out["feed_s"].append(dt)
+    raise AssertionError(f"{path}: no end of speech in {mode} mode")
+
+
+def log_profile(what: str, step, label: str, top: int = 40,
+                per_s: int = 0) -> None:
+    """Step-time percentiles (host clock, 30 steps) and the per-kernel
+    device time (``torch.profiler``, 5 steps) of ``step``, which must end in
+    a copy to the host; ``per_s`` items a step give a rate at the median."""
+    from speech_intent_recognizer_tpu_torch.utils.profiling import (
+        kernel_breakdown, step_times)
+
+    q = step_times(step, steps=30)
+    wall, kernels = kernel_breakdown(step, steps=5)
+    busy = sum(k[1] for k in kernels)
+    rate = f"; {per_s / q['median'] * 1e3:.0f} utt/s at the median" \
+        if per_s else ""
+    log(f"profile {what} on {label}: step ms median {q['median']:.3f} (p25 "
+        f"{q['p25']:.3f} / p75 {q['p75']:.3f} / p90 {q['p90']:.3f}), 30 "
+        f"steps{rate}; kernel time {busy:.3f} ms, idle share "
+        f"{1 - busy / q['median']:.3f} (profiled step {wall:.3f} ms)")
+    for name, ms, count in kernels[:top]:
+        log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
+
+
+def percentile_ms(samples, q) -> float:
+    return float(np.percentile(np.asarray(samples) * 1e3, q))
+
+
+def stream_split(pred, cpu_pred, paths, labels, offline, mode) -> dict:
+    """Phase 16a, one featurizer mode: every test WAV streamed through its
+    own session with the counters reset before and read after (K4 once at
+    the finalize, and in device mode once per featurizer block; K2 twice;
+    nothing else), labels equal to predict_file's, accuracy, and the
+    finalize's operands through the card and through the CPU."""
+    results, operands, latency, feeds = [], [], [], []
+    totals = dict.fromkeys(counters(), 0)
+    for seed, path in enumerate(paths):
+        torch.cuda.synchronize()
+        reset_counters()
+        run = stream_file(pred, path, mode, seed)
+        got = counters()
+        want = {**dict.fromkeys(got, 0), "K4": 1 + run["blocks"], "K2": 2}
+        if got != want:
+            raise AssertionError(f"stream {mode} {path}: launched {got}, "
+                                 f"want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        results.append(run["result"])
+        operands.append(run["rec"].operands)
+        latency.append(run["latency_s"])
+        feeds += run["feed_s"]
+    blocks = " and once per featurizer block" if mode == "device" else ""
+    log(f"ok: stream {mode}: each of {len(paths)} utterances launched K4 once "
+        f"at the finalize{blocks} and K2 twice, nothing else (totals "
+        f"{totals})")
+    streamed = [r["predicted_label"] for r in results]
+    served = [o["predicted_label"] for o in offline]
+    differ = [(os.path.basename(p), a, b, round(r["confidence"], 4))
+              for p, a, b, r in zip(paths, streamed, served, results)
+              if a != b]
+    acc = float(np.mean([a == b for a, b in zip(streamed, labels)]))
+    check(not differ and acc >= STREAM_ACC_BAR,
+          f"stream {mode}: streamed label equals predict_file's on "
+          f"{len(paths) - len(differ)} of {len(paths)} test WAVs (differ: "
+          f"{differ[:8]}); streamed accuracy {acc:.4f} >= {STREAM_ACC_BAR}")
+    ops = stacked(operands)
+    card = fused_finalize(pred.model, pred.frontend_params, *ops).cpu().numpy()
+    cpu = fused_finalize(cpu_pred.model, cpu_pred.frontend_params,
+                         *ops).numpy()
+    err = float(np.abs(card - cpu).max())
+    conf = np.asarray([r["confidence"] for r in results])
+    self_err = float(np.abs(card.max(-1) - conf).max())
+    check(err <= STREAM_CPU_BAR and self_err <= STREAM_ROW_BAR
+          and bool((card.argmax(-1) == cpu.argmax(-1)).all())
+          and [pred.inv_label_map[int(i)] for i in card.argmax(-1)]
+          == streamed,
+          f"stream {mode}: the {len(paths)} finalizes' operands on the card "
+          f"vs the CPU: max |prob err| {err:.3e} <= {STREAM_CPU_BAR}, argmax "
+          f"equal; the streamed confidences within {self_err:.3e} <= "
+          f"{STREAM_ROW_BAR} of the card's rows at B={len(paths)}")
+    return {"results": results, "launches": totals, "acc": acc,
+            "cpu_err": err, "latency_s": latency[:LATENCY_UTTERANCES],
+            "feed_s": feeds, "tails": ops[2]}
+
+
+def check_file_replay(pred, cpu_pred, paths, offline) -> dict:
+    """Phase 16b: the path of ``cli.stream --audio`` on the card: each file
+    through ``FileAudioSource`` (1.5 s of digital zeros after it) and
+    ``run_live`` at the CLI's defaults (``auto`` mode), the counters reset
+    before and read after each file (K4 once and K2 twice an utterance,
+    nothing else), labels equal to the same replay on the CPU and
+    confidences within STREAM_CPU_BAR of it.  The zeros put -100 dB rows
+    into the per-utterance normalization, which the tone model never saw
+    in training, so agreement with predict_file is logged, not gated;
+    tests/test_torch_streaming.py holds this replay to the JAX package's."""
+    worst, agree, totals = 0.0, 0, dict.fromkeys(counters(), 0)
+    for path, off in zip(paths, offline):
+        torch.cuda.synchronize()
+        reset_counters()
+        card = run_live(StreamingRecognizer(pred), FileAudioSource(path))
+        got = counters()
+        want = {**dict.fromkeys(got, 0), "K4": len(card), "K2": 2 * len(card)}
+        if not card or got != want:
+            raise AssertionError(f"replay {path}: {len(card)} results, "
+                                 f"launched {got}, want {want}")
+        for k in totals:
+            totals[k] += got[k]
+        cpu = run_live(StreamingRecognizer(cpu_pred), FileAudioSource(path))
+        if [r["predicted_label"] for r in card] != [
+                r["predicted_label"] for r in cpu]:
+            raise AssertionError(f"replay {path}: card {card} vs CPU {cpu}")
+        worst = max([worst] + [abs(a["confidence"] - b["confidence"])
+                               for a, b in zip(card, cpu)])
+        agree += card[0]["predicted_label"] == off["predicted_label"]
+    check(worst <= STREAM_CPU_BAR,
+          f"file replay (FileAudioSource + run_live, auto mode) of "
+          f"{len(paths)} WAVs: K4 once and K2 twice an utterance (totals "
+          f"{totals}), labels equal to the CPU's, confidences within "
+          f"{worst:.3e} <= {STREAM_CPU_BAR}")
+    log(f"file replay: the first label equals predict_file's on {agree} of "
+        f"{len(paths)} WAVs (digital silence; logged, not gated)")
+    return {"launches": totals, "cpu_err": worst, "agree": agree}
+
+
+def check_batched_flush(pred, paths, profile: bool = False) -> dict:
+    """Phase 16c: STREAM_SESSIONS sessions, each fed its utterance (whole
+    chunks), then room noise in turns, so that all reach end of speech in
+    the same round: one flush (K4 once, K2 twice in all) and every row within
+    STREAM_ROW_BAR of its own single finalize.  Then the batched finalize
+    of 16 and the single one timed (host clock, to the result dicts) and,
+    with ``profile``, broken down by kernel."""
+    batcher = BatchFinalizer(pred, max_batch=STREAM_SESSIONS)
+    recs = [RecordingRecognizer(pred, featurizer_mode="host",
+                                async_results=True, batch_finalizer=batcher)
+            for _ in paths]
+    for rec, path in zip(recs, paths):
+        x, _ = load_audio(path, target_sample_rate=16000)
+        for i in range(0, len(x) - STREAM_CHUNK + 1, STREAM_CHUNK):
+            if rec.feed(x[i:i + STREAM_CHUNK]) is not None:
+                raise AssertionError(f"{path}: ended inside its speech")
+    rng = np.random.default_rng(len(paths))
+    torch.cuda.synchronize()
+    reset_counters()
+    pending, ended = [None] * len(recs), [None] * len(recs)
+    for tick in range(64):
+        for i, rec in enumerate(recs):
+            if pending[i] is None:
+                pending[i] = rec.feed(room_noise(rng, STREAM_CHUNK))
+                ended[i] = tick if pending[i] is not None else None
+        if all(p is not None for p in pending):
+            break
+    else:
+        raise AssertionError("sessions did not reach end of speech")
+    left = batcher.flush()
+    results = PendingResult.get_all(pending)
+    got = counters()
+    check(len(set(ended)) == 1 and left == 0,
+          f"{len(recs)} sessions reached end of speech in one round "
+          f"({ended[0]}) and were dispatched by max_batch, none left queued")
+    check_counts(got, {"K4": 1, "K2": 2},
+                 f"the batched finalize of {len(recs)} sessions")
+    worst = 0.0
+    for rec, r in zip(recs, results):
+        single = fused_finalize(pred.model, pred.frontend_params,
+                                *stacked([rec.operands]))[0].cpu().numpy()
+        label = pred.inv_label_map[int(single.argmax())]
+        if r["predicted_label"] != label:
+            raise AssertionError(f"batched row {r['predicted_label']} vs "
+                                 f"single {label}")
+        for p in r["top_predictions"]:
+            worst = max(worst, abs(p["probability"]
+                                   - float(single[pred.label_map[p["label"]]])))
+    check(worst <= STREAM_ROW_BAR,
+          f"batched rows vs their single finalize: labels equal, top-3 "
+          f"probabilities within {worst:.3e} <= {STREAM_ROW_BAR}")
+
+    timer = BatchFinalizer(pred, max_batch=4 * STREAM_SESSIONS)
+    inv = pred.inv_label_map
+    times = {}
+    for n in (1, len(recs)):
+        samples = []
+        for _ in range(22):
+            queued = [timer.submit(*rec.operands, inv) for rec in recs[:n]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.flush()
+            PendingResult.get_all(queued)
+            samples.append(time.perf_counter() - t0)
+        times[n] = samples[2:]
+        if profile:
+            def step():
+                queued = [timer.submit(*rec.operands, inv)
+                          for rec in recs[:n]]
+                timer.flush()
+                PendingResult.get_all(queued)
+
+            log_profile(f"finalize of {n} queued session(s)", step,
+                        gpu_label())
+    return {"launches": got, "row_err": worst, "times_s": times}
+
+
+async def serve_sessions(pred, paths, sock: str) -> list:
+    """Phase 16d: IntentServer on a Unix socket and one client connection
+    per file, all concurrent in this loop; each streams the chunks of
+    :func:`utterance_chunks` (the seeds of :func:`stream_split`), asks for
+    a partial hypothesis after chunk PARTIAL_AT, and reads events until its
+    result."""
+    server = IntentServer(pred)
+    srv = await server.start(socket_path=sock)
+
+    async def client(i, path):
+        reader, writer = await asyncio.open_unix_connection(sock)
+        try:
+            for k, chunk in enumerate(utterance_chunks(path, i)):
+                writer.write((json.dumps({
+                    "op": "chunk", "session": f"s{i}",
+                    "pcm": encode_chunk(chunk)}) + "\n").encode())
+                if k == PARTIAL_AT:
+                    writer.write((json.dumps({"op": "partial",
+                                              "session": f"s{i}"})
+                                  + "\n").encode())
+                await writer.drain()
+            events = []
+            while not events or events[-1].get("event") == "partial":
+                events.append(json.loads(
+                    await asyncio.wait_for(reader.readline(), 120)))
+            return events
+        finally:
+            writer.close()
+            await writer.wait_closed()
+
+    try:
+        return await asyncio.gather(*(client(i, p)
+                                      for i, p in enumerate(paths)))
+    finally:
+        srv.close()
+        await srv.wait_closed()
+
+
+def check_fixture(dev) -> None:
+    """Phase 16e: the committed narrow .msgpack (written by flax) and its
+    .pt twin served on the card: the same probabilities, K3 once and K2
+    twice each; the .msgpack on the CPU within STREAM_CPU_BAR; and no flax
+    or msgpack module loaded to read it."""
+    buf, ln = batch(GATE_LENGTHS, padded_samples(80000), seed=5)
+    probs = {}
+    for ext in (".msgpack", ".pt"):
+        pred = Predictor.from_checkpoint(FIXTURE + ext, FIXTURE_LABELS,
+                                         device=dev)
+        torch.cuda.synchronize()
+        reset_counters()
+        probs[ext] = pred.predict_waveform_batch(buf, ln)
+        check_counts(counters(), {"K3": 1, "K2": 2},
+                     f"the narrow {ext} fixture served")
+    cpu = Predictor.from_checkpoint(FIXTURE + ".msgpack", FIXTURE_LABELS,
+                                    device="cpu").predict_waveform_batch(
+        buf, ln)
+    err = float(np.abs(probs[".msgpack"] - cpu).max())
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("flax", "msgpack", "jax"))
+    check(np.array_equal(probs[".msgpack"], probs[".pt"])
+          and probs[".pt"].shape == (len(GATE_LENGTHS), 4)
+          and err <= STREAM_CPU_BAR and not loaded,
+          f"the .msgpack fixture served on the card: the same probabilities "
+          f"as its .pt twin, within {err:.3e} <= {STREAM_CPU_BAR} of the "
+          f"CPU; flax / msgpack / jax modules loaded: {loaded}")
+
+
+def time_streaming_kernels(dev, tails, timings, bounds, spreads) -> None:
+    """Phase 16f: K4 at the finalize's frame counts (one session's tail, 4
+    and 16 sessions': the streamed utterances' own tail frames, then
+    full-scale noise) and the fp32 K2 at the streaming batches (T = 25),
+    each against its plain version at its bar, then timed as medians of
+    five blocks with the plain versions.  These sizes leave most of the
+    card idle: the times are launch-bound, far above the bounds."""
+    fe = make_frontend_params(device=dev)
+    dft = fk.dft_matrices(fe)
+    streamed = torch.from_numpy(tails.reshape(-1, fe.n_fft)).to(dev)
+    for n in STREAM_K4_FRAMES:
+        k4_case(streamed[:n].contiguous(), fe,
+                f"N={n} tail frames of the streamed utterances", dft)
+        frames = torch.randn((n, fe.n_fft), device=dev)
+        k4_case(frames, fe, f"N={n} full-scale frames", dft)
+        timed(timings, spreads, f"k4_stream_n{n}",
+              lambda: fk.mel_db(frames, fe), 200)
+        timings[f"k4_stream_plain_n{n}"] = cuda_ms(
+            lambda: fk._mel_db_plain(frames, fe, dft), 50)
+        bounds[f"k4_stream_n{n}"] = bound(nbytes(frames) + n * 64 * 4,
+                                          (frontend_flops(fe, n), FP32_FLOPS))
+    for b in STREAM_K2_BATCHES:
+        gx, w, bn = k2_inputs(b, torch.float32, dev, seed=b)
+        got, want = gru_layer(gx, w, bn), _gru_layer_plain(gx, w, bn)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(bool(torch.isfinite(got).all()) and err <= K2_FP32_TOL,
+              f"K2 fp32 vs plain at B={b} T=25, the build the card picks "
+              f"({plan_name(None, b, torch.float32, dev)}): max |err| "
+              f"{err:.3e} <= {K2_FP32_TOL}")
+        timed(timings, spreads, f"k2_fp32_b{b}", lambda: gru_layer(gx, w, bn),
+              100)
+        timings[f"k2_fp32_plain_b{b}"] = cuda_ms(
+            lambda: _gru_layer_plain(gx, w, bn), 10)
+        bounds[f"k2_fp32_b{b}"] = bound(nbytes(gx, w, bn) + gx.numel() // 3 * 4,
+                                        (2.0 * gx.numel() * 256, FP32_FLOPS))
+
+
+def check_streaming(dev, tmp: str, run: dict, timings, bounds, spreads,
+                    profile: bool = False) -> dict:
+    """Phase 16: the streaming and serving path at full width on the model
+    that phase 15 trained, over the tone corpus's test split."""
+    from speech_intent_recognizer_tpu_torch.data.manifest import (
+        read_manifest)
+
+    manifest = read_manifest(run["test_csv"])
+    paths, labels = manifest.paths, manifest.labels
+    pred = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                     device=dev)
+    cpu_pred = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                         device="cpu")
+    offline = [pred.predict_file(p) for p in paths]
+    out = {"modes": {}}
+    for mode in STREAM_MODES:
+        out["modes"][mode] = stream_split(pred, cpu_pred, paths, labels,
+                                          offline, mode)
+    sessions = paths[:STREAM_SESSIONS]
+    out["replay"] = check_file_replay(pred, cpu_pred, sessions, offline)
+    out["batched"] = check_batched_flush(pred, sessions, profile)
+
+    direct = out["modes"]["native"]["results"][:STREAM_SESSIONS]
+    partial = []
+    for i, path in enumerate(sessions):
+        rec = StreamingRecognizer(pred)
+        for chunk in utterance_chunks(path, i)[:PARTIAL_AT + 1]:
+            rec.feed(chunk)
+        partial.append(rec.partial_result())
+    got = asyncio.run(serve_sessions(pred, sessions,
+                                     os.path.join(tmp, "sir.sock")))
+    check(all(p is not None for p in partial)
+          and all([e["event"] for e in g] == ["partial", "result"]
+                  and {e["session"] for e in g} == {f"s{i}"}
+                  for i, g in enumerate(got)),
+          f"IntentServer, {len(got)} concurrent client sessions on a Unix "
+          f"socket: each got its partial hypothesis and then its result")
+    worst = max(abs(e["confidence"] - d["confidence"])
+                for g, p, r in zip(got, partial, direct)
+                for e, d in zip(g, (p, r)))
+    check(all(e["predicted_label"] == d["predicted_label"]
+              for g, p, r in zip(got, partial, direct)
+              for e, d in zip(g, (p, r)))
+          and worst <= STREAM_ROW_BAR,
+          f"IntentServer: partials and results equal to the direct "
+          f"recognizer's labels, confidences within {worst:.3e} <= "
+          f"{STREAM_ROW_BAR}")
+    check_fixture(dev)
+    time_streaming_kernels(dev, out["modes"]["native"]["tails"], timings,
+                           bounds, spreads)
+    return out
 
 
 def bound(nbytes: float, *ops) -> tuple:
@@ -1231,11 +1723,24 @@ def main(argv=None) -> int:
     width = padded_samples(cfg.max_samples, cfg.hop_length)
     fe = make_frontend_params(cfg, dev)
 
-    # ---- 1. build ----
+    # ---- 1. build: the kernels, and libsirdsp (host C++ of the streaming
+    # featurizer's native mode) beside them when the checkout has none ----
     t0 = time.perf_counter()
+    native_build = None
+    if not os.path.exists(os.path.join(ROOT, "native", "build",
+                                       "libsirdsp.so")):
+        native_build = subprocess.Popen(
+            [os.path.join(ROOT, "native", "build.sh")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.build(ptxas_verbose=True)
     _build.load()
-    log(f"built {_build.library_path()} in "
+    if native_build is not None:
+        out = native_build.communicate(timeout=600)[0]
+        check(native_build.returncode == 0,
+              f"native/build.sh exit {native_build.returncode}: "
+              f"{out.strip()[-300:]}")
+    check(native.available(), "libsirdsp loaded")
+    log(f"built {_build.library_path()} and libsirdsp in "
         f"{time.perf_counter() - t0:.1f} s")
     resources = fk.kernel_resources(dev, tuple(
         make_frontend_params(AudioConfig(n_fft=n, hop_length=n // 4), dev)
@@ -1442,25 +1947,13 @@ def main(argv=None) -> int:
 
         # ---- 10. profile (--profile only) ----
         if args.profile:
-            from speech_intent_recognizer_tpu_torch.utils.profiling import (
-                kernel_breakdown, step_times)
-
             for b, (name, p) in ((b, item) for b in TIMING_BATCHES
                                  for item in preds.items()):
                 wf = e2e_wf[:b].contiguous()
                 ln = e2e_ln[:b]
-                step = lambda: p.predict_waveform_batch(wf, ln)  # noqa: E731
-                q = step_times(step, steps=30)
-                wall, kernels = kernel_breakdown(step, steps=5)
-                busy = sum(k[1] for k in kernels)
-                log(f"profile {name} B={b} on {label}: step ms median {q['median']:.3f}"
-                    f" (p25 {q['p25']:.3f} / p75 {q['p75']:.3f} / p90 "
-                    f"{q['p90']:.3f}), 30 steps; {b / q['median'] * 1e3:.0f} "
-                    f"utt/s at the median; kernel time {busy:.3f} ms, idle "
-                    f"share {1 - busy / q['median']:.3f} (profiled step "
-                    f"{wall:.3f} ms)")
-                for name, ms, count in kernels:
-                    log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
+                log_profile(f"{name} B={b}",
+                            lambda: p.predict_waveform_batch(wf, ln), label,
+                            top=1000, per_s=b)
 
     # ---- 11-13. K3, K2T, a train step card vs CPU ----
     k3_err = check_k3(dev, make_frontend_params(device=dev), rng)
@@ -1511,24 +2004,17 @@ def main(argv=None) -> int:
         step = train_step_timer(dev, b)
         timings[f"train_step_bf16_b{b}"] = cuda_ms(step, 10)
         if args.profile and b == 256:
-            from speech_intent_recognizer_tpu_torch.utils.profiling import (
-                kernel_breakdown, step_times)
-
-            q = step_times(step, steps=30)
-            wall, kernels = kernel_breakdown(step, steps=5)
-            busy = sum(k[1] for k in kernels)
-            log(f"profile bf16 train step B={b} on {label}: step ms median "
-                f"{q['median']:.3f} (p25 {q['p25']:.3f} / p75 {q['p75']:.3f}"
-                f" / p90 {q['p90']:.3f}), 30 steps; kernel time {busy:.3f} "
-                f"ms, idle share {1 - busy / q['median']:.3f} (profiled "
-                f"step {wall:.3f} ms)")
-            for name, ms, count in kernels[:40]:
-                log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
+            log_profile(f"bf16 train step B={b}", step, label)
         del step
 
     # ---- 15. training end to end through the CLIs ----
+    # ---- 16. streaming and serving on the trained model ----
     with tempfile.TemporaryDirectory() as tmp:
         e2e_train = train_end_to_end(tmp, dev)
+        t0 = time.perf_counter()
+        stream = check_streaming(dev, tmp, e2e_train, timings, bounds,
+                                 spreads, args.profile)
+        stream_s = time.perf_counter() - t0
 
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
@@ -1551,6 +2037,26 @@ def main(argv=None) -> int:
         f"included): {e2e_train['precompute_utt_s']:.1f} utt/s; tone task "
         f"val acc {e2e_train['val_acc']:.4f} after {e2e_train['epochs']} "
         f"epochs, test acc {e2e_train['test_acc']:.4f}")
+    log(f"  streaming on {label}, host clock, ms (phase 16 took "
+        f"{stream_s:.1f} s):")
+    for mode, m in stream["modes"].items():
+        log(f"    {mode}: end of speech -> result dict at B=1, p50 "
+            f"{percentile_ms(m['latency_s'], 50):.3f} / p90 "
+            f"{percentile_ms(m['latency_s'], 90):.3f} over "
+            f"{len(m['latency_s'])} utterances; feed of one "
+            f"{STREAM_CHUNK}-sample chunk while recording p50 "
+            f"{percentile_ms(m['feed_s'], 50):.4f} / p90 "
+            f"{percentile_ms(m['feed_s'], 90):.4f} over {len(m['feed_s'])}; "
+            f"streamed accuracy {m['acc']:.4f}; card vs CPU prob err "
+            f"{m['cpu_err']:.3e}; launches {m['launches']}")
+    for n, samples in stream["batched"]["times_s"].items():
+        log(f"    finalize of {n} queued session(s), flush to result dicts: "
+            f"p50 {percentile_ms(samples, 50):.3f} / p90 "
+            f"{percentile_ms(samples, 90):.3f} over {len(samples)}")
+    replay = stream["replay"]
+    log(f"    file replay of {STREAM_SESSIONS} WAVs (digital silence): card vs "
+        f"CPU confidence err {replay['cpu_err']:.3e}; label equal to "
+        f"predict_file's on {replay['agree']}; launches {replay['launches']}")
     b = MAIN_BATCH
 
     def entry(name, key, source, replaces, launches, err, library=None):
@@ -1566,7 +2072,16 @@ def main(argv=None) -> int:
         f"vs its plain version, ms per call; library_ms: cuDNN nn.GRU layer "
         f"(K2), torch.fft.rfft + matmul on the frames (K4), the model's conv "
         f"stages 2 and 3 (K5), bias-add + ReLU + max-pool at conv2 (K6)")
-    print(json.dumps({"kernels": [
+    # launches on the streaming path: over the test split in each featurizer
+    # mode, in the batched finalize of 16 and in the file replay of 16
+    stream_launches = {
+        kernel: {**{mode: m["launches"][kernel]
+                    for mode, m in stream["modes"].items()},
+                 f"batched_{STREAM_SESSIONS}":
+                     stream["batched"]["launches"][kernel],
+                 f"replay_{STREAM_SESSIONS}": stream["replay"]["launches"][kernel]}
+        for kernel in ("K2", "K4")}
+    kernels = [
         entry("frontend_conv1", "k1", K1_SOURCE, K1_REPLACES,
               main_launches["K1"], k1_err),
         entry("gru_layer", "k2", K2_SOURCE, K2_REPLACES, main_launches["K2"],
@@ -1582,7 +2097,10 @@ def main(argv=None) -> int:
         entry("bias_relu_pool2", "k6", K6_SOURCE, K6_REPLACES,
               cfg_launches["pool_impl=kernel"]["K6"], k6_err,
               f"k6_library_b{b}"),
-    ]}))
+    ]
+    kernels[1]["stream_launches"] = stream_launches["K2"]
+    kernels[4]["stream_launches"] = stream_launches["K4"]
+    print(json.dumps({"kernels": kernels}))
     print(label)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
-"""Model checkpoint loading (reference-layout ``.pt`` / ``.pth``).
+"""Model checkpoint loading: reference-layout ``.pt`` / ``.pth`` state
+dicts and the JAX package's ``.msgpack`` exports.
 
 The reference publishes its model as a bare ``state_dict``
 (``scripts/train.py:288``), sometimes wrapped as ``{'model_state_dict': ...}``
-by an older trainer; both load here.  The reference package's native
-``.msgpack`` checkpoints are not read yet.
+by an older trainer; both load here.  A ``.msgpack`` (``{params,
+batch_stats}`` from the JAX trainer's ``save_best`` / ``save_model``) is
+read by :mod:`.msgpack` and mapped to the same layout by
+:func:`.jax_bridge.from_jax_variables`.
 """
 
 from __future__ import annotations
@@ -15,11 +18,21 @@ import torch
 
 def load_model_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Load a reference-layout state dict onto the CPU."""
+    if path.endswith(".msgpack"):
+        from speech_intent_recognizer_tpu_torch.convert.jax_bridge import (
+            from_jax_variables)
+        from speech_intent_recognizer_tpu_torch.convert.msgpack import (
+            MsgpackError, read_variables)
+
+        params, batch_stats = read_variables(path)
+        try:
+            return from_jax_variables(params, batch_stats)
+        except (KeyError, ValueError, TypeError, AttributeError) as e:
+            raise MsgpackError(f"{path}: not a CNNAudioGRU checkpoint "
+                               f"({type(e).__name__}: {e})") from None
     if not path.endswith((".pt", ".pth")):
-        raise ValueError(
-            f"{path}: only .pt/.pth state dicts load in the torch port; "
-            "convert a .msgpack checkpoint with the reference package's "
-            "convert.torch_export.save_torch_checkpoint")
+        raise ValueError(f"{path}: the torch port loads .pt / .pth state "
+                         "dicts and .msgpack checkpoints")
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "model_state_dict" in state:
         state = state["model_state_dict"]

@@ -39,6 +39,21 @@ logger = logging.getLogger(__name__)
 _AUDIO_EXTS = (".wav", ".mp3", ".flac")
 
 
+def _state_widths(state: Dict[str, torch.Tensor]) -> dict:
+    """The CNNAudioGRU widths of a reference-layout state dict: the conv
+    stages' output channels, the GRU's hidden size and layers, and the
+    classifier head's output width (the class count)."""
+    convs = sorted(int(k[len("conv"):-len(".weight")]) for k in state
+                   if k.startswith("conv") and k.endswith(".weight"))
+    layers = sum(1 for k in state if k.startswith("gru.weight_hh_l")
+                 and not k.endswith("_reverse"))
+    return dict(num_classes=int(state["fc.weight"].shape[0]),
+                conv_channels=tuple(int(state[f"conv{i}.weight"].shape[0])
+                                    for i in convs),
+                gru_hidden=int(state["gru.weight_hh_l0"].shape[1]),
+                gru_layers=layers)
+
+
 class Predictor:
     """End-to-end (waveform -> intent) predictor on one device."""
 
@@ -67,7 +82,9 @@ class Predictor:
                         fold_bn: bool = True,
                         device: "str | torch.device" = "cuda",
                         pool_impl: str = "torch") -> "Predictor":
-        """``pool_impl``: the conv epilogue of the fused path's conv2 /
+        """``model_path``: a ``.pt`` / ``.pth`` state dict or a ``.msgpack``
+        of the JAX trainer; the model takes the checkpoint's widths.
+        ``pool_impl``: the conv epilogue of the fused path's conv2 /
         conv3, ``"torch"`` (bias-add, ReLU, max-pool) or ``"kernel"`` (K6);
         it is read only where that path serves."""
         from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
@@ -79,16 +96,17 @@ class Predictor:
 
         label_map = load_label_map(label_map_path)
         state = load_model_checkpoint(model_path)
-        if num_classes is None:  # the classifier head's output width
-            num_classes = int(state["fc.weight"].shape[0])
+        widths = _state_widths(state)
+        if num_classes is not None:
+            widths["num_classes"] = num_classes
         if fold_bn and any(k.startswith("bn") for k in state):
             folded = fold_batchnorm(state)
-            model = CNNAudioGRU(num_classes=num_classes, fold_bn=True)
+            model = CNNAudioGRU(fold_bn=True, **widths)
             model.load_state_dict(folded)
             pred = cls(model, label_map, audio_cfg, device)
             pred._maybe_enable_conv1_fusion(folded, pool_impl)
             return pred
-        model = CNNAudioGRU(num_classes=num_classes)
+        model = CNNAudioGRU(**widths)
         model.load_state_dict(state)
         return cls(model, label_map, audio_cfg, device)
 

@@ -735,3 +735,143 @@ def test_precompute_off_reference_geometry_runs_k4(dev, tmp_path):
                                progress=False, device="cpu")[0]
     assert got.shape == want.shape == (5, 40, 400)
     np.testing.assert_allclose(got, want, atol=2e-3 + 3e-4)
+
+
+# ---------------------------------------------------------------- streaming
+
+
+def _stream_predictor(device):
+    """A narrow BN-folded model, seeded, on ``device``."""
+    from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+
+    model = CNNAudioGRU(4, conv_channels=(8, 16, 16), gru_hidden=32,
+                        fold_bn=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return Predictor(model, {f"intent_{i}": i for i in range(4)},
+                     device=device)
+
+
+def _tone(seed, n):
+    r = np.random.default_rng(seed)
+    return (0.2 * np.sin(2 * np.pi * r.uniform(200, 400) * np.arange(n)
+                         / 16000) + 0.02 * r.standard_normal(n)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("n", [513, 20000, 85000])
+def test_streaming_device_mode_matches_host(dev, n):
+    """``device`` mode (K4 per block of up to 16 frames) against the NumPy
+    host mode, within the JAX package's host-vs-device bar (2e-3)."""
+    from speech_intent_recognizer_tpu_torch.infer.streaming import (
+        StreamingFeaturizer)
+
+    x = _tone(n, n)
+    out = {}
+    for mode in ("host", "device"):
+        fz = StreamingFeaturizer(mode=mode, device=dev)
+        fk.mel_db.launches = 0
+        for i in range(0, n, 1024):
+            fz.feed(x[i : i + 1024])
+        out[mode] = fz.finalize()
+        if mode == "device":
+            assert fk.mel_db.launches >= 1
+    np.testing.assert_allclose(out["device"], out["host"], rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("count,n_tail", [(0, 4), (37, 2), (198, 4),
+                                          (200, 0)])
+def test_fused_finalize_card_matches_cpu(dev, count, n_tail):
+    """K4 + the fp32 model (K2 twice) on the card against the plain
+    versions on the CPU, the same operands: probabilities within 1e-5."""
+    from speech_intent_recognizer_tpu_torch.infer.streaming import (
+        fused_finalize)
+
+    r = np.random.default_rng(count + n_tail)
+    mel = np.zeros((1, 200, 64), np.float32)
+    mel[0, :count] = r.uniform(-80.0, 10.0, (count, 64))
+    tail = np.zeros((1, 4, 1024), np.float32)
+    tail[0, :n_tail] = _tone(count, n_tail * 1024).reshape(n_tail, 1024)
+    args = (mel, np.asarray([count]), tail, np.asarray([n_tail]))
+    card, cpu = _stream_predictor(dev), _stream_predictor("cpu")
+    gru_layer.launches = fk.mel_db.launches = 0
+    got = fused_finalize(card.model, card.frontend_params, *args).cpu()
+    assert (fk.mel_db.launches, gru_layer.launches) == (1, 2)
+    want = fused_finalize(cpu.model, cpu.frontend_params, *args)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_batched_finalize_rows_match_single_on_card(dev):
+    from speech_intent_recognizer_tpu_torch.infer.streaming import (
+        BatchFinalizer, PendingResult, StreamingRecognizer)
+
+    pred = _stream_predictor(dev)
+    batcher = BatchFinalizer(pred)
+    singles, deferred = [], []
+    for i, n in enumerate((16000, 23456, 40001, 80000, 3000)):
+        x = _tone(i, n)
+        recs = [StreamingRecognizer(pred, silence_limit=10.0, **kw)
+                for kw in ({}, {"async_results": True,
+                                "batch_finalizer": batcher})]
+        for rec in recs:
+            for j in range(0, n, 1024):
+                rec.feed(x[j : j + 1024])
+        singles.append(recs[0].flush())
+        deferred.append(recs[1].flush())
+    gru_layer.launches = fk.mel_db.launches = 0
+    assert batcher.flush() == 5
+    assert (fk.mel_db.launches, gru_layer.launches) == (1, 2)
+    for want, have in zip(singles, PendingResult.get_all(deferred)):
+        assert have["predicted_label"] == want["predicted_label"]
+        for a, b in zip(want["top_predictions"], have["top_predictions"]):
+            assert a["label"] == b["label"]
+            assert abs(a["probability"] - b["probability"]) < 1e-5
+
+
+def test_server_partial_on_card(dev, tmp_path):
+    """The server's ``partial`` op with the model on the card: the
+    hypothesis reaches the client through the drain loop (a pending copy,
+    no blocking read) and equals the CPU recognizer's within 1e-5; then the
+    flushed result likewise."""
+    import asyncio
+    import json
+
+    from speech_intent_recognizer_tpu_torch.infer.server import (
+        IntentServer, encode_chunk)
+    from speech_intent_recognizer_tpu_torch.infer.streaming import (
+        StreamingRecognizer)
+
+    x = _tone(5, 8192)
+    cpu = StreamingRecognizer(_stream_predictor("cpu"), silence_limit=10.0)
+    for i in range(0, len(x), 1024):
+        cpu.feed(x[i : i + 1024])
+    want_partial, want_result = cpu.partial_result(), cpu.flush()
+    server = IntentServer(_stream_predictor(dev), silence_limit=10.0)
+    sock = str(tmp_path / "sir.sock")
+
+    async def script():
+        srv = await server.start(socket_path=sock)
+        reader, writer = await asyncio.open_unix_connection(sock)
+        try:
+            for i in range(0, len(x), 1024):
+                writer.write((json.dumps({
+                    "op": "chunk", "session": "c",
+                    "pcm": encode_chunk(x[i : i + 1024])}) + "\n").encode())
+            for op in ("partial", "flush"):
+                writer.write((json.dumps({"op": op, "session": "c"})
+                              + "\n").encode())
+            await writer.drain()
+            return [json.loads(await asyncio.wait_for(reader.readline(), 60))
+                    for _ in range(2)]
+        finally:
+            writer.close()
+            srv.close()
+            await srv.wait_closed()
+
+    partial, result = asyncio.run(script())
+    for got, want, event in ((partial, want_partial, "partial"),
+                             (result, want_result, "result")):
+        assert got["event"] == event and got["session"] == "c"
+        assert got["predicted_label"] == want["predicted_label"]
+        assert abs(got["confidence"] - want["confidence"]) < 1e-5

@@ -802,3 +802,14 @@ def test_gru_variants_bench_fails_without_gpu():
         pytest.skip("a GPU is present; this checks the host without one")
     r = _python([os.path.join(REPO, "bench_torch_gru_variants.py")], REPO)
     assert r.returncode != 0 and " ms" not in r.stdout
+
+
+@pytest.mark.parametrize("batch,rows", [(1, 4), (16, 4)])
+def test_gru_plan_of_the_streaming_path(batch, rows):
+    """The streaming finalize and partial result run the fp32 model at
+    B = 1 (one session) and up to 16 (a batched flush), T = 25: the
+    CUDA-core kernel with 4-row tiles on an H100 (132 SMs), the forward
+    and the backward build alike."""
+    for backward in (False, True):
+        assert gru_plan(batch, 256, torch.float32, 132, backward,
+                        30) == Plan("simt", rows)

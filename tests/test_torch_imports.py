@@ -47,6 +47,26 @@ print(len(names))
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_streaming_and_serving_modules_import_without_jax_or_msgpack():
+    """The streaming, serving and checkpoint-reading modules and their CLIs
+    import no JAX, Flax, msgpack or Optax package and no module of the JAX
+    package: the card's host has none of them."""
+    code = """
+import importlib, sys
+for name in ('infer.streaming', 'infer.server', 'infer.mic', 'infer.vad',
+             'cli.stream', 'cli.serve', 'convert.msgpack',
+             'convert.checkpoint'):
+    importlib.import_module('speech_intent_recognizer_tpu_torch.' + name)
+bad = sorted(m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'flax', 'msgpack', 'optax', 'sounddevice', 'pyaudio')
+    or m.split('.')[0].startswith('speech_intent_recognizer_tpu')
+    and not m.startswith('speech_intent_recognizer_tpu_torch'))
+assert not bad, bad
+"""
+    r = _run(code, REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_require_cuda_raises_without_gpu():
     from speech_intent_recognizer_tpu_torch.utils.device import require_cuda
 
