@@ -15,6 +15,9 @@ hand-written CUDA kernels, and checks everything it measures:
   (``pool_impl="kernel"``: K1, K6 twice, K2);
 * serving off the reference geometry (hop 256, 400 frames): the unfused
   predictor, whose front-end frames the signal and runs K4;
+* the pipeline orchestrator ``cli.run_pipeline`` with waveform-resident
+  training and waveform augmentation (K3 inside every train step and eval
+  batch and in the test split's precompute, K2 and K2T);
 * streaming and serving: ``StreamingRecognizer`` sessions (K4 on the tail
   frames at each end of speech, and on every block of frames in the
   featurizer's ``device`` mode; the fp32 classifier with K2 twice), the
@@ -99,16 +102,31 @@ Phases:
     full-scale noise) and the fp32 K2 at B = 1 / 16 against their plain
     versions; and timings: end of speech -> result p50 / p90, the feed of
     one chunk per mode, the finalize of 1 and of 16 queued sessions (host
-    clock), K4 and the fp32 K2 at those sizes (CUDA events).
+    clock), K4 and the fp32 K2 at those sizes (CUDA events);
+17. ``cli.run_pipeline`` on the tone corpus in waveform mode with waveform
+    augmentation, bf16, full width (preprocess validating every WAV, int16
+    waveform caches, training with K3 in every step, evaluate), the
+    counters reset just before and read just after (K3 once a train step,
+    eval batch and precompute batch; K2T twice a step; K2 twice a step, an
+    eval batch and an evaluate-stage batch; nothing else), train loss
+    falling, val accuracy >= 0.9, the report's accuracy that of
+    ``evaluate_dataset``; K3 against its plain version on a training batch
+    augmented on the card; a fp32 waveform train step card vs CPU (phase
+    13's bars); and the bf16 waveform step at B = 256 / 1024 (CUDA events
+    and host clock, medians of five blocks) beside the feature-cache step,
+    with its augmentation and its K3 timed alone (``--profile``: the
+    step's per-kernel breakdown at B=256).
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
-the batched finalize of 16 and in the file replay of 16), its error
+the batched finalize of 16 and in the file replay of 16; K2, K3 and K2T
+also ``waveform_launches``, phase 17's), its error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
 bf16, whichever is larger) and, where one library call computes the same
-function, that call's time.
+function, that call's time (K3, K4: ``torch.fft.rfft`` + matmul on the
+frames).
 
 Every failed check raises.  Needs one card; exits non-zero without CUDA.
 The last line of standard output is the JSON device record.
@@ -152,7 +170,7 @@ from speech_intent_recognizer_tpu_torch.ops import conv23 as conv23_ops
 from speech_intent_recognizer_tpu_torch.ops.conv23 import (
     _conv23_plain, conv23, conv23_operands, conv23_plan, range_lengths)
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
-    log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
+    _frames, log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
     padded_samples)
 from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
@@ -230,6 +248,10 @@ TRAIN_EPOCHS = 6
 TRAIN_BATCH = 64
 PRECOMPUTE_BATCH = 128
 VAL_ACC_BAR = 0.9
+# phase 17: run_pipeline with waveform augmentation on the same corpus; the
+# waveform train step timed at these batches
+PIPELINE_EPOCHS = TRAIN_EPOCHS
+WAVE_STEP_BATCHES = (256, 1024)
 ARGMAX_SHARE_BAR = 0.99
 MAIN_BATCH = 256
 TIMING_BATCHES = (256, 2048)
@@ -621,22 +643,37 @@ def check_k2t(dev, state) -> float:
     return worst
 
 
-def check_train_step(dev) -> None:
+def check_train_step(dev, waves=None) -> None:
     """Phase 13: one training step (two batches of 16) of the full-width
     model in fp32 with dropout 0 and augmentation off, on the card and on
     the CPU from the same seeded weights and batches.  BatchNorm's running
     statistics are compared after step 1, which sets them from the same
     weights on both sides; after step 2 they are only logged: Adam's first
     update is about lr * sign(g), so a gradient within fp32 noise of zero
-    can move its weight by 2 * lr on one side only."""
+    can move its weight by 2 * lr on one side only.
+
+    With ``waves`` ((32, L) int16 rows and their int32 lengths; phase 17)
+    the step is the waveform-resident one: on the card ``Trainer._inputs``
+    gathers the rows and featurizes them with K3, and the CPU step takes
+    those features, so both steps see the same inputs.  Each side's own
+    front-end is held apart on step 1: K3 vs the CPU's plain front-end on
+    these rows within K3_BAR, the losses within STEP_LOSS_RTOL; the
+    gradient difference with own front-ends is logged, not held: features
+    ~6e-6 apart flip the max-pool / ReLU routing of near-tied values on
+    stationary tones and move conv2's gradient to 1.86x its bar
+    (PERF.md section 6, waveform training), a sensitivity of the model's
+    gradient, not an error of a kernel."""
     import copy
 
     import torch.nn.functional as F
 
-    from speech_intent_recognizer_tpu_torch.train.loop import cross_entropy
+    from speech_intent_recognizer_tpu_torch.config import Config
+    from speech_intent_recognizer_tpu_torch.train.loop import (
+        Trainer, cross_entropy)
     from speech_intent_recognizer_tpu_torch.train.state import (
         create_optimizer)
 
+    what = "train step" if waves is None else "waveform train step"
     cpu_model = CNNAudioGRU(num_classes=31, dropout=0.0)
     cpu_model.reset_parameters(torch.Generator().manual_seed(11))
     r = np.random.default_rng(12)
@@ -644,14 +681,29 @@ def check_train_step(dev) -> None:
                              .astype(np.float32))
     labels = torch.from_numpy(r.integers(0, 31, 32))
     runs = {}
-    for d, model in (("cpu", cpu_model),
-                     (dev, copy.deepcopy(cpu_model).to(dev))):
+    init = copy.deepcopy(cpu_model)
+    order = [("cpu", cpu_model), (dev, copy.deepcopy(cpu_model).to(dev))]
+    if waves is not None:
+        order.reverse()  # the card first: the CPU step takes its features
+    card_x = []
+    for d, model in order:
         opt = create_optimizer(model.parameters(), lr=1e-3,
                                weight_decay=1e-4, grad_clip=1.0)
+        if waves is not None:
+            trainer = Trainer(model, Config.from_dict({}), optimizer=opt,
+                              from_waveforms=True)
+            w16, ln = waves[0].to(d), waves[1].to(d)
         model.train()
         losses, grads, stats = [], None, []
         for step in range(2):
-            x = feats[16 * step:16 * (step + 1)].to(d)
+            rows = torch.arange(16 * step, 16 * (step + 1), device=d)
+            if waves is None:
+                x = feats[rows.cpu()].to(d)
+            elif d == "cpu":
+                x = card_x[step].cpu()
+            else:
+                x = trainer._inputs(w16, ln, rows)
+                card_x.append(x)
             y = labels[16 * step:16 * (step + 1)].to(d)
             loss = cross_entropy(model(x), F.one_hot(y, 31).float(),
                                  torch.ones(16, device=d))
@@ -668,15 +720,17 @@ def check_train_step(dev) -> None:
         runs[str(d)] = (losses, grads, stats)
     (l_cpu, g_cpu, s_cpu), (l_dev, g_dev, s_dev) = runs["cpu"], runs[str(dev)]
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    on_card_features = "" if waves is None else " (the CPU on its features)"
     check(loss_err <= STEP_LOSS_RTOL,
-          f"train step card vs CPU: losses {l_dev} vs {l_cpu}, relative "
+          f"{what} card vs CPU{on_card_features}: losses {l_dev} vs "
+          f"{l_cpu}, relative "
           f"err {loss_err:.2e} <= {STEP_LOSS_RTOL}")
     worst = max(g_cpu, key=lambda n: max_err(g_dev[n], g_cpu[n])
                 / (STEP_GRAD_ATOL + STEP_GRAD_RTOL
                    * float(g_cpu[n].abs().max())))
     check(all(within_scaled(g_dev[n], g_cpu[n], STEP_GRAD_RTOL,
                             STEP_GRAD_ATOL) for n in g_cpu),
-          f"train step card vs CPU: all {len(g_cpu)} step-1 gradients "
+          f"{what} card vs CPU: all {len(g_cpu)} step-1 gradients "
           f"within rtol {STEP_GRAD_RTOL} / atol {STEP_GRAD_ATOL} of scale "
           f"(closest to the bar: {worst}, err "
           f"{max_err(g_dev[worst], g_cpu[worst]):.2e}, scale "
@@ -684,9 +738,30 @@ def check_train_step(dev) -> None:
     bn_err = [max(max_err(s_dev[k][n], s_cpu[k][n]) for n in s_cpu[k])
               for k in range(2)]
     check(bn_err[0] <= STEP_BN_ATOL,
-          f"train step card vs CPU: BatchNorm running stats after step 1 "
+          f"{what} card vs CPU: BatchNorm running stats after step 1 "
           f"max |err| {bn_err[0]:.2e} <= {STEP_BN_ATOL} (after step 2: "
           f"{bn_err[1]:.2e}, not held)")
+    if waves is None:
+        return
+    # step 1 on the CPU with its own (plain) front-end
+    own = Trainer(init, Config.from_dict({}), from_waveforms=True)
+    init.train()
+    x_plain = own._inputs(waves[0], waves[1], torch.arange(16))
+    loss = cross_entropy(init(x_plain), F.one_hot(labels[:16], 31).float(),
+                         torch.ones(16))
+    loss.backward()
+    g_own = {n: p.grad for n, p in init.named_parameters()}
+    ratio = {n: max_err(g_dev[n], g_own[n])
+             / (STEP_GRAD_ATOL + STEP_GRAD_RTOL * float(g_own[n].abs().max()))
+             for n in g_own}
+    worst = max(ratio, key=ratio.get)
+    k3_err = max_err(card_x[0].cpu(), x_plain)
+    own_err = abs(l_dev[0] - float(loss)) / abs(float(loss))
+    check(k3_err <= K3_BAR and own_err <= STEP_LOSS_RTOL,
+          f"{what}, each side's own front-end: K3 vs plain on the step's "
+          f"rows max |err| {k3_err:.2e} <= {K3_BAR}, step-1 loss relative "
+          f"err {own_err:.2e} <= {STEP_LOSS_RTOL}; step-1 gradients logged, "
+          f"not held: largest err / bar {ratio[worst]:.3f} ({worst})")
 
 
 def tone_corpus(directory: str, seed: int = 7):
@@ -846,7 +921,7 @@ def train_end_to_end(tmp: str, dev) -> dict:
             "precompute_utt_s": n_total / precompute_s,
             "epochs": result.epochs_run, "val_acc": result.best_val_acc,
             "test_acc": ev["accuracy"], "best": best,
-            "label_map": label_map, "test_csv": csvs["test"]}
+            "label_map": label_map, "test_csv": csvs["test"], "csvs": csvs}
 
 
 def train_step_timer(dev, b: int):
@@ -865,6 +940,210 @@ def train_step_timer(dev, b: int):
     weights = torch.ones((1, b), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     return lambda: trainer.train_epoch(feats, labels, perm, weights, gen)
+
+
+def wave_step_timer(dev, b: int):
+    """One bf16 waveform-resident train step (gather int16 rows, waveform
+    augmentation, K3, SpecAugment, forward, backward, Adam) of the
+    full-width model at batch b, as a callable; the waves are a 220 Hz tone
+    plus noise, lengths uniform in [1, 80000], zero beyond them."""
+    from speech_intent_recognizer_tpu_torch.config import Config
+    from speech_intent_recognizer_tpu_torch.train.loop import Trainer
+
+    cfg = Config.from_dict({"bf16": True, "batch_size": b,
+                            "train_on_waveforms": True,
+                            "use_waveform_augment": True})
+    model = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(b))
+    trainer = Trainer(model.to(dev), cfg, from_waveforms=True)
+    gen = torch.Generator(device=dev).manual_seed(b)
+    t = torch.arange(PRECOMPUTE_WIDTH, device=dev) / 16000.0
+    x = (0.25 * torch.sin(2 * np.pi * 220.0 * t)
+         + 0.05 * torch.randn((b, PRECOMPUTE_WIDTH), device=dev,
+                              generator=gen))
+    lengths = torch.randint(1, PRECOMPUTE_WIDTH + 1, (b,), device=dev,
+                            generator=gen, dtype=torch.int32)
+    keep = torch.arange(PRECOMPUTE_WIDTH, device=dev)[None] < lengths[:, None]
+    waves = torch.where(keep, torch.round(x * 32767.0), 0.0).to(torch.int16)
+    labels = torch.randint(0, 31, (b,), device=dev, generator=gen)
+    perm = torch.arange(b, device=dev)[None]
+    weights = torch.ones((1, b), device=dev)
+    return (lambda: trainer.train_epoch(waves, labels, perm, weights, gen,
+                                        lengths=lengths)), trainer, waves, \
+        lengths
+
+
+def host_ms_blocks(fn, iters: int, blocks: int = 5, warmup: int = 3
+                   ) -> tuple:
+    """(least, median, most) host-clock ms per call of ``blocks`` runs of
+    ``iters`` calls, each run ended by a synchronize."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+    times.sort()
+    return times[0], times[len(times) // 2], times[-1]
+
+
+def pipeline_config(tmp: str, csvs: dict) -> tuple:
+    """Phase 17's config: the tone corpus, waveform mode with waveform
+    augmentation, bf16, phase 15's recipe; -> (path, output directory)."""
+    out = os.path.join(tmp, "pipeline")
+    path = os.path.join(tmp, "pipeline.yaml")
+    with open(path, "w") as f:
+        f.write(f"data:\n  train_csv: {csvs['train']}\n"
+                f"  valid_csv: {csvs['valid']}\n"
+                f"  test_csv: {csvs['test']}\n"
+                f"  output_dir: {out}/processed\n"
+                f"  label_map_path: {out}/processed/label_map.json\n"
+                f"  cache_dir: {out}/cache\n"
+                f"  precompute_batch_size: {PRECOMPUTE_BATCH}\n"
+                f"  train_on_waveforms: true\n"
+                f"  use_waveform_augment: true\n"
+                f"model:\n  num_labels: {TONE_CLASSES}\n"
+                f"train:\n  epochs: {PIPELINE_EPOCHS}\n"
+                f"  batch_size: {TRAIN_BATCH}\n  lr: 0.001\n"
+                f"  early_stop_patience: {PIPELINE_EPOCHS}\n  bf16: true\n"
+                f"  save_path: {out}/ckpt\n")
+    return path, out
+
+
+def check_pipeline(dev, tmp: str, run: dict, timings, spreads,
+                   profile: bool, label: str) -> dict:
+    """Phase 17: ``cli.run_pipeline`` on phase 15's tone corpus in waveform
+    mode with waveform augmentation (preprocess validating every WAV ->
+    int16 waveform caches + the test split's features -> training with K3
+    in every step -> evaluate), the counters reset just before and read
+    just after; then K3 at the step's batch on augmented rows, a fp32
+    waveform train step card vs CPU, and the step's timings."""
+    from speech_intent_recognizer_tpu_torch.cli import run_pipeline
+    from speech_intent_recognizer_tpu_torch.config import load_config
+    from speech_intent_recognizer_tpu_torch.data import cache as cache_mod
+    from speech_intent_recognizer_tpu_torch.data.labelmap import (
+        load_label_map)
+    from speech_intent_recognizer_tpu_torch.data.manifest import (
+        read_manifest)
+    from speech_intent_recognizer_tpu_torch.evaluation.evaluate import (
+        evaluate_dataset)
+    from speech_intent_recognizer_tpu_torch.ops.augment import (
+        augment_waveforms)
+
+    cfg_path, out = pipeline_config(tmp, run["csvs"])
+    stages = {}
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    ok = run_pipeline.run_pipeline(cfg_path, stage_times=stages,
+                                   device=str(dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    check(ok, f"run_pipeline (waveform mode, augmentation on) finished in "
+          f"{seconds:.1f} s: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in stages.items()))
+    cfg = load_config(cfg_path)
+    n = {split: len(read_manifest(f"{out}/processed/{split}_data.csv"))
+         for split in ("train", "valid", "test")}
+    check(n == CORPUS, f"preprocess validated every WAV: kept {n}")
+    with open(f"{out}/ckpt/training_history.json") as f:
+        history = json.load(f)
+    epochs = history["epochs_run"]
+    eval_bs = TRAIN_BATCH * cfg.train.eval_batch_multiplier
+    steps = epochs * -(-n["train"] // TRAIN_BATCH)
+    eval_batches = epochs * -(-n["valid"] // eval_bs)
+    test_batches = -(-n["test"] // eval_bs)
+    precompute = -(-n["test"] // PRECOMPUTE_BATCH)
+    check_counts(launches, {
+        "K3": steps + eval_batches + precompute, "K2T": 2 * steps,
+        "K2": 2 * (steps + eval_batches + test_batches)},
+        f"run_pipeline, {steps} waveform train steps, {eval_batches} eval "
+        f"batches, {test_batches} evaluate-stage batches, {precompute} "
+        f"precompute batches,")
+    losses = [h["train_loss"] for h in history["history"]]
+    accs = [h["val_acc"] for h in history["history"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"waveform training loss finite and falling: "
+          f"{[round(x, 4) for x in losses]}")
+    check(history["best_val_acc"] >= VAL_ACC_BAR,
+          f"waveform training with augmentation: val accuracy "
+          f"{history['best_val_acc']:.4f} >= {VAL_ACC_BAR} within {epochs} "
+          f"epochs (history {[round(a, 4) for a in accs]})")
+
+    # the report's accuracy is evaluate_dataset's on the same model
+    label_map = load_label_map(f"{out}/processed/label_map.json")
+    model = CNNAudioGRU(num_classes=TONE_CLASSES)
+    model.load_state_dict(torch.load(f"{out}/ckpt/best_model.pt",
+                                     weights_only=True))
+    feats, labels, _ = cache_mod.load_cache(
+        f"{out}/cache/test_data_features.npz")
+    ev = evaluate_dataset(model.to(dev), torch.from_numpy(feats).to(dev),
+                          labels, label_map, batch_size=eval_bs)
+    with open(f"{out}/ckpt/evaluation_results/"
+              "classification_report.txt") as f:
+        head = f.readline().strip()
+    check(head == f"Test Accuracy: {ev['accuracy']:.4f}",
+          f"run_pipeline's report says {head!r}; evaluate_dataset "
+          f"{ev['accuracy']:.4f}")
+
+    # K3 inside the step: a training batch of the waveform cache,
+    # augmented on the card, against the plain front-end on those tensors
+    waves, lengths, _, _ = cache_mod.load_waveform_cache(
+        f"{out}/cache/train_data_waveforms.npz")
+    w16 = torch.from_numpy(waves[:TRAIN_BATCH]).to(dev)
+    ln = torch.from_numpy(lengths[:TRAIN_BATCH]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    xa, la = augment_waveforms(w16.float() * (1.0 / 32768.0), ln, gen,
+                               augment_prob=1.0)
+    fe = make_frontend_params(device=dev)
+    got = fk.frontend(xa, la.clamp(min=1), fe)
+    want = log_mel_frontend_plain(xa, la.clamp(min=1), fe)
+    torch.cuda.synchronize()
+    k3_err = max_err(got, want)
+    shorter = int((la < ln).sum())
+    check(la.dtype == torch.int32 and shorter > 0 and k3_err <= K3_BAR,
+          f"K3 vs plain at the step's batch ({TRAIN_BATCH} augmented rows, "
+          f"{shorter} shortened by the speed change): max |err| "
+          f"{k3_err:.3e} <= {K3_BAR}")
+    check_train_step(dev, (torch.from_numpy(waves[:32]),
+                           torch.from_numpy(lengths[:32])))
+
+    # timings: the bf16 waveform step against the feature-cache step at the
+    # same batch; its split into the augmentation and K3
+    fe = make_frontend_params(device=dev)
+    for b in WAVE_STEP_BATCHES:
+        iters = 5 if b <= 256 else 3
+        step, trainer, w, lt = wave_step_timer(dev, b)
+        rows = torch.arange(b, device=dev)
+        aug_gen = torch.Generator(device=dev).manual_seed(0)
+
+        def augment_only():
+            return augment_waveforms(w[rows].float() * (1.0 / 32768.0),
+                                     lt[rows], aug_gen)
+
+        xb, lb = augment_only()
+        for key, fn in ((f"wave_step_bf16_b{b}", step),
+                        (f"wave_step_augment_b{b}", augment_only),
+                        (f"wave_step_k3_b{b}",
+                         lambda: fk.frontend(xb, lb.clamp(min=1), fe)),
+                        (f"feature_step_bf16_b{b}",
+                         train_step_timer(dev, b))):
+            timed(timings, spreads, key, fn, iters)
+            if "_step_bf16" in key:
+                spreads[f"{key}_host"] = host_ms_blocks(fn, iters)
+                timings[f"{key}_host"] = spreads[f"{key}_host"][1]
+        if profile and b == WAVE_STEP_BATCHES[0]:
+            log_profile(f"bf16 waveform train step B={b} (augmentation on)",
+                        step, label)
+        del step, trainer, w, lt, xb, lb
+    return {"launches": launches, "seconds": seconds, "stages": stages,
+            "k3_err": k3_err, "epochs": epochs,
+            "val_acc": history["best_val_acc"], "test_acc": ev["accuracy"]}
 
 
 class RecordingRecognizer(StreamingRecognizer):
@@ -1972,6 +2251,19 @@ def main(argv=None) -> int:
               lambda: fk.frontend(wf, lt, fe_dev), iters)
         timings[f"k3_plain_b{b}"] = cuda_ms(
             lambda: log_mel_frontend_plain(wf, lt, fe_dev), iters)
+        # the library route on the same rows: torch.fft.rfft + matmul on
+        # their frames (framed beforehand, as for K4; the normalization
+        # and the mel-major layout left out)
+        frames = _frames(wf, lt.long(), 1024, 512)
+
+        def rfft_matmul():
+            spec = torch.fft.rfft(frames * fe_dev.window, dim=-1)
+            power = spec.real.square() + spec.imag.square()
+            return 10.0 * torch.log10((power @ fe_dev.mel_fb).clamp(
+                min=1e-10))
+
+        timings[f"k3_library_b{b}"] = cuda_ms(rfft_matmul, iters)
+        del frames
         n_frames = int((1 + lt.long() // 512).sum())
         bounds[f"k3_b{b}"] = bound(nbytes(wf, lt) + b * 64 * 200 * 4,
                                    (frontend_flops(fe_dev, n_frames),
@@ -2009,12 +2301,17 @@ def main(argv=None) -> int:
 
     # ---- 15. training end to end through the CLIs ----
     # ---- 16. streaming and serving on the trained model ----
+    # ---- 17. run_pipeline: waveform-resident training, augmentation on ----
     with tempfile.TemporaryDirectory() as tmp:
         e2e_train = train_end_to_end(tmp, dev)
         t0 = time.perf_counter()
         stream = check_streaming(dev, tmp, e2e_train, timings, bounds,
                                  spreads, args.profile)
         stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipeline = check_pipeline(dev, tmp, e2e_train, timings, spreads,
+                                  args.profile, label)
+        pipeline_s = time.perf_counter() - t0
 
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
@@ -2057,6 +2354,26 @@ def main(argv=None) -> int:
     log(f"    file replay of {STREAM_SESSIONS} WAVs (digital silence): card vs "
         f"CPU confidence err {replay['cpu_err']:.3e}; label equal to "
         f"predict_file's on {replay['agree']}; launches {replay['launches']}")
+    log(f"  run_pipeline on {label}, waveform mode, augmentation on (phase "
+        f"17 took {pipeline_s:.1f} s; run_pipeline {pipeline['seconds']:.1f} "
+        f"s: " + ", ".join(f"{k} {v:.1f} s"
+                           for k, v in pipeline["stages"].items())
+        + f"): val acc {pipeline['val_acc']:.4f} after {pipeline['epochs']} "
+        f"epochs, test acc {pipeline['test_acc']:.4f}; launches "
+        f"{pipeline['launches']}")
+    for wb in WAVE_STEP_BATCHES:
+        rest = (timings[f"wave_step_bf16_b{wb}"]
+                - timings[f"wave_step_augment_b{wb}"]
+                - timings[f"wave_step_k3_b{wb}"])
+        log(f"    B={wb}: bf16 waveform step (augmentation on) "
+            f"{timings[f'wave_step_bf16_b{wb}']:.3f} ms CUDA events / "
+            f"{timings[f'wave_step_bf16_b{wb}_host']:.3f} ms host clock; "
+            f"feature-cache step {timings[f'feature_step_bf16_b{wb}']:.3f} "
+            f"/ {timings[f'feature_step_bf16_b{wb}_host']:.3f}; of the "
+            f"waveform step: augmentation (gather + scale + augment) "
+            f"{timings[f'wave_step_augment_b{wb}']:.3f}, K3 "
+            f"{timings[f'wave_step_k3_b{wb}']:.3f}, the rest "
+            f"{rest:.3f}")
     b = MAIN_BATCH
 
     def entry(name, key, source, replaces, launches, err, library=None):
@@ -2070,8 +2387,9 @@ def main(argv=None) -> int:
 
     log(f"kernels at B={b} on {label}: launches on each kernel's path, error "
         f"vs its plain version, ms per call; library_ms: cuDNN nn.GRU layer "
-        f"(K2), torch.fft.rfft + matmul on the frames (K4), the model's conv "
-        f"stages 2 and 3 (K5), bias-add + ReLU + max-pool at conv2 (K6)")
+        f"(K2), torch.fft.rfft + matmul on the frames (K3, K4), the model's "
+        f"conv stages 2 and 3 (K5), bias-add + ReLU + max-pool at conv2 "
+        f"(K6)")
     # launches on the streaming path: over the test split in each featurizer
     # mode, in the batched finalize of 16 and in the file replay of 16
     stream_launches = {
@@ -2087,7 +2405,8 @@ def main(argv=None) -> int:
         entry("gru_layer", "k2", K2_SOURCE, K2_REPLACES, main_launches["K2"],
               k2_err, f"cudnn_gru_layer_b{b}"),
         entry("frontend", "k3", K3_SOURCE, K3_REPLACES,
-              e2e_train["k3_launches"], k3_err),
+              e2e_train["k3_launches"], max(k3_err, pipeline["k3_err"]),
+              f"k3_library_b{b}"),
         entry("gru_layer_backward", "k2t", K2T_SOURCE, K2T_REPLACES,
               e2e_train["k2t_launches"], k2t_err),
         entry("mel_db", "k4", K4_SOURCE, K4_REPLACES, hop256_launches["K4"],
@@ -2100,6 +2419,9 @@ def main(argv=None) -> int:
     ]
     kernels[1]["stream_launches"] = stream_launches["K2"]
     kernels[4]["stream_launches"] = stream_launches["K4"]
+    # launches on the waveform-resident path (phase 17's run_pipeline)
+    for i, key in ((1, "K2"), (2, "K3"), (3, "K2T")):
+        kernels[i]["waveform_launches"] = pipeline["launches"][key]
     print(json.dumps({"kernels": kernels}))
     print(label)
     print(json.dumps({"ok": True, "device": {

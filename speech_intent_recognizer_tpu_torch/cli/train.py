@@ -1,9 +1,10 @@
-"""CLI: train the intent classifier from precomputed features.
+"""CLI: train the intent classifier from precomputed features or, with
+``data.train_on_waveforms``, from int16 waveforms featurized in each step.
 
 Mirrors the JAX package's ``cli/train.py`` (reference
 ``scripts/train.py:304-336``): ``--config --train_csv --val_csv --label_map
 --resume`` with config fallbacks, plus ``--device`` (default ``cuda``,
-where the K2 kernel and its backward run)::
+where the K2 kernel and its backward run, and in waveform mode K3)::
 
     python -m speech_intent_recognizer_tpu_torch.cli.train \\
         --config configs/config.yaml --label_map label_map.json
@@ -23,7 +24,8 @@ import torch
 from speech_intent_recognizer_tpu_torch.cli.common import (
     add_config_arg, add_device_arg, load_config_or_default, setup_logging)
 from speech_intent_recognizer_tpu_torch.data.labelmap import load_label_map
-from speech_intent_recognizer_tpu_torch.data.pipeline import build_dataset
+from speech_intent_recognizer_tpu_torch.data.pipeline import (
+    build_dataset, build_waveform_dataset)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
 from speech_intent_recognizer_tpu_torch.train.checkpoint import Checkpointer
 from speech_intent_recognizer_tpu_torch.train.loop import Trainer
@@ -34,10 +36,6 @@ from speech_intent_recognizer_tpu_torch.train.state import (
 def check_supported(cfg) -> None:
     """Refuse the JAX package's options that this port does not run."""
     par = cfg.parallel
-    if cfg.data.train_on_waveforms:
-        raise NotImplementedError(
-            "waveform-resident training (data.train_on_waveforms) is not "
-            "ported yet: ROADMAP.md Queue 1 item 7")
     if cfg.model.name != "cnn_gru":
         raise NotImplementedError(f"model {cfg.model.name!r} is not ported; "
                                   "the port trains cnn_gru")
@@ -60,10 +58,13 @@ def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
     label_map = load_label_map(label_map_path)
     num_classes = max(cfg.model.num_labels, len(label_map))
 
-    train_ds = build_dataset(train_csv, label_map, cfg, dev)
-    val_ds = build_dataset(val_csv, label_map, cfg, dev)
-    logger.info("datasets loaded - train: %d, val: %d on %s",
-                train_ds.num_items, val_ds.num_items, dev)
+    from_waveforms = cfg.data.train_on_waveforms
+    build = build_waveform_dataset if from_waveforms else build_dataset
+    train_ds = build(train_csv, label_map, cfg, dev)
+    val_ds = build(val_csv, label_map, cfg, dev)
+    logger.info("datasets loaded - train: %d, val: %d on %s%s",
+                train_ds.num_items, val_ds.num_items, dev,
+                " (waveform-resident)" if from_waveforms else "")
 
     model = CNNAudioGRU(
         num_classes=num_classes, conv_channels=cfg.model.conv_channels,
@@ -92,11 +93,12 @@ def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
             no_improve = book["no_improve"]
 
     trainer = Trainer(model, cfg, optimizer=optimizer,
-                      num_classes=num_classes)
+                      num_classes=num_classes, from_waveforms=from_waveforms)
     result = trainer.fit(
         train_ds.features, train_ds.labels, val_ds.features, val_ds.labels,
         checkpointer=ckpt, start_epoch=start_epoch,
-        best_val_acc=best_val_acc, no_improve=no_improve, log=logger.info)
+        best_val_acc=best_val_acc, no_improve=no_improve, log=logger.info,
+        train_lengths=train_ds.lengths, val_lengths=val_ds.lengths)
 
     history_path = os.path.join(cfg.train.save_path, "training_history.json")
     with open(history_path, "w") as f:

@@ -1,7 +1,8 @@
 """Audio decode / encode without torchaudio (host side, no JAX).
 
 Copy of ``speech_intent_recognizer_tpu/data/audio_io.py`` reduced to what
-the port needs (``load_audio``, ``load_audio_int16``, ``save_wav``); the
+the port needs (``load_audio``, ``load_audio_int16``, ``save_wav``,
+``validate_audio``); the
 reference's ``data`` package imports JAX through ``ops``, so the port keeps
 its own copy and ``tests/test_torch_host.py`` and
 ``tests/test_torch_precompute.py`` pin it to the original.
@@ -336,3 +337,13 @@ def save_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(header + data)
+
+
+def validate_audio(path: str, min_samples: int = 100) -> bool:
+    """Reference semantics (``preprocess_fsc.py:24-54``): decodable and at
+    least ``min_samples`` samples long."""
+    try:
+        x, _rate = load_audio(path, mono=False)
+        return x.shape[0] >= min_samples
+    except Exception:  # whatever the decoders refuse: an invalid file
+        return False

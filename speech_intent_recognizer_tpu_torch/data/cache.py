@@ -4,6 +4,8 @@ Counterpart of ``speech_intent_recognizer_tpu/data/cache.py``, with the
 same file format, so a cache written by either package loads in the other:
 a single ``.npz`` of contiguous arrays — ``features (N, n_mels, T)`` f32 +
 ``labels (N,)`` i32 — plus a ``.meta.json`` sidecar with paths and config.
+For waveform-resident training the same layout holds int16 waveforms
+(``waves``, ``lengths``, ``labels``; ``kind: "waveforms_int16"``).
 
 Feature extraction is the batched device front-end
 (:func:`..ops.frontend.log_mel_frontend`: on a CUDA device the K3 kernel at
@@ -249,6 +251,126 @@ def precompute_features(
                        fetch_dtype=fetch_dtype,
                        batches=-(-n // batch_size) if n else 0)
     return feats, labels, ok_all, list(manifest.paths)
+
+
+def waveform_cache_path_for(csv_path: str, cache_dir: str) -> str:
+    stem = os.path.basename(csv_path)
+    if stem.endswith(".csv"):
+        stem = stem[:-4]
+    return os.path.join(cache_dir, f"{stem}_waveforms.npz")
+
+
+def precompute_waveforms(
+    manifest: Manifest,
+    label_map: Dict[str, int],
+    audio_cfg: Optional[AudioConfig] = None,
+    progress: bool = True,
+    waves_out: Optional[str] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, list]:
+    """Decode a manifest into an int16 waveform cache for waveform-resident
+    training (``data.train_on_waveforms``).
+
+    Returns (waves (N, max_samples) int16, lengths (N,) i32, labels (N,)
+    i32, ok mask, paths), the JAX package's arrays: int16 is the same
+    staging format as :func:`precompute_features`'s wire, bit-exact for
+    PCM16 sources.  The whole split lives on the device and the trainer
+    featurizes each batch inside its step (K3 on a CUDA device), which is
+    what makes waveform augmentation (``ops/augment.py``) possible.
+
+    ``waves_out``: optional ``.npy`` path; the waves stream into a memmap,
+    so the (N, max_samples) array never occupies host RAM.
+    """
+    audio_cfg = audio_cfg or AudioConfig()
+    n = len(manifest)
+    max_samples = audio_cfg.max_samples
+    if waves_out is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(waves_out)),
+                    exist_ok=True)
+        waves = np.lib.format.open_memmap(waves_out, mode="w+",
+                                          dtype=np.int16,
+                                          shape=(n, max_samples))
+        waves[:] = 0
+    else:
+        waves = np.zeros((n, max_samples), np.int16)
+    lengths = np.zeros(n, np.int32)
+    labels = np.asarray([label_map.get(l, 0) for l in manifest.labels],
+                        np.int32)
+    ok_all = np.ones(n, bool)
+
+    iterator = enumerate(manifest.paths)
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            iterator = tqdm(iterator, desc="decode waveforms", total=n)
+        except ImportError:
+            pass
+    for i, p in iterator:
+        try:
+            x, _ = load_audio_int16(p,
+                                    target_sample_rate=audio_cfg.sample_rate)
+            m = min(len(x), max_samples)
+            waves[i, :m] = x[:m]
+            lengths[i] = m
+            if m == 0:
+                ok_all[i] = False
+        except Exception as e:  # one bad file: logged, flagged, zeroed
+            logger.error("error processing %s: %s", p, e)
+            ok_all[i] = False
+    if waves_out is not None:
+        waves.flush()
+    return waves, lengths, labels, ok_all, list(manifest.paths)
+
+
+def save_waveform_cache(path: str, waves: np.ndarray, lengths: np.ndarray,
+                        labels: np.ndarray, paths: Iterable[str],
+                        label_map: Dict[str, int],
+                        audio_cfg: Optional[AudioConfig] = None) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if isinstance(waves, np.memmap) and waves.dtype == np.int16:
+        # waves streamed to disk (``waves_out=``): zip-store the backing
+        # ``.npy``, as save_cache does for features
+        import io
+        import zipfile
+
+        waves.flush()
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+            zf.write(waves.filename, "waves.npy")
+            for name, arr in (("lengths", lengths.astype(np.int32)),
+                              ("labels", labels.astype(np.int32))):
+                buf = io.BytesIO()
+                np.lib.format.write_array(buf, arr)
+                zf.writestr(name + ".npy", buf.getvalue())
+    else:
+        np.savez(path, waves=np.asarray(waves, np.int16),
+                 lengths=lengths.astype(np.int32),
+                 labels=labels.astype(np.int32))
+    cfg = audio_cfg or AudioConfig()
+    meta = {
+        "version": CACHE_VERSION,
+        "kind": "waveforms_int16",
+        "num_items": int(waves.shape[0]),
+        "paths": list(paths),
+        "label_map": label_map,
+        "audio": {"sample_rate": cfg.sample_rate,
+                  "max_samples": int(waves.shape[1])},
+    }
+    with open(_meta_path(path), "w") as f:
+        json.dump(meta, f)
+    logger.info("saved %d waveforms to %s", waves.shape[0], path)
+
+
+def load_waveform_cache(path: str):
+    """-> (waves (N, max_samples) int16, lengths, labels, meta dict)."""
+    with np.load(path) as z:
+        waves = z["waves"]
+        lengths = z["lengths"]
+        labels = z["labels"]
+    meta = {}
+    if os.path.exists(_meta_path(path)):
+        with open(_meta_path(path)) as f:
+            meta = json.load(f)
+    return waves, lengths, labels, meta
 
 
 def save_cache(path: str, features: np.ndarray, labels: np.ndarray,

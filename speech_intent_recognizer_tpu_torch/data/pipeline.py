@@ -5,6 +5,8 @@ flat feature cache once, place it on one device, and let the training loop
 gather batches there.  :func:`build_dataset` resolves a manifest's features
 as the JAX package does: cache hit -> load; a reference ``.pt`` cache ->
 migrate; miss -> precompute (the K3 kernel on a CUDA device) and store.
+:func:`build_waveform_dataset` does the same with the int16 waveform cache
+of waveform-resident training (``data.train_on_waveforms``).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -26,21 +28,27 @@ logger = logging.getLogger(__name__)
 
 @dataclass
 class DeviceDataset:
-    """Features and labels living on one device."""
+    """Features (or int16 waveforms) and labels living on one device."""
 
-    features: torch.Tensor  # (N, n_mels, T) float32
+    features: torch.Tensor  # (N, n_mels, T) float32, or (N, L) int16 waves
     labels: torch.Tensor  # (N,) int64
     num_items: int
+    lengths: Optional[torch.Tensor] = None  # (N,) int32, waveform mode only
 
     @classmethod
     def from_arrays(cls, features: np.ndarray, labels: np.ndarray,
-                    device: "str | torch.device") -> "DeviceDataset":
+                    device: "str | torch.device",
+                    lengths: Optional[np.ndarray] = None) -> "DeviceDataset":
+        """With ``lengths``, ``features`` are waveforms and stay int16."""
+        dtype = np.float32 if lengths is None else np.int16
         return cls(
-            features=torch.as_tensor(np.asarray(features, np.float32),
+            features=torch.as_tensor(np.asarray(features, dtype),
                                      device=device),
             labels=torch.as_tensor(np.asarray(labels, np.int64),
                                    device=device),
-            num_items=int(features.shape[0]))
+            num_items=int(features.shape[0]),
+            lengths=None if lengths is None else torch.as_tensor(
+                np.asarray(lengths, np.int32), device=device))
 
 
 def build_dataset(
@@ -84,3 +92,37 @@ def build_dataset(
         cache_mod.save_cache(cache_file, feats, labels, paths, label_map,
                              cfg.audio)
     return DeviceDataset.from_arrays(feats, labels, device)
+
+
+def build_waveform_dataset(
+    csv_path: str,
+    label_map: Dict[str, int],
+    cfg: Config,
+    device: "str | torch.device" = "cuda",
+) -> DeviceDataset:
+    """Waveform-resident variant of :func:`build_dataset`
+    (``data.train_on_waveforms``): the dataset is the int16 waveform cache
+    placed whole on ``device``; the trainer featurizes each batch inside
+    its step (``train/loop.py``), which makes waveform augmentation
+    possible.  Cache hit -> load; miss -> decode (and store, when
+    ``cfg.data.use_feature_cache``)."""
+    use_cache = cfg.data.use_feature_cache
+    cache_file = cache_mod.waveform_cache_path_for(csv_path,
+                                                   cfg.data.cache_dir)
+
+    if (use_cache and os.path.exists(cache_file)
+            and not cfg.data.force_precompute):
+        waves, lengths, labels, _meta = cache_mod.load_waveform_cache(
+            cache_file)
+        logger.info("loaded %d cached waveforms from %s", len(waves),
+                    cache_file)
+        return DeviceDataset.from_arrays(waves, labels, device,
+                                         lengths=lengths)
+
+    manifest = read_manifest(csv_path)
+    waves, lengths, labels, _ok, paths = cache_mod.precompute_waveforms(
+        manifest, label_map, cfg.audio)
+    if use_cache:
+        cache_mod.save_waveform_cache(cache_file, waves, lengths, labels,
+                                      paths, label_map, cfg.audio)
+    return DeviceDataset.from_arrays(waves, labels, device, lengths=lengths)

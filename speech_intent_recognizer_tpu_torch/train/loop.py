@@ -1,4 +1,4 @@
-"""The training loop over a device-resident feature set.
+"""The training loop over a device-resident feature or waveform set.
 
 Counterpart of ``speech_intent_recognizer_tpu/train/loop.py`` (reference
 ``scripts/train.py:72-118,164-302``) on one device.  The whole feature set
@@ -8,11 +8,19 @@ a device ``randperm``; the last partial batch is padded with repeats that
 carry weight 0 (they still enter BatchNorm's batch statistics, as in the JAX
 version), so every sample counts once per epoch.
 
+Waveform-resident mode (``Trainer(from_waveforms=True)``,
+``data.train_on_waveforms``): the set is int16 waveforms with their
+lengths, and each step featurizes its gathered rows with
+:func:`..ops.frontend.log_mel_frontend` (the K3 kernel on a CUDA device at
+the reference geometry), after the waveform augmentation of
+``data.use_waveform_augment`` (``ops/augment.py``).  The features are
+data: no gradient flows into the front-end.
+
 :meth:`Trainer.train_epoch` takes ``(perm, weights)`` as the JAX
 ``epoch_fn`` does, so both packages can be fed identical batches.  Each
-epoch draws its permutation, SpecAugment, mixup and dropout from one
-``torch.Generator`` seeded from ``(seed, epoch)``, so a resumed run
-continues exactly.  Early stopping and best-model tracking follow
+epoch draws its permutation, waveform augmentation, SpecAugment, mixup and
+dropout from one ``torch.Generator`` seeded from ``(seed, epoch)``, so a
+resumed run continues exactly.  Early stopping and best-model tracking follow
 ``train.py:263-302`` with the JAX package's rule: always export a best
 model once.
 """
@@ -30,7 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from speech_intent_recognizer_tpu_torch.config import Config
-from speech_intent_recognizer_tpu_torch.ops.augment import mixup
+from speech_intent_recognizer_tpu_torch.ops.augment import (
+    augment_waveforms, mixup)
+from speech_intent_recognizer_tpu_torch.ops.frontend import (
+    log_mel_frontend, make_frontend_params)
 from speech_intent_recognizer_tpu_torch.ops.specaugment import spec_augment
 from speech_intent_recognizer_tpu_torch.train.state import (
     Optimizer, create_optimizer)
@@ -96,10 +107,6 @@ class Trainer:
                  optimizer: Optional[Optimizer] = None,
                  num_classes: Optional[int] = None,
                  from_waveforms: bool = False):
-        if from_waveforms:
-            raise NotImplementedError(
-                "waveform-resident training (data.train_on_waveforms) is not "
-                "ported yet: ROADMAP.md Queue 1 item 7")
         self.model = model
         self.cfg = cfg
         self.num_classes = num_classes or cfg.model.num_labels
@@ -107,20 +114,57 @@ class Trainer:
             model.parameters(), lr=cfg.train.lr,
             weight_decay=cfg.train.weight_decay,
             grad_clip=cfg.train.grad_clip)
+        self.from_waveforms = from_waveforms
+        self._frontend_params = None
+        if from_waveforms:
+            device = next(model.parameters()).device
+            self._frontend_params = make_frontend_params(cfg.audio, device)
+
+    def _featurize(self, waves: torch.Tensor, lengths: torch.Tensor
+                   ) -> torch.Tensor:
+        """(B, L) float32 waveforms + (B,) int32 lengths -> (B, n_mels, T)
+        float32 features; K3 on a CUDA device at the reference geometry."""
+        return log_mel_frontend(waves, lengths.clamp(min=1),
+                                self._frontend_params)
+
+    def _inputs(self, features: torch.Tensor, lengths, idx: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The model's input for the rows ``idx``: gathered features, or in
+        waveform mode the gathered int16 rows scaled to float, augmented
+        when ``generator`` is given, then featurized."""
+        if not self.from_waveforms:
+            return features[idx]
+        with torch.no_grad():
+            x = features[idx].float() * (1.0 / 32768.0)
+            ln = lengths[idx]
+            if generator is not None:
+                x, ln = augment_waveforms(
+                    x, ln, generator, augment_prob=self.cfg.data.augment_prob)
+            return self._featurize(x, ln)
+
+    def _check_lengths(self, lengths) -> None:
+        if self.from_waveforms and lengths is None:
+            raise ValueError("waveform-resident training needs the lengths")
 
     def train_epoch(self, features: torch.Tensor, labels: torch.Tensor,
                     perm: torch.Tensor, weights: torch.Tensor,
-                    generator: torch.Generator) -> dict:
-        """One optimizer step per row of ``perm`` / ``weights``; SpecAugment,
-        mixup and dropout draw from ``generator``.  -> {"loss", "acc"}
-        (weighted means)."""
+                    generator: torch.Generator,
+                    lengths: Optional[torch.Tensor] = None) -> dict:
+        """One optimizer step per row of ``perm`` / ``weights``; waveform
+        augmentation, SpecAugment, mixup and dropout draw from
+        ``generator``.  In waveform mode ``features`` are (N, L) int16
+        waveforms and ``lengths`` (N,) int32.  -> {"loss", "acc"} (weighted
+        means)."""
+        self._check_lengths(lengths)
         data = self.cfg.data
         use_mixup = data.mixup_alpha > 0 and data.use_mixup
+        wave_aug = data.use_waveform_augment and self.from_waveforms
         model, opt = self.model, self.optimizer
         model.train()
         totals = torch.zeros(3, device=features.device)
         for idx, w in zip(perm, weights):
-            x = features[idx]
+            x = self._inputs(features, lengths, idx,
+                             generator if wave_aug else None)
             y = labels[idx]
             y_onehot = F.one_hot(y, self.num_classes).float()
             if data.use_augmentation:
@@ -142,7 +186,9 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self, features: torch.Tensor, labels: torch.Tensor,
-                 batch_size: Optional[int] = None) -> dict:
+                 batch_size: Optional[int] = None,
+                 lengths: Optional[torch.Tensor] = None) -> dict:
+        self._check_lengths(lengths)
         bs = batch_size or (self.cfg.train.batch_size
                             * self.cfg.train.eval_batch_multiplier)
         n = int(features.shape[0])
@@ -151,7 +197,7 @@ class Trainer:
         totals = torch.zeros(3, device=features.device)
         for idx, w in zip(perm, weights):
             y = labels[idx]
-            logits = self.model(features[idx])
+            logits = self.model(self._inputs(features, lengths, idx))
             loss = cross_entropy(logits, F.one_hot(y, self.num_classes)
                                  .float(), w)
             correct = ((logits.argmax(-1) == y).float() * w).sum()
@@ -162,7 +208,12 @@ class Trainer:
             val_features: torch.Tensor, val_labels: torch.Tensor,
             checkpointer=None, start_epoch: int = 0,
             best_val_acc: float = 0.0, no_improve: int = 0,
-            log: Optional[Callable[[str], None]] = None) -> TrainResult:
+            log: Optional[Callable[[str], None]] = None,
+            train_lengths: Optional[torch.Tensor] = None,
+            val_lengths: Optional[torch.Tensor] = None) -> TrainResult:
+        """Train from ``start_epoch`` to ``cfg.train.epochs`` with early
+        stopping; in waveform mode the features are int16 waveforms and
+        ``train_lengths`` / ``val_lengths`` their lengths."""
         cfg = self.cfg.train
         log = log or logger.info
         n_train = int(train_features.shape[0])
@@ -191,8 +242,10 @@ class Trainer:
                 gen = epoch_generator(cfg.seed, epoch, dev)
                 perm, weights = pad_permutation(gen, n_train, bs, dev)
                 train_m = self.train_epoch(train_features, train_labels,
-                                           perm, weights, gen)
-                val_m = self.evaluate(val_features, val_labels)
+                                           perm, weights, gen,
+                                           lengths=train_lengths)
+                val_m = self.evaluate(val_features, val_labels,
+                                      lengths=val_lengths)
                 dt = time.perf_counter() - t0
                 entry = {"epoch": epoch + 1, "train_loss": train_m["loss"],
                          "train_acc": train_m["acc"],

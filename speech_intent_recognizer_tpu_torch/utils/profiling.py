@@ -1,9 +1,10 @@
-"""Step timing and a per-kernel breakdown of device time.
+"""Step timing, a per-kernel breakdown of device time, device memory.
 
 Counterpart of ``speech_intent_recognizer_tpu/utils/profiling.py`` for the
 card: ``torch.profiler`` takes the place of ``jax.profiler``.  The
-``--profile`` phase of ``chip_smoke.py`` drives both functions on the main
-path, and ``PERF.md`` section 5 is written from what they print.
+``--profile`` phase of ``chip_smoke.py`` drives the two timing functions on
+the main path, and ``PERF.md`` section 5 is written from what they print;
+``cli/run_pipeline.py`` opens with :func:`device_memory_stats`.
 """
 
 from __future__ import annotations
@@ -13,6 +14,23 @@ from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """Per-card memory in bytes: this process's live and peak tensor bytes
+    (the caching allocator's counters) and the card's total; empty without
+    CUDA."""
+    stats = {}
+    if not torch.cuda.is_available():
+        return stats
+    for i in range(torch.cuda.device_count()):
+        _free, total = torch.cuda.mem_get_info(i)
+        stats[f"cuda:{i}"] = {
+            "bytes_in_use": int(torch.cuda.memory_allocated(i)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(i)),
+            "bytes_limit": int(total),
+        }
+    return stats
 
 
 def step_times(fn: Callable[[], object], steps: int = 30,

@@ -875,3 +875,111 @@ def test_server_partial_on_card(dev, tmp_path):
         assert got["event"] == event and got["session"] == "c"
         assert got["predicted_label"] == want["predicted_label"]
         assert abs(got["confidence"] - want["confidence"]) < 1e-5
+
+
+def _int16_waves(n, width=80000, seed=0):
+    """Seeded tone rows of random lengths in [1, width], int16, zero past
+    each length (the waveform cache's rows); the first of length 1."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, width + 1, n).astype(np.int32)
+    lengths[0] = 1
+    waves = np.zeros((n, width), np.int16)
+    for i, m in enumerate(lengths):
+        t = np.arange(m) / 16000
+        x = 0.3 * np.sin(2 * np.pi * (300 + 50 * i) * t) \
+            + 0.05 * rng.standard_normal(m)
+        waves[i, :m] = np.round(x * 32767)
+    return torch.from_numpy(waves), torch.from_numpy(lengths)
+
+
+def test_waveform_augment_card_matches_cpu(dev):
+    """The augmentation's apply step on the card against the CPU on the
+    same draws (every gate open, and the default gates): within 1e-5,
+    lengths exactly."""
+    from speech_intent_recognizer_tpu_torch.ops.augment import (
+        apply_augment, draw_augment)
+
+    w16, ln = _int16_waves(64, seed=3)
+    x = w16.float() / 32768.0
+    draws = draw_augment(64, x.shape[1], torch.Generator().manual_seed(0),
+                         "cpu")
+    for prob in (1.0, 0.7):
+        want_x, want_ln = apply_augment(x, ln, draws, augment_prob=prob)
+        got_x, got_ln = apply_augment(
+            x.to(dev), ln.to(dev),
+            type(draws)(*(d.to(dev) for d in draws)), augment_prob=prob)
+        assert torch.equal(got_ln.cpu(), want_ln)
+        assert float((got_x.cpu() - want_x).abs().max()) <= 1e-5
+
+
+def test_k3_at_the_waveform_steps_operands(dev):
+    """K3 against its plain version on the operands of a waveform train
+    step: B=64 rows of width 80000 after augmentation on the card (lengths
+    1 and speed-shortened among them), within the K3 bar (2e-3)."""
+    from speech_intent_recognizer_tpu_torch.ops.augment import (
+        augment_waveforms)
+
+    w16, ln = _int16_waves(64, seed=4)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x, la = augment_waveforms(w16.to(dev).float() / 32768.0, ln.to(dev),
+                              gen, augment_prob=1.0)
+    assert la.dtype == torch.int32 and bool((la < ln.to(dev)).any())
+    assert int(la.min()) == 1
+    fe = make_frontend_params(device=dev)
+    before = fk.frontend.launches
+    got = log_mel_frontend(x, la.clamp(min=1), fe)
+    assert fk.frontend.launches == before + 1
+    want = log_mel_frontend_plain(x, la.clamp(min=1), fe)
+    assert float((got - want).abs().max()) <= 2e-3
+
+
+def test_waveform_train_step_card_matches_cpu(dev):
+    """One fp32 waveform-resident train step (B=16, augmentation off,
+    dropout 0, TF32 off) of the full-width model on the card against the
+    CPU: loss within 1e-4 relative, every gradient within 1e-3 of its
+    tensor's largest value + 1e-5, BatchNorm running statistics 1e-5
+    (chip_smoke.py's bars); the card step launches K3 once, K2 and K2T
+    twice each."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from speech_intent_recognizer_tpu_torch.config import Config
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+    from speech_intent_recognizer_tpu_torch.train.loop import (
+        Trainer, cross_entropy)
+
+    w16, ln = _int16_waves(16, seed=5)
+    labels = torch.arange(16) % 31
+    cpu_model = CNNAudioGRU(num_classes=31, dropout=0.0)
+    cpu_model.reset_parameters(torch.Generator().manual_seed(11))
+    out = {}
+    for d, model in (("cpu", cpu_model),
+                     ("card", copy.deepcopy(cpu_model).to(dev))):
+        where = "cpu" if d == "cpu" else dev
+        trainer = Trainer(model, Config.from_dict({}), from_waveforms=True)
+        counts = (fk.frontend.launches, gru_layer.launches,
+                  gru_layer_backward.launches)
+        model.train()
+        x = trainer._inputs(w16.to(where), ln.to(where),
+                            torch.arange(16, device=where))
+        loss = cross_entropy(model(x), F.one_hot(labels.to(where), 31)
+                             .float(), torch.ones(16, device=where))
+        loss.backward()
+        launched = (fk.frontend.launches - counts[0],
+                    gru_layer.launches - counts[1],
+                    gru_layer_backward.launches - counts[2])
+        out[d] = (float(loss), {n: p.grad.cpu() for n, p in
+                                model.named_parameters()},
+                  {n: b.cpu() for n, b in model.named_buffers()
+                   if "running" in n}, launched)
+    (l_cpu, g_cpu, s_cpu, _), (l_dev, g_dev, s_dev, launched) = (
+        out["cpu"], out["card"])
+    assert launched == (1, 2, 2)
+    assert abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu)
+    for n in g_cpu:
+        scale = float(g_cpu[n].abs().max())
+        assert float((g_dev[n] - g_cpu[n]).abs().max()) <= \
+            1e-5 + 1e-3 * scale, n
+    for n in s_cpu:
+        assert float((s_dev[n] - s_cpu[n]).abs().max()) <= 1e-5, n

@@ -350,10 +350,12 @@ def test_unported_options_raise():
         evaluate_from_config)
     from speech_intent_recognizer_tpu_torch.cli.train import check_supported
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(CNNAudioGRU(num_classes=5, **NARROW),
-                Config.from_dict({}), from_waveforms=True)
-    for raw in ({"train_on_waveforms": True}, {"model_name": "wav2vec"},
+    # waveform-resident training is ported: both construct
+    trainer = Trainer(CNNAudioGRU(num_classes=5, **NARROW),
+                      Config.from_dict({}), from_waveforms=True)
+    assert trainer.from_waveforms
+    check_supported(Config.from_dict({"train_on_waveforms": True}))
+    for raw in ({"model_name": "wav2vec"},
                 {"num_processes": 2}, {"model_axis": 2},
                 {"data_axis": 4}, {"coordinator_address": "localhost:1"}):
         with pytest.raises(NotImplementedError):
