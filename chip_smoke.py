@@ -22,7 +22,11 @@ hand-written CUDA kernels, and checks everything it measures:
   frames at each end of speech, and on every block of frames in the
   featurizer's ``device`` mode; the fp32 classifier with K2 twice), the
   ``BatchFinalizer`` and ``IntentServer``, on the model that training
-  produced; and a ``.msgpack`` checkpoint read without flax or msgpack.
+  produced; and a ``.msgpack`` checkpoint read without flax or msgpack;
+* serving artifacts of that model (``infer/export.py``): the production
+  programs of the four serving configurations (each kernel a ``sir`` op
+  node), the portable program and the streaming finalize, each loaded in
+  a process of its own.
 
 Phases:
 
@@ -115,12 +119,34 @@ Phases:
     13's bars); and the bf16 waveform step at B = 256 / 1024 (CUDA events
     and host clock, medians of five blocks) beside the feature-cache step,
     with its augmentation and its K3 timed alone (``--profile``: the
-    step's per-kernel breakdown at B=256).
+    step's per-kernel breakdown at B=256);
+18. serving artifacts of phase 15's model (``infer.export``): the
+    production flavour of the default configuration pinned at B = 8, 256
+    and 2048, of conv23 and ``pool_impl="kernel"`` at 256 and of the
+    unfused fp32 predictor at 8, the portable flavour and the streaming
+    artifact, each loaded by its own process (all at once) that counts
+    what a program call launches (default K1 1, K2 2; conv23 K1 1, K5 1,
+    K2 2; pool kernel K1 1, K6 2, K2 2; unfused K3 1, K2 2; the streaming
+    finalize K4 1, K2 2; the portable nothing) and lists the port's modules
+    it imported (none of models, predictor, training, data; the portable
+    no kernel op either); production rows bit-equal to the live predictor
+    on the same program batches at B = 8, 200 (routed to 256), 256 and
+    2300 (chunked); the portable within 1e-2 of the live bf16 path's
+    log-probabilities with equal argmax on the gate rows; the streaming
+    artifact's labels equal to the live recognizer's over the test split;
+    the production and portable artifacts at B = 256 / 2048 beside the live
+    ``Predictor`` (medians of five blocks, CUDA events and host clock, A B
+    C C B A); the live B=256 step and the B=1 end of speech through the
+    ops and with each op swapped for its kernel's launch body (the route
+    before the ops), in alternating rounds; the host cost of a wrapper's
+    call, its op's and the kernel's launch body alone (K4 on 4 frames, the
+    fp32 K2 at B=1, K1 at B=8).
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
 the batched finalize of 16 and in the file replay of 16; K2, K3 and K2T
-also ``waveform_launches``, phase 17's), its error
+also ``waveform_launches``, phase 17's; every kernel
+``artifact_launches``, phase 18's per program call), its error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
@@ -176,6 +202,7 @@ from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
     MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan, _gru_layer_backward_plain,
     _gru_layer_plain, gru_layer, gru_layer_backward, picked_plan)
+from speech_intent_recognizer_tpu_torch.ops import pool_epilogue as pool_ops
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
 from speech_intent_recognizer_tpu_torch.utils.device import (
@@ -292,9 +319,98 @@ STREAM_K4_FRAMES = (4, 16, 64)
 STREAM_K2_BATCHES = (1, 16)
 # each server session asks for a partial hypothesis after this chunk
 PARTIAL_AT = 8
+# phase 18: serving artifacts of phase 15's model.  The programs of each
+# configuration and the rows asked of them (the default: pinned, routed to
+# 256, chunked as 2048 + 252), the launches one program call makes, the
+# batches timed
+EXPORT_CONFIGS = {"default": (8, 256, 2048), "conv23": (256,),
+                  "pool_impl=kernel": (256,), "unfused": (8,)}
+EXPORT_REQUESTS = {"default": (8, 200, 256, 2300), "conv23": (256,),
+                   "pool_impl=kernel": (256,), "unfused": (8,)}
+EXPORT_LAUNCHES = {"default": {"K1": 1, "K2": 2},
+                   "conv23": {"K1": 1, "K5": 1, "K2": 2},
+                   "pool_impl=kernel": {"K1": 1, "K6": 2, "K2": 2},
+                   "unfused": {"K3": 1, "K2": 2}}
+EXPORT_TIMED = (256, 2048)
+DISPATCH_ROUNDS = 6
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "narrow_model")
 FIXTURE_LABELS = os.path.join(ROOT, "tests", "data", "narrow_label_map.json")
+
+
+# Phase 18's loader: one process per artifact, importing only what loading
+# it needs.  argv: artifact directory, kind (production, portable,
+# streaming), the inputs (.npz), where to write the outputs; prints the
+# launches it counted, the load time and the port's modules it imported as
+# its last line.
+ARTIFACT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from speech_intent_recognizer_tpu_torch.infer import export
+art, kind, data, out = sys.argv[1:5]
+pkg = "speech_intent_recognizer_tpu_torch"
+WRAPPERS = {"K1": ("ops.frontend_kernels", "frontend_conv1"),
+            "K2": ("ops.gru", "gru_layer"),
+            "K3": ("ops.frontend_kernels", "frontend"),
+            "K4": ("ops.frontend_kernels", "mel_db"),
+            "K5": ("ops.conv23", "conv23"),
+            "K6": ("ops.pool_epilogue", "bias_relu_pool2")}
+
+
+def launched(run):
+    found = {k: getattr(sys.modules[pkg + "." + m], f)
+             for k, (m, f) in WRAPPERS.items() if pkg + "." + m in sys.modules}
+    for w in found.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    result = run()
+    torch.cuda.synchronize()
+    return result, {k: w.launches for k, w in found.items() if w.launches}
+
+
+t0 = time.perf_counter()
+d = np.load(data)
+report = {"kind": kind, "launches": {}}
+if kind == "streaming":
+    from speech_intent_recognizer_tpu_torch.infer.streaming import (
+        StreamingRecognizer)
+    sp = export.StreamingArtifactPredictor.load(art)
+    report["load_s"] = time.perf_counter() - t0
+
+    def run():
+        results, start = [], 0
+        for end in d["ends"]:
+            rec = StreamingRecognizer(sp, featurizer_mode="host")
+            for chunk in d["chunks"][start:end]:
+                r = rec.feed(chunk)
+                if r is not None:
+                    break
+            results.append(r)
+            start = end
+        return results
+
+    results, report["launches"]["split"] = launched(run)
+    report["labels"] = [r["predicted_label"] for r in results]
+    np.savez(out, confidence=np.asarray([r["confidence"] for r in results]))
+else:
+    srv = export.ServingModel.load(art)
+    report["load_s"] = time.perf_counter() - t0
+    rows, lengths, outs = d["rows"], d["lengths"], {}
+    for n in (int(x) for x in d["requests"]):
+        reps = -(-n // len(rows))
+        wf = np.concatenate([rows] * reps)[:n]
+        ln = np.concatenate([lengths] * reps)[:n]
+        outs[f"b{n}"], report["launches"][str(n)] = launched(
+            lambda: srv.predict_waveform_batch(wf, ln))
+    np.savez(out, **outs)
+report["modules"] = sorted(
+    m for m in sys.modules if m.startswith(pkg + ".")
+    or m.split(".")[0] in ("jax", "jaxlib", "flax"))
+print(json.dumps(report))
+"""
 
 
 def log(msg: str) -> None:
@@ -1986,6 +2102,284 @@ def time_configurations(preds: dict, e2e_wf, e2e_ln) -> dict:
     return out
 
 
+def served_as_chunks(pred, rows, lengths, n: int, sizes) -> tuple:
+    """The live predictor on the batches a production ``ServingModel``
+    runs for ``n`` rows (``rows`` repeated): chunks of at most the largest
+    program, each filled with rows of length 1 to the smallest program
+    that holds it.  -> (those probabilities, the unchunked call's)."""
+    reps = -(-n // len(rows))
+    wf = np.concatenate([rows] * reps)[:n]
+    ln = np.concatenate([lengths] * reps)[:n]
+    outs = []
+    for s in range(0, n, sizes[-1]):
+        cw, cl = wf[s:s + sizes[-1]], ln[s:s + sizes[-1]]
+        m = len(cw)
+        bs = next(z for z in sizes if z >= m)
+        cw = np.concatenate([cw, np.zeros((bs - m, cw.shape[1]), np.float32)])
+        cl = np.concatenate([cl, np.ones(bs - m, np.int32)])
+        outs.append(pred.predict_waveform_batch(cw, cl)[:m])
+    return np.concatenate(outs), pred.predict_waveform_batch(wf, ln)
+
+
+def run_children(jobs: dict) -> dict:
+    """Phase 18's loaders, all started together: name -> (artifact, kind,
+    inputs, outputs).  -> name -> (report, outputs)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", ARTIFACT_CHILD, *job], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, job in jobs.items()}
+    found = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"artifact loader {name} exit {proc.returncode}: "
+              f"{(out + err).strip()[-2000:]}")
+        found[name] = (json.loads(out.strip().splitlines()[-1]),
+                       np.load(jobs[name][3]))
+    return found
+
+
+def dispatch_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` enqueued back to back (the
+    card keeps up: no call waits for the device)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def check_export(dev, tmp: str, run: dict, label: str) -> dict:
+    """Phase 18: serving artifacts of the model phase 15 trained.  Exports
+    the production flavour of the four configurations, the portable
+    flavour and the streaming artifact; loads each in its own process
+    (which prints what it launched and imported); holds the results to the
+    live path; times the artifacts beside the live ``Predictor`` and the
+    kernels' op dispatch.  -> the launches each artifact made."""
+    from speech_intent_recognizer_tpu_torch.data.manifest import (
+        read_manifest)
+    from speech_intent_recognizer_tpu_torch.infer.export import (
+        ServingModel, export_predictor, export_streaming)
+
+    best, labels = run["best"], run["label_map"]
+    preds = {"default": Predictor.from_checkpoint(best, labels, device=dev),
+             "pool_impl=kernel": Predictor.from_checkpoint(
+                 best, labels, device=dev, pool_impl="kernel"),
+             "unfused": Predictor.from_checkpoint(best, labels, device=dev,
+                                                  fold_bn=False)}
+    preds["conv23"] = Predictor.from_checkpoint(best, labels, device=dev)
+    preds["conv23"].enable_conv23_kernel()
+    base = os.path.join(tmp, "artifacts")
+    dirs, export_s = {}, {}
+    for name, sizes in EXPORT_CONFIGS.items():
+        dirs[name] = os.path.join(base, name)
+        t0 = time.perf_counter()
+        export_predictor(preds[name], dirs[name], flavor="production",
+                         batch_sizes=sizes)
+        export_s[name] = time.perf_counter() - t0
+    for name, export in (("portable", export_predictor),
+                         ("streaming", export_streaming)):
+        dirs[name] = os.path.join(base, name)
+        t0 = time.perf_counter()
+        export(preds["default"], dirs[name])
+        export_s[name] = time.perf_counter() - t0
+    log(f"exported in s: " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in export_s.items()))
+
+    # inputs: the test split's rows; the gate rows for the portable; each
+    # test WAV as microphone chunks for the streaming artifact
+    rows, lengths = decode_split(run["test_csv"], padded_samples(80000))
+    gate_rows, gate_ln = batch(GATE_LENGTHS, rows.shape[1], seed=1)
+    paths = read_manifest(run["test_csv"]).paths
+    chunks = [utterance_chunks(p, seed) for seed, p in enumerate(paths)]
+    jobs = {}
+    for name in list(EXPORT_CONFIGS) + ["portable", "streaming"]:
+        data = os.path.join(base, f"{name}_in.npz")
+        if name == "streaming":
+            np.savez(data, chunks=np.concatenate(chunks),
+                     ends=np.cumsum([len(c) for c in chunks]))
+        elif name == "portable":
+            np.savez(data, rows=gate_rows, lengths=gate_ln,
+                     requests=np.asarray([len(gate_ln)]))
+        else:
+            np.savez(data, rows=rows, lengths=lengths,
+                     requests=np.asarray(EXPORT_REQUESTS[name]))
+        kind = name if name in ("portable", "streaming") else "production"
+        jobs[name] = (dirs[name], kind, data,
+                      os.path.join(base, f"{name}_out.npz"))
+    t0 = time.perf_counter()
+    found = run_children(jobs)
+    log(f"{len(jobs)} artifact loaders, one process each, all at once: "
+        f"{time.perf_counter() - t0:.1f} s; load s " + ", ".join(
+            f"{k} {r['load_s']:.1f}" for k, (r, _) in found.items()))
+
+    pkg = "speech_intent_recognizer_tpu_torch."
+    for name, (report, _) in found.items():
+        barred = ("models", "infer.predict", "train", "jax", "flax") + (
+            () if name == "streaming" else ("data",)) + (
+            ("ops",) if name == "portable" else ())
+        bad = [m for m in report["modules"] if m.removeprefix(pkg).startswith(
+            barred)]
+        check(not bad, f"artifact loader {name} imported none of "
+              f"{barred} (found {bad})")
+
+    artifact_launches = {}
+    for name, sizes in EXPORT_CONFIGS.items():
+        report, got = found[name]
+        for n in EXPORT_REQUESTS[name]:
+            calls = -(-n // sizes[-1])
+            want = {k: v * calls for k, v in EXPORT_LAUNCHES[name].items()}
+            check(report["launches"][str(n)] == want,
+                  f"{name} artifact, {n} rows ({calls} program call(s)): "
+                  f"launched {report['launches'][str(n)]} (want {want})")
+            chunked, whole = served_as_chunks(preds[name], rows, lengths, n,
+                                              sizes)
+            same = np.array_equal(got[f"b{n}"], chunked)
+            diff = float(np.abs(got[f"b{n}"] - whole).max())
+            check(same, f"{name} artifact, {n} rows: bit-equal to the live "
+                  f"predictor on the same program batches (vs one live "
+                  f"call of all {n} rows: max |prob diff| {diff:.3e})")
+        artifact_launches[name] = report["launches"][
+            str(EXPORT_REQUESTS[name][0])]
+
+    report, got = found["portable"]
+    check(report["launches"] == {str(len(gate_ln)): {}},
+          f"portable artifact launched {report['launches']} (want no "
+          f"kernel)")
+    artifact_launches["portable"] = {}
+    live = preds["default"].predict_waveform_batch(gate_rows, gate_ln)
+    portable = got[f"b{len(gate_ln)}"]
+    logp_err = float(np.abs(np.log(np.maximum(portable, 1e-30))
+                            - np.log(np.maximum(live, 1e-30))).max())
+    check(logp_err <= LOGP_BAR
+          and bool((portable.argmax(-1) == live.argmax(-1)).all()),
+          f"portable artifact (fp32, plain front-end) vs the live bf16 path "
+          f"on the {len(gate_ln)} gate rows: log-prob err {logp_err:.3e} <= "
+          f"{LOGP_BAR}, argmax equal")
+
+    report, got = found["streaming"]
+    want_labels, want_conf = [], []
+    for c in chunks:
+        rec = StreamingRecognizer(preds["default"], featurizer_mode="host")
+        for chunk in c:
+            r = rec.feed(chunk)
+            if r is not None:
+                break
+        want_labels.append(r["predicted_label"])
+        want_conf.append(r["confidence"])
+    n_utt = len(chunks)
+    check(report["launches"]["split"] == {"K4": n_utt, "K2": 2 * n_utt},
+          f"streaming artifact over {n_utt} utterances launched "
+          f"{report['launches']['split']} (want K4 {n_utt}, K2 {2 * n_utt}: "
+          f"once and twice a finalize)")
+    conf_err = float(np.abs(got["confidence"] - np.asarray(want_conf)).max())
+    check(report["labels"] == want_labels and conf_err <= STREAM_ROW_BAR,
+          f"streaming artifact: labels equal to the live recognizer's on "
+          f"{n_utt} test WAVs, confidences within {conf_err:.3e} <= "
+          f"{STREAM_ROW_BAR}")
+    artifact_launches["streaming"] = {
+        k: v // n_utt for k, v in report["launches"]["split"].items()}
+
+    # timings: the artifacts beside the live predictor, device-resident
+    # input, in turns
+    calls = {"production": ServingModel.load(dirs["default"], device=dev),
+             "portable": ServingModel.load(dirs["portable"], device=dev)}
+    served_ms = {}
+    for b in EXPORT_TIMED:
+        reps = -(-b // len(rows))
+        wf = torch.from_numpy(np.concatenate([rows] * reps)[:b]).to(dev)
+        ln = torch.from_numpy(np.concatenate([lengths] * reps)[:b]).to(dev)
+        fns = {"live": lambda: preds["default"].predict_waveform_batch(wf, ln),
+               **{k: (lambda srv=srv: srv.predict_waveform_batch(wf, ln))
+                  for k, srv in calls.items()}}
+        for name in list(fns) + list(fns)[::-1]:
+            iters = 3 if name == "portable" else 10
+            served_ms.setdefault(f"{name}_b{b}", []).append(
+                (cuda_ms_blocks(fns[name], iters, warmup=2),
+                 host_ms_blocks(fns[name], iters, warmup=1)))
+    log(f"served on {label}, device-resident input, ms per call (CUDA "
+        f"events / host clock, least / median / most of five blocks), live "
+        f"Predictor and artifacts in the order A B C C B A:")
+    for k, passes in served_ms.items():
+        log(f"    {k}: " + "; ".join(
+            " / ".join(f"{lo:.4f} {med:.4f} {hi:.4f}" for lo, med, hi in p)
+            for p in passes))
+
+    # the op dispatch: a wrapper's call, the op's, and the kernel's launch
+    # body alone, on the two host-bound paths' kernels
+    fe = make_frontend_params(device=dev)
+    frames = torch.randn((4, 1024), device=dev)
+    gx, w, bn = k2_inputs(1, torch.float32, dev, seed=5)
+    wf8 = torch.from_numpy(rows[:8]).to(dev)
+    ln8 = torch.from_numpy(lengths[:8]).to(dev)
+    c1w = preds["default"]._conv1.conv1_weight
+    c1b = preds["default"]._conv1.conv1_bias
+    routes = {
+        "K4_4_frames": (lambda: fk.mel_db(frames, fe),
+                        lambda: torch.ops.sir.mel_db(frames, *fe),
+                        lambda: fk._mel_db_cuda(frames, *fe)),
+        "K2_fp32_b1": (lambda: gru_layer(gx, w, bn),
+                       lambda: torch.ops.sir.gru_layer(gx, w, bn, "", 0),
+                       lambda: gru_ops._gru_layer_cuda(gx, w, bn, "", 0)),
+        "K1_b8": (lambda: fk.frontend_conv1(wf8, ln8, fe, c1w, c1b),
+                  lambda: torch.ops.sir.frontend_conv1(wf8, ln8, c1w, c1b,
+                                                      *fe),
+                  lambda: fk._frontend_conv1_cuda(wf8, ln8, c1w, c1b, *fe))}
+    dispatch = {}
+    for name, fns in routes.items():
+        for route, fn in zip(("wrapper", "op", "launch_body"), fns):
+            dispatch.setdefault(f"{name}_{route}", []).extend(
+                dispatch_us(fn) for _ in range(3))
+    # the live B=256 step and the B=1 end of speech through the ops and
+    # with every op swapped for its launch body (the route before the
+    # ops), in alternating rounds
+    rec = StreamingRecognizer(preds["default"], featurizer_mode="host")
+    tone = speech_like(np.random.default_rng(11), 24000)
+    for i in range(0, tone.size, STREAM_CHUNK):
+        rec.feed(tone[i:i + STREAM_CHUNK])
+    wf256 = torch.from_numpy(rows).to(dev)
+    ln256 = torch.from_numpy(lengths).to(dev)
+    steps = {"predict_b256": lambda: preds["default"].predict_waveform_batch(
+                 wf256, ln256),
+             "finalize_b1": rec._fused_finalize}
+    launch_bodies = {"frontend_conv1": fk._frontend_conv1_cuda,
+                     "frontend": fk._frontend_cuda, "mel_db": fk._mel_db_cuda,
+                     "gru_layer": gru_ops._gru_layer_cuda,
+                     "conv23": conv23_ops._conv23_cuda,
+                     "bias_relu_pool2": pool_ops._bias_relu_pool2_cuda}
+    swaps = {"op": {k: getattr(torch.ops.sir, k) for k in launch_bodies},
+             "direct": launch_bodies}
+    route_ms = {}
+    for r in range(DISPATCH_ROUNDS):
+        for route in list(swaps)[::1 if r % 2 == 0 else -1]:
+            for name, fn in swaps[route].items():
+                setattr(torch.ops.sir, name, fn)
+            for step, fn in steps.items():
+                route_ms.setdefault(f"{step}_{route}", []).append(
+                    host_ms_blocks(fn, 50, blocks=1, warmup=10)[1])
+    for name, fn in swaps["op"].items():
+        setattr(torch.ops.sir, name, fn)
+    log(f"live steps on {label} through the ops and through the launch "
+        f"bodies alone, host ms per call of a block of 50, "
+        f"{DISPATCH_ROUNDS} rounds in alternating order (median; blocks):")
+    for k, v in route_ms.items():
+        log(f"    {k}: {float(np.median(v)):.4f} "
+            f"({', '.join(f'{x:.4f}' for x in v)})")
+    log(f"op dispatch on {label}: host us per call enqueued back to back "
+        f"(3 runs of 200 calls; median), the wrapper (checks, then the op), "
+        f"the op alone, the kernel's launch body alone:")
+    for k, v in dispatch.items():
+        log(f"    {k}: {sorted(v)[1]:.2f} ({', '.join(f'{x:.2f}' for x in v)})")
+    return {"launches": artifact_launches, "export_s": export_s,
+            "served_ms": served_ms, "dispatch_us": dispatch,
+            "route_ms": route_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2204,7 +2598,7 @@ def main(argv=None) -> int:
                 with torch.inference_mode():
                     timed(timings, spreads, key, lambda: cudnn(x), 20)
 
-        time_new_kernels(dev, pred._conv1[0], timings, bounds, spreads)
+        time_new_kernels(dev, pred._conv1.model, timings, bounds, spreads)
         preds = {"default": pred, "pool_impl=kernel": pool_pred,
                  "conv23": c23_pred}
         for name in ("pool_impl=kernel", "conv23"):
@@ -2312,6 +2706,10 @@ def main(argv=None) -> int:
         pipeline = check_pipeline(dev, tmp, e2e_train, timings, spreads,
                                   args.profile, label)
         pipeline_s = time.perf_counter() - t0
+        # ---- 18. serving artifacts of the trained model ----
+        t0 = time.perf_counter()
+        exported = check_export(dev, tmp, e2e_train, label)
+        export_phase_s = time.perf_counter() - t0
 
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
@@ -2374,6 +2772,9 @@ def main(argv=None) -> int:
             f"{timings[f'wave_step_augment_b{wb}']:.3f}, K3 "
             f"{timings[f'wave_step_k3_b{wb}']:.3f}, the rest "
             f"{rest:.3f}")
+    log(f"  serving artifacts on {label} (phase 18 took "
+        f"{export_phase_s:.1f} s): launches per program call "
+        f"{exported['launches']}")
     b = MAIN_BATCH
 
     def entry(name, key, source, replaces, launches, err, library=None):
@@ -2422,6 +2823,13 @@ def main(argv=None) -> int:
     # launches on the waveform-resident path (phase 17's run_pipeline)
     for i, key in ((1, "K2"), (2, "K3"), (3, "K2T")):
         kernels[i]["waveform_launches"] = pipeline["launches"][key]
+    # launches through the serving artifacts (phase 18): per program call,
+    # per finalize of the streaming artifact
+    for entry_, key in zip(kernels, ("K1", "K2", "K3", "K2T", "K4", "K5",
+                                     "K6")):
+        entry_["artifact_launches"] = {
+            name: got[key] for name, got in exported["launches"].items()
+            if key in got}
     print(json.dumps({"kernels": kernels}))
     print(label)
     print(json.dumps({"ok": True, "device": {

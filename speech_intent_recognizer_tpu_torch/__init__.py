@@ -21,7 +21,12 @@ Ported so far:
 * training from precomputed features: the precompute (``data/cache.py``,
   through the fused front-end kernel K3), the ``train.loop.Trainer`` (K2
   and its backward kernel under autograd), checkpoints, evaluation and the
-  ``cli`` entry points.
+  ``cli`` entry points;
+* streaming sessions and the multi-session server (``infer/streaming.py``,
+  ``infer/server.py``) and waveform-resident training (``cli/run_pipeline``);
+* serving artifacts (``infer/export.py``, ``cli/export_model``): the batch
+  path traced with ``torch.export``, each forward kernel one op of the
+  ``sir`` namespace (``ops/library.py``).
 
 Importing this package or any of its modules imports no JAX and nothing of
 the JAX package.  The pure-Python host code it needs (the config schema and

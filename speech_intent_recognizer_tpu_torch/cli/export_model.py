@@ -1,0 +1,73 @@
+"""CLI: export a trained checkpoint as a serving artifact.
+
+Counterpart of ``speech_intent_recognizer_tpu/cli/export_model.py``.  The
+artifact is the traced batch path (``torch.export``) plus its weights and
+the label map; a serving host runs it with ``infer.export.ServingModel``
+and needs neither the model's code nor the config.
+
+    python -m speech_intent_recognizer_tpu_torch.cli.export_model \\
+        --model checkpoints/best_model.pt \\
+        --label_map data/label_map.json --out serving_artifact/ \\
+        --flavor production
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    from speech_intent_recognizer_tpu_torch.cli.common import (
+        add_config_arg, add_device_arg, load_config_or_default,
+        make_predictor, setup_logging)
+    from speech_intent_recognizer_tpu_torch.infer.export import (
+        export_predictor)
+
+    logger = setup_logging()
+    p = argparse.ArgumentParser(
+        description="Export a serving artifact (traced program + weights)")
+    add_config_arg(p)
+    p.add_argument("--model", required=True)
+    p.add_argument("--label_map", required=True)
+    p.add_argument("--out", required=True, help="artifact directory")
+    p.add_argument("--model_type", default="cnn_gru",
+                   choices=["cnn_gru", "wav2vec"])
+    p.add_argument("--platforms", nargs="*", default=None,
+                   help="torch device types named in the manifest (default: "
+                        "cuda for a program of kernel ops, else cpu cuda)")
+    p.add_argument("--flavor", default="portable",
+                   choices=["portable", "production"],
+                   help="portable: the unfused model on the plain front-end, "
+                        "traced on the CPU, symbolic batch, any device; "
+                        "production: the predictor's kernel path traced on "
+                        "the card, one program per --batch_sizes entry")
+    p.add_argument("--batch_sizes", nargs="*", type=int,
+                   default=[8, 256, 2048],
+                   help="pinned batch sizes for --flavor production")
+    add_device_arg(p)
+    p.add_argument("--pool-impl", choices=("torch", "kernel"),
+                   default="torch",
+                   help="production: the conv epilogue of conv2/conv3, "
+                        "torch ops or the epilogue kernel")
+    p.add_argument("--conv23", action="store_true",
+                   help="production: conv2+conv3 in the conv23 kernel "
+                        "(reference geometry and channels only)")
+    args = p.parse_args(argv)
+    if args.model_type == "wav2vec":
+        raise NotImplementedError("the wav2vec model is not ported yet "
+                                  "(ROADMAP Queue 1, item 8); the port "
+                                  "exports cnn_gru")
+    cfg = load_config_or_default(args.config)
+    predictor = make_predictor(args.model, args.label_map, cfg.audio,
+                               args.device, pool_impl=args.pool_impl)
+    if args.conv23:
+        predictor.enable_conv23_kernel()
+    out = export_predictor(predictor, args.out, platforms=args.platforms,
+                           flavor=args.flavor,
+                           batch_sizes=tuple(args.batch_sizes))
+    logger.info("serving artifact written to %s", out)
+    return 0
+
+
+if __name__ == "__main__":
+    main()

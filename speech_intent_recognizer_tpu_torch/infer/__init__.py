@@ -1,18 +1,30 @@
 """Inference: batch waveforms to intent probabilities, streaming sessions
-with voice activity detection, and the multi-session server."""
+with voice activity detection, the multi-session server, and serving
+artifacts.
 
-from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
-from speech_intent_recognizer_tpu_torch.infer.streaming import (
-    BatchFinalizer, PendingResult, StreamingFeaturizer, StreamingRecognizer)
-from speech_intent_recognizer_tpu_torch.infer.vad import (
-    EnergyVAD, VADSegmenter)
+The names below are imported from their modules at first use, so that
+importing one module of this package (``infer.export`` to serve an
+artifact) imports nothing else of it."""
 
-__all__ = [
-    "BatchFinalizer",
-    "EnergyVAD",
-    "PendingResult",
-    "Predictor",
-    "StreamingFeaturizer",
-    "StreamingRecognizer",
-    "VADSegmenter",
-]
+import importlib
+
+_HOMES = {
+    "BatchFinalizer": "streaming",
+    "EnergyVAD": "vad",
+    "PendingResult": "streaming",
+    "Predictor": "predict",
+    "ServingModel": "export",
+    "StreamingArtifactPredictor": "export",
+    "StreamingFeaturizer": "streaming",
+    "StreamingRecognizer": "streaming",
+    "VADSegmenter": "vad",
+}
+
+__all__ = sorted(_HOMES)
+
+
+def __getattr__(name: str):
+    if name not in _HOMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_HOMES[name]}"),
+                   name)

@@ -14,6 +14,11 @@ once per batch, and a GRU + attention + ``fc`` head).  The unfused model
 front-end kernel K3 on a CUDA device at the reference geometry and the
 dB-mel kernel K4 at any other.  There is no probe and no switch to
 another path at run time; CPU devices run the kernels' plain versions.
+
+Each configuration is one :class:`ServingBody` (``Predictor._fused_body``),
+the module that ``predict_waveform_batch`` runs and that
+``infer/export.py`` traces into a serving artifact; its state dict holds
+every weight it reads, K1's conv1 and K5's packed operands included.
 """
 
 from __future__ import annotations
@@ -30,9 +35,10 @@ from speech_intent_recognizer_tpu_torch.data.audio_io import load_audio
 from speech_intent_recognizer_tpu_torch.evaluation.metrics import (
     top_k_predictions)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+from speech_intent_recognizer_tpu_torch.ops.conv23 import conv23
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
-    log_mel_conv1_frontend, log_mel_frontend, make_frontend_params,
-    padded_samples)
+    FrontendModule, FrontendParams, log_mel_conv1_frontend, log_mel_frontend,
+    make_frontend_params, padded_samples)
 
 logger = logging.getLogger(__name__)
 
@@ -54,6 +60,53 @@ def _state_widths(state: Dict[str, torch.Tensor]) -> dict:
                 gru_layers=layers)
 
 
+class ServingBody(torch.nn.Module):
+    """The batch path of one serving configuration: (B, L) float32
+    waveforms, or their (B, L / hop, hop) rows, and (B,) int32 lengths ->
+    (B, C) float32 probabilities.
+
+    * ``conv1`` and ``conv23`` given: K1 -> K5 -> ``model``, a
+      ``conv_external`` head;
+    * ``conv1`` alone: K1 -> ``model``, the ``conv1_external`` variant;
+    * neither: ``log_mel_frontend`` (K3, or K4 off the reference geometry)
+      -> ``model``.
+
+    ``conv1`` is K1's (weight, bias) and ``conv23`` K5's operands
+    (``ops.conv23.conv23_operands``); both become buffers, so the state
+    dict is every weight the path reads.  The front-end's constants are
+    non-persistent buffers (:class:`.frontend.FrontendModule`).
+    """
+
+    _CONV1 = ("conv1_weight", "conv1_bias")
+    _CONV23 = ("conv2_packed", "conv2_bias", "conv3_packed", "conv3_bias")
+
+    def __init__(self, params: FrontendParams, model: CNNAudioGRU,
+                 conv1: Optional[tuple] = None,
+                 conv23: Optional[tuple] = None):
+        super().__init__()
+        self.frontend = FrontendModule(params)
+        self.model = model
+        self.with_conv1 = conv1 is not None
+        self.with_conv23 = conv23 is not None
+        for name, t in zip(self._CONV1 + self._CONV23,
+                           (conv1 or ()) + (conv23 or ())):
+            self.register_buffer(name, t)
+
+    def forward(self, waveforms: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+        if waveforms.dim() == 3:  # rows of a flat buffer
+            waveforms = waveforms.flatten(1)
+        fe = self.frontend.params
+        if not self.with_conv1:
+            x = log_mel_frontend(waveforms, lengths, fe)
+        else:
+            x = log_mel_conv1_frontend(waveforms, lengths, fe,
+                                       self.conv1_weight, self.conv1_bias)
+        if self.with_conv23:
+            x = conv23(x, *(getattr(self, n) for n in self._CONV23))
+        return torch.softmax(self.model(x).float(), dim=-1)
+
+
 class Predictor:
     """End-to-end (waveform -> intent) predictor on one device."""
 
@@ -67,13 +120,14 @@ class Predictor:
         self.audio_cfg = audio_cfg or AudioConfig()
         self.frontend_params = make_frontend_params(self.audio_cfg,
                                                     self.device)
-        # (variant model, conv1 weight, conv1 bias) when the fused
-        # front-end + conv1 path serves batch waveform inference
-        self._conv1 = None
-        # (head model, conv1 weight, conv1 bias, conv23 operands) once
-        # enable_conv23_kernel() has put conv2 / conv3 into the K5 kernel
-        self._conv23 = None
+        # the fused front-end + conv1 path (K1 -> the conv1_external
+        # variant) when it serves batch waveform inference
+        self._conv1: Optional[ServingBody] = None
+        # K1 -> K5 -> head, once enable_conv23_kernel() has put conv2 /
+        # conv3 into the K5 kernel
+        self._conv23: Optional[ServingBody] = None
         self._folded_for_conv23 = None
+        self._unfused: Optional[ServingBody] = None  # built at first use
 
     @classmethod
     def from_checkpoint(cls, model_path: str, label_map_path: str,
@@ -137,9 +191,10 @@ class Predictor:
                               conv1_external=True, pool_impl=pool_impl,
                               **self._widths())
         variant.load_state_dict(var_state)
-        self._conv1 = (variant.to(self.device).eval(),
-                       c1w.to(self.device, torch.bfloat16).contiguous(),
-                       c1b.to(self.device, torch.bfloat16).contiguous())
+        self._conv1 = ServingBody(
+            self.frontend_params, variant.to(self.device).eval(),
+            conv1=(c1w.to(self.device, torch.bfloat16).contiguous(),
+                   c1b.to(self.device, torch.bfloat16).contiguous()))
         # conv2 / conv3 may move into the K5 kernel too (opt-in, see
         # enable_conv23_kernel) when their channels are the kernel's
         if (tuple(folded["conv2.weight"].shape) == (64, 32, 3, 3)
@@ -164,26 +219,29 @@ class Predictor:
         head = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
                            conv_external=True, **self._widths())
         head.load_state_dict(head_state)
-        _, c1w, c1b = self._conv1
-        self._conv23 = (head.to(self.device).eval(), c1w, c1b,
-                        conv23_operands(w2.to(self.device), b2.to(self.device),
-                                        w3.to(self.device), b3.to(self.device)))
+        self._conv23 = ServingBody(
+            self.frontend_params, head.to(self.device).eval(),
+            conv1=(self._conv1.conv1_weight, self._conv1.conv1_bias),
+            conv23=conv23_operands(w2.to(self.device), b2.to(self.device),
+                                   w3.to(self.device), b3.to(self.device)))
+
+    def _fused_body(self) -> ServingBody:
+        """The module the batch path runs in the current configuration
+        (conv23, the fused conv1 path with either ``pool_impl``, or the
+        unfused model); its state dict is the weights it reads.  What
+        ``infer.export.export_predictor`` traces for the production
+        flavour."""
+        if self._conv23 is not None:
+            return self._conv23
+        if self._conv1 is not None:
+            return self._conv1
+        if self._unfused is None:
+            self._unfused = ServingBody(self.frontend_params, self.model)
+        return self._unfused
 
     def _probabilities(self, wf: torch.Tensor, ln: torch.Tensor
                        ) -> torch.Tensor:
-        fe = self.frontend_params
-        if self._conv23 is not None:
-            from speech_intent_recognizer_tpu_torch.ops.conv23 import conv23
-
-            head, c1w, c1b, operands = self._conv23
-            pooled = log_mel_conv1_frontend(wf, ln, fe, c1w, c1b)
-            logits = head(conv23(pooled, *operands))
-        elif self._conv1 is not None:
-            variant, c1w, c1b = self._conv1
-            logits = variant(log_mel_conv1_frontend(wf, ln, fe, c1w, c1b))
-        else:
-            logits = self.model(log_mel_frontend(wf, ln, fe))
-        return torch.softmax(logits.float(), dim=-1)
+        return self._fused_body()(wf, ln)
 
     def predict_waveform_batch(self, waveforms, lengths) -> np.ndarray:
         """(B, L) float32 + (B,) lengths -> (B, C) probabilities.

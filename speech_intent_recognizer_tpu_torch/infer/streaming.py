@@ -20,6 +20,13 @@ host memory and a CUDA event that says when it has landed.
 
 ``partial_result()`` classifies the frames seen so far (normalized with
 the host statistics), giving early hypotheses mid-utterance.
+
+A recognizer runs its finalize and classifier through two modules,
+:class:`StreamFinalize` and :class:`StreamClassify`, which it asks the
+predictor for (``_stream_calls``) and builds over the predictor's model
+when the predictor has none: an exported streaming artifact
+(``infer/export.StreamingArtifactPredictor``) brings its own, the two
+modules traced by ``infer/export.export_streaming``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from speech_intent_recognizer_tpu_torch.infer.vad import EnergyVAD
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
-    FrontendParams, make_frontend_params)
+    FrontendModule, FrontendParams, make_frontend_params)
 
 logger = logging.getLogger(__name__)
 
@@ -305,42 +312,100 @@ def fused_finalize(model: torch.nn.Module, params: FrontendParams,
         recognizer), only the first ``n_tails`` of each row valid.
       n_tails: (N,) valid tail frames.
 
-    The N * K tail frames go through K4 in one launch; the valid ones are
-    added at rows ``count + i`` (those below target_length); then the
-    masked per-utterance normalization (mean and ddof=1 variance over
-    ``count + n_tail`` rows, ``+ norm_eps`` on the std), the zero pad, and
-    the model.  Returns (N, C) float32 probabilities on the device.
+    Copies the operands to the device and runs :func:`finalize_tensors`.
+    Returns (N, C) float32 probabilities on the device.
     """
     dev = params.window.device
-    n, k = tails.shape[:2]
-    tmax, n_mels = params.target_length, params.n_mels
     mel = torch.from_numpy(np.ascontiguousarray(mel_bufs, np.float32)).to(dev)
     frames = torch.from_numpy(np.ascontiguousarray(tails, np.float32)).to(dev)
     lengths = torch.from_numpy(np.stack([np.asarray(counts, np.int64),
                                          np.asarray(n_tails, np.int64)])
                                ).to(dev)
-    count, n_tail = lengths[0], lengths[1]
     with torch.inference_mode():
-        tail_db = fk.mel_db(frames.view(n * k, params.n_fft), params)
-        steps = torch.arange(k, device=dev)
-        rows = count[:, None] + steps[None, :]  # (N, K)
-        writable = (steps[None, :] < n_tail[:, None]) & (rows < tmax)
-        flat = (torch.arange(n, device=dev)[:, None] * tmax
-                + rows.clamp(0, tmax - 1)).view(-1)
-        add = torch.where(writable.view(-1, 1), tail_db, 0.0)
-        mel = mel.view(n * tmax, n_mels).index_add(0, flat, add).view(
-            n, tmax, n_mels)
-        total = count + n_tail
-        rmask = (torch.arange(tmax, device=dev)[None, :]
-                 < total[:, None])[..., None].float()
-        cnt = (total * n_mels).float()
-        mean = (mel * rmask).sum(dim=(1, 2)) / cnt.clamp(min=1.0)
-        centred = mel - mean[:, None, None]
-        var = ((centred.square() * rmask).sum(dim=(1, 2))
-               / (cnt - 1.0).clamp(min=1.0))
-        feats = centred / (var.sqrt()[:, None, None] + params.norm_eps) * rmask
-        logits = model(feats.transpose(1, 2))
-        return torch.softmax(logits.float(), dim=-1)
+        return finalize_tensors(model, params, mel, frames, lengths[0],
+                                lengths[1])
+
+
+def finalize_tensors(model: torch.nn.Module, params: FrontendParams,
+                     mel: torch.Tensor, frames: torch.Tensor,
+                     count: torch.Tensor, n_tail: torch.Tensor
+                     ) -> torch.Tensor:
+    """The device part of :func:`fused_finalize`, on its operands as
+    tensors on ``params``' device (``count`` and ``n_tail`` int64).
+
+    The N * K tail frames go through K4 in one launch; the valid ones are
+    added at rows ``count + i`` (those below target_length); then the
+    masked per-utterance normalization (mean and ddof=1 variance over
+    ``count + n_tail`` rows, ``+ norm_eps`` on the std), the zero pad, and
+    the model.  Returns (N, C) float32 probabilities.
+    """
+    dev = params.window.device
+    n, k = frames.shape[:2]
+    tmax, n_mels = params.target_length, params.n_mels
+    tail_db = fk.mel_db(frames.reshape(n * k, params.n_fft), params)
+    steps = torch.arange(k, device=dev)
+    rows = count[:, None] + steps[None, :]  # (N, K)
+    writable = (steps[None, :] < n_tail[:, None]) & (rows < tmax)
+    flat = (torch.arange(n, device=dev)[:, None] * tmax
+            + rows.clamp(0, tmax - 1)).view(-1)
+    add = torch.where(writable.view(-1, 1), tail_db, 0.0)
+    mel = mel.reshape(n * tmax, n_mels).index_add(0, flat, add).view(
+        n, tmax, n_mels)
+    total = count + n_tail
+    rmask = (torch.arange(tmax, device=dev)[None, :]
+             < total[:, None])[..., None].float()
+    cnt = (total * n_mels).float()
+    mean = (mel * rmask).sum(dim=(1, 2)) / cnt.clamp(min=1.0)
+    centred = mel - mean[:, None, None]
+    var = ((centred.square() * rmask).sum(dim=(1, 2))
+           / (cnt - 1.0).clamp(min=1.0))
+    feats = centred / (var.sqrt()[:, None, None] + params.norm_eps) * rmask
+    logits = model(feats.transpose(1, 2))
+    return torch.softmax(logits.float(), dim=-1)
+
+
+class StreamFinalize(torch.nn.Module):
+    """One utterance's end: (target_length, n_mels) float32 rows, the
+    int64 count of rows that hold frames, (K, n_fft) float32 raw tail
+    frames and the int64 count of valid ones -> (C,) probabilities;
+    :func:`finalize_tensors` at N = 1, the classifier ``model`` and the
+    front-end ``params`` held as a module."""
+
+    def __init__(self, model: torch.nn.Module, params: FrontendParams):
+        super().__init__()
+        self.model = model
+        self.frontend = FrontendModule(params)
+
+    def forward(self, mel_buf, count, tail, n_tail):
+        return finalize_tensors(self.model, self.frontend.params,
+                                mel_buf[None], tail[None], count.reshape(1),
+                                n_tail.reshape(1))[0]
+
+
+class StreamClassify(torch.nn.Module):
+    """(n_mels, target_length) normalized features -> (C,) probabilities:
+    the partial hypothesis's classifier."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, feats):
+        return torch.softmax(self.model(feats[None]).float(), dim=-1)[0]
+
+
+def stream_calls(predictor) -> Dict[str, torch.nn.Module]:
+    """``{"fused_finalize": ..., "classify": ...}`` of ``predictor``: its
+    own when it has them (an exported artifact), else a
+    :class:`StreamFinalize` and a :class:`StreamClassify` over its model,
+    built once and kept on it, so that its sessions share them."""
+    calls = getattr(predictor, "_stream_calls", None)
+    if calls is None:
+        calls = predictor._stream_calls = {
+            "fused_finalize": StreamFinalize(predictor.model,
+                                             predictor.frontend_params),
+            "classify": StreamClassify(predictor.model)}
+    return calls
 
 
 _stamps = itertools.count()
@@ -586,17 +651,19 @@ class StreamingRecognizer:
             pending = self.batch_finalizer.submit(mel_buf, count, tail,
                                                   remaining, inv)
             return pending if self.async_results else pending.resolve()
-        probs = fused_finalize(self.predictor.model, self._featurizer.params,
-                               mel_buf[None], np.asarray([count]),
-                               tail[None], np.asarray([remaining]))[0]
+        dev = self.predictor.device
+        lengths = torch.tensor([count, remaining]).to(dev)
+        with torch.inference_mode():
+            probs = stream_calls(self.predictor)["fused_finalize"](
+                torch.from_numpy(mel_buf).to(dev), lengths[0],
+                torch.from_numpy(tail).to(dev), lengths[1])
         pending = PendingResult(probs, inv)
         return pending if self.async_results else pending.resolve()
 
     def _run_classifier(self, feats: np.ndarray):
         with torch.inference_mode():
             x = torch.from_numpy(feats).to(self.predictor.device)
-            logits = self.predictor.model(x[None])
-            probs = torch.softmax(logits.float(), dim=-1)[0]
+            probs = stream_calls(self.predictor)["classify"](x)
         pending = PendingResult(probs, self.predictor.inv_label_map)
         return pending if self.async_results else pending.resolve()
 

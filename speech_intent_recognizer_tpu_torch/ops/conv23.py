@@ -8,7 +8,10 @@ with both weight sets resident in shared memory walk (utterance, range of
 output rows) work items in time order; one warpgroup makes pooled conv2
 rows, the other conv3's output rows, both as nine tap products on
 ``wgmma``; its header says what bounds it on the H100.
-:func:`conv23_plan` picks the range length.
+:func:`conv23_plan` picks the range length.  The kernel is the op
+``sir::conv23`` (``ops/library.py``): the wrapper calls it for CUDA
+tensors, and its ``CUDA`` implementation (:func:`_conv23_cuda`) plans on
+the card it runs on, launches and counts.
 
 Rounding points, the same in the kernel and the plain version: operands
 bf16, sums fp32, bias added in fp32, ReLU, 2x2 max-pool, stage 1's pooled
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_intent_recognizer_tpu_torch import _build
+from speech_intent_recognizer_tpu_torch.ops import library
 
 # geometry compiled into csrc/conv23.cu
 M1, C1, C2, C3 = 32, 32, 64, 128
@@ -175,18 +179,21 @@ def conv23(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
         return _conv23_plain(x, w2, b2, w3, b3)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous() or x.data_ptr() % 16 or w2.data_ptr() % 16 \
-            or w3.data_ptr() % 16:
+    if not x.is_contiguous():
+        raise ValueError("conv23 takes contiguous 16-byte aligned tensors")
+    if rows is not None and rows < 1:
+        raise ValueError(f"rows must be positive, got {rows}")
+    return torch.ops.sir.conv23(x, w2, b2, w3, b3, rows or 0)
+
+
+def _conv23_cuda(x, w2, b2, w3, b3, rows):
+    if x.data_ptr() % 16 or w2.data_ptr() % 16 or w3.data_ptr() % 16:
         raise ValueError("conv23 takes contiguous 16-byte aligned tensors")
     b, t1, _ = x.shape
     out = torch.empty((b, t1 // 4, (M1 // 4) * C3), dtype=torch.bfloat16,
                       device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = conv23_plan(b, t1, sms)
-    if rows is not None:
-        if rows < 1:
-            raise ValueError(f"rows must be positive, got {rows}")
-        plan = Conv23Plan(rows, sms)
+    plan = conv23_plan(b, t1, sms) if rows == 0 else Conv23Plan(rows, sms)
     lib = _build.load()
     with torch.cuda.device(x.device):
         rc = lib.sir_conv23(x.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -198,6 +205,11 @@ def conv23(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     return out
 
 
+def _conv23_cpu(x, w2, b2, w3, b3, rows):
+    return _conv23_plain(x, w2, b2, w3, b3)
+
+
+library.implement("conv23", _conv23_cuda, _conv23_cpu)
 conv23.launches = 0
 
 

@@ -60,6 +60,27 @@ class FrontendParams(NamedTuple):
     norm_eps: float
 
 
+class FrontendModule(torch.nn.Module):
+    """A :class:`FrontendParams` held by a module: its six tensors as
+    non-persistent buffers, so that ``.to()`` moves them with the module
+    and a program traced from it (``torch.export``) keeps them as
+    constants, outside its weights; :attr:`params` gives them back."""
+
+    _TENSORS = FrontendParams._fields[:6]
+
+    def __init__(self, params: FrontendParams):
+        super().__init__()
+        for name in self._TENSORS:
+            self.register_buffer(name, getattr(params, name),
+                                 persistent=False)
+        self._scalars = tuple(params[len(self._TENSORS):])
+
+    @property
+    def params(self) -> FrontendParams:
+        return FrontendParams(*(getattr(self, n) for n in self._TENSORS),
+                              *self._scalars)
+
+
 def make_frontend_params(cfg: Optional[AudioConfig] = None,
                          device: "str | torch.device" = "cpu"
                          ) -> FrontendParams:

@@ -25,6 +25,12 @@ Each source's header says what bounds it on the H100 and how the design
 answers that.  K1 and K3 serve exactly the reference geometry: torchaudio
 mode, n_fft 1024, hop 512, 64 mels, 200 output frames (and 32 conv1
 channels for K1).
+
+Each kernel is also the ``sir`` op of its wrapper's name
+(``ops/library.py``): the wrapper checks its operands and calls the op for
+CUDA tensors; the op's ``CUDA`` implementation (``_*_cuda`` here) launches
+the kernel and counts the launch, its ``CPU`` implementation is the plain
+version.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_intent_recognizer_tpu_torch import _build
+from speech_intent_recognizer_tpu_torch.ops import library
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     FrontendParams, log_mel_frontend_plain)
 
@@ -117,10 +124,17 @@ def frontend_conv1(waveforms: torch.Tensor, lengths: torch.Tensor,
     if waveforms.device.type == "cpu":
         return _frontend_conv1_plain(waveforms, lengths, params,
                                      conv1_weight, conv1_bias)
-    dev = _check_cuda_operands(waveforms, lengths)
+    _filterbank_operands(params, _check_cuda_operands(waveforms, lengths))
+    return torch.ops.sir.frontend_conv1(waveforms, lengths, conv1_weight,
+                                        conv1_bias, *params)
+
+
+def _frontend_conv1_cuda(waveforms, lengths, conv1_weight, conv1_bias,
+                         *flat):
+    params = FrontendParams(*flat)
+    dev = waveforms.device
     w = conv1_weight.to(torch.bfloat16).contiguous()
     b = conv1_bias.to(torch.bfloat16).contiguous()
-    _filterbank_operands(params, dev)
     batch, width = waveforms.shape
     out = torch.empty((batch, T_OUT // 2, (N_MELS // 2) * C1),
                       dtype=torch.bfloat16, device=dev)
@@ -161,18 +175,25 @@ def frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
         return log_mel_frontend_plain(waveforms, lengths, params, normalize,
                                       out_dtype)
     _check_geometry(waveforms, lengths, params, "K3")
-    dev = _check_cuda_operands(waveforms, lengths)
-    window, twiddle, fb_packed, fb_off, fb_lo = _filterbank_operands(
-        params, dev)
+    _filterbank_operands(params, _check_cuda_operands(waveforms, lengths))
+    return torch.ops.sir.frontend(waveforms, lengths, normalize,
+                                  out_dtype == torch.bfloat16, *params)
+
+
+def _frontend_cuda(waveforms, lengths, normalize, bf16, *flat):
+    params = FrontendParams(*flat)
+    dev = waveforms.device
     batch, width = waveforms.shape
-    out = torch.empty((batch, N_MELS, T_OUT), dtype=out_dtype, device=dev)
+    out = torch.empty((batch, N_MELS, T_OUT),
+                      dtype=torch.bfloat16 if bf16 else torch.float32,
+                      device=dev)
     lib = _build.load()
-    fn = (lib.sir_frontend_f32 if out_dtype == torch.float32
-          else lib.sir_frontend_bf16)
+    fn = lib.sir_frontend_bf16 if bf16 else lib.sir_frontend_f32
     with torch.cuda.device(dev):
         rc = fn(waveforms.data_ptr(), lengths.data_ptr(), batch, width,
-                window.data_ptr(), twiddle.data_ptr(), fb_packed.data_ptr(),
-                fb_off.data_ptr(), fb_lo.data_ptr(), fb_packed.numel(),
+                params.window.data_ptr(), params.twiddle.data_ptr(),
+                params.fb_packed.data_ptr(), params.fb_off.data_ptr(),
+                params.fb_lo.data_ptr(), params.fb_packed.numel(),
                 out.data_ptr(), int(normalize), float(params.norm_eps),
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "frontend")
@@ -246,18 +267,23 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
                          f"from 32 to 4096, got {n_fft}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
+    _filterbank_operands(params, frames.device)
+    return torch.ops.sir.mel_db(frames, *params)
+
+
+def _mel_db_cuda(frames, *flat):
+    params = FrontendParams(*flat)
     dev = frames.device
-    window, twiddle, fb_packed, fb_off, fb_lo = _filterbank_operands(
-        params, dev)
     n = frames.shape[0]
     out = torch.empty((n, params.n_mels), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.sir_mel_db(frames.data_ptr(), n, n_fft, params.n_mels,
-                            window.data_ptr(), twiddle.data_ptr(),
-                            fb_packed.data_ptr(), fb_off.data_ptr(),
-                            fb_lo.data_ptr(), fb_packed.numel(),
-                            out.data_ptr(),
+        rc = lib.sir_mel_db(frames.data_ptr(), n, params.n_fft,
+                            params.n_mels, params.window.data_ptr(),
+                            params.twiddle.data_ptr(),
+                            params.fb_packed.data_ptr(),
+                            params.fb_off.data_ptr(), params.fb_lo.data_ptr(),
+                            params.fb_packed.numel(), out.data_ptr(),
                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "mel_db")
     mel_db.launches += 1
@@ -266,6 +292,25 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
 
 mel_db.launches = 0
 
+# the ops' CPU implementations: the plain versions on flattened params
+def _frontend_conv1_cpu(waveforms, lengths, conv1_weight, conv1_bias, *flat):
+    return _frontend_conv1_plain(waveforms, lengths, FrontendParams(*flat),
+                                 conv1_weight, conv1_bias)
+
+
+def _frontend_cpu(waveforms, lengths, normalize, bf16, *flat):
+    return log_mel_frontend_plain(waveforms, lengths, FrontendParams(*flat),
+                                  normalize,
+                                  torch.bfloat16 if bf16 else torch.float32)
+
+
+def _mel_db_cpu(frames, *flat):
+    return _mel_db_plain(frames, FrontendParams(*flat))
+
+
+library.implement("frontend_conv1", _frontend_conv1_cuda, _frontend_conv1_cpu)
+library.implement("frontend", _frontend_cuda, _frontend_cpu)
+library.implement("mel_db", _mel_db_cuda, _mel_db_cpu)
 
 def kernel_resources(dev: "str | torch.device",
                      mel_db_params: Tuple[FrontendParams, ...] = ()

@@ -19,7 +19,11 @@ clusters), or the CUDA-core kernel (``"simt"``: fp32 operands, the parity
 path, and bf16 at any other H; W_hh streams from L2 every step).
 
 Under autograd :func:`gru_layer` runs through :class:`_GRULayer`, which
-saves (gx, w, bn, ys) as ``_gru_layer_diff_fwd`` does.  Each source's header
+saves (gx, w, bn, ys) as ``_gru_layer_diff_fwd`` does.  The forward kernel
+is the op ``sir::gru_layer`` (``ops/library.py``): for CUDA tensors the
+forward calls it, and its ``CUDA`` implementation (:func:`_gru_layer_cuda`)
+picks the plan on the card it runs on, launches and counts; the backward
+is launched from :class:`_GRULayer` directly.  Each source's header
 says what bounds it on the H100 and how the design answers that.
 """
 
@@ -30,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from speech_intent_recognizer_tpu_torch import _build
+from speech_intent_recognizer_tpu_torch.ops import library
 
 
 def _gru_layer_plain(gx: torch.Tensor, w: torch.Tensor,
@@ -175,8 +180,9 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
 gru_layer.launches = 0
 
 
-def _cuda_plan(gx, tensors, rows, backward=False) -> Plan:
-    """Validate CUDA operands of K2 / K2 backward; what to launch."""
+def _check_cuda(gx, tensors, rows, backward=False) -> "Plan | None":
+    """Validate CUDA operands of K2 / K2 backward and a forced plan; the
+    plan, or None where :func:`picked_plan` picks it on the card."""
     hidden = gx.shape[-1] // 3
     if any(t.device != gx.device or not t.is_contiguous() for t in tensors):
         raise ValueError("GRU operands must be contiguous on one device")
@@ -184,7 +190,7 @@ def _cuda_plan(gx, tensors, rows, backward=False) -> Plan:
         raise ValueError(f"hidden size {hidden} must be a multiple of 32, "
                          "at most 1024")
     if rows is None:
-        return picked_plan(gx.shape[2], hidden, gx.dtype, gx.device, backward)
+        return None
     plan = rows if isinstance(rows, Plan) else Plan("simt", rows)
     if plan.kernel == "simt":
         if plan.rows not in TILE_ROWS:
@@ -201,6 +207,15 @@ def _cuda_plan(gx, tensors, rows, backward=False) -> Plan:
                              f"{hidden}")
     else:
         raise ValueError(f"unknown kernel {plan.kernel!r}")
+    return plan
+
+
+def _cuda_plan(gx, tensors, rows, backward=False) -> Plan:
+    """Validate CUDA operands of K2 / K2 backward; what to launch."""
+    plan = _check_cuda(gx, tensors, rows, backward)
+    if plan is None:
+        return picked_plan(gx.shape[2], gx.shape[-1] // 3, gx.dtype,
+                           gx.device, backward)
     return plan
 
 
@@ -238,9 +253,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _gru_layer_forward(gx, w, bn, rows):
     if gx.device.type == "cpu":
         return _gru_layer_plain(gx, w, bn)
+    plan = _check_cuda(gx, (gx, w, bn), rows) or Plan("", 0)
+    return torch.ops.sir.gru_layer(gx, w, bn, plan.kernel, plan.rows)
+
+
+def _gru_layer_cuda(gx, w, bn, kernel, rows):
     two, steps, batch, three_h = gx.shape
     hidden = three_h // 3
-    plan = _cuda_plan(gx, (gx, w, bn), rows)
+    plan = (Plan(kernel, rows) if kernel
+            else picked_plan(batch, hidden, gx.dtype, gx.device))
     out = torch.empty((2, steps, batch, hidden), dtype=gx.dtype,
                       device=gx.device)
     lib = _build.load()
@@ -257,6 +278,13 @@ def _gru_layer_forward(gx, w, bn, rows):
     _build.check(rc, "gru_layer")
     gru_layer.launches += 1
     return out
+
+
+def _gru_layer_cpu(gx, w, bn, kernel, rows):
+    return _gru_layer_plain(gx, w, bn)
+
+
+library.implement("gru_layer", _gru_layer_cuda, _gru_layer_cpu)
 
 
 def _gru_layer_backward_plain(gx: torch.Tensor, w: torch.Tensor,
@@ -412,13 +440,15 @@ def gru_bidirectional(gx_fwd, gx_bwd, w_hh_fwd, w_hh_bwd, b_hh_fwd,
     (T, B, H) in forward time order.
     """
     hidden = w_hh_fwd.shape[1]
-
-    def rz(b):  # only the r/z parts of b_hh fold into gx; b_hn stays inside
-        return torch.cat([b[:2 * hidden], b.new_zeros(hidden)])
-
-    gx = torch.stack([gx_fwd + rz(b_hh_fwd), gx_bwd.flip(0) + rz(b_hh_bwd)])
+    # only the r/z parts of b_hh fold into gx; b_hn stays inside.  Split
+    # and unbind, not indexing: a graph traced on fake CUDA tensors in a
+    # CPU-only build cannot index them (tests/test_torch_export.py)
+    (rz_f, bn_f), (rz_b, bn_b) = (b.split([2 * hidden, hidden])
+                                  for b in (b_hh_fwd, b_hh_bwd))
+    gx = torch.stack([gx_fwd + torch.cat([rz_f, bn_f.new_zeros(hidden)]),
+                      gx_bwd.flip(0) + torch.cat([rz_b,
+                                                  bn_b.new_zeros(hidden)])])
     w = torch.stack([w_hh_fwd.t(), w_hh_bwd.t()]).contiguous()
-    bn = torch.stack([b_hh_fwd[2 * hidden:], b_hh_bwd[2 * hidden:]])[
-        :, None, :].float().contiguous()
-    ys = gru_layer(gx, w, bn)
-    return ys[0], ys[1].flip(0)
+    bn = torch.stack([bn_f, bn_b]).unsqueeze(1).float().contiguous()
+    ys_f, ys_b = gru_layer(gx, w, bn).unbind(0)
+    return ys_f, ys_b.flip(0)

@@ -6,7 +6,10 @@ Replaces ``speech_intent_recognizer_tpu/ops/pool_epilogue_pallas.py``
 ``bias_relu_pool2_pallas``).  CUDA source ``csrc/pool_epilogue.cu``: one
 thread per 16-byte channel vector of one output pixel; its header says what
 bounds it on the H100.  The convolution before it stays a library call
-(``F.conv2d`` without bias), as the JAX package leaves it to XLA.
+(``F.conv2d`` without bias), as the JAX package leaves it to XLA.  The
+kernel is the op ``sir::bias_relu_pool2`` (``ops/library.py``): the
+wrapper calls it for CUDA tensors, and its ``CUDA`` implementation
+(:func:`_bias_relu_pool2_cuda`) checks the layout, launches and counts.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_intent_recognizer_tpu_torch import _build
+from speech_intent_recognizer_tpu_torch.ops import library
 
 
 def _check(y: torch.Tensor, bias: torch.Tensor) -> None:
@@ -68,6 +72,10 @@ def bias_relu_pool2(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         return _bias_relu_pool2_plain(y, bias)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
+    return torch.ops.sir.bias_relu_pool2(y, bias)
+
+
+def _bias_relu_pool2_cuda(y, bias):
     b, c, t, w = y.shape
     if not y.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("bias_relu_pool2 reads (B, T, W, C)-contiguous "
@@ -86,4 +94,6 @@ def bias_relu_pool2(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return out
 
 
+library.implement("bias_relu_pool2", _bias_relu_pool2_cuda,
+                  _bias_relu_pool2_plain)
 bias_relu_pool2.launches = 0

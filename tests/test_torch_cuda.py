@@ -983,3 +983,81 @@ def test_waveform_train_step_card_matches_cpu(dev):
             1e-5 + 1e-3 * scale, n
     for n in s_cpu:
         assert float((s_dev[n] - s_cpu[n]).abs().max()) <= 1e-5, n
+
+
+# ------------------------------------------------------ ops and artifacts
+
+
+def _op_calls(dev):
+    """Each kernel's wrapper and its ``sir`` op on the same CUDA operands:
+    name -> (wrapper call, op call)."""
+    fe = make_frontend_params(device=dev)
+    wf, ln = _waves([24000, 80000, 3000, 1], seed=5)
+    wf, ln = wf.to(dev), ln.to(dev)
+    g = torch.Generator().manual_seed(1)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    c1w, c1b = t(32, 1, 3, 3), t(32)
+    frames = t(37, 1024)
+    gx, w, bn = t(2, 25, 40, 768, dtype=torch.bfloat16), \
+        t(2, 256, 768, dtype=torch.bfloat16) * 0.05, t(2, 1, 256)
+    x = t(5, 100, 1024, dtype=torch.bfloat16)
+    ops = conv23_operands(t(64, 32, 3, 3) * 0.1, t(64), t(128, 64, 3, 3) * 0.1,
+                          t(128))
+    y = t(3, 64, 50, 16).contiguous(memory_format=torch.channels_last)
+    bias = t(64)
+    sir = torch.ops.sir
+    return {
+        "frontend_conv1": (lambda: fk.frontend_conv1(wf, ln, fe, c1w, c1b),
+                           lambda: sir.frontend_conv1(wf, ln, c1w, c1b, *fe)),
+        "frontend": (lambda: fk.frontend(wf, ln, fe, False, torch.bfloat16),
+                     lambda: sir.frontend(wf, ln, False, True, *fe)),
+        "mel_db": (lambda: fk.mel_db(frames, fe),
+                   lambda: sir.mel_db(frames, *fe)),
+        "gru_layer": (lambda: gru_layer(gx, w, bn),
+                      lambda: sir.gru_layer(gx, w, bn, "", 0)),
+        "conv23": (lambda: conv23(x, *ops), lambda: sir.conv23(x, *ops, 0)),
+        "bias_relu_pool2": (lambda: bias_relu_pool2(y, bias),
+                            lambda: sir.bias_relu_pool2(y, bias)),
+    }
+
+
+@pytest.mark.parametrize("name", ["frontend_conv1", "frontend", "mel_db",
+                                  "gru_layer", "conv23", "bias_relu_pool2"])
+def test_op_equals_its_wrapper_on_card(dev, name):
+    """Each ``sir`` op called directly on CUDA tensors launches its kernel
+    once and gives its wrapper's bits."""
+    wrapper, op = _op_calls(dev)[name]
+    want = wrapper()
+    _reset()
+    got = op()
+    torch.cuda.synchronize()
+    assert sum(_counts().values()) == 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_production_artifact_equals_live_predictor(dev, tmp_path):
+    """A production artifact pinned at B=8, loaded from its directory:
+    K1 once and K2 twice per call, rows bit-equal to the live predictor's
+    at B=8 and, routed to that program, at B=3."""
+    from speech_intent_recognizer_tpu_torch.infer.export import (
+        ServingModel, export_predictor)
+
+    pred, _ = _predictors(dev, tmp_path)
+    export_predictor(pred, str(tmp_path / "art"), flavor="production",
+                     batch_sizes=(8,))
+    srv = ServingModel.load(str(tmp_path / "art"), device=dev)
+    wf, ln = _waves([24000, 80000, 3000, 1, 512, 40000, 79999, 16000],
+                    seed=6)
+    _reset()
+    got = srv.predict_waveform_batch(wf, ln)
+    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 0,
+                         "K6": 0}
+    assert np.array_equal(got, pred.predict_waveform_batch(wf, ln))
+    short_wf = torch.cat([wf[:3], torch.zeros((5, wf.shape[1]))])
+    short_ln = torch.cat([ln[:3], torch.ones(5, dtype=torch.int32)])
+    assert np.array_equal(srv.predict_waveform_batch(wf[:3], ln[:3]),
+                          pred.predict_waveform_batch(short_wf,
+                                                      short_ln)[:3])

@@ -113,8 +113,8 @@ def test_pool_impl_kernel_predictor_matches_default(checkpoints, port):
     pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
                                      str(checkpoints / "label_map.json"),
                                      device="cpu", pool_impl="kernel")
-    assert pred._conv1[0].pool_impl == "kernel"
-    assert port._conv1[0].pool_impl == "torch"  # the default
+    assert pred._conv1.model.pool_impl == "kernel"
+    assert port._conv1.model.pool_impl == "torch"  # the default
     buf, ln = _buffers(port, np.random.default_rng(16), [30000, 5000])
     np.testing.assert_allclose(pred.predict_waveform_batch(buf, ln),
                                port.predict_waveform_batch(buf, ln),
