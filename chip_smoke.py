@@ -183,13 +183,18 @@ from speech_intent_recognizer_tpu_torch.data.labelmap import save_label_map
 from speech_intent_recognizer_tpu_torch.infer import streaming
 from speech_intent_recognizer_tpu_torch.infer.mic import (
     FileAudioSource, run_live)
-from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
+from speech_intent_recognizer_tpu_torch.infer.predict import (
+    Predictor, Wav2VecPredictor)
 from speech_intent_recognizer_tpu_torch.infer.server import (
     IntentServer, encode_chunk)
 from speech_intent_recognizer_tpu_torch.infer.streaming import (
     BatchFinalizer, PendingResult, StreamingRecognizer, fused_finalize)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
     CNNAudioGRU, fold_batchnorm)
+from speech_intent_recognizer_tpu_torch.models.wav2vec import (
+    Wav2Vec2Config, Wav2VecIntent, feature_extractor_params)
+from speech_intent_recognizer_tpu_torch.models.wav2vec_backbone import (
+    feat_extract_output_lengths)
 from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 from speech_intent_recognizer_tpu_torch.ops import conv23 as conv23_ops
@@ -205,6 +210,8 @@ from speech_intent_recognizer_tpu_torch.ops.gru import (
 from speech_intent_recognizer_tpu_torch.ops import pool_epilogue as pool_ops
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
+from speech_intent_recognizer_tpu_torch.train.wav2vec_trainer import (
+    Wav2VecTrainer, create_wav2vec_optimizer)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
 
@@ -333,6 +340,36 @@ EXPORT_LAUNCHES = {"default": {"K1": 1, "K2": 2},
                    "unfused": {"K3": 1, "K2": 2}}
 EXPORT_TIMED = (256, 2048)
 DISPATCH_ROUNDS = 6
+# phase 19: the wav2vec family at the width of facebook/wav2vec2-base
+# (models/wav2vec.Wav2Vec2Config's defaults), seeded weights, 31 classes.
+# Card vs CPU in fp32 (TF32 off, set in main()): one 1 s row and one of 300
+# samples (feature length <= 0); forward within 1e-4 of each tensor's
+# largest magnitude, one fine-tune step at phase 13's bars, the parameters
+# after it within two AdamW steps (2 lr: a gradient within fp32 noise of 0
+# moves its weight by +-lr on each side) with at most W2V_FAR_SHARE of them
+# beyond 1e-3 lr (8.1e-4 in the first run on the H100: the share of
+# gradients within fp32 noise of zero).  bf16 against fp32 on the card, logits within
+# W2V_BF16_BAR of their largest magnitude (the JAX package's bf16 path is
+# 0.3 % from its fp32 at the tiny config, tests/test_torch_wav2vec.py)
+W2V_CLASSES = 31
+W2V_SEED = 19
+W2V_CPU_LENGTHS = (16000, 300)
+W2V_FWD_BAR = 1e-4
+W2V_LR = 1e-4
+W2V_FAR_SHARE = 1e-3
+W2V_BF16_BAR = 2e-2
+W2V_BF16_ROWS = 8
+# the timed cells: inference at B=64 x 3 s, the fine-tune step at B=8 x 5 s
+# (the reference recipe) and B=16 x 3 s
+W2V_INFER = (64, 48000)
+W2V_STEPS = ((8, 80000), (16, 48000))
+# cli.train_wav2vec --small on phase 15's corpus; the artifacts of its
+# model, pinned at these batches, asked for 8 rows and 20 (routed to 32)
+W2V_TRAIN_EPOCHS = 2
+W2V_TRAIN_BATCH = 8
+W2V_WARMUP = 8
+W2V_EXPORT_SIZES = (8, 32)
+W2V_EXPORT_REQUESTS = (8, 20)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "narrow_model")
 FIXTURE_LABELS = os.path.join(ROOT, "tests", "data", "narrow_label_map.json")
@@ -2380,6 +2417,367 @@ def check_export(dev, tmp: str, run: dict, label: str) -> dict:
             "route_ms": route_ms}
 
 
+def wav2vec_flops(cfg, n_samples: int, num_classes: int) -> tuple:
+    """Operations of one utterance through ``Wav2VecIntent``, counted from
+    the shapes: (the conv feature encoder's, the rest's), 2 per
+    multiply-add (the convolutions, the projection, the positional conv,
+    q / k / v / out, scores and their sum over values, the FFN, the
+    head)."""
+    t, c_in, conv = n_samples, 1, 0.0
+    for c_out, k, st in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        t = (t - k) // st + 1
+        conv += 2.0 * t * c_out * c_in * k
+        c_in = c_out
+    h, g = cfg.hidden_size, cfg.num_conv_pos_embedding_groups
+    rest = 2.0 * t * c_in * h + 2.0 * t * h * (h // g) * \
+        cfg.num_conv_pos_embeddings
+    rest += cfg.num_hidden_layers * (4 * 2.0 * t * h * h + 2 * 2.0 * t * t * h
+                                     + 2 * 2.0 * t * h * cfg.intermediate_size)
+    return conv, rest + 2.0 * t * h + 2.0 * h * num_classes
+
+
+def seeded_wav2vec(cfg, dtype=torch.float32) -> "Wav2VecIntent":
+    """The seeded full-width model of phase 19, its biases, norm parameters
+    and mask embedding moved by 0.1 N(0, 1) off their initial zeros and
+    ones, as a trained model's are.  At zero biases a row of feature length
+    <= 0 stays exactly constant through the encoder, and its gradient grows
+    by ~1 / sqrt(eps) at each of the 25 layer norms until it overflows: the
+    JAX package does the same (ROADMAP Queue 3, noted in the reference)."""
+    model = Wav2VecIntent(cfg, W2V_CLASSES, dtype).reset_parameters(
+        torch.Generator().manual_seed(W2V_SEED))
+    gen = torch.Generator().manual_seed(W2V_SEED + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def wav2vec_case(dev, tmp: str) -> dict:
+    """Phase 19a: the full-width model card vs CPU (fp32), forward and one
+    fine-tune step; bf16 against fp32 on the card."""
+    import copy
+
+    from speech_intent_recognizer_tpu_torch.data.labelmap import (
+        save_label_map)
+
+    cfg = Wav2Vec2Config(hidden_dropout=0.0, attention_dropout=0.0,
+                         activation_dropout=0.0, layerdrop=0.0)
+    cpu_model = seeded_wav2vec(cfg).eval()
+    n_params = sum(p.numel() for p in cpu_model.wav2vec.parameters())
+    width = W2V_CPU_LENGTHS[0]
+    buf, ln = batch(list(W2V_CPU_LENGTHS), width, seed=1900)
+    x = torch.from_numpy(buf)
+    mask = torch.arange(width)[None] < torch.from_numpy(ln)[:, None].long()
+    y = torch.tensor([3, 17])
+    out = {"backbone_params": n_params}
+    runs = {}
+    for d in ("cpu", dev):
+        model = copy.deepcopy(cpu_model).to(d)
+        xd, md = x.to(d), mask.to(d)
+        with torch.no_grad():
+            hidden, logits = model.wav2vec(xd, md), model(xd, md)
+        for p in feature_extractor_params(model):
+            p.requires_grad_(False)
+        trainer = Wav2VecTrainer(
+            model, create_wav2vec_optimizer(model.parameters(), lr=W2V_LR),
+            W2V_CLASSES, max_length=width, noise_prob=0.0)
+        gen = torch.Generator(device=d).manual_seed(0)
+        loss, _ = trainer.train_step(xd, md, y.to(d), gen)
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        runs[str(d)] = (hidden.cpu(), logits.cpu(), float(loss), grads,
+                        {n: t.detach().cpu() for n, t in
+                         model.state_dict().items()})
+    (h_c, l_c, loss_c, g_c, s_c), (h_d, l_d, loss_d, g_d, s_d) = (
+        runs["cpu"], runs[str(dev)])
+    for key, name, got, want in (("hidden", "last hidden state", h_d, h_c),
+                                 ("logits", "logits", l_d, l_c)):
+        err, scale = max_err(got, want), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= W2V_FWD_BAR * scale,
+              f"wav2vec2-base {name} card vs CPU (fp32, TF32 off, rows "
+              f"{W2V_CPU_LENGTHS}): max |err| {err:.3e} <= {W2V_FWD_BAR} * "
+              f"{scale:.3f}")
+        out[f"{key}_err"] = err
+    t_out, short = (int(feat_extract_output_lengths(cfg, torch.tensor(n)))
+                    for n in W2V_CPU_LENGTHS)
+    want_shape = (2, t_out, cfg.hidden_size)
+    check(tuple(h_c.shape) == want_shape and short <= 0,
+          f"hidden {tuple(h_c.shape)} (want {want_shape}); the "
+          f"{W2V_CPU_LENGTHS[1]}-sample row has feature length {short} <= 0")
+    loss_err = abs(loss_d - loss_c) / abs(loss_c)
+    worst = max(g_c, key=lambda n: max_err(g_d[n], g_c[n])
+                / (STEP_GRAD_ATOL + STEP_GRAD_RTOL
+                   * float(g_c[n].abs().max())))
+    check(loss_err <= STEP_LOSS_RTOL and sorted(g_c) == sorted(g_d)
+          and all(within_scaled(g_d[n], g_c[n], STEP_GRAD_RTOL,
+                                STEP_GRAD_ATOL) for n in g_c),
+          f"wav2vec fine-tune step card vs CPU (extractor frozen, dropout "
+          f"0, AdamW + plateau): loss {loss_d:.6f} vs {loss_c:.6f}, "
+          f"relative {loss_err:.2e} <= {STEP_LOSS_RTOL}; {len(g_c)} clipped "
+          f"gradients within rtol {STEP_GRAD_RTOL} / atol {STEP_GRAD_ATOL} "
+          f"of scale (closest: {worst}, err "
+          f"{max_err(g_d[worst], g_c[worst]):.2e})")
+    moved = {n: (s_d[n] - s_c[n]).abs() for n in s_c}
+    far = sum(int((m > 1e-3 * W2V_LR).sum()) for m in moved.values())
+    total = sum(m.numel() for m in moved.values())
+    step_err = max(float(m.max()) for m in moved.values())
+    frozen_same = all(torch.equal(s_d[n], cpu_model.state_dict()[n])
+                      for n in s_c if "feature_extractor" in n)
+    check(step_err <= 2.001 * W2V_LR and far <= W2V_FAR_SHARE * total
+          and frozen_same,
+          f"wav2vec parameters after the step, card vs CPU: max |diff| "
+          f"{step_err:.3e} <= 2 lr; {far} of {total} beyond 1e-3 lr (<= "
+          f"{W2V_FAR_SHARE}); the frozen extractor unchanged")
+    out.update(loss_rel_err=loss_err, param_far=far)
+
+    # bf16 against fp32 on the card, through Wav2VecPredictor
+    labels = os.path.join(tmp, "w2v_labels.json")
+    save_label_map({f"intent_{i}": i for i in range(W2V_CLASSES)}, labels)
+    rng = np.random.default_rng(1901)
+    lens = list(rng.integers(16000, 80001, W2V_BF16_ROWS))
+    buf, ln = batch(lens, 80000, seed=1902)
+    preds, logits = {}, {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = Wav2VecIntent(Wav2Vec2Config(), W2V_CLASSES, dtype)
+        model.load_state_dict(cpu_model.state_dict())
+        preds[name] = Wav2VecPredictor(model, {f"intent_{i}": i for i in
+                                               range(W2V_CLASSES)},
+                                       AudioConfig(), dev)
+        probs = preds[name].predict_waveform_batch(buf, ln)
+        check(probs.shape == (W2V_BF16_ROWS, W2V_CLASSES)
+              and bool(np.isfinite(probs).all())
+              and float(np.abs(probs.sum(-1) - 1).max()) < 1e-4,
+              f"Wav2VecPredictor {name}, B={W2V_BF16_ROWS} of 1-5 s: "
+              f"probabilities finite, rows sum to 1")
+        wf = torch.from_numpy(buf).to(dev)
+        keep = torch.arange(80000, device=dev)[None] < torch.from_numpy(
+            ln).to(dev)[:, None]
+        with torch.no_grad():
+            logits[name] = preds[name].model(wf, keep).float().cpu()
+        check(np.abs(torch.softmax(logits[name], -1).numpy() - probs).max()
+              < 1e-6, f"{name} predictor's probabilities are its logits' "
+              f"softmax")
+    err = max_err(logits["bf16"], logits["fp32"])
+    scale = float(logits["fp32"].abs().max())
+    check(err <= W2V_BF16_BAR * scale,
+          f"wav2vec2-base bf16 vs fp32 on the card, {W2V_BF16_ROWS} rows of "
+          f"1-5 s: logits max |err| {err:.3e} <= {W2V_BF16_BAR} * "
+          f"{scale:.3f}")
+    out["bf16_logit_err"] = err
+    out["bf16_logit_scale"] = scale
+    out["state"] = cpu_model.state_dict()
+    return out
+
+
+def wav2vec_cli(dev, tmp: str, run: dict) -> dict:
+    """Phase 19b: ``cli.train_wav2vec --small`` on phase 15's corpus, its
+    model through ``cli.test_model`` and ``cli.evaluate`` with
+    ``--model_type wav2vec``, one epoch of the warmup-cosine recipe; then
+    the model's serving artifacts (production pinned at
+    W2V_EXPORT_SIZES, portable), each loaded in a process of its own."""
+    from speech_intent_recognizer_tpu_torch.cli import evaluate as cli_eval
+    from speech_intent_recognizer_tpu_torch.cli import test_model
+    from speech_intent_recognizer_tpu_torch.cli import train_wav2vec
+    from speech_intent_recognizer_tpu_torch.data.manifest import (
+        read_manifest)
+    from speech_intent_recognizer_tpu_torch.evaluation.evaluate import (
+        evaluate_manifest_with_predictor)
+    from speech_intent_recognizer_tpu_torch.infer.export import (
+        export_predictor)
+
+    csvs, labels = run["csvs"], run["label_map"]
+    out = {}
+    for name, extra, epochs in (("plateau", [], W2V_TRAIN_EPOCHS),
+                                ("warmup", ["--warmup_steps",
+                                            str(W2V_WARMUP)], 1)):
+        save = os.path.join(tmp, f"w2v_{name}")
+        cfg_path = os.path.join(tmp, f"w2v_{name}.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(f"model:\n  num_labels: {TONE_CLASSES}\n"
+                    f"train:\n  save_path: {save}\n"
+                    f"  early_stop_patience: {epochs}\n")
+        t0 = time.perf_counter()
+        result = train_wav2vec.main([
+            "--config", cfg_path, "--train_csv", csvs["train"], "--val_csv",
+            csvs["valid"], "--label_map", labels, "--small", "--epochs",
+            str(epochs), "--batch_size", str(W2V_TRAIN_BATCH), "--device",
+            str(dev), *extra])
+        out[f"{name}_s"] = time.perf_counter() - t0
+        losses = [h["train_loss"] for h in result["history"]]
+        check(len(losses) == epochs and all(np.isfinite(losses)),
+              f"cli.train_wav2vec --small ({name}): {epochs} epochs, train "
+              f"loss finite {[round(v, 4) for v in losses]}")
+        out[f"{name}_val_acc"] = result["best_val_acc"]
+        out[f"{name}_history"] = [
+            {k: round(v, 4) for k, v in h.items()} for h in result["history"]]
+    ckpt = os.path.join(tmp, "w2v_plateau", "wav2vec_intent.pt")
+    cfg_path = os.path.join(tmp, "w2v_plateau.yaml")
+    wav = read_manifest(csvs["test"]).paths[0]
+    r = test_model.main(["--model_type", "wav2vec", "--model", ckpt,
+                         "--label_map", labels, "--audio", wav, "--config",
+                         cfg_path, "--device", str(dev)])
+    check(r is not None and r["predicted_label"].startswith("tone_"),
+          f"cli.test_model --model_type wav2vec: {r['predicted_label']}")
+    results_dir = os.path.join(tmp, "w2v_eval")
+    ev = cli_eval.main(["--model_type", "wav2vec", "--model_path", ckpt,
+                        "--test_csv", csvs["test"], "--label_map", labels,
+                        "--config", cfg_path, "--results_dir", results_dir,
+                        "--device", str(dev)])
+    pred = Wav2VecPredictor.from_checkpoint(ckpt, labels, device=dev)
+    direct = evaluate_manifest_with_predictor(pred,
+                                              read_manifest(csvs["test"]))
+    with open(os.path.join(results_dir, "classification_report.txt")) as f:
+        head = f.readline().strip()
+    check(ev["accuracy"] == direct["accuracy"]
+          and head == f"Test Accuracy: {ev['accuracy']:.4f}",
+          f"cli.evaluate --model_type wav2vec: accuracy {ev['accuracy']:.4f}"
+          f" = evaluate_manifest_with_predictor's {direct['accuracy']:.4f}; "
+          f"report says {head!r}")
+    out["test_acc"] = ev["accuracy"]
+
+    # serving artifacts of that model, each loaded by its own process
+    base = os.path.join(tmp, "w2v_artifacts")
+    dirs = {"production": os.path.join(base, "production"),
+            "portable": os.path.join(base, "portable")}
+    t0 = time.perf_counter()
+    export_predictor(pred, dirs["production"], flavor="production",
+                     batch_sizes=W2V_EXPORT_SIZES)
+    out["export_production_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export_predictor(pred, dirs["portable"])
+    out["export_portable_s"] = time.perf_counter() - t0
+    rows, lengths = decode_split(csvs["test"], pred._buffer_width())
+    rows, lengths = rows[:W2V_EXPORT_SIZES[-1]], lengths[:W2V_EXPORT_SIZES[-1]]
+    jobs = {}
+    for name, requests in (("production", W2V_EXPORT_REQUESTS),
+                           ("portable", W2V_EXPORT_REQUESTS[:1])):
+        data = os.path.join(base, f"{name}_in.npz")
+        np.savez(data, rows=rows, lengths=lengths,
+                 requests=np.asarray(requests))
+        jobs[f"w2v_{name}"] = (dirs[name], name, data,
+                               os.path.join(base, f"{name}_out.npz"))
+    found = run_children(jobs)
+    pkg = "speech_intent_recognizer_tpu_torch."
+    for name, (report, _) in found.items():
+        mods = [m.removeprefix(pkg) for m in report["modules"]]
+        check(mods == ["infer", "infer.export"]
+              and all(v == {} for v in report["launches"].values()),
+              f"{name} artifact loader: imported {mods} of the port (want "
+              f"infer.export alone), launched {report['launches']} (want no "
+              f"kernel)")
+    report, got = found["w2v_production"]
+    for n in W2V_EXPORT_REQUESTS:
+        chunked, whole = served_as_chunks(pred, rows, lengths, n,
+                                          W2V_EXPORT_SIZES)
+        check(np.array_equal(got[f"b{n}"], chunked),
+              f"wav2vec production artifact, {n} rows: bit-equal to the live "
+              f"Wav2VecPredictor on the same program batch (vs the live call "
+              f"of {n} rows: max |diff| "
+              f"{float(np.abs(got[f'b{n}'] - whole).max()):.3e})")
+    n = W2V_EXPORT_REQUESTS[0]
+    report, got = found["w2v_portable"]
+    err = float(np.abs(got[f"b{n}"] - pred.predict_waveform_batch(
+        rows[:n], lengths[:n])).max())
+    check(err <= 1e-5, f"wav2vec portable artifact vs the live fp32 "
+          f"predictor, {n} rows: max |prob diff| {err:.3e} <= 1e-5")
+    out["load_s"] = {k: r["load_s"] for k, (r, _) in found.items()}
+    return out
+
+
+def wav2vec_timings(dev, state: dict, label: str, profile: bool) -> dict:
+    """Phase 19c: inference at W2V_INFER in bf16 and fp32 and the fine-tune
+    step at W2V_STEPS (fp32, extractor frozen, AdamW + plateau), CUDA
+    events (least / median / most of five blocks) and host clock, the idle
+    share from the profiler's kernel time, beside the FLOP bound."""
+    from speech_intent_recognizer_tpu_torch.utils.profiling import (
+        kernel_breakdown, step_times)
+
+    cfg = Wav2Vec2Config()
+    lm = {f"intent_{i}": i for i in range(W2V_CLASSES)}
+    cells = {}
+
+    def measure(key, fn, iters, flops, peak, n_bytes, prof_label):
+        lo, med, hi = cuda_ms_blocks(fn, iters, warmup=3)
+        q = step_times(fn, steps=10)
+        _wall, kernels = kernel_breakdown(fn, steps=3)
+        busy = sum(k[1] for k in kernels)
+        ms_bound, by = bound(n_bytes, (flops, peak))
+        cells[key] = {"ms": med, "ms_least": lo, "ms_most": hi,
+                      "host_ms": q["median"], "host_p90": q["p90"],
+                      "kernel_ms": busy, "idle": 1 - busy / q["median"],
+                      "bound_ms": ms_bound, "bound_by": by,
+                      "gflop": flops / 1e9}
+        if profile and prof_label:
+            log(f"profile wav2vec {prof_label} on {label}: kernel time "
+                f"{busy:.3f} ms of a {q['median']:.3f} ms step")
+            for name, ms, count in kernels[:40]:
+                log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
+
+    b, n = W2V_INFER
+    rng = np.random.default_rng(1910)
+    buf, ln = batch([n] * b, n, seed=1911)
+    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
+    conv, rest = wav2vec_flops(cfg, n, W2V_CLASSES)
+    weights = sum(t.numel() * 4 for t in state.values())
+    for name, dtype, peak in (("bf16", torch.bfloat16, BF16_FLOPS),
+                              ("fp32", torch.float32, FP32_FLOPS)):
+        model = Wav2VecIntent(cfg, W2V_CLASSES, dtype)
+        model.load_state_dict(state)
+        pred = Wav2VecPredictor(model, lm, AudioConfig(max_duration=3.0), dev)
+        measure(f"infer_{name}_b{b}_{n}",
+                lambda: pred.predict_waveform_batch(wf, lt), 5,
+                b * (conv + rest), peak, weights + nbytes(wf, lt),
+                f"inference {name} B={b} x {n}" if name == "bf16" else None)
+        del pred, model
+    for b, n in W2V_STEPS:
+        model = Wav2VecIntent(cfg, W2V_CLASSES)
+        model.load_state_dict(state)
+        for p in feature_extractor_params(model):
+            p.requires_grad_(False)
+        model.to(dev)
+        trainer = Wav2VecTrainer(model, create_wav2vec_optimizer(
+            model.parameters(), lr=W2V_LR), W2V_CLASSES, max_length=n)
+        buf, ln = batch(list(rng.integers(n // 2, n + 1, b)), n,
+                        seed=1912 + b)
+        wf = torch.from_numpy(buf).to(dev)
+        mask = torch.arange(n, device=dev)[None] < torch.from_numpy(ln).to(
+            dev)[:, None]
+        y = torch.from_numpy(rng.integers(0, W2V_CLASSES, b)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(b)
+
+        def step():
+            return float(trainer.train_step(wf, mask, y, gen)[0])
+
+        conv, rest = wav2vec_flops(cfg, n, W2V_CLASSES)
+        # the frozen extractor runs forward only; the rest forward and
+        # backward (gradients of activations and of weights)
+        measure(f"step_fp32_b{b}_{n}", step, 3, b * (conv + 3 * rest),
+                FP32_FLOPS, 3 * weights + nbytes(wf, mask),
+                f"fine-tune step fp32 B={b} x {n}" if b == 8 else None)
+        del trainer, model
+    torch.cuda.empty_cache()
+    return cells
+
+
+def check_wav2vec(dev, tmp: str, run: dict, label: str,
+                  profile: bool) -> dict:
+    """Phase 19: the wav2vec family at full width, with every kernel
+    counter reset before and read after (the path launches none)."""
+    t0 = time.perf_counter()
+    reset_counters()
+    case = wav2vec_case(dev, tmp)
+    state = case.pop("state")
+    cli = wav2vec_cli(dev, tmp, run)
+    cells = wav2vec_timings(dev, state, label, profile)
+    check_counts(counters(), {}, "the wav2vec phase (model, step, CLIs, "
+                 "artifacts, timings)")
+    return {"card_vs_cpu": case, "cli": cli, "cells": cells,
+            "flop_per_utt_3s": sum(wav2vec_flops(Wav2Vec2Config(), 48000,
+                                                 W2V_CLASSES)),
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2710,6 +3108,8 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         exported = check_export(dev, tmp, e2e_train, label)
         export_phase_s = time.perf_counter() - t0
+        # ---- 19. the wav2vec family at full width ----
+        wav2vec = check_wav2vec(dev, tmp, e2e_train, label, args.profile)
 
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
@@ -2830,6 +3230,17 @@ def main(argv=None) -> int:
         entry_["artifact_launches"] = {
             name: got[key] for name, got in exported["launches"].items()
             if key in got}
+    log(f"  wav2vec (phase 19 took {wav2vec['seconds']:.1f} s) on {label}, "
+        f"TF32 off; ms: CUDA events, median of five blocks (least / most), "
+        f"host clock median, idle share = 1 - profiler kernel time / host "
+        f"step; bound: the operations over the peak of their type:")
+    for key, c in wav2vec["cells"].items():
+        log(f"    {key}: {c['ms']:.3f} ms ({c['ms_least']:.3f} / "
+            f"{c['ms_most']:.3f}), host {c['host_ms']:.3f} (p90 "
+            f"{c['host_p90']:.3f}), kernel {c['kernel_ms']:.3f}, idle "
+            f"{c['idle']:.3f}; {c['gflop']:.1f} GFLOP, bound "
+            f"{c['bound_ms']:.3f} ms ({c['bound_by']})")
+    print(json.dumps({"wav2vec": wav2vec, "device": label}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(label)
     print(json.dumps({"ok": True, "device": {

@@ -44,11 +44,24 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
                              "plain versions")
 
 
+def add_model_type_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--model_type", default="cnn_gru",
+                        choices=["cnn_gru", "wav2vec"],
+                        help="cnn_gru: the log-mel CNN + GRU model; wav2vec: "
+                             "the raw-waveform Wav2VecIntent")
+
+
 def make_predictor(model_path: str, label_map_path: str,
                    audio_cfg: AudioConfig, device: str = "cuda",
-                   pool_impl: str = "torch"):
-    from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
+                   pool_impl: str = "torch", model_type: str = "cnn_gru"):
+    """The predictor of ``model_type`` for a checkpoint (``pool_impl`` is
+    read by the cnn_gru one only)."""
+    from speech_intent_recognizer_tpu_torch.infer.predict import (
+        Predictor, Wav2VecPredictor)
 
+    if model_type == "wav2vec":
+        return Wav2VecPredictor.from_checkpoint(
+            model_path, label_map_path, audio_cfg=audio_cfg, device=device)
     return Predictor.from_checkpoint(model_path, label_map_path,
                                      audio_cfg=audio_cfg, device=device,
                                      pool_impl=pool_impl)

@@ -6,7 +6,10 @@ Mirrors the JAX package's ``cli/evaluate.py`` (reference
 ``--device`` (default ``cuda``).  Reads reference-layout ``.pt`` state
 dicts of the config's model widths (the class count is read from the
 checkpoint); features come from the feature cache, computed on a miss (on a
-CUDA device by the K3 kernel, or K4 off the reference geometry)::
+CUDA device by the K3 kernel, or K4 off the reference geometry).
+``--model_type wav2vec`` evaluates a ``Wav2VecIntent`` checkpoint file by
+file over the manifest (``evaluate_manifest_with_predictor``), its report
+under ``<save_path>/evaluation_results_wav2vec`` by default::
 
     python -m speech_intent_recognizer_tpu_torch.cli.evaluate \\
         --test_csv test.csv --label_map label_map.json \\
@@ -22,7 +25,8 @@ import os
 import torch
 
 from speech_intent_recognizer_tpu_torch.cli.common import (
-    add_config_arg, add_device_arg, load_config_or_default, setup_logging)
+    add_config_arg, add_device_arg, add_model_type_arg, load_config_or_default,
+    setup_logging)
 from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
     load_model_checkpoint)
 from speech_intent_recognizer_tpu_torch.data.labelmap import load_label_map
@@ -37,12 +41,28 @@ def evaluate_from_config(cfg, test_csv, label_map_path, model_path,
                          model_type="cnn_gru", data_parallel=False,
                          device="cuda"):
     logger = logger or logging.getLogger("sir_torch")
-    if model_type != "cnn_gru":
-        raise NotImplementedError(f"model_type {model_type!r} is not ported; "
-                                  "the port evaluates cnn_gru")
     if data_parallel:
-        raise NotImplementedError("data-parallel evaluation is not ported; "
-                                  "the port evaluates on one device")
+        raise NotImplementedError("data-parallel evaluation is not ported "
+                                  "(ROADMAP Queue 1 item 9, parallel/); the "
+                                  "port evaluates on one device")
+    if model_type == "wav2vec":
+        from speech_intent_recognizer_tpu_torch.data.manifest import (
+            read_manifest)
+        from speech_intent_recognizer_tpu_torch.evaluation.evaluate import (
+            evaluate_manifest_with_predictor)
+        from speech_intent_recognizer_tpu_torch.infer.predict import (
+            Wav2VecPredictor)
+
+        predictor = Wav2VecPredictor.from_checkpoint(
+            model_path, label_map_path, audio_cfg=cfg.audio, device=device)
+        results_dir = results_dir or os.path.join(
+            cfg.train.save_path, "evaluation_results_wav2vec")
+        result = evaluate_manifest_with_predictor(
+            predictor, read_manifest(test_csv), results_dir)
+        logger.info("wav2vec test accuracy: %.4f", result["accuracy"])
+        return result
+    if model_type != "cnn_gru":
+        raise ValueError(f"unknown model_type {model_type!r}")
     dev = torch.device(device)
     label_map = load_label_map(label_map_path)
     state = load_model_checkpoint(model_path)
@@ -78,8 +98,7 @@ def main(argv=None):
     p.add_argument("--model_path", "--model", dest="model_path",
                    required=True)
     p.add_argument("--results_dir", default=None)
-    p.add_argument("--model_type", default="cnn_gru",
-                   choices=["cnn_gru", "wav2vec"])
+    add_model_type_arg(p)
     p.add_argument("--data_parallel", action="store_true",
                    help="not ported: raises NotImplementedError")
     add_device_arg(p)

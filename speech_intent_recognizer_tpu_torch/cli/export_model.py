@@ -3,7 +3,8 @@
 Counterpart of ``speech_intent_recognizer_tpu/cli/export_model.py``.  The
 artifact is the traced batch path (``torch.export``) plus its weights and
 the label map; a serving host runs it with ``infer.export.ServingModel``
-and needs neither the model's code nor the config.
+and needs neither the model's code nor the config.  ``--model_type
+wav2vec`` exports a ``Wav2VecIntent`` checkpoint (``infer/export.py``).
 
     python -m speech_intent_recognizer_tpu_torch.cli.export_model \\
         --model checkpoints/best_model.pt \\
@@ -18,8 +19,8 @@ import argparse
 
 def main(argv=None):
     from speech_intent_recognizer_tpu_torch.cli.common import (
-        add_config_arg, add_device_arg, load_config_or_default,
-        make_predictor, setup_logging)
+        add_config_arg, add_device_arg, add_model_type_arg,
+        load_config_or_default, make_predictor, setup_logging)
     from speech_intent_recognizer_tpu_torch.infer.export import (
         export_predictor)
 
@@ -30,8 +31,7 @@ def main(argv=None):
     p.add_argument("--model", required=True)
     p.add_argument("--label_map", required=True)
     p.add_argument("--out", required=True, help="artifact directory")
-    p.add_argument("--model_type", default="cnn_gru",
-                   choices=["cnn_gru", "wav2vec"])
+    add_model_type_arg(p)
     p.add_argument("--platforms", nargs="*", default=None,
                    help="torch device types named in the manifest (default: "
                         "cuda for a program of kernel ops, else cpu cuda)")
@@ -53,13 +53,13 @@ def main(argv=None):
                    help="production: conv2+conv3 in the conv23 kernel "
                         "(reference geometry and channels only)")
     args = p.parse_args(argv)
-    if args.model_type == "wav2vec":
-        raise NotImplementedError("the wav2vec model is not ported yet "
-                                  "(ROADMAP Queue 1, item 8); the port "
-                                  "exports cnn_gru")
+    if args.model_type == "wav2vec" and (args.conv23
+                                         or args.pool_impl != "torch"):
+        p.error("--conv23 and --pool-impl configure the cnn_gru path")
     cfg = load_config_or_default(args.config)
     predictor = make_predictor(args.model, args.label_map, cfg.audio,
-                               args.device, pool_impl=args.pool_impl)
+                               args.device, pool_impl=args.pool_impl,
+                               model_type=args.model_type)
     if args.conv23:
         predictor.enable_conv23_kernel()
     out = export_predictor(predictor, args.out, platforms=args.platforms,

@@ -3,13 +3,18 @@
 Mirrors ``python -m scripts.test_model`` (reference
 ``scripts/test_model.py:225-281``) and the JAX package's
 ``cli/test_model.py``: ``--model --label_map --audio [--interactive]`` with
-the same top-3 console report, plus ``--device`` (default ``cuda``) and the
-two opt-in configurations of the fused path, ``--pool-impl kernel`` (the
-conv epilogue kernel after conv2 / conv3) and ``--conv23`` (conv2 + conv3 in
-one kernel)::
+the same top-3 console report, plus ``--device`` (default ``cuda``),
+``--model_type wav2vec`` (a ``Wav2VecIntent`` checkpoint: the port's
+``.pt``, a reference-layout ``.pt`` or the JAX trainer's ``.msgpack``) and
+the two opt-in configurations of the cnn_gru fused path, ``--pool-impl
+kernel`` (the conv epilogue kernel after conv2 / conv3) and ``--conv23``
+(conv2 + conv3 in one kernel)::
 
     python -m speech_intent_recognizer_tpu_torch.cli.test_model \\
         --model best_model.pt --label_map label_map.json --audio x.wav
+    python -m speech_intent_recognizer_tpu_torch.cli.test_model \\
+        --model_type wav2vec --model checkpoints/wav2vec_intent.pt \\
+        --label_map label_map.json --audio x.wav
 """
 
 from __future__ import annotations
@@ -18,8 +23,8 @@ import argparse
 import os
 
 from speech_intent_recognizer_tpu_torch.cli.common import (
-    add_config_arg, add_device_arg, load_config_or_default, make_predictor,
-    setup_logging)
+    add_config_arg, add_device_arg, add_model_type_arg, load_config_or_default,
+    make_predictor, setup_logging)
 
 
 def _print_prediction(result: dict) -> None:
@@ -61,6 +66,7 @@ def main(argv=None):
     p.add_argument("--audio", default=None,
                    help="audio file or directory")
     p.add_argument("--interactive", action="store_true")
+    add_model_type_arg(p)
     add_device_arg(p)
     p.add_argument("--pool-impl", choices=("torch", "kernel"),
                    default="torch",
@@ -70,10 +76,14 @@ def main(argv=None):
                    help="run conv2+conv3 in the conv23 kernel (reference "
                         "geometry and channels only)")
     args = p.parse_args(argv)
+    if args.model_type == "wav2vec" and (args.conv23
+                                         or args.pool_impl != "torch"):
+        p.error("--conv23 and --pool-impl configure the cnn_gru path")
 
     cfg = load_config_or_default(args.config)
     predictor = make_predictor(args.model, args.label_map, cfg.audio,
-                               args.device, pool_impl=args.pool_impl)
+                               args.device, pool_impl=args.pool_impl,
+                               model_type=args.model_type)
     if args.conv23:
         predictor.enable_conv23_kernel()
 

@@ -9,7 +9,8 @@ where the K2 kernel and its backward run, and in waveform mode K3)::
     python -m speech_intent_recognizer_tpu_torch.cli.train \\
         --config configs/config.yaml --label_map label_map.json
 
-One device; the mesh, multi-process and wav2vec options are not ported.
+One device; the mesh and multi-process options are not ported; wav2vec
+trains with ``cli.train_wav2vec``.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ def check_supported(cfg) -> None:
     """Refuse the JAX package's options that this port does not run."""
     par = cfg.parallel
     if cfg.model.name != "cnn_gru":
-        raise NotImplementedError(f"model {cfg.model.name!r} is not ported; "
-                                  "the port trains cnn_gru")
+        raise NotImplementedError(
+            f"model {cfg.model.name!r}: this CLI trains cnn_gru, as the JAX "
+            "package's does; fine-tune wav2vec with "
+            "speech_intent_recognizer_tpu_torch.cli.train_wav2vec")
     if (par.model_axis != 1 or par.data_axis not in (-1, 1)
             or par.coordinator_address is not None
             or (par.num_processes or 1) > 1):

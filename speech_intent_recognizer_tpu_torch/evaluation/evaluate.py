@@ -70,6 +70,61 @@ def evaluate_dataset(model: torch.nn.Module, features: torch.Tensor,
             "predictions": y_pred, "probabilities": probs}
 
 
+def evaluate_manifest_with_predictor(
+    predictor,
+    manifest,
+    results_dir: Optional[str] = None,
+) -> Dict:
+    """Evaluate any waveform predictor (a ``Wav2VecPredictor``) file by file
+    over a manifest: the raw-audio counterpart of :func:`evaluate_dataset`
+    for a model without a feature cache (the JAX package's function of the
+    same name).  Labels outside the map, true or predicted, count as a
+    trailing ``<unknown>`` class, so the confusion matrix sums to the files
+    evaluated; a file that cannot be decoded is skipped."""
+    label_map = predictor.label_map
+    inv = predictor.inv_label_map
+    num_classes = max(label_map.values()) + 1 if label_map else 0
+    unknown_idx = num_classes
+    n_unknown_true = n_unknown_pred = 0
+    y_true, y_pred = [], []
+    for path, label in zip(manifest.paths, manifest.labels):
+        r = predictor.predict_file(path)
+        if r is None:
+            continue
+        t = label_map.get(label)
+        if t is None:
+            n_unknown_true += 1
+            t = unknown_idx
+        p = label_map.get(r["predicted_label"])
+        if p is None:
+            n_unknown_pred += 1
+            p = unknown_idx
+        y_true.append(t)
+        y_pred.append(p)
+    has_unknown = bool(n_unknown_true or n_unknown_pred)
+    if has_unknown:
+        logger.warning(
+            "labels outside the label map: %d true, %d predicted — "
+            "reported as '<unknown>'", n_unknown_true, n_unknown_pred)
+    n_eff = num_classes + 1 if has_unknown else num_classes
+    names = [inv.get(i, str(i)) for i in range(num_classes)]
+    if has_unknown:
+        names.append("<unknown>")
+    report = M.classification_report_dict(y_true, y_pred, names, n_eff)
+    cm = M.confusion_matrix(y_true, y_pred, n_eff)
+    if results_dir is not None:
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, "classification_report.txt"),
+                  "w") as f:
+            f.write(f"Test Accuracy: {report['accuracy']:.4f}\n\n")
+            f.write(M.format_classification_report(report))
+        np.save(os.path.join(results_dir, "confusion_matrix.npy"), cm)
+        _plot_confusion(cm, names,
+                        os.path.join(results_dir, "confusion_matrix.png"))
+    return {"accuracy": report["accuracy"], "report": report,
+            "confusion_matrix": cm}
+
+
 def _plot_confusion(cm: np.ndarray, names, path: str) -> None:
     try:
         import matplotlib

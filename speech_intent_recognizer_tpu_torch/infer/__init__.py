@@ -18,6 +18,7 @@ _HOMES = {
     "StreamingFeaturizer": "streaming",
     "StreamingRecognizer": "streaming",
     "VADSegmenter": "vad",
+    "Wav2VecPredictor": "predict",
 }
 
 __all__ = sorted(_HOMES)

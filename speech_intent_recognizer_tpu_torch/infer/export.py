@@ -36,6 +36,13 @@ Two flavours:
   holds it (rows of length 1 fill the rest) and cuts larger requests
   into chunks.
 
+A ``Wav2VecPredictor`` exports the same two flavours (the JAX package's
+wav2vec branch): ``portable`` is ``Wav2VecIntent`` in fp32 behind the
+padding mask, traced on the CPU with a symbolic batch; ``production`` its
+``Wav2VecServingBody`` in the predictor's compute dtype, traced on the card
+per pinned batch and fed (B, L) waveforms.  Neither holds a ``sir`` node:
+the wav2vec path runs PyTorch's own convolutions, GEMMs and norms.
+
 Loading checks the manifest's ``format``: this package writes
 ``sir_tpu_torch.serving_export.v1`` and ``sir_tpu_torch.streaming_export.v1``,
 so neither package's loader takes the other's artifact.
@@ -86,9 +93,10 @@ def _trace(module: torch.nn.Module, args: tuple,
 
 def trace_production(body: torch.nn.Module, batch: int, rows: tuple,
                      device) -> "torch.export.ExportedProgram":
-    """A production program: ``body`` traced at ``batch`` rows of the
-    (L / hop, hop) buffer ``rows`` on ``device``, whose wrappers there
-    call the kernels' ops.  Traces on fake tensors and launches nothing."""
+    """A production program: ``body`` traced at ``batch`` rows of shape
+    ``rows`` (the (L / hop, hop) buffer, or (L,) for the wav2vec model) on
+    ``device``, whose wrappers there call the kernels' ops.  Traces on fake
+    tensors and launches nothing."""
     wf = torch.zeros((batch,) + tuple(rows), device=device)
     ln = torch.ones((batch,), dtype=torch.int32, device=device)
     return _trace(body, (wf, ln))
@@ -140,13 +148,15 @@ def export_predictor(predictor, out_dir: str,
     """
     from torch.export import Dim
 
-    from speech_intent_recognizer_tpu_torch.infer.predict import ServingBody
+    from speech_intent_recognizer_tpu_torch.infer.predict import (
+        ServingBody, Wav2VecPredictor, Wav2VecServingBody)
     from speech_intent_recognizer_tpu_torch.ops.frontend import (
         make_frontend_params)
 
     os.makedirs(out_dir, exist_ok=True)
     cfg = predictor.audio_cfg
     width = predictor._buffer_width()
+    wav2vec = isinstance(predictor, Wav2VecPredictor)
     if flavor == "production":
         if predictor.device.type != "cuda":
             raise ValueError("the production flavour traces the kernels' "
@@ -154,7 +164,7 @@ def export_predictor(predictor, out_dir: str,
                              "device")
         body = predictor._fused_body()
         hop = cfg.hop_length
-        rows = (width // hop, hop)
+        rows = (width,) if wav2vec else (width // hop, hop)
         programs, ops = {}, {}
         for bs in sorted(set(int(b) for b in batch_sizes)):
             ep = trace_production(body, bs, rows, predictor.device)
@@ -162,11 +172,21 @@ def export_predictor(predictor, out_dir: str,
             torch.export.save(ep, os.path.join(out_dir, name))
             programs[str(bs)] = name
             ops = kernel_ops(ep)
-        extra = {"flavor": "production", "programs": programs,
-                 "rows_input": list(rows)}
+        extra = {"flavor": "production", "programs": programs}
+        if not wav2vec:
+            extra["rows_input"] = list(rows)
     elif flavor == "portable":
-        model = copy.deepcopy(predictor.model).cpu()
-        body = ServingBody(make_frontend_params(cfg, "cpu"), model)
+        if wav2vec:
+            from speech_intent_recognizer_tpu_torch.models.wav2vec import (
+                Wav2VecIntent)
+
+            m = predictor.model
+            model = Wav2VecIntent(m.config, m.num_classes)  # fp32
+            model.load_state_dict(m.state_dict())
+            body = Wav2VecServingBody(model)
+        else:
+            model = copy.deepcopy(predictor.model).cpu()
+            body = ServingBody(make_frontend_params(cfg, "cpu"), model)
         b = Dim("b", min=1)
         example = (torch.zeros((3, width)),
                    torch.full((3,), width // 2, dtype=torch.int32))

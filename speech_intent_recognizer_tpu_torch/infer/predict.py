@@ -113,11 +113,7 @@ class Predictor:
     def __init__(self, model: CNNAudioGRU, label_map: Dict[str, int],
                  audio_cfg: Optional[AudioConfig] = None,
                  device: "str | torch.device" = "cuda"):
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.label_map = label_map
-        self.inv_label_map = {v: k for k, v in label_map.items()}
-        self.audio_cfg = audio_cfg or AudioConfig()
+        self._setup(model, label_map, audio_cfg, device)
         self.frontend_params = make_frontend_params(self.audio_cfg,
                                                     self.device)
         # the fused front-end + conv1 path (K1 -> the conv1_external
@@ -128,6 +124,17 @@ class Predictor:
         self._conv23: Optional[ServingBody] = None
         self._folded_for_conv23 = None
         self._unfused: Optional[ServingBody] = None  # built at first use
+
+    def _setup(self, model: torch.nn.Module, label_map: Dict[str, int],
+               audio_cfg: Optional[AudioConfig],
+               device: "str | torch.device") -> None:
+        """What every predictor holds: the device, the model on it in eval
+        mode, the label maps and the audio geometry."""
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.label_map = label_map
+        self.inv_label_map = {v: k for k, v in label_map.items()}
+        self.audio_cfg = audio_cfg or AudioConfig()
 
     @classmethod
     def from_checkpoint(cls, model_path: str, label_map_path: str,
@@ -314,3 +321,93 @@ class Predictor:
             r["file"] = os.path.basename(path)
             results.append(r)
         return results
+
+
+class Wav2VecServingBody(torch.nn.Module):
+    """The wav2vec batch path: (B, L) float32 waveforms and (B,) int32
+    lengths -> (B, C) float32 probabilities, the padding mask ``arange(L) <
+    lengths`` (the JAX ``Wav2VecPredictor``'s).  Launches none of the
+    package's kernels: the model is PyTorch's own convolutions, GEMMs and
+    norms."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, waveforms: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+        mask = (torch.arange(waveforms.shape[1], device=waveforms.device)
+                [None, :] < lengths[:, None])
+        return torch.softmax(self.model(waveforms, mask).float(), dim=-1)
+
+
+class Wav2VecPredictor(Predictor):
+    """Predictor over the raw-waveform ``Wav2VecIntent`` model.
+
+    Counterpart of the JAX package's ``Wav2VecPredictor``: the same file /
+    array / directory API as :class:`Predictor`, but the batch path feeds
+    raw waveforms and their padding mask to the wav2vec backbone
+    (:class:`Wav2VecServingBody`); there is no log-mel front-end and no
+    framing, so a buffer is ``max_samples`` wide.
+    """
+
+    def __init__(self, model: torch.nn.Module, label_map: Dict[str, int],
+                 audio_cfg: Optional[AudioConfig] = None,
+                 device: "str | torch.device" = "cuda"):
+        self._setup(model, label_map, audio_cfg, device)
+        self._body = Wav2VecServingBody(self.model)
+
+    @classmethod
+    def from_checkpoint(cls, model_path: str, label_map_path: str,
+                        audio_cfg: Optional[AudioConfig] = None,
+                        num_classes: Optional[int] = None,
+                        wav2vec_config=None,
+                        device: "str | torch.device" = "cuda",
+                        compute_dtype=torch.float32,
+                        mesh=None) -> "Wav2VecPredictor":
+        """``model_path``: the port's ``.pt``, a reference-layout ``.pt``
+        (``wav2vec.*`` / ``wav2vec2.*`` backbone, ``attention.*``,
+        ``fc.*``) or the JAX trainer's ``.msgpack``.  The backbone config
+        comes from ``wav2vec_config``, else the ``wav2vec_config`` of the
+        ``.json`` beside the checkpoint, else the weights' shapes
+        (``infer_wav2vec_config``).  ``compute_dtype`` fp32 by default, as
+        the JAX predictor builds its model."""
+        import json
+
+        from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
+            load_model_checkpoint)
+        from speech_intent_recognizer_tpu_torch.convert.wav2vec_import import (
+            infer_wav2vec_config)
+        from speech_intent_recognizer_tpu_torch.data.labelmap import (
+            load_label_map)
+        from speech_intent_recognizer_tpu_torch.models.wav2vec import (
+            Wav2Vec2Config, Wav2VecIntent)
+
+        if mesh is not None:
+            raise NotImplementedError("a serving mesh is not ported (ROADMAP "
+                                      "Queue 1 item 9, parallel/)")
+        label_map = load_label_map(label_map_path)
+        state = load_model_checkpoint(model_path)
+        if num_classes is None:
+            num_classes = int(state["fc.weight"].shape[0])
+        if wav2vec_config is None:
+            meta_path = os.path.splitext(model_path)[0] + ".json"
+            if os.path.exists(meta_path):
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                if "wav2vec_config" in meta:
+                    wav2vec_config = Wav2Vec2Config.from_dict(
+                        meta["wav2vec_config"])
+        if wav2vec_config is None:
+            wav2vec_config = infer_wav2vec_config(
+                {k[len("wav2vec."):]: v for k, v in state.items()
+                 if k.startswith("wav2vec.")})
+        model = Wav2VecIntent(wav2vec_config, num_classes, compute_dtype)
+        model.load_state_dict(state)
+        return cls(model, label_map, audio_cfg, device)
+
+    def _fused_body(self) -> Wav2VecServingBody:
+        return self._body
+
+    def _buffer_width(self) -> int:
+        return self.audio_cfg.max_samples  # raw-waveform model: no framing

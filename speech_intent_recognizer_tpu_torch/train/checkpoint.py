@@ -10,7 +10,14 @@ Counterpart of ``speech_intent_recognizer_tpu/train/checkpoint.py``:
 * **full state**: ``state/epoch_<n>.pt`` (``torch.save``) with the model,
   the optimizer (Adam moments, step count), the epoch and the early-stop
   bookkeeping; the newest ``keep`` are retained, and ``--resume``
-  continues from the newest.
+  continues from the newest.  :meth:`Checkpointer.save_payload` /
+  :meth:`Checkpointer.restore_payload` store any such dict (the wav2vec
+  trainer's: model, optimizer with its plateau state, ``plateau_value``,
+  bookkeeping) the same way.
+
+The JAX package writes its resumable state as orbax directories; this
+package writes ``torch.save`` files and reads neither package's the other
+way, as with the best-model formats.
 """
 
 from __future__ import annotations
@@ -71,14 +78,28 @@ class Checkpointer:
 
     def save_state(self, model: torch.nn.Module, optimizer, epoch: int,
                    best_val_acc: float, no_improve: int) -> None:
-        payload = {"model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(),
-                   "epoch": int(epoch), "best_val_acc": float(best_val_acc),
-                   "no_improve": int(no_improve)}
+        self.save_payload({"model": model.state_dict(),
+                           "optimizer": optimizer.state_dict(),
+                           "epoch": int(epoch),
+                           "best_val_acc": float(best_val_acc),
+                           "no_improve": int(no_improve)}, epoch)
+
+    def save_payload(self, payload: dict, step: int) -> None:
+        """Save a resumable-state dict (tensors, numbers, strings, nested
+        dicts and lists) as ``state/epoch_<step>.pt``, atomically; keep the
+        newest ``keep``."""
         _atomic_save(payload, os.path.join(self.state_dir,
-                                           f"epoch_{epoch:06d}.pt"))
+                                           f"epoch_{step:06d}.pt"))
         for _, path in self._state_files()[:-self.keep]:
             os.remove(path)
+
+    def restore_payload(self, map_location="cpu") -> Optional[dict]:
+        """The newest dict saved by :meth:`save_payload`, or None."""
+        files = self._state_files()
+        if not files:
+            return None
+        return torch.load(files[-1][1], map_location=map_location,
+                          weights_only=True)
 
     def latest_epoch(self) -> Optional[int]:
         files = self._state_files()
@@ -89,12 +110,9 @@ class Checkpointer:
         """Load the newest full state into ``model`` and ``optimizer``;
         returns the bookkeeping (epoch, best_val_acc, no_improve), or None
         when there is none."""
-        files = self._state_files()
-        if not files:
+        payload = self.restore_payload(next(model.parameters()).device)
+        if payload is None:
             return None
-        dev = next(model.parameters()).device
-        payload = torch.load(files[-1][1], map_location=dev,
-                             weights_only=True)
         model.load_state_dict(payload["model"])
         optimizer.load_state_dict(payload["optimizer"])
         book = {"epoch": int(payload["epoch"]),
@@ -103,3 +121,15 @@ class Checkpointer:
         logger.info("resumed from epoch %d (best val acc %.4f)",
                     book["epoch"], book["best_val_acc"])
         return book
+
+
+def save_model(path: str, state_dict: dict,
+               meta: Optional[dict] = None) -> None:
+    """A standalone model file (the JAX package's ``save_model``): the
+    state dict as ``path`` (CPU tensors, written atomically) and ``meta`` as
+    the ``.json`` beside it."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    _atomic_save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    if meta is not None:
+        with open(os.path.splitext(path)[0] + ".json", "w") as f:
+            json.dump(meta, f, indent=2)

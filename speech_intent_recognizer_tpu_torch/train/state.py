@@ -56,6 +56,20 @@ def lr_schedule(lr: float, warmup_steps: int = 0, schedule: str = "constant",
     return cosine
 
 
+@torch.no_grad()
+def clip_by_global_norm_(grads: list, max_norm: float) -> None:
+    """optax ``clip_by_global_norm`` in place: scale every gradient by
+    ``max_norm / norm`` when their fp32 global norm reaches ``max_norm``
+    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``)."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+
+
 class Optimizer:
     """The reference recipe's Adam chain over a model's parameters."""
 
@@ -78,14 +92,10 @@ class Optimizer:
     def step(self) -> None:
         """Clip (optax ``clip_by_global_norm``), then the Adam update at
         this count's learning rate."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if self.grad_clip is not None and grads:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g.float()) for g in grads]))
-            scale = torch.where(norm < self.grad_clip, 1.0,
-                                self.grad_clip / norm)
-            for g in grads:
-                g.mul_(scale.to(g.dtype))
+        if self.grad_clip is not None:
+            clip_by_global_norm_(
+                [p.grad for p in self.params if p.grad is not None],
+                self.grad_clip)
         lr = self.lr if self.schedule is None else self.schedule(self.count)
         for group in self.adam.param_groups:
             group["lr"] = lr

@@ -74,10 +74,13 @@ def kernel_breakdown(fn: Callable[[], object], steps: int = 5,
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # a user annotation's device row (``Optimizer.step#AdamW.step``) spans
+    # the kernels inside it, which are counted on their own
     kernels = [(e.key, e.self_device_time_total / 1e3 / steps,
                 e.count // steps)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda k: -k[1])
     return wall_ms, kernels

@@ -1061,3 +1061,30 @@ def test_production_artifact_equals_live_predictor(dev, tmp_path):
     assert np.array_equal(srv.predict_waveform_batch(wf[:3], ln[:3]),
                           pred.predict_waveform_batch(short_wf,
                                                       short_ln)[:3])
+
+
+def test_wav2vec_backbone_card_matches_cpu(dev):
+    """The tiny wav2vec configs (base and stable) on the card against the
+    CPU, fp32 with TF32 off, a padded batch with a row of feature length
+    <= 0: hidden states and logits within 1e-4 of their largest magnitude;
+    no kernel of the package launches."""
+    from speech_intent_recognizer_tpu_torch.models.wav2vec import (
+        Wav2VecIntent, small_wav2vec_base_config, small_wav2vec_config)
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((0.1 * rng.standard_normal((3, 4000)))
+                         .astype(np.float32))
+    mask = torch.arange(4000)[None] < torch.tensor([4000, 2000, 30])[:, None]
+    for make in (small_wav2vec_base_config, small_wav2vec_config):
+        model = Wav2VecIntent(make(64, 2), 5).reset_parameters(
+            torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            want = (model.wav2vec(x, mask), model(x, mask))
+            model.to(dev)
+            fk.frontend_conv1.launches = gru_layer.launches = 0
+            got = (model.wav2vec(x.to(dev), mask.to(dev)),
+                   model(x.to(dev), mask.to(dev)))
+        for g, w in zip(got, want):
+            err = float((g.cpu() - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), (make.__name__, err)
+        assert fk.frontend_conv1.launches == gru_layer.launches == 0

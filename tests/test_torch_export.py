@@ -471,8 +471,9 @@ assert not bad, bad
 
 def test_cli_export_model(tmp_path):
     """``cli.export_model --device cpu`` on the narrow ``.pt`` fixture:
-    ``ServingModel`` serves it within 1e-6 of ``Predictor``;
-    ``--model_type wav2vec`` is not ported."""
+    ``ServingModel`` serves it within 1e-6 of ``Predictor``; and with
+    ``--model_type wav2vec`` on a tiny ``Wav2VecIntent`` checkpoint, served
+    within 1e-6 of ``Wav2VecPredictor``."""
     from speech_intent_recognizer_tpu_torch.cli.export_model import main
 
     data = os.path.join(REPO, "tests", "data")
@@ -491,9 +492,32 @@ def test_cli_export_model(tmp_path):
     np.testing.assert_allclose(
         ServingModel.load(out, device="cpu").predict_waveform_batch(wf, ln),
         pred.predict_waveform_batch(wf, ln), rtol=0, atol=SAME)
-    with pytest.raises(NotImplementedError, match="wav2vec"):
-        main(args + ["--out", str(tmp_path / "w2v"), "--model_type",
-                     "wav2vec"])
+    from speech_intent_recognizer_tpu_torch.infer.predict import (
+        Wav2VecPredictor)
+    from speech_intent_recognizer_tpu_torch.models.wav2vec import (
+        Wav2VecIntent, small_wav2vec_config)
+
+    model = Wav2VecIntent(small_wav2vec_config(32, 1), 5)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    torch.save(model.state_dict(), tmp_path / "w2v.pt")
+    w2v_args = ["--model", str(tmp_path / "w2v.pt"),
+                "--label_map", os.path.join(data, "narrow_label_map.json"),
+                "--config", str(cfg), "--device", "cpu",
+                "--model_type", "wav2vec"]
+    w2v_out = str(tmp_path / "w2v")
+    assert main(w2v_args + ["--out", w2v_out]) == 0
+    live = Wav2VecPredictor.from_checkpoint(
+        str(tmp_path / "w2v.pt"), os.path.join(data, "narrow_label_map.json"),
+        audio_cfg=AudioConfig(**SHORT), device="cpu")
+    rng = np.random.default_rng(22)
+    wf = (0.1 * rng.standard_normal((3, live._buffer_width()))).astype(
+        np.float32)
+    ln = np.array([24000, 9000, 20], np.int32)
+    np.testing.assert_allclose(
+        ServingModel.load(w2v_out, device="cpu").predict_waveform_batch(
+            wf, ln), live.predict_waveform_batch(wf, ln), rtol=0, atol=SAME)
+    with pytest.raises(SystemExit):  # the cnn_gru path's options
+        main(w2v_args + ["--out", w2v_out, "--conv23"])
 
 
 def test_export_module_imports_nothing_else():

@@ -25,8 +25,9 @@ def _run(code_or_args, cwd, timeout=300):
 
 
 def test_port_and_chip_smoke_import_without_jax_package():
-    """Importing every module of the port and chip_smoke imports no JAX
-    and no module of the JAX package, with or without a submodule."""
+    """Importing every module of the port and chip_smoke imports no JAX,
+    no module of the JAX package, with or without a submodule, and neither
+    ``transformers`` nor ``safetensors``."""
     code = """
 import importlib, pkgutil, sys
 import speech_intent_recognizer_tpu_torch as pkg
@@ -37,6 +38,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))
 assert not bad, bad
+# the card's host may have neither (the wav2vec converters read
+# config.json, safetensors and .bin files themselves)
+hf = sorted(m for m in sys.modules
+            if m.split('.')[0] in ('transformers', 'safetensors'))
+assert not hf, hf
 ref = sorted(m for m in sys.modules
              if m.split('.')[0] == 'speech_intent_recognizer_tpu')
 assert ref == [], ref

@@ -345,26 +345,48 @@ def test_resume_continues_exactly(rng, tmp_path):
         "epoch_000002.pt", "epoch_000003.pt"]
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """The options the port does not run raise; ``cli.train`` refuses
+    ``model_name: wav2vec`` and names ``cli.train_wav2vec``; the wav2vec
+    evaluation is ported and evaluates a tiny checkpoint."""
     from speech_intent_recognizer_tpu_torch.cli.evaluate import (
         evaluate_from_config)
     from speech_intent_recognizer_tpu_torch.cli.train import check_supported
+    from speech_intent_recognizer_tpu_torch.data.audio_io import save_wav
+    from speech_intent_recognizer_tpu_torch.models.wav2vec import (
+        Wav2VecIntent, small_wav2vec_config)
 
     # waveform-resident training is ported: both construct
     trainer = Trainer(CNNAudioGRU(num_classes=5, **NARROW),
                       Config.from_dict({}), from_waveforms=True)
     assert trainer.from_waveforms
     check_supported(Config.from_dict({"train_on_waveforms": True}))
-    for raw in ({"model_name": "wav2vec"},
-                {"num_processes": 2}, {"model_axis": 2},
+    with pytest.raises(NotImplementedError, match="cli.train_wav2vec"):
+        check_supported(Config.from_dict({"model_name": "wav2vec"}))
+    for raw in ({"num_processes": 2}, {"model_axis": 2},
                 {"data_axis": 4}, {"coordinator_address": "localhost:1"}):
         with pytest.raises(NotImplementedError):
             check_supported(Config.from_dict(raw))
     check_supported(Config.from_dict({}))
-    cfg = Config.from_dict({})
-    with pytest.raises(NotImplementedError):
-        evaluate_from_config(cfg, "x.csv", "lm.json", "m.pt",
-                             model_type="wav2vec", device="cpu")
+    cfg = Config.from_dict({"max_duration": 0.5,
+                            "save_path": str(tmp_path / "ckpt")})
+    model = Wav2VecIntent(small_wav2vec_config(32, 1), 2)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "w2v.pt")
+    rows = []
+    for i in range(3):
+        wav = str(tmp_path / f"{i}.wav")
+        save_wav(wav, np.sin(np.arange(4000) * (0.05 + 0.02 * i))
+                 .astype(np.float32), 16000)
+        rows.append(f"{wav},{'ab'[i % 2]}\n")
+    (tmp_path / "m.csv").write_text("path,label\n" + "".join(rows))
+    (tmp_path / "lm.json").write_text(json.dumps({"a": 0, "b": 1}))
+    result = evaluate_from_config(
+        cfg, str(tmp_path / "m.csv"), str(tmp_path / "lm.json"),
+        str(tmp_path / "w2v.pt"), model_type="wav2vec", device="cpu")
+    assert result["confusion_matrix"].sum() == 3
+    assert (tmp_path / "ckpt" / "evaluation_results_wav2vec"
+            / "classification_report.txt").exists()
     with pytest.raises(NotImplementedError):
         evaluate_from_config(cfg, "x.csv", "lm.json", "m.pt",
                              data_parallel=True, device="cpu")
