@@ -141,12 +141,32 @@ Phases:
     before the ops), in alternating rounds; the host cost of a wrapper's
     call, its op's and the kernel's launch body alone (K4 on 4 frames, the
     fp32 K2 at B=1, K1 at B=8).
+20. the hermetic TTS corpus and what runs on it: a.
+    ``cli.generate_tts_samples --engine synthetic`` on the 38-row sheet,
+    every WAV decoded by ``load_audio``; b. ``examples.make_ab_corpus
+    --profile harder --variants 8`` (304 WAVs + golden features) and
+    ``examples.synthetic_e2e``'s ``cli.run_pipeline`` on a 60 / 20 / 20
+    split (a full-width bf16 model; K3 once a precompute batch, K2T 2 a
+    step, K2 2 a step, eval batch and evaluate-stage batch); c.
+    ``cli.test_tts_samples`` with that model over the 38 TTS WAVs on the
+    card (K1 38, K2 76, nothing else) and with ``--device cpu``: equal
+    labels, confidences within phase 4's bar, the accuracy printed; d. a
+    librosa-mode predictor (plain front-end: no K1, K3 or K4) on the card
+    against the CPU and against the fp64 golden features; e. one
+    ``Wav2VecTrainer`` epoch (small config) through ``device_prefetch``
+    against synchronous copies, losses and weights bit-equal; f.
+    ``utils.trace`` around one B=256 ``predict_waveform_batch`` names
+    K1's and K2's kernels and the annotated region; g.
+    ``utils.diagnostics``' smoke test and 2 s stress test (TFLOP/s beside
+    the card's name and power limit).
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
 the batched finalize of 16 and in the file replay of 16; K2, K3 and K2T
 also ``waveform_launches``, phase 17's; every kernel
-``artifact_launches``, phase 18's per program call), its error
+``artifact_launches``, phase 18's per program call; K2, K3 and K2T
+``synthetic_launches``, phase 20b's; K1 and K2 ``tts_launches``, phase
+20c's), its error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
@@ -170,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -180,6 +201,8 @@ from speech_intent_recognizer_tpu_torch.data import native
 from speech_intent_recognizer_tpu_torch.data.audio_io import (
     load_audio, save_wav)
 from speech_intent_recognizer_tpu_torch.data.labelmap import save_label_map
+from speech_intent_recognizer_tpu_torch.examples.make_ab_corpus import (
+    SENTENCES as SHEET)
 from speech_intent_recognizer_tpu_torch.infer import streaming
 from speech_intent_recognizer_tpu_torch.infer.mic import (
     FileAudioSource, run_live)
@@ -372,6 +395,18 @@ W2V_EXPORT_SIZES = (8, 32)
 W2V_EXPORT_REQUESTS = (8, 20)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "narrow_model")
+# phase 20: the sentence sheet (38 sentences, 19 intents) of the TTS corpus
+# and of the synthetic A/B corpus (make_ab_corpus --profile harder at
+# SYNTH_VARIANTS variants a sentence), synthetic_e2e's epochs on it; the
+# librosa front-end vs the fp64 golden at JAX's bar
+# (tests/test_frontend.py:246); the files of the prefetch epoch; the
+# stress test's seconds
+SYNTH_VARIANTS = 8
+SYNTH_CLASSES = 19
+SYNTH_EPOCHS = 10
+LIBROSA_RTOL, LIBROSA_ATOL = 2e-3, 3e-3
+PREFETCH_FILES = 32
+STRESS_S = 2.0
 FIXTURE_LABELS = os.path.join(ROOT, "tests", "data", "narrow_label_map.json")
 
 
@@ -2760,6 +2795,319 @@ def wav2vec_timings(dev, state: dict, label: str, profile: bool) -> dict:
     return cells
 
 
+def sheet_rows() -> list:
+    from speech_intent_recognizer_tpu_torch.tts.generate import (
+        _read_sentence_sheet)
+
+    return _read_sentence_sheet(SHEET)
+
+
+def synthetic_pipeline(dev, tmp: str) -> dict:
+    """Phase 20b: ``examples.make_ab_corpus --profile harder --variants 8``
+    (304 utterances), then ``examples.synthetic_e2e``'s run of
+    ``cli.run_pipeline`` on a 60 / 20 / 20 split of it (precompute with K3,
+    a full-width bf16 model trained with K2 / K2T, evaluated with K2), the
+    counters reset just before and read just after."""
+    from speech_intent_recognizer_tpu_torch.config import load_config
+    from speech_intent_recognizer_tpu_torch.examples import (
+        make_ab_corpus, synthetic_e2e)
+
+    t0 = time.perf_counter()
+    manifest = make_ab_corpus.make_corpus(
+        os.path.join(tmp, "ab_corpus"), variants=SYNTH_VARIANTS,
+        profile="harder", seed=0)
+    corpus_s = time.perf_counter() - t0
+    n_sheet = len(sheet_rows())
+    d = np.load(os.path.join(tmp, "ab_corpus", "features.npz"))
+    check(len(manifest) == SYNTH_VARIANTS * n_sheet
+          and d["features"].shape == (len(manifest), 64, 200)
+          and bool(np.isfinite(d["features"]).all())
+          and len(d["classes"]) == SYNTH_CLASSES,
+          f"make_ab_corpus --profile harder --variants {SYNTH_VARIANTS}: "
+          f"{len(manifest)} WAVs and their golden features in "
+          f"{corpus_s:.1f} s")
+    work = os.path.join(tmp, "synthetic_e2e")
+    os.makedirs(work)
+    paths = synthetic_e2e.write_splits(manifest, work,
+                                       np.random.default_rng(0))
+    stages = {}
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    metrics = synthetic_e2e.train_and_evaluate(
+        paths, work, SYNTH_EPOCHS, str(dev), stage_times=stages)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    cfg = load_config(os.path.join(work, "config.json"))
+    with open(os.path.join(work, "ckpt", "training_history.json")) as f:
+        history = json.load(f)
+    n = {s: sum(1 for _ in open(paths[s])) - 1
+         for s in ("train", "valid", "test")}
+    bs = cfg.train.batch_size
+    eval_bs = bs * cfg.train.eval_batch_multiplier
+    steps = history["epochs_run"] * -(-n["train"] // bs)
+    eval_batches = history["epochs_run"] * -(-n["valid"] // eval_bs)
+    test_batches = -(-n["test"] // eval_bs)
+    precompute = sum(-(-v // cfg.data.precompute_batch_size)
+                     for v in n.values())
+    check_counts(launches, {
+        "K3": precompute, "K2T": 2 * steps,
+        "K2": 2 * (steps + eval_batches + test_batches)},
+        f"synthetic_e2e's run_pipeline ({n}; {precompute} precompute "
+        f"batches, {steps} train steps, {eval_batches} eval batches, "
+        f"{test_batches} evaluate-stage batches)")
+    # 12 steps an epoch on 184 utterances leave the model near chance
+    # (PERF.md section 6): the accuracy is reported, not held to a
+    # bar; the controls (examples.convergence_ab, waveform_ab) measure it
+    losses = [h["train_loss"] for h in history["history"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"synthetic_e2e on the harder corpus: train loss finite and lower "
+          f"after {history['epochs_run']} epochs than after the first "
+          f"{[round(x, 4) for x in losses]}; test accuracy "
+          f"{metrics['accuracy']:.4f}; run_pipeline {seconds:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()))
+    return {"launches": launches, "accuracy": metrics["accuracy"],
+            "val_acc": history["best_val_acc"],
+            "epochs": history["epochs_run"], "seconds": seconds,
+            "corpus_s": corpus_s, "stages": stages,
+            "best": os.path.join(work, "ckpt", "best_model.pt"),
+            "label_map": os.path.join(work, "label_map.json"),
+            "paths": [p for p, _ in manifest],
+            "labels": [lab for _, lab in manifest]}
+
+
+def tts_holdout(dev, tmp: str, tts_dir: str, run: dict) -> dict:
+    """Phase 20c: ``cli.test_tts_samples`` over the TTS WAVs with phase
+    20b's model on the card (one K1 and two K2 a file, nothing else) and
+    with ``--device cpu``: equal predicted labels, confidences within
+    phase 4's bar."""
+    from speech_intent_recognizer_tpu_torch.cli.test_tts_samples import (
+        main as tts_main)
+
+    args = ["--model", run["best"], "--label_map", run["label_map"],
+            "--audio_dir", tts_dir]
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    card = tts_main(args + ["--report_dir", os.path.join(tmp, "tts_card"),
+                            "--device", str(dev)])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = counters()
+    n = len(card["rows"])
+    check(n == len(sheet_rows()), f"the TTS holdout predicted {n} WAVs")
+    check_counts(launches, {"K1": n, "K2": 2 * n},
+                 f"cli.test_tts_samples on the card over {n} WAVs")
+    t0 = time.perf_counter()
+    cpu = tts_main(args + ["--report_dir", os.path.join(tmp, "tts_cpu"),
+                           "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    same = [a["predicted"] == b["predicted"]
+            for a, b in zip(card["rows"], cpu["rows"])]
+    err = float(np.abs(np.array([r["confidence"] for r in card["rows"]])
+                       - [r["confidence"] for r in cpu["rows"]]).max())
+    check([r["file"] for r in card["rows"]]
+          == [r["file"] for r in cpu["rows"]] and all(same)
+          and err < PROB_GATE,
+          f"TTS holdout card vs CPU: predicted equal on {sum(same)} of {n}, "
+          f"confidence err {err:.3e} < {PROB_GATE}")
+    for name in ("detailed_results.csv", "classification_report.csv"):
+        check(os.path.exists(os.path.join(tmp, "tts_card", name)),
+              f"the TTS holdout wrote {name}")
+    log(f"TTS holdout accuracy {card['accuracy']:.4f} (card) / "
+        f"{cpu['accuracy']:.4f} (CPU) over {n} clean synthetic WAVs; "
+        f"{card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU")
+    return {"launches": launches, "accuracy": card["accuracy"],
+            "cpu_accuracy": cpu["accuracy"], "conf_err": err,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def librosa_mode(dev, run: dict, tts_dir: str) -> dict:
+    """Phase 20d: a librosa-mode predictor of phase 20b's model on the
+    card (plain front-end, no K1 / K3 / K4) against the CPU predictor and
+    against the fp64 golden features through the same model."""
+    cfg = AudioConfig(frontend="librosa")
+    wavs = sorted(f for f in os.listdir(tts_dir) if f.endswith(".wav"))
+    pred = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                     audio_cfg=cfg, device=dev)
+    check(pred._conv1 is None, "librosa mode: the fused K1 path is off")
+    width = pred._buffer_width()
+    buf = np.zeros((len(wavs), width), np.float32)
+    ln = np.zeros(len(wavs), np.int32)
+    for i, name in enumerate(wavs):
+        x, _ = load_audio(os.path.join(tts_dir, name))
+        ln[i] = min(len(x), cfg.max_samples)
+        buf[i, :ln[i]] = x[:ln[i]]
+    torch.cuda.synchronize()
+    reset_counters()
+    probs = pred.predict_waveform_batch(buf, ln)
+    torch.cuda.synchronize()
+    launches = counters()
+    check_counts(launches, {"K2": 2},
+                 f"librosa-mode predictor, B={len(wavs)} (K1, K3, K4 none)")
+    cpu_pred = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                         audio_cfg=cfg, device="cpu")
+    check_probs(probs, cpu_pred.predict_waveform_batch(buf, ln),
+                f"librosa-mode predictor on the card vs the CPU, "
+                f"B={len(wavs)}")
+    feats = log_mel_frontend(torch.from_numpy(buf).to(dev),
+                             torch.from_numpy(ln).to(dev),
+                             pred.frontend_params).cpu().numpy()
+    gold = np.stack([golden.pad_or_trim_np(golden.log_mel_spectrogram_np(
+        buf[i, :n], frontend="librosa"), 200) for i, n in enumerate(ln)])
+    err = float(np.abs(feats - gold).max())
+    check(np.allclose(feats, gold, rtol=LIBROSA_RTOL, atol=LIBROSA_ATOL),
+          f"librosa front-end on the card vs the fp64 golden: max |err| "
+          f"{err:.3e} (rtol {LIBROSA_RTOL}, atol {LIBROSA_ATOL})")
+    with torch.inference_mode():
+        want = torch.softmax(pred.model(torch.from_numpy(gold).to(
+            dev)).float(), -1).cpu().numpy()
+    check_probs(probs, want, "librosa-mode predictor vs the golden "
+                "features through the same model")
+    return {"launches": launches, "feature_err": err}
+
+
+def prefetch_epoch(dev, run: dict) -> dict:
+    """Phase 20e: one epoch of the small wav2vec recipe on the card with
+    ``device_prefetch`` (pinned, non-blocking copies on a side stream) and
+    with the synchronous copies it replaced, after one warm-up epoch, in
+    the order A B B A: bit-equal losses and weights every time."""
+    from speech_intent_recognizer_tpu_torch.models import wav2vec as w2v
+    from speech_intent_recognizer_tpu_torch.train import (
+        wav2vec_trainer as wt)
+
+    names = sorted(set(run["labels"]))
+    paths = run["paths"][:PREFETCH_FILES]
+    labels = [names.index(lab) for lab in run["labels"][:PREFETCH_FILES]]
+    n_train = PREFETCH_FILES * 3 // 4
+    prefetch = wt.device_prefetch
+
+    def synchronous(host, buffer_size, device):
+        for x, mask, y in host:
+            yield (torch.from_numpy(x).to(device),
+                   torch.from_numpy(mask).to(device),
+                   torch.from_numpy(y).to(device, torch.int64))
+
+    def epoch(route):
+        model = w2v.init_wav2vec(w2v.Wav2VecIntent(
+            w2v.small_wav2vec_config(), len(names)), 0).to(dev)
+        trainer = wt.Wav2VecTrainer(model, wt.create_wav2vec_optimizer(
+            model.parameters(), lr=1e-3), len(names))
+        wt.device_prefetch = route
+        try:
+            t0 = time.perf_counter()
+            out = trainer.fit(paths[:n_train], labels[:n_train],
+                              paths[n_train:], labels[n_train:], epochs=1,
+                              batch_size=8, seed=0, log=lambda m: None)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            wt.device_prefetch = prefetch
+        h = out["history"][0]
+        return ((h["train_loss"], h["val_loss"], h["val_acc"]), seconds,
+                {k: v.cpu() for k, v in model.state_dict().items()})
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, _, want_state = epoch(synchronous)  # warm-up
+        runs = [(name, *epoch(route)) for name, route in (
+            ("prefetch", prefetch), ("sync", synchronous),
+            ("sync", synchronous), ("prefetch", prefetch))]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    seconds = {n: [s for m, _, s, _ in runs if m == n]
+               for n in ("prefetch", "sync")}
+    check(all(got == want and all(torch.equal(state[k], want_state[k])
+                                  for k in want_state)
+              for _, got, _, state in runs),
+          f"wav2vec epoch ({n_train} train / {PREFETCH_FILES - n_train} "
+          f"valid files, small config) through device_prefetch and through "
+          f"synchronous copies (A B B A after a warm-up): losses {want} "
+          f"bit-equal, every weight equal; seconds {seconds}")
+    return {"seconds": seconds}
+
+
+def traced_predict(dev, tmp: str, run: dict) -> dict:
+    """Phase 20f: ``utils.trace`` around one B=256 ``predict_waveform_batch``
+    of phase 20b's model inside a ``trace_annotation``: the trace names
+    K1's and K2's kernels and the region."""
+    from speech_intent_recognizer_tpu_torch.utils import (
+        trace, trace_annotation)
+
+    pred = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                     device=dev)
+    rng = np.random.default_rng(20)
+    buf, ln = batch(list(rng.integers(1, 80001, MAIN_BATCH)),
+                    padded_samples(80000), seed=20)
+    wf = torch.from_numpy(buf).to(dev)
+    pred.predict_waveform_batch(wf, ln)  # warm
+    logdir = os.path.join(tmp, "trace")
+    with trace(logdir):
+        # a trace taken after phases 1-19 once held no record of K1's
+        # launch, the batch's first kernel: the window now opens and closes
+        # on a throwaway launch, each side of the traced batch synchronized
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        with trace_annotation("phase20_predict_b256"):
+            probs = pred.predict_waveform_batch(wf, ln)
+        torch.ones(1, device=dev).add_(1)
+    check(probs.shape == (MAIN_BATCH, SYNTH_CLASSES)
+          and bool(np.isfinite(probs).all()), "traced batch's probabilities")
+    files = os.listdir(logdir)
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    check(len(files) == 1 and "phase20_predict_b256" in names
+          and any("frontend_conv1_kernel" in n for n in kernels)
+          and any("gru_layer" in n for n in kernels),
+          f"trace {files} of {len(events)} events names the annotated "
+          f"region, K1's kernel and K2's among the kernels "
+          f"{[n[:60] for n in kernels]} (events by category: "
+          f"{dict(Counter(e.get('cat') for e in events))})")
+    return {"events": len(events), "kernels": kernels}
+
+
+def check_synthetic(dev, tmp: str, label: str) -> dict:
+    """Phase 20: the hermetic TTS corpus and its holdout, training on the
+    synthetic A/B corpus, the librosa mode, device prefetch, tracing and
+    the diagnostics."""
+    from speech_intent_recognizer_tpu_torch.cli.generate_tts_samples import (
+        main as tts_main)
+    from speech_intent_recognizer_tpu_torch.utils import diagnostics
+
+    t_phase = time.perf_counter()
+    # a. the TTS corpus of the sentence sheet
+    tts_dir = os.path.join(tmp, "tts")
+    tts_main(["--csv", SHEET, "--output_dir", tts_dir, "--engine",
+              "synthetic"])
+    wavs = sorted(f for f in os.listdir(tts_dir) if f.endswith(".wav"))
+    decoded = [load_audio(os.path.join(tts_dir, f)) for f in wavs]
+    check(len(wavs) == len(sheet_rows())
+          and all(sr == 16000 and len(x) > 0 and bool(np.isfinite(x).all())
+                  for x, sr in decoded),
+          f"generate_tts_samples --engine synthetic: {len(wavs)} WAVs, each "
+          f"decoded by load_audio")
+    # b-g
+    run = synthetic_pipeline(dev, tmp)
+    holdout = tts_holdout(dev, tmp, tts_dir, run)
+    librosa = librosa_mode(dev, run, tts_dir)
+    prefetch = prefetch_epoch(dev, run)
+    traced = traced_predict(dev, tmp, run)
+    check(diagnostics.device_smoke_test(device=dev),
+          "diagnostics.device_smoke_test on the card")
+    stress = diagnostics.stress_test(seconds=STRESS_S, device=dev)
+    log(f"diagnostics.stress_test on {label}: {stress['matmuls']} bf16 "
+        f"matmuls of 4096^2 in {stress['seconds']:.3f} s (CUDA events) -> "
+        f"{stress['tflops']:.1f} TFLOP/s")
+    seconds = time.perf_counter() - t_phase
+    return {"synthetic": run, "holdout": holdout, "librosa": librosa,
+            "prefetch": prefetch, "trace": traced, "stress": stress,
+            "seconds": seconds}
+
+
 def check_wav2vec(dev, tmp: str, run: dict, label: str,
                   profile: bool) -> dict:
     """Phase 19: the wav2vec family at full width, with every kernel
@@ -3110,6 +3458,11 @@ def main(argv=None) -> int:
         export_phase_s = time.perf_counter() - t0
         # ---- 19. the wav2vec family at full width ----
         wav2vec = check_wav2vec(dev, tmp, e2e_train, label, args.profile)
+    # ---- 20. the TTS corpus, the synthetic A/B corpus, the librosa mode,
+    # device prefetch, tracing, the diagnostics ----
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic = check_synthetic(dev, tmp, label)
+    syn, hold = synthetic["synthetic"], synthetic["holdout"]
 
     log(f"timing on {label} (CUDA events, ms per call):")
     for k, v in timings.items():
@@ -3225,6 +3578,12 @@ def main(argv=None) -> int:
         kernels[i]["waveform_launches"] = pipeline["launches"][key]
     # launches through the serving artifacts (phase 18): per program call,
     # per finalize of the streaming artifact
+    # launches on phase 20's paths: the synthetic corpus's run_pipeline and
+    # the TTS holdout on the card
+    for i, key in ((1, "K2"), (2, "K3"), (3, "K2T")):
+        kernels[i]["synthetic_launches"] = syn["launches"][key]
+    for i, key in ((0, "K1"), (1, "K2")):
+        kernels[i]["tts_launches"] = hold["launches"][key]
     for entry_, key in zip(kernels, ("K1", "K2", "K3", "K2T", "K4", "K5",
                                      "K6")):
         entry_["artifact_launches"] = {
@@ -3240,6 +3599,17 @@ def main(argv=None) -> int:
             f"{c['host_p90']:.3f}), kernel {c['kernel_ms']:.3f}, idle "
             f"{c['idle']:.3f}; {c['gflop']:.1f} GFLOP, bound "
             f"{c['bound_ms']:.3f} ms ({c['bound_by']})")
+    log(f"  phase 20 on {label} took {synthetic['seconds']:.1f} s: "
+        f"make_ab_corpus (304 WAVs + golden features) {syn['corpus_s']:.1f} "
+        f"s; synthetic_e2e run_pipeline {syn['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in syn["stages"].items())
+        + f"), val acc {syn['val_acc']:.4f}, test acc {syn['accuracy']:.4f} "
+        f"after {syn['epochs']} epochs, launches {syn['launches']}; TTS "
+        f"holdout accuracy {hold['accuracy']:.4f} (card {hold['card_s']:.1f} "
+        f"s, CPU {hold['cpu_s']:.1f} s), launches {hold['launches']}; "
+        f"librosa mode launches {synthetic['librosa']['launches']}; "
+        f"epoch seconds {synthetic['prefetch']['seconds']}; stress "
+        f"test {synthetic['stress']['tflops']:.1f} TFLOP/s (bf16 4096^2)")
     print(json.dumps({"wav2vec": wav2vec, "device": label}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -179,15 +179,16 @@ class Predictor:
 
     def _maybe_enable_conv1_fusion(self, folded: Dict[str, torch.Tensor],
                                    pool_impl: str = "torch") -> None:
-        """Serve the fused front-end + conv1 path when the audio geometry
-        and conv1 match the K1 kernel's contract (n_fft=1024, hop=512,
-        64 mels, 200 frames, 32 conv1 channels)."""
+        """Serve the fused front-end + conv1 path when the audio front-end
+        and conv1 match the K1 kernel's contract (torchaudio mode,
+        n_fft=1024, hop=512, 64 mels, 200 frames, 32 conv1 channels)."""
         from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
             conv1_external_params)
 
         cfg = self.audio_cfg
         w = folded.get("conv1.weight")
-        if not (cfg.n_fft == 1024 and cfg.hop_length == 512
+        if not (cfg.frontend == "torchaudio" and cfg.n_fft == 1024
+                and cfg.hop_length == 512
                 and cfg.n_mels == 64
                 and cfg.mel_spec_length == 200 and w is not None
                 and tuple(w.shape) == (32, 1, 3, 3)

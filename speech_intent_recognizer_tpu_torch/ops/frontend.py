@@ -15,13 +15,21 @@ the true lengths; every semantic of the reference is kept:
   with ``max(cnt-1, 1)``; frames past the valid count zeroed afterwards;
   the time axis zero-padded or trimmed to ``mel_spec_length``.
 
+The ``librosa`` mode (the reference's microphone path) differs in three
+places: zero centre padding, a Slaney filterbank, and dB relative to the
+loudest valid frame's mel power, floored 80 dB below it and normalized by
+the fixed global constants.  The JAX package runs that mode in XLA only
+(``ops/frontend_jax.py:448-456``; ``:552-553`` refuses its Pallas backend),
+so here it is plain PyTorch on every device by design: no kernel serves it.
+
 :func:`log_mel_frontend_plain` is plain PyTorch (the reference's XLA
 path).  For CUDA tensors :func:`log_mel_frontend` runs the fused front-end
 kernel (K3) at the reference geometry (n_fft 1024, hop 512, 64 mels, 200
 frames) and, off it, frames the signal, runs the dB-mel kernel (K4) on the
 frames and finishes in PyTorch; :func:`log_mel_conv1_frontend` runs the
 fused front-end + conv1 kernel (K1).  The kernels' wrappers are in
-``ops/frontend_kernels.py``; CPU tensors take the plain versions.
+``ops/frontend_kernels.py``; CPU tensors, and the librosa mode on any
+device, take the plain version.
 """
 
 from __future__ import annotations
@@ -36,8 +44,7 @@ from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 
 
 class FrontendParams(NamedTuple):
-    """Constant operands of the torchaudio-mode front-end (the only mode
-    the port serves), as tensors on one device.
+    """Constant operands of the front-end, as tensors on one device.
 
     ``window`` and ``mel_fb`` serve the plain path; ``twiddle`` and the
     packed filterbank (``fb_packed``/``fb_off``/``fb_lo``: each mel's
@@ -45,7 +52,10 @@ class FrontendParams(NamedTuple):
     are the kernels' operands (K1, K3, K4).  ``twiddle[k]`` is
     e^{-2 pi i k / n_fft}: the factor that untangles the kernels'
     half-size complex transform into the real-input one, and the table
-    their pass twiddles are read from (``csrc/warp_rfft.cuh``)."""
+    their pass twiddles are read from (``csrc/warp_rfft.cuh``).
+    ``frontend`` ("torchaudio" or "librosa") and the librosa mode's global
+    normalization constants close it, as in the JAX package's
+    ``FrontendParams``; the kernels serve the torchaudio mode only."""
 
     window: torch.Tensor  # (n_fft,) f32 periodic Hann
     mel_fb: torch.Tensor  # (n_freqs, n_mels) f32
@@ -58,6 +68,9 @@ class FrontendParams(NamedTuple):
     n_mels: int
     target_length: int
     norm_eps: float
+    frontend: str = "torchaudio"
+    global_mean: float = -30.1  # the reference mic path's constants
+    global_std: float = 12.7    # (testing.py:189-209)
 
 
 class FrontendModule(torch.nn.Module):
@@ -84,17 +97,24 @@ class FrontendModule(torch.nn.Module):
 def make_frontend_params(cfg: Optional[AudioConfig] = None,
                          device: "str | torch.device" = "cpu"
                          ) -> FrontendParams:
+    """The front-end of ``cfg`` on ``device``: an HTK filterbank in the
+    torchaudio mode, a Slaney one (Slaney-normalized) in the librosa mode
+    (``ops/frontend_numpy.py``'s librosa branch), whose features are
+    normalized by the reference's global constants."""
     cfg = cfg or AudioConfig()
-    if cfg.frontend != "torchaudio":
-        raise ValueError("the port's front-end supports the torchaudio mode")
     n_freqs = cfg.n_fft // 2 + 1
     window = golden.hann_window(cfg.win_length)
     if cfg.win_length < cfg.n_fft:
         lpad = (cfg.n_fft - cfg.win_length) // 2
         window = np.pad(window, (lpad, cfg.n_fft - cfg.win_length - lpad))
-    fb = golden.mel_filterbank(n_freqs, cfg.n_mels, cfg.sample_rate,
-                               cfg.f_min, cfg.f_max, mel_scale="htk",
-                               norm=None)
+    if cfg.frontend == "torchaudio":
+        fb = golden.mel_filterbank(n_freqs, cfg.n_mels, cfg.sample_rate,
+                                   cfg.f_min, cfg.f_max, mel_scale="htk",
+                                   norm=None)
+    else:
+        fb = golden.mel_filterbank(n_freqs, cfg.n_mels, cfg.sample_rate,
+                                   cfg.f_min, cfg.f_max, mel_scale="slaney",
+                                   norm="slaney")
     angle = 2.0 * np.pi * np.arange(cfg.n_fft // 2) / cfg.n_fft
     twiddle = np.stack([np.cos(angle), -np.sin(angle)], axis=1)
     # sparse filterbank: each triangle's nonzero run of bins, mel-major
@@ -118,7 +138,7 @@ def make_frontend_params(cfg: Optional[AudioConfig] = None,
         fb_packed=f32(np.concatenate(packed)), fb_off=i32(off),
         fb_lo=i32(lo), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
         n_mels=cfg.n_mels, target_length=cfg.mel_spec_length,
-        norm_eps=cfg.norm_eps)
+        norm_eps=cfg.norm_eps, frontend=cfg.frontend)
 
 
 def padded_samples(max_samples: int, hop: int = 512,
@@ -132,10 +152,11 @@ def padded_samples(max_samples: int, hop: int = 512,
 
 
 def _frames(waveforms: torch.Tensor, lengths: torch.Tensor, n_fft: int,
-            hop: int) -> torch.Tensor:
+            hop: int, reflect: bool = True) -> torch.Tensor:
     """(B, L) zero-padded buffer + (B,) int64 lengths -> (B, 1 + L // hop,
     n_fft) frames of the centre-padded signal, with the reference's reflect
-    semantics."""
+    semantics, or (``reflect=False``, the librosa mode) zeros on both
+    sides of the buffer."""
     b, width = waveforms.shape
     pad = n_fft // 2
     n_frames = 1 + width // hop
@@ -143,9 +164,13 @@ def _frames(waveforms: torch.Tensor, lengths: torch.Tensor, n_fft: int,
     p = (hop * torch.arange(n_frames, device=dev)[:, None]
          + torch.arange(n_fft, device=dev)[None, :])  # centre-padded index
     s = (p - pad)[None]  # signal index, (1, T, n_fft)
-    ln = lengths[:, None, None]
-    src = torch.where(p[None] < pad, pad - p[None],
-                      torch.where(s < ln, s, (2 * ln - 2 - s).clamp(min=0)))
+    if reflect:
+        ln = lengths[:, None, None]
+        src = torch.where(p[None] < pad, pad - p[None],
+                          torch.where(s < ln, s,
+                                      (2 * ln - 2 - s).clamp(min=0)))
+    else:
+        src = torch.where(s < 0, width, s)  # read as zero below
     inside = src < width
     src = torch.where(inside, src, 0).expand(b, -1, -1)
     x = torch.gather(waveforms, 1, src.reshape(b, -1)).reshape(src.shape)
@@ -155,14 +180,26 @@ def _frames(waveforms: torch.Tensor, lengths: torch.Tensor, n_fft: int,
 def _finish(db: torch.Tensor, lengths: torch.Tensor, params: FrontendParams,
             normalize: bool, out_dtype: torch.dtype) -> torch.Tensor:
     """Shared tail of the unfused paths: (B, T, n_mels) float32 dB and
-    (B,) int64 lengths -> masked per-utterance normalization, frames past
-    the valid count zeroed, (B, n_mels, target_length) ``out_dtype``."""
+    (B,) int64 lengths -> masked per-utterance normalization (torchaudio
+    mode) or dB relative to the loudest valid frame, floored at -80 dB and
+    globally normalized (librosa mode), frames past the valid count zeroed,
+    (B, n_mels, target_length) ``out_dtype``."""
     hop, n_mels, target = params.hop_length, params.n_mels, params.target_length
     t = db.shape[1]
     t_valid = 1 + lengths // hop
     mask = (torch.arange(t, device=db.device)[None, :]
             < t_valid[:, None]).to(db.dtype)[:, :, None]
-    if normalize:
+    if params.frontend == "librosa":
+        # power_to_db(ref=max, top_db=80) over the valid frames: the dB of
+        # the largest valid mel power is the largest valid dB, so the
+        # peak after the subtraction is 0 and the floor -80
+        valid = mask > 0
+        ref = torch.where(valid, db, -torch.inf).amax(dim=(1, 2),
+                                                      keepdim=True)
+        db = (db - ref).clamp(min=-80.0)
+        if normalize:
+            db = (db - params.global_mean) / params.global_std
+    elif normalize:
         cnt = (t_valid.to(db.dtype) * n_mels)[:, None, None]
         mean = (db * mask).sum(dim=(1, 2), keepdim=True) / cnt
         var = ((db - mean).square() * mask).sum(
@@ -197,7 +234,7 @@ def log_mel_frontend_plain(waveforms: torch.Tensor, lengths: torch.Tensor,
     """
     lengths = lengths.to(torch.int64).clamp(0, waveforms.shape[1])  # as K1
     frames = _frames(waveforms.float(), lengths, params.n_fft,
-                     params.hop_length)
+                     params.hop_length, params.frontend == "torchaudio")
     spec = torch.fft.rfft(frames * params.window, dim=-1)
     power = spec.real.square() + spec.imag.square()
     mel = torch.matmul(power, params.mel_fb)  # (B, T, n_mels)
@@ -208,13 +245,16 @@ def log_mel_frontend_plain(waveforms: torch.Tensor, lengths: torch.Tensor,
 def log_mel_frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
                      params: FrontendParams, normalize: bool = True,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """:func:`log_mel_frontend_plain`'s contract.  CPU tensors take the
-    plain version.  CUDA tensors run the K3 kernel at the reference
-    geometry; at any other they are framed here, go through the K4 kernel
-    as (B * T, n_fft) frames (one launch per batch) and are finished by
-    :func:`_finish`."""
+    """:func:`log_mel_frontend_plain`'s contract.  CPU tensors, and the
+    librosa mode on any device, take the plain version.  CUDA tensors of
+    the torchaudio mode run the K3 kernel at the reference geometry; at any
+    other they are framed here, go through the K4 kernel as (B * T, n_fft)
+    frames (one launch per batch) and are finished by :func:`_finish`."""
     from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 
+    if params.frontend != "torchaudio":  # no kernel serves this mode
+        return log_mel_frontend_plain(waveforms, lengths, params, normalize,
+                                      out_dtype)
     if waveforms.device.type == "cpu" or fk.is_reference_geometry(params):
         return fk.frontend(waveforms, lengths, params, normalize, out_dtype)
     if out_dtype not in (torch.float32, torch.bfloat16):

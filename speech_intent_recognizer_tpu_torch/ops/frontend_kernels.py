@@ -24,7 +24,8 @@
 Each source's header says what bounds it on the H100 and how the design
 answers that.  K1 and K3 serve exactly the reference geometry: torchaudio
 mode, n_fft 1024, hop 512, 64 mels, 200 output frames (and 32 conv1
-channels for K1).
+channels for K1).  No kernel serves the librosa mode (the JAX package
+runs it in XLA only): on a CUDA tensor each wrapper refuses it.
 
 Each kernel is also the ``sir`` op of its wrapper's name
 (``ops/library.py``): the wrapper checks its operands and calls the op for
@@ -53,9 +54,11 @@ WARP_FFT_SIZES = (512, 1024, 2048)
 
 
 def is_reference_geometry(params: FrontendParams) -> bool:
-    """Whether K1 and K3 serve this front-end."""
-    return (params.n_fft, params.hop_length, params.n_mels,
-            params.target_length) == (N_FFT, HOP, N_MELS, T_OUT)
+    """Whether K1 and K3 serve this front-end: the torchaudio mode at
+    their geometry."""
+    return params.frontend == "torchaudio" and (
+        params.n_fft, params.hop_length, params.n_mels,
+        params.target_length) == (N_FFT, HOP, N_MELS, T_OUT)
 
 
 def _check_geometry(waveforms, lengths, params: FrontendParams, what: str):
@@ -63,11 +66,18 @@ def _check_geometry(waveforms, lengths, params: FrontendParams, what: str):
         raise ValueError(f"expected (B, L) waveforms and (B,) lengths, got "
                          f"{tuple(waveforms.shape)} / {tuple(lengths.shape)}")
     if not is_reference_geometry(params):
-        raise ValueError(f"{what} supports n_fft=1024, hop=512, n_mels=64, "
-                         "mel_spec_length=200 only")
+        raise ValueError(f"{what} supports the torchaudio mode at "
+                         "n_fft=1024, hop=512, n_mels=64, mel_spec_length=200 "
+                         "only")
     if 1 + waveforms.shape[1] // HOP > T_OUT:
         raise ValueError(f"buffer of {waveforms.shape[1]} samples holds more "
                          f"than {T_OUT} frames")
+
+
+def _torchaudio_only(params: FrontendParams) -> None:
+    if params.frontend != "torchaudio":
+        raise ValueError("the front-end kernels serve the torchaudio mode "
+                         f"only, not {params.frontend!r}")
 
 
 def _check_cuda_operands(waveforms, lengths) -> torch.device:
@@ -132,6 +142,7 @@ def frontend_conv1(waveforms: torch.Tensor, lengths: torch.Tensor,
 def _frontend_conv1_cuda(waveforms, lengths, conv1_weight, conv1_bias,
                          *flat):
     params = FrontendParams(*flat)
+    _torchaudio_only(params)
     dev = waveforms.device
     w = conv1_weight.to(torch.bfloat16).contiguous()
     b = conv1_bias.to(torch.bfloat16).contiguous()
@@ -182,6 +193,7 @@ def frontend(waveforms: torch.Tensor, lengths: torch.Tensor,
 
 def _frontend_cuda(waveforms, lengths, normalize, bf16, *flat):
     params = FrontendParams(*flat)
+    _torchaudio_only(params)
     dev = waveforms.device
     batch, width = waveforms.shape
     out = torch.empty((batch, N_MELS, T_OUT),
@@ -260,6 +272,7 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
         return _mel_db_plain(frames, params)
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
+    _torchaudio_only(params)
     n_fft = params.n_fft
     if n_fft & (n_fft - 1) or not 32 <= n_fft <= 4096:
         raise ValueError(f"the K4 kernel transforms frames with a "
@@ -273,6 +286,7 @@ def mel_db(frames: torch.Tensor, params: FrontendParams) -> torch.Tensor:
 
 def _mel_db_cuda(frames, *flat):
     params = FrontendParams(*flat)
+    _torchaudio_only(params)
     dev = frames.device
     n = frames.shape[0]
     out = torch.empty((n, params.n_mels), dtype=torch.float32, device=dev)

@@ -40,10 +40,12 @@ import torch
 
 LIB = torch.library.Library("sir", "DEF")
 
-# FrontendParams, field for field
+# FrontendParams, field for field (the kernels refuse any mode but
+# torchaudio; the CPU implementations serve both)
 PARAMS = ("Tensor window, Tensor mel_fb, Tensor twiddle, Tensor fb_packed, "
           "Tensor fb_off, Tensor fb_lo, int n_fft, int hop_length, "
-          "int n_mels, int target_length, float norm_eps")
+          "int n_mels, int target_length, float norm_eps, str frontend, "
+          "float global_mean, float global_std")
 
 LIB.define("frontend_conv1(Tensor waveforms, Tensor lengths, "
            f"Tensor conv1_weight, Tensor conv1_bias, {PARAMS}) -> Tensor")
@@ -73,7 +75,8 @@ def load() -> None:
 @torch.library.register_fake("sir::frontend_conv1", lib=LIB)
 def _frontend_conv1_fake(waveforms, lengths, conv1_weight, conv1_bias,
                          window, mel_fb, twiddle, fb_packed, fb_off, fb_lo,
-                         n_fft, hop_length, n_mels, target_length, norm_eps):
+                         n_fft, hop_length, n_mels, target_length, norm_eps,
+                         frontend, global_mean, global_std):
     return waveforms.new_empty(
         (waveforms.shape[0], target_length // 2,
          (n_mels // 2) * conv1_weight.shape[0]), dtype=torch.bfloat16)
@@ -82,7 +85,8 @@ def _frontend_conv1_fake(waveforms, lengths, conv1_weight, conv1_bias,
 @torch.library.register_fake("sir::frontend", lib=LIB)
 def _frontend_fake(waveforms, lengths, normalize, bf16, window, mel_fb,
                    twiddle, fb_packed, fb_off, fb_lo, n_fft, hop_length,
-                   n_mels, target_length, norm_eps):
+                   n_mels, target_length, norm_eps, frontend, global_mean,
+                   global_std):
     return waveforms.new_empty(
         (waveforms.shape[0], n_mels, target_length),
         dtype=torch.bfloat16 if bf16 else torch.float32)
@@ -90,7 +94,8 @@ def _frontend_fake(waveforms, lengths, normalize, bf16, window, mel_fb,
 
 @torch.library.register_fake("sir::mel_db", lib=LIB)
 def _mel_db_fake(frames, window, mel_fb, twiddle, fb_packed, fb_off, fb_lo,
-                 n_fft, hop_length, n_mels, target_length, norm_eps):
+                 n_fft, hop_length, n_mels, target_length, norm_eps, frontend,
+                 global_mean, global_std):
     return frames.new_empty((frames.shape[0], n_mels))
 
 

@@ -1,11 +1,13 @@
-"""Bandlimited sinc resampling on the host (NumPy).
+"""Bandlimited sinc resampling, on the host (NumPy) or on a device.
 
-Copy of the NumPy half of ``speech_intent_recognizer_tpu/ops/resample.py``
-(the reference's ``ops`` package imports JAX, so the port keeps its own
-copy; ``tests/test_torch_host.py`` pins it to the original).  Reimplements
-torchaudio's ``sinc_interp_hann`` resampler: a polyphase kernel bank of
-Hann-windowed sincs at the reduced ``orig/gcd : new/gcd`` ratio, applied as
-a strided correlation.
+Counterpart of ``speech_intent_recognizer_tpu/ops/resample.py`` (the
+reference's ``ops`` package imports JAX, so the port keeps its own copy;
+``tests/test_torch_host.py`` pins :func:`resample_np` to the original).
+Reimplements torchaudio's ``sinc_interp_hann`` resampler: a polyphase
+kernel bank of Hann-windowed sincs at the reduced ``orig/gcd : new/gcd``
+ratio, applied as a strided correlation.  :func:`resample_torch` (the JAX
+package's ``resample_jax``) applies the same bank as one fp32 matmul on the
+tensor's device.
 """
 
 from __future__ import annotations
@@ -63,3 +65,34 @@ def resample_np(waveform: np.ndarray, orig_freq: int, new_freq: int,
     ys = ys[..., :target_length]
     out = ys.astype(np.result_type(waveform.dtype, np.float32))
     return out[0] if squeeze else out
+
+
+def resample_torch(waveform, orig_freq: int, new_freq: int,
+                   lowpass_filter_width: int = 6, rolloff: float = 0.99):
+    """:func:`resample_np` on a tensor's device: the last axis of a float
+    tensor, the kernel bank as one float32 matmul with TF32 off (the JAX
+    package's ``resample_jax`` runs it at HIGHEST precision)."""
+    import torch
+
+    if orig_freq == new_freq:
+        return waveform
+    kernel, width, orig, new = _sinc_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff)
+    squeeze = waveform.dim() == 1
+    x = waveform.float()
+    x = x[None] if squeeze else x
+    length = x.shape[-1]
+    x_pad = torch.nn.functional.pad(x, (width, width + orig))
+    klen = kernel.shape[1]
+    n_blocks = (x_pad.shape[-1] - klen) // orig + 1
+    frames = x_pad.unfold(-1, klen, orig)[..., :n_blocks, :]
+    bank = torch.as_tensor(kernel.T, dtype=torch.float32, device=x.device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ys = frames @ bank  # (..., n_blocks, new)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ys = ys.reshape(*x.shape[:-1], -1)
+    ys = ys[..., :math.ceil(new * length / orig)]
+    return ys[0] if squeeze else ys

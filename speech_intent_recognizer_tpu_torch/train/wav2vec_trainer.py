@@ -4,8 +4,9 @@ Counterpart of ``speech_intent_recognizer_tpu/train/wav2vec_trainer.py``
 (the reference's bytecode-only wav2vec trainer: AdamW, ReduceLROnPlateau
 with factor 0.5 and patience 2, gradient clipping, an optionally frozen
 feature extractor; batch 8, 20 epochs).  Raw 5 s waveforms are streamed
-from the files batch by batch (decoded on a worker thread), padded to a
-fixed ``max_length``.
+from the files batch by batch (decoded on a worker thread, copied to the
+device two batches ahead as the JAX trainer's ``device_prefetch`` does),
+padded to a fixed ``max_length``.
 
 :func:`create_wav2vec_optimizer` is the JAX package's optax chain, step for
 step: ``clip_by_global_norm`` over the trainable parameters, AdamW (optax
@@ -39,7 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from speech_intent_recognizer_tpu_torch.data.prefetch import BackgroundLoader
+from speech_intent_recognizer_tpu_torch.data.prefetch import (
+    BackgroundLoader, device_prefetch)
 from speech_intent_recognizer_tpu_torch.data.wav2vec_data import (
     apply_train_noise, batch_waveforms, draw_train_noise)
 from speech_intent_recognizer_tpu_torch.train.loop import epoch_generator
@@ -218,7 +220,9 @@ class Wav2VecTrainer:
     def _batches(self, paths: Sequence[str], labels: Sequence[int],
                  batch_size: int, shuffle: bool, seed: int):
         """Full batches only (a partial last batch is dropped, in training
-        and validation alike), decoded on a worker thread."""
+        and validation alike), decoded on a worker thread and copied to the
+        device two batches ahead (``data/prefetch.device_prefetch``: pinned
+        memory, non-blocking copies on a side stream)."""
         n = len(paths)
         order = (np.random.default_rng(seed).permutation(n) if shuffle
                  else np.arange(n))
@@ -232,10 +236,9 @@ class Wav2VecTrainer:
                                                self.max_length)
                 yield x, mask, labels[idx]
 
-        for x, mask, y in BackgroundLoader(produce, capacity=2):
-            yield (torch.from_numpy(x).to(self.device),
-                   torch.from_numpy(mask).to(self.device),
-                   torch.from_numpy(y).to(self.device, torch.int64))
+        host = ((x, mask, y.astype(np.int64))
+                for x, mask, y in BackgroundLoader(produce, capacity=2))
+        yield from device_prefetch(host, buffer_size=2, device=self.device)
 
     def fit(self, train_paths, train_labels, val_paths, val_labels,
             epochs: int = 20, batch_size: int = 8, seed: int = 0,

@@ -1,19 +1,79 @@
-"""Step timing, a per-kernel breakdown of device time, device memory.
+"""Tracing, step timing, a per-kernel breakdown of device time, device
+memory.
 
 Counterpart of ``speech_intent_recognizer_tpu/utils/profiling.py`` for the
-card: ``torch.profiler`` takes the place of ``jax.profiler``.  The
-``--profile`` phase of ``chip_smoke.py`` drives the two timing functions on
-the main path, and ``PERF.md`` section 5 is written from what they print;
-``cli/run_pipeline.py`` opens with :func:`device_memory_stats`.
+card: ``torch.profiler`` takes the place of ``jax.profiler``.
+
+* :func:`trace` — context manager writing a Chrome trace (``chrome://tracing``,
+  Perfetto) of the host and the card;
+* :func:`trace_annotation` — a named region inside a trace;
+* :func:`device_memory_stats` — per-card live / peak bytes;
+* :class:`StepTimer` — EMA step timing on the host clock, with derived
+  rates;
+* :func:`step_times` / :func:`kernel_breakdown` — the port's own: the
+  ``--profile`` phase of ``chip_smoke.py`` drives them on the main path,
+  and ``PERF.md`` section 5 is written from what they print.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture a host + card trace: ``with trace('/tmp/trace'): step()``
+    writes ``<logdir>/trace_<pid>_<n>.json`` (Chrome trace format), with
+    the card's kernels where CUDA is available."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    n = len([f for f in os.listdir(logdir) if f.startswith("trace_")])
+    prof.export_chrome_trace(
+        os.path.join(logdir, f"trace_{os.getpid()}_{n}.json"))
+
+
+def trace_annotation(name: str):
+    """Named region for the profiler timeline (``record_function``)."""
+    return torch.profiler.record_function(name)
+
+
+class StepTimer:
+    """Exponential-moving-average step timer (host clock): the time from
+    entering to leaving the ``with`` block.  Device work is asynchronous,
+    so a step's time covers its device work only where the step ends in a
+    copy to the host, as in the JAX package."""
+
+    def __init__(self, decay: float = 0.9):
+        self.decay = decay
+        self.ema: Optional[float] = None
+        self._t0: Optional[float] = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self.ema = dt if self.ema is None else (
+            self.decay * self.ema + (1 - self.decay) * dt)
+        return False
+
+    def rate(self, items_per_step: int) -> float:
+        return items_per_step / self.ema if self.ema else 0.0
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

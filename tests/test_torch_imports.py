@@ -26,8 +26,9 @@ def _run(code_or_args, cwd, timeout=300):
 
 def test_port_and_chip_smoke_import_without_jax_package():
     """Importing every module of the port and chip_smoke imports no JAX,
-    no module of the JAX package, with or without a submodule, and neither
-    ``transformers`` nor ``safetensors``."""
+    no module of the JAX package, with or without a submodule, neither
+    ``transformers`` nor ``safetensors``, neither optional TTS engine
+    (``gtts``, ``pyttsx3``) and no matplotlib."""
     code = """
 import importlib, pkgutil, sys
 import speech_intent_recognizer_tpu_torch as pkg
@@ -46,6 +47,11 @@ assert not hf, hf
 ref = sorted(m for m in sys.modules
              if m.split('.')[0] == 'speech_intent_recognizer_tpu')
 assert ref == [], ref
+# the optional TTS engines are imported inside their engines only, and
+# matplotlib only where a report is written
+opt = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('gtts', 'pyttsx3', 'matplotlib'))
+assert not opt, opt
 assert len(names) >= 30, names
 print(len(names))
 """
@@ -67,6 +73,55 @@ bad = sorted(m for m in sys.modules if m.split('.')[0] in (
     'jax', 'jaxlib', 'flax', 'msgpack', 'optax', 'sounddevice', 'pyaudio')
     or m.split('.')[0].startswith('speech_intent_recognizer_tpu')
     and not m.startswith('speech_intent_recognizer_tpu_torch'))
+assert not bad, bad
+"""
+    r = _run(code, REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_tts_holdout_and_examples_import_only_the_port(tmp_path):
+    """The TTS, TTS-holdout and diagnostics modules, their CLIs and the
+    example scripts run without JAX, the JAX package, transformers,
+    safetensors, gtts or pyttsx3: a synthetic corpus, its holdout report
+    (matplotlib imported there, inside ``_write_artifacts``, and nowhere
+    before) and the corpus script's module."""
+    code = f"""
+import importlib, sys
+pkg = 'speech_intent_recognizer_tpu_torch'
+for name in ('tts', 'tts.generate', 'evaluation.tts_holdout',
+             'cli.generate_tts_samples', 'cli.test_tts_samples',
+             'utils', 'utils.diagnostics', 'utils.profiling',
+             'data.prefetch', 'ops.resample', 'examples.make_ab_corpus',
+             'examples.synthetic_e2e', 'examples.convergence_ab',
+             'examples.waveform_ab'):
+    importlib.import_module(pkg + '.' + name)
+assert 'matplotlib' not in sys.modules
+from speech_intent_recognizer_tpu_torch.cli.generate_tts_samples import main
+from speech_intent_recognizer_tpu_torch.evaluation import tts_holdout
+main(['--csv', 'configs/custom_intents_sentences.csv',
+      '--output_dir', {str(tmp_path / "tts")!r}])  # engine auto
+class Stub:
+    label_map = {{'activate_lamp': 0}}
+    inv_label_map = {{0: 'activate_lamp'}}
+    def predict_directory(self, d):
+        return [{{'file': '001_x.wav', 'predicted_label': 'activate_lamp',
+                  'confidence': 0.5}}]
+seen = []
+real_import = __builtins__.__import__
+def spy(name, *a, **k):  # who imports matplotlib first
+    if name.split('.')[0] == 'matplotlib' and 'matplotlib' not in sys.modules:
+        seen.append(sys._getframe(1).f_code.co_name)
+    return real_import(name, *a, **k)
+__builtins__.__import__ = spy
+tts_holdout.evaluate_tts_directory(Stub(), {str(tmp_path / "tts")!r},
+                                   report_dir={str(tmp_path / "rep")!r})
+__builtins__.__import__ = real_import
+assert seen in ([], ['_write_artifacts']), seen  # [] without matplotlib
+bad = sorted(m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'flax', 'optax', 'transformers', 'safetensors',
+    'gtts', 'pyttsx3')
+    or m.split('.')[0].startswith('speech_intent_recognizer_tpu')
+    and not m.startswith(pkg))
 assert not bad, bad
 """
     r = _run(code, REPO)
