@@ -159,6 +159,25 @@ Phases:
     K1's and K2's kernels and the annotated region; g.
     ``utils.diagnostics``' smoke test and 2 s stress test (TFLOP/s beside
     the card's name and power limit).
+21. data-parallel training, evaluation and serving (``parallel/``; run
+    last, on phase 15's corpus and model): a. ``cli.train`` with the
+    config's ``parallel`` section (a ``file://`` coordinator, world 1,
+    NCCL) against the same run without, fp32, feature and waveform mode,
+    two epochs of one step on 64 rows: launches counted (K2 2 a step and
+    eval batch, K2T 2 a step, in waveform mode K3 1 a step and eval
+    batch), losses at phase 13's bar, after each step BatchNorm's running
+    statistics at phase 13's bar and at most 1e-4 of the weights more than
+    lr / 2 apart (a changed gradient sign under Adam); the bf16 feature
+    step at B=256 and the waveform step at B=512 / 1024 with the DP
+    machinery at world 1 against the one-process step (three blocks of A
+    B B A), and the augmentation's draws at B=512 / 1024; b.
+    ``parallel.dryrun.dryrun_multichip(2, "cuda")``: two processes on the
+    one card over gloo, every part's line printed, each step held to the
+    one-process step at B=2x64 by the dry run's bars, each process's
+    launches (feature K2 2, K2T 2; waveform K3 1, K2 2, K2T 2; its
+    serving mesh K1 2, K2 4); c. ``Predictor(mesh=)`` over [dev, dev] on
+    37 rows of the test split (K1 2, K2 4) against the meshless rows at
+    phase 4's bar.
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
@@ -166,7 +185,7 @@ the batched finalize of 16 and in the file replay of 16; K2, K3 and K2T
 also ``waveform_launches``, phase 17's; every kernel
 ``artifact_launches``, phase 18's per program call; K2, K3 and K2T
 ``synthetic_launches``, phase 20b's; K1 and K2 ``tts_launches``, phase
-20c's), its error
+20c's; K1, K2, K3 and K2T ``distributed_launches``, phase 21's), its error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
@@ -409,6 +428,27 @@ PREFETCH_FILES = 32
 STRESS_S = 2.0
 FIXTURE_LABELS = os.path.join(ROOT, "tests", "data", "narrow_label_map.json")
 
+
+# phase 21: data-parallel training, evaluation and serving (``parallel/``).
+# 21a: cli.train with and without a coordinator (world 1, NCCL, a file://
+# store) on the first DP_TRAIN / DP_VAL rows of phase 15's corpus, fp32,
+# DP_EPOCHS epochs of one step and one eval batch each, in feature and in
+# waveform mode; after each step BatchNorm's running statistics within
+# STEP_BN_ATOL and at most DP_FLIP_SHARE of the weights more than lr / 2
+# apart.  Adam's first step moves a weight by lr * g / (|g| + eps): two
+# runs whose gradients agree in sign agree to far below lr, and a weight
+# whose gradient changed sign moves 2 lr apart.  Only a gradient within
+# fp32 noise of zero changes sign between two right runs; a wrong
+# gradient turns a large share.  The DP machinery's cost at world 1 on
+# the bf16 steps: DP_ABBA blocks of A B B A (one process, world 1, world
+# 1, one process), each window DP_TIMED's iterations; 21c: the serving
+# mesh [cuda:0, cuda:0] on DP_SERVE_ROWS rows
+DP_TRAIN, DP_VAL, DP_EPOCHS, DP_LR = TRAIN_BATCH, 64, 2, 1e-3
+DP_FLIP_SHARE = 1e-4
+DP_TIMED = (("feature", 256, 20), ("waveform", 1024, 6),
+            ("waveform", 512, 10))
+DP_ABBA = 3
+DP_SERVE_ROWS = 37
 
 # Phase 18's loader: one process per artifact, importing only what loading
 # it needs.  argv: artifact directory, kind (production, portable,
@@ -1112,16 +1152,17 @@ def train_end_to_end(tmp: str, dev) -> dict:
             "label_map": label_map, "test_csv": csvs["test"], "csvs": csvs}
 
 
-def train_step_timer(dev, b: int):
+def train_step_timer(dev, b: int, mesh=None):
     """One bf16 train step (forward, backward, Adam) of the full-width
-    model at batch b from device-resident features, as a callable."""
+    model at batch b from device-resident features, as a callable; with
+    ``mesh`` (phase 21) the data-parallel step over it."""
     from speech_intent_recognizer_tpu_torch.config import Config
     from speech_intent_recognizer_tpu_torch.train.loop import Trainer
 
     cfg = Config.from_dict({"bf16": True, "batch_size": b})
     model = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(b))
-    trainer = Trainer(model.to(dev), cfg)
+    trainer = Trainer(model.to(dev), cfg, mesh=mesh)
     feats = torch.randn((b, 64, 200), device=dev)
     labels = torch.randint(0, 31, (b,), device=dev)
     perm = torch.arange(b, device=dev)[None]
@@ -1130,11 +1171,12 @@ def train_step_timer(dev, b: int):
     return lambda: trainer.train_epoch(feats, labels, perm, weights, gen)
 
 
-def wave_step_timer(dev, b: int):
+def wave_step_timer(dev, b: int, mesh=None):
     """One bf16 waveform-resident train step (gather int16 rows, waveform
     augmentation, K3, SpecAugment, forward, backward, Adam) of the
     full-width model at batch b, as a callable; the waves are a 220 Hz tone
-    plus noise, lengths uniform in [1, 80000], zero beyond them."""
+    plus noise, lengths uniform in [1, 80000], zero beyond them.  With
+    ``mesh`` (phase 21) the data-parallel step over it."""
     from speech_intent_recognizer_tpu_torch.config import Config
     from speech_intent_recognizer_tpu_torch.train.loop import Trainer
 
@@ -1143,7 +1185,7 @@ def wave_step_timer(dev, b: int):
                             "use_waveform_augment": True})
     model = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16)
     model.reset_parameters(torch.Generator().manual_seed(b))
-    trainer = Trainer(model.to(dev), cfg, from_waveforms=True)
+    trainer = Trainer(model.to(dev), cfg, from_waveforms=True, mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(b)
     t = torch.arange(PRECOMPUTE_WIDTH, device=dev) / 16000.0
     x = (0.25 * torch.sin(2 * np.pi * 220.0 * t)
@@ -3126,6 +3168,197 @@ def check_wav2vec(dev, tmp: str, run: dict, label: str,
             "seconds": time.perf_counter() - t0}
 
 
+def dp_cli_run(dev, tmp: str, csvs: dict, label_map: str, name: str,
+               waveform: bool, coordinator=None) -> tuple:
+    """Phase 21a: ``cli.train`` of the DP config ``name``; -> (result,
+    launches, the model after each epoch)."""
+    from speech_intent_recognizer_tpu_torch.cli import train as cli_train
+
+    path = os.path.join(tmp, f"{name}.yaml")
+    flag = str(waveform).lower()
+    with open(path, "w") as f:
+        f.write(f"data:\n  cache_dir: {os.path.join(tmp, 'dp_cache')}\n"
+                f"  precompute_batch_size: {PRECOMPUTE_BATCH}\n"
+                f"  train_on_waveforms: {flag}\n"
+                f"  use_waveform_augment: {flag}\n"
+                f"model:\n  num_labels: {TONE_CLASSES}\n"
+                f"train:\n  epochs: {DP_EPOCHS}\n"
+                f"  batch_size: {TRAIN_BATCH}\n  lr: {DP_LR}\n"
+                f"  early_stop_patience: {DP_EPOCHS}\n  bf16: false\n"
+                f"  save_path: {os.path.join(tmp, name)}\n")
+        if coordinator is not None:
+            f.write(f"parallel:\n  coordinator_address: {coordinator}\n"
+                    f"  num_processes: 1\n  process_id: 0\n  data_axis: 1\n")
+    torch.cuda.synchronize()
+    reset_counters()
+    result = cli_train.main(["--config", path, "--train_csv", csvs["train"],
+                             "--val_csv", csvs["valid"], "--label_map",
+                             label_map, "--device", str(dev)])
+    launches = counters()
+    states = [torch.load(os.path.join(tmp, name, "state",
+                                      f"epoch_{e:06d}.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+              for e in range(1, DP_EPOCHS + 1)]
+    return result, launches, states
+
+
+def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
+    """Phase 21: data-parallel training, evaluation and serving.  a.
+    ``cli.train`` with a coordinator (world 1, NCCL) against the same run
+    without, in feature and waveform mode, and the DP machinery's cost at
+    world 1 on the bf16 steps; b. ``dryrun_multichip(2, "cuda")``: two
+    processes on the one card over gloo, each part held to the one-process
+    step, each process's launches; c. ``Predictor(mesh=)`` over [dev, dev]
+    on a ragged batch against the meshless rows."""
+    from speech_intent_recognizer_tpu_torch.cli import (
+        precompute_features as cli_pre)
+    from speech_intent_recognizer_tpu_torch.ops.augment import draw_augment
+    from speech_intent_recognizer_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+    from speech_intent_recognizer_tpu_torch.parallel.mesh import create_mesh
+
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    # ---- 21a ----
+    csvs = {}
+    for split, n in (("train", DP_TRAIN), ("valid", DP_VAL)):
+        with open(run["csvs"][split]) as f:
+            lines = f.read().splitlines()
+        csvs[split] = os.path.join(tmp, f"dp_{split}.csv")
+        with open(csvs[split], "w") as f:
+            f.write("\n".join(lines[:n + 1]) + "\n")
+    cli_pre.main(["--train_csv", csvs["train"], "--valid_csv", csvs["valid"],
+                  "--test_csv", csvs["valid"], "--output_dir",
+                  os.path.join(tmp, "dp_cache"), "--label_map",
+                  run["label_map"], "--device", str(dev)])
+    for mode in ("feature", "waveform"):
+        waveform = mode == "waveform"
+        plain, plain_launches, plain_states = dp_cli_run(
+            dev, tmp, csvs, run["label_map"], f"dp_{mode}_plain", waveform)
+        dp, launches, dp_states = dp_cli_run(
+            dev, tmp, csvs, run["label_map"], f"dp_{mode}", waveform,
+            "file://" + os.path.join(tmp, f"dp_{mode}_store"))
+        dist = torch.distributed
+        check(dist.is_initialized() and dist.get_world_size() == 1
+              and dist.get_backend() == "nccl",
+              f"cli.train {mode}: a process group of 1 over NCCL")
+        steps = DP_EPOCHS * -(-DP_TRAIN // TRAIN_BATCH)
+        evals = DP_EPOCHS * -(-DP_VAL // (2 * TRAIN_BATCH))
+        want = {"K2": 2 * steps + 2 * evals, "K2T": 2 * steps}
+        if waveform:
+            want["K3"] = steps + evals
+        check_counts(plain_launches, want, f"cli.train {mode}, one process")
+        check_counts(launches, want, f"cli.train {mode} with a coordinator")
+        out["launches"][f"cli_train_{mode}"] = launches
+        l_dp = [h["train_loss"] for h in dp.history]
+        l_plain = [h["train_loss"] for h in plain.history]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_dp, l_plain))
+        check(len(l_dp) == len(l_plain) == DP_EPOCHS
+              and loss_err <= STEP_LOSS_RTOL,
+              f"cli.train {mode} with a coordinator vs without: the "
+              f"{DP_EPOCHS} steps' losses {l_dp} vs {l_plain}, relative err "
+              f"{loss_err:.2e} <= {STEP_LOSS_RTOL}")
+        steps_out = []
+        for step, (dp_state, plain_state) in enumerate(
+                zip(dp_states, plain_states), 1):
+            weights = [k for k in plain_state if "running" not in k
+                       and "num_batches" not in k]
+            total = sum(plain_state[k].numel() for k in weights)
+            apart = {k: int(((dp_state[k] - plain_state[k]).abs()
+                             > DP_LR / 2).sum()) for k in weights}
+            flips = sum(apart.values())
+            w_err = max(max_err(dp_state[k], plain_state[k])
+                        for k in weights)
+            bn_err = max(max_err(dp_state[k], plain_state[k])
+                         for k in plain_state if "running" in k)
+            where = {k: v for k, v in apart.items() if v}
+            check(flips <= DP_FLIP_SHARE * total and bn_err <= STEP_BN_ATOL,
+                  f"cli.train {mode}: after step {step} with a coordinator "
+                  f"vs without, {flips} of {total} weights "
+                  f"({flips / total:.2e}) more than lr / 2 apart <= "
+                  f"{DP_FLIP_SHARE} ({where}; max |err| {w_err:.2e}); "
+                  f"BatchNorm's running statistics max |err| {bn_err:.2e} "
+                  f"<= {STEP_BN_ATOL}")
+            steps_out.append({"apart": flips, "share": flips / total,
+                              "weight_err": w_err, "bn_err": bn_err})
+        out[f"cli_{mode}"] = {"loss_err": loss_err, "steps": steps_out}
+        if not waveform:
+            dist.destroy_process_group()
+    # the DP machinery at world 1 against the one-process step, A B B A
+    mesh = create_mesh()
+    for mode, b, iters in DP_TIMED:
+        if mode == "feature":
+            one, par = train_step_timer(dev, b), train_step_timer(dev, b,
+                                                                  mesh)
+        else:
+            one, par = (wave_step_timer(dev, b)[0],
+                        wave_step_timer(dev, b, mesh)[0])
+        blocks = [[cuda_ms(fn, iters) for fn in (one, par, par, one)]
+                  for _ in range(DP_ABBA)]
+        # each block's cost of world 1: its B windows over its A windows
+        costs = [(t[1] + t[2]) / (t[0] + t[3]) - 1.0 for t in blocks]
+        timings[f"{mode}_step_bf16_b{b}_one"] = float(np.mean(
+            [(t[0] + t[3]) / 2 for t in blocks]))
+        timings[f"{mode}_step_bf16_b{b}_dp1"] = float(np.mean(
+            [(t[1] + t[2]) / 2 for t in blocks]))
+        out[f"{mode}_b{b}_abba"] = blocks
+        out[f"{mode}_b{b}_dp1_cost"] = costs
+        log(f"  DP at world 1, bf16 {mode} step B={b}, {DP_ABBA} blocks of "
+            f"A B B A x {iters}: {blocks} ms; cost a block "
+            f"{[f'{c:+.2%}' for c in costs]}")
+        del one, par
+    torch.distributed.destroy_process_group()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b in (512, 1024):
+        timings[f"augment_draws_b{b}"] = cuda_ms(
+            lambda: draw_augment(b, PRECOMPUTE_WIDTH, gen, dev), 10)
+    # ---- 21b ----
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(2, device="cuda", timeout_s=400.0)
+    out["dryrun_s"] = time.perf_counter() - t1
+    check(set(dry["parts"]) == {"feature", "wav2vec", "waveform",
+                                "checkpoint", "serving"}
+          and all(r["backend"] == "gloo" for r in dry["ranks"]),
+          f"dryrun_multichip(2, cuda): every part over gloo, "
+          f"{out['dryrun_s']:.1f} s")
+    for r in dry["ranks"]:
+        parts = {p["part"]: p for p in r["parts"]}
+        check_counts(parts["feature"]["launches"], {"K2": 2, "K2T": 2},
+                     f"dryrun process {r['rank']}, feature step")
+        check_counts(parts["waveform"]["launches"],
+                     {"K3": 1, "K2": 2, "K2T": 2},
+                     f"dryrun process {r['rank']}, waveform step")
+    check_counts(dry["parts"]["serving"]["launches"], {"K1": 2, "K2": 4},
+                 "dryrun serving mesh of 2")
+    out["dryrun"] = {k: {f: v for f, v in p.items() if f != "launches"}
+                     for k, p in dry["parts"].items()}
+    out["launches"]["dryrun"] = {
+        f"process_{r['rank']}": {p["part"]: p["launches"]
+                                 for p in r["parts"] if "launches" in p}
+        for r in dry["ranks"]}
+    # ---- 21c ----
+    mesh = create_mesh(devices=[dev, dev])
+    pred = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                     device=dev, mesh=mesh)
+    plain = Predictor.from_checkpoint(run["best"], run["label_map"],
+                                      device=dev)
+    buf, ln = decode_split(run["test_csv"], padded_samples(80000))
+    buf, ln = buf[:DP_SERVE_ROWS], ln[:DP_SERVE_ROWS]
+    torch.cuda.synchronize()
+    reset_counters()
+    got = pred.predict_waveform_batch(buf, ln)
+    launches = counters()
+    check_counts(launches, {"K1": 2, "K2": 4},
+                 f"serving mesh [{dev}, {dev}], {DP_SERVE_ROWS} rows")
+    out["launches"]["serving_mesh"] = launches
+    want = plain.predict_waveform_batch(buf, ln)
+    check_probs(got, want, f"serving mesh [{dev}, {dev}] vs meshless, "
+                f"{DP_SERVE_ROWS} rows")
+    out["serving_err"] = float(np.abs(got - want).max())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3458,10 +3691,14 @@ def main(argv=None) -> int:
         export_phase_s = time.perf_counter() - t0
         # ---- 19. the wav2vec family at full width ----
         wav2vec = check_wav2vec(dev, tmp, e2e_train, label, args.profile)
-    # ---- 20. the TTS corpus, the synthetic A/B corpus, the librosa mode,
-    # device prefetch, tracing, the diagnostics ----
-    with tempfile.TemporaryDirectory() as tmp:
-        synthetic = check_synthetic(dev, tmp, label)
+        # ---- 20. the TTS corpus, the synthetic A/B corpus, the librosa
+        # mode, device prefetch, tracing, the diagnostics ----
+        with tempfile.TemporaryDirectory() as tmp20:
+            synthetic = check_synthetic(dev, tmp20, label)
+        # ---- 21. data-parallel training, evaluation and serving, on
+        # phase 15's corpus and model; after 20, whose trace once lost K1's
+        # record when it ran after this phase ----
+        distributed = check_distributed(dev, tmp, e2e_train, timings)
     syn, hold = synthetic["synthetic"], synthetic["holdout"]
 
     log(f"timing on {label} (CUDA events, ms per call):")
@@ -3584,6 +3821,18 @@ def main(argv=None) -> int:
         kernels[i]["synthetic_launches"] = syn["launches"][key]
     for i, key in ((0, "K1"), (1, "K2")):
         kernels[i]["tts_launches"] = hold["launches"][key]
+    # launches on phase 21's data-parallel paths: cli.train with a
+    # coordinator, each process of the two-process dry run (its steps and
+    # its serving mesh) and the serving mesh of two
+    dl = distributed["launches"]
+    for i, key in ((0, "K1"), (1, "K2"), (2, "K3"), (3, "K2T")):
+        kernels[i]["distributed_launches"] = {
+            **{f"cli_train_{m}_world1": dl[f"cli_train_{m}"][key]
+               for m in ("feature", "waveform")},
+            **{f"dryrun_{proc}_{part}": got[key]
+               for proc, parts in dl["dryrun"].items()
+               for part, got in parts.items()},
+            "serving_mesh_2": dl["serving_mesh"][key]}
     for entry_, key in zip(kernels, ("K1", "K2", "K3", "K2T", "K4", "K5",
                                      "K6")):
         entry_["artifact_launches"] = {
@@ -3610,6 +3859,47 @@ def main(argv=None) -> int:
         f"librosa mode launches {synthetic['librosa']['launches']}; "
         f"epoch seconds {synthetic['prefetch']['seconds']}; stress "
         f"test {synthetic['stress']['tflops']:.1f} TFLOP/s (bf16 4096^2)")
+    log(f"  phase 21 on {label} took {distributed['seconds']:.1f} s "
+        f"(dry run {distributed['dryrun_s']:.1f} s): cli.train with a "
+        f"coordinator (world 1, NCCL) vs without, fp32: "
+        + "; ".join(f"{m} loss err {distributed[f'cli_{m}']['loss_err']:.2e}"
+                    ", after each step weights more than lr / 2 apart "
+                    + ", ".join(f"{s['apart']}" for s in
+                                distributed[f"cli_{m}"]["steps"])
+                    + ", BatchNorm statistics err "
+                    + ", ".join(f"{s['bn_err']:.2e}" for s in
+                                distributed[f"cli_{m}"]["steps"])
+                    for m in ("feature", "waveform"))
+        + f"; serving mesh vs meshless prob err "
+        f"{distributed['serving_err']:.2e}")
+    for mode, b, iters in DP_TIMED:
+        one = timings[f"{mode}_step_bf16_b{b}_one"]
+        dp1 = timings[f"{mode}_step_bf16_b{b}_dp1"]
+        costs = distributed[f"{mode}_b{b}_dp1_cost"]
+        log(f"    bf16 {mode} step B={b}, CUDA events, {DP_ABBA} blocks of "
+            f"A B B A x {iters} steps: one process {one:.4f} ms, "
+            f"data-parallel at world 1 (NCCL) {dp1:.4f} ms "
+            f"({100 * (dp1 / one - 1):+.2f} %); a block's cost "
+            f"{min(costs):+.2%} to {max(costs):+.2%}")
+    d512, d1024 = (timings["augment_draws_b512"],
+                   timings["augment_draws_b1024"])
+    w512 = timings["waveform_step_bf16_b512_one"]
+    log(f"    the waveform augmentation's draws (9 uniforms a row and the "
+        f"(B, 80000) normals): B=512 {d512:.4f} ms, B=1024 {d1024:.4f} ms; "
+        f"a process of a two-process step at global B=1024 draws the 1024 "
+        f"rows' {d1024:.4f} ms against its own 512's {d512:.4f}: "
+        f"+{d1024 - d512:.4f} ms, {100 * (d1024 - d512) / w512:.2f} % of the "
+        f"one-process B=512 step ({w512:.4f} ms)")
+    for part, got in distributed["dryrun"].items():
+        log(f"    dry run (correctness run: two processes share one card "
+            f"over gloo; not a multi-GPU rate) {part}: "
+            + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                        else f"{k} {v}" for k, v in got.items()
+                        if k != "grad_errs"))
+        if "grad_errs" in got:
+            log("      each gradient's error over its leaf's scale: "
+                + ", ".join(f"{k} {v:.2e}"
+                            for k, v in got["grad_errs"].items()))
     print(json.dumps({"wav2vec": wav2vec, "device": label}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(label)

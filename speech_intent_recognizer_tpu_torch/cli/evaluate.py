@@ -9,7 +9,10 @@ checkpoint); features come from the feature cache, computed on a miss (on a
 CUDA device by the K3 kernel, or K4 off the reference geometry).
 ``--model_type wav2vec`` evaluates a ``Wav2VecIntent`` checkpoint file by
 file over the manifest (``evaluate_manifest_with_predictor``), its report
-under ``<save_path>/evaluation_results_wav2vec`` by default::
+under ``<save_path>/evaluation_results_wav2vec`` by default.
+``--data_parallel`` runs the forward over a mesh of every card (``--device
+cpu``: ``parallel.data_axis`` shards of the CPU), a replica of the model on
+each, as the JAX CLI's mesh over its devices::
 
     python -m speech_intent_recognizer_tpu_torch.cli.evaluate \\
         --test_csv test.csv --label_map label_map.json \\
@@ -34,6 +37,23 @@ from speech_intent_recognizer_tpu_torch.data.pipeline import build_dataset
 from speech_intent_recognizer_tpu_torch.evaluation.evaluate import (
     evaluate_dataset)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+from speech_intent_recognizer_tpu_torch.parallel.mesh import create_mesh
+
+
+def data_parallel_mesh(cfg, device):
+    """Every card for ``cuda``; ``parallel.data_axis`` shards (at least
+    one) of any other device."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda, but torch.cuda.is_available() "
+                               "is False")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [dev] * max(1, cfg.parallel.data_axis)
+    return create_mesh(cfg.parallel.data_axis, cfg.parallel.model_axis,
+                       devices)
 
 
 def evaluate_from_config(cfg, test_csv, label_map_path, model_path,
@@ -41,10 +61,12 @@ def evaluate_from_config(cfg, test_csv, label_map_path, model_path,
                          model_type="cnn_gru", data_parallel=False,
                          device="cuda"):
     logger = logger or logging.getLogger("sir_torch")
+    mesh = None
     if data_parallel:
-        raise NotImplementedError("data-parallel evaluation is not ported "
-                                  "(ROADMAP Queue 1 item 9, parallel/); the "
-                                  "port evaluates on one device")
+        mesh = data_parallel_mesh(cfg, device)
+        device = mesh.devices[0]
+        logger.info("data-parallel evaluation over mesh %s on %s",
+                    mesh.shape, [str(d) for d in mesh.devices])
     if model_type == "wav2vec":
         from speech_intent_recognizer_tpu_torch.data.manifest import (
             read_manifest)
@@ -54,7 +76,8 @@ def evaluate_from_config(cfg, test_csv, label_map_path, model_path,
             Wav2VecPredictor)
 
         predictor = Wav2VecPredictor.from_checkpoint(
-            model_path, label_map_path, audio_cfg=cfg.audio, device=device)
+            model_path, label_map_path, audio_cfg=cfg.audio, device=device,
+            mesh=mesh)
         results_dir = results_dir or os.path.join(
             cfg.train.save_path, "evaluation_results_wav2vec")
         result = evaluate_manifest_with_predictor(
@@ -83,7 +106,8 @@ def evaluate_from_config(cfg, test_csv, label_map_path, model_path,
     result = evaluate_dataset(
         model, test_ds.features, test_ds.labels, label_map,
         results_dir=results_dir,
-        batch_size=cfg.train.batch_size * cfg.train.eval_batch_multiplier)
+        batch_size=cfg.train.batch_size * cfg.train.eval_batch_multiplier,
+        mesh=mesh)
     logger.info("test accuracy: %.4f", result["accuracy"])
     return result
 
@@ -100,7 +124,7 @@ def main(argv=None):
     p.add_argument("--results_dir", default=None)
     add_model_type_arg(p)
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="run the forward over a mesh of every card")
     add_device_arg(p)
     args = p.parse_args(argv)
     cfg = load_config_or_default(args.config)

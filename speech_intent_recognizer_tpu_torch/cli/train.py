@@ -9,8 +9,17 @@ where the K2 kernel and its backward run, and in waveform mode K3)::
     python -m speech_intent_recognizer_tpu_torch.cli.train \\
         --config configs/config.yaml --label_map label_map.json
 
-One device; the mesh and multi-process options are not ported; wav2vec
-trains with ``cli.train_wav2vec``.
+The config's ``parallel`` section runs it data-parallel, one process per
+device, each launched with its own ``process_id`` (0 .. ``num_processes``
+- 1) and the same ``coordinator_address`` (``host:port``, ``tcp://...``
+or ``file:///shared/path``); process p trains on ``cuda:{p % cards}``::
+
+    parallel: {coordinator_address: "localhost:29500", num_processes: 2,
+               process_id: 0, data_axis: -1}
+
+``data_axis`` is the process count (-1 takes them all); ``model_axis``
+above 1 (tensor parallelism) is not ported yet.  wav2vec trains with
+``cli.train_wav2vec``.
 """
 
 from __future__ import annotations
@@ -28,6 +37,9 @@ from speech_intent_recognizer_tpu_torch.data.labelmap import load_label_map
 from speech_intent_recognizer_tpu_torch.data.pipeline import (
     build_dataset, build_waveform_dataset)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+from speech_intent_recognizer_tpu_torch.parallel.distributed import (
+    initialize_distributed)
+from speech_intent_recognizer_tpu_torch.parallel.mesh import create_mesh
 from speech_intent_recognizer_tpu_torch.train.checkpoint import Checkpointer
 from speech_intent_recognizer_tpu_torch.train.loop import Trainer
 from speech_intent_recognizer_tpu_torch.train.state import (
@@ -42,19 +54,30 @@ def check_supported(cfg) -> None:
             f"model {cfg.model.name!r}: this CLI trains cnn_gru, as the JAX "
             "package's does; fine-tune wav2vec with "
             "speech_intent_recognizer_tpu_torch.cli.train_wav2vec")
-    if (par.model_axis != 1 or par.data_axis not in (-1, 1)
-            or par.coordinator_address is not None
-            or (par.num_processes or 1) > 1):
+    if par.model_axis > 1:
         raise NotImplementedError(
-            "data/model-parallel and multi-process training are not ported; "
-            "the port trains on one device")
+            f"model_axis={par.model_axis}: tensor parallelism is not ported "
+            "yet (ROADMAP.md, Queue 1: the model axis); the data axis is")
 
 
 def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
                       resume=False, logger=None, device="cuda"):
     logger = logger or logging.getLogger("sir_torch")
     check_supported(cfg)
-    dev = torch.device(device)
+    par = cfg.parallel
+    dev = initialize_distributed(par.coordinator_address, par.num_processes,
+                                 par.process_id, device=device)
+    mesh = None
+    if dev is None:  # one process, one device
+        dev = torch.device(device)
+        if par.data_axis not in (-1, 1):
+            raise ValueError(
+                f"data_axis={par.data_axis} needs that many processes: set "
+                "parallel.coordinator_address, num_processes, process_id")
+    else:
+        mesh = create_mesh(par.data_axis, par.model_axis)
+        logger.info("process %d of %d on %s, mesh %s", mesh.rank,
+                    mesh.spec.data, dev, mesh.shape)
     train_csv = train_csv or cfg.data.train_csv
     val_csv = val_csv or cfg.data.valid_csv
     label_map_path = label_map_path or cfg.data.label_map_path
@@ -96,19 +119,22 @@ def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
             no_improve = book["no_improve"]
 
     trainer = Trainer(model, cfg, optimizer=optimizer,
-                      num_classes=num_classes, from_waveforms=from_waveforms)
+                      num_classes=num_classes, from_waveforms=from_waveforms,
+                      mesh=mesh)
     result = trainer.fit(
         train_ds.features, train_ds.labels, val_ds.features, val_ds.labels,
         checkpointer=ckpt, start_epoch=start_epoch,
         best_val_acc=best_val_acc, no_improve=no_improve, log=logger.info,
         train_lengths=train_ds.lengths, val_lengths=val_ds.lengths)
 
-    history_path = os.path.join(cfg.train.save_path, "training_history.json")
-    with open(history_path, "w") as f:
-        json.dump({"best_val_acc": result.best_val_acc,
-                   "epochs_run": result.epochs_run,
-                   "stopped_early": result.stopped_early,
-                   "history": result.history}, f, indent=2)
+    if trainer.rank == 0:
+        history_path = os.path.join(cfg.train.save_path,
+                                    "training_history.json")
+        with open(history_path, "w") as f:
+            json.dump({"best_val_acc": result.best_val_acc,
+                       "epochs_run": result.epochs_run,
+                       "stopped_early": result.stopped_early,
+                       "history": result.history}, f, indent=2)
     return model, result
 
 

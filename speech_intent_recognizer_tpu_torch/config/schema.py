@@ -157,10 +157,11 @@ class TrainConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device mesh layout of the JAX package (``data`` is the batch axis,
-    ``model`` shards wide weights when >1).  The port runs on one card and
-    reads none of these; the section is kept so that a config written for
-    either package loads in both."""
+    """Device mesh layout (``data`` is the batch axis, ``model`` shards
+    wide weights when >1) and the multi-process launch.  The port's
+    ``cli.train`` reads them: with a coordinator it joins a
+    ``torch.distributed`` group of ``num_processes`` (one per device) and
+    trains data-parallel over it; ``model_axis > 1`` is not ported yet."""
 
     data_axis: int = -1  # -1 = all remaining devices
     model_axis: int = 1

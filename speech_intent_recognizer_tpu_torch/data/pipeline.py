@@ -7,6 +7,12 @@ as the JAX package does: cache hit -> load; a reference ``.pt`` cache ->
 migrate; miss -> precompute (the K3 kernel on a CUDA device) and store.
 :func:`build_waveform_dataset` does the same with the int16 waveform cache
 of waveform-resident training (``data.train_on_waveforms``).
+
+In a multi-process run (``parallel.initialize_distributed``) every process
+holds the whole set on its device, as the JAX package replicates it over
+the mesh.  With the cache on, process 0 resolves it (and writes it) while
+the others wait at a barrier, then read what it wrote: N processes never
+race on one cache file.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -22,6 +28,7 @@ import torch
 from speech_intent_recognizer_tpu_torch.config import Config
 from speech_intent_recognizer_tpu_torch.data import cache as cache_mod
 from speech_intent_recognizer_tpu_torch.data.manifest import read_manifest
+from speech_intent_recognizer_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
@@ -51,6 +58,20 @@ class DeviceDataset:
                 np.asarray(lengths, np.int32), device=device))
 
 
+def _process_zero_first(cfg: Config, build: Callable[[], DeviceDataset],
+                        load: Callable[[], DeviceDataset]) -> DeviceDataset:
+    """``build`` on process 0 (or alone); the other processes of a group
+    ``load`` the cache it wrote, after a barrier."""
+    if not (cfg.data.use_feature_cache and distributed.is_initialized()):
+        return build()
+    if distributed.rank() == 0:
+        ds = build()
+        distributed.barrier()
+        return ds
+    distributed.barrier()
+    return load()
+
+
 def build_dataset(
     csv_path: str,
     label_map: Dict[str, int],
@@ -61,9 +82,19 @@ def build_dataset(
     cache -> migrate; miss -> compute on ``device`` (and store, when
     ``cfg.data.use_feature_cache``), the reference's cache-or-extract flow
     (``dataset.py:43-102``) at dataset granularity."""
-    use_cache = cfg.data.use_feature_cache
     cache_file = cache_mod.cache_path_for(csv_path, cfg.data.cache_dir)
 
+    def load():
+        feats, labels, _meta = cache_mod.load_cache(cache_file)
+        return DeviceDataset.from_arrays(feats, labels, device)
+
+    return _process_zero_first(
+        cfg, lambda: _build_dataset(csv_path, label_map, cfg, device,
+                                    cache_file), load)
+
+
+def _build_dataset(csv_path, label_map, cfg, device, cache_file):
+    use_cache = cfg.data.use_feature_cache
     if use_cache and os.path.exists(cache_file) and not cfg.data.force_precompute:
         feats, labels, _meta = cache_mod.load_cache(cache_file)
         logger.info("loaded %d cached features from %s", len(feats), cache_file)
@@ -106,10 +137,22 @@ def build_waveform_dataset(
     its step (``train/loop.py``), which makes waveform augmentation
     possible.  Cache hit -> load; miss -> decode (and store, when
     ``cfg.data.use_feature_cache``)."""
-    use_cache = cfg.data.use_feature_cache
     cache_file = cache_mod.waveform_cache_path_for(csv_path,
                                                    cfg.data.cache_dir)
 
+    def load():
+        waves, lengths, labels, _meta = cache_mod.load_waveform_cache(
+            cache_file)
+        return DeviceDataset.from_arrays(waves, labels, device,
+                                         lengths=lengths)
+
+    return _process_zero_first(
+        cfg, lambda: _build_waveform_dataset(csv_path, label_map, cfg,
+                                             device, cache_file), load)
+
+
+def _build_waveform_dataset(csv_path, label_map, cfg, device, cache_file):
+    use_cache = cfg.data.use_feature_cache
     if (use_cache and os.path.exists(cache_file)
             and not cfg.data.force_precompute):
         waves, lengths, labels, _meta = cache_mod.load_waveform_cache(

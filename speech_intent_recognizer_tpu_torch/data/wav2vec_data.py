@@ -13,12 +13,14 @@ package's own draws can be fed to the same arithmetic.
 from __future__ import annotations
 
 import logging
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from speech_intent_recognizer_tpu_torch.data.audio_io import load_audio
+from speech_intent_recognizer_tpu_torch.ops.global_batch import (
+    rand_rows, randn_rows)
 
 logger = logging.getLogger(__name__)
 
@@ -54,13 +56,13 @@ def batch_waveforms(
     return buf, mask, ok
 
 
-def draw_train_noise(shape: Tuple[int, int], device,
-                     generator: Optional[torch.Generator] = None
+def draw_train_noise(shape: Tuple[int, int], device, generator=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The noise's random draws for a (B, L) batch: gate uniforms (B, 1) and
-    standard normals (B, L)."""
-    gate_u = torch.rand((shape[0], 1), generator=generator, device=device)
-    normals = torch.randn(shape, generator=generator, device=device)
+    standard normals (B, L); with an ``ops.global_batch.ShardedGenerator``,
+    this process's rows of the global batch's draws."""
+    gate_u = rand_rows((shape[0], 1), generator, device)
+    normals = randn_rows(shape, generator, device)
     return gate_u, normals
 
 

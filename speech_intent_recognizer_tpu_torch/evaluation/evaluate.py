@@ -6,6 +6,12 @@ Counterpart of ``speech_intent_recognizer_tpu/evaluation/evaluate.py``
 matplotlib imports) ``.png``, and ``metrics.json``.  The model's class
 count comes from its ``fc`` layer, as the JAX version reads it from the
 checkpoint's head.
+
+With ``mesh=`` (a mesh of devices in this process, ``parallel.create_mesh``)
+the forward is data-parallel, as the JAX version's ``shard_map`` over the
+``data`` axis: a replica of the model on each of the mesh's devices, each
+batch rounded up to a multiple of the data axis and split over them, the
+pad rows stripped.
 """
 
 from __future__ import annotations
@@ -19,19 +25,32 @@ import numpy as np
 import torch
 
 from speech_intent_recognizer_tpu_torch.evaluation import metrics as M
+from speech_intent_recognizer_tpu_torch.parallel.sharding import (
+    check_in_process, replicas, run_sharded)
 
 logger = logging.getLogger(__name__)
 
 
 @torch.no_grad()
 def predict_dataset(model: torch.nn.Module, features: torch.Tensor,
-                    batch_size: int = 64):
+                    batch_size: int = 64, mesh=None):
     """Batched argmax predictions, probabilities and logits (host NumPy)
-    for features on the model's device."""
+    for features on the model's device; with ``mesh``, data-parallel over
+    its devices."""
+    check_in_process(mesh)
     model.eval()
-    logits = torch.cat([model(features[i:i + batch_size]).float()
-                        for i in range(0, int(features.shape[0]),
-                                       batch_size)])
+    n = int(features.shape[0])
+    if mesh is None:
+        logits = torch.cat([model(features[i:i + batch_size]).float()
+                            for i in range(0, n, batch_size)])
+    else:
+        dp = mesh.spec.data
+        bs = -(-min(batch_size, n) // dp) * dp
+        models = replicas(model, mesh)
+        logits = torch.cat([
+            run_sharded(lambda k, x: models[k](x).float(), mesh,
+                        features[i:i + bs])
+            for i in range(0, n, bs)])
     probs = torch.softmax(logits, dim=-1)
     logits, probs = logits.cpu().numpy(), probs.cpu().numpy()
     return np.argmax(logits, axis=-1), probs, logits
@@ -40,11 +59,12 @@ def predict_dataset(model: torch.nn.Module, features: torch.Tensor,
 def evaluate_dataset(model: torch.nn.Module, features: torch.Tensor,
                      labels, label_map: Dict[str, int],
                      results_dir: Optional[str] = None,
-                     batch_size: int = 64) -> Dict:
-    """Evaluate and (optionally) write the report artifact set."""
+                     batch_size: int = 64, mesh=None) -> Dict:
+    """Evaluate and (optionally) write the report artifact set; with
+    ``mesh``, the forward data-parallel over its devices."""
     inv = {v: k for k, v in label_map.items()}
     y_true = np.asarray(torch.as_tensor(labels).cpu())
-    y_pred, probs, _ = predict_dataset(model, features, batch_size)
+    y_pred, probs, _ = predict_dataset(model, features, batch_size, mesh)
 
     num_classes = probs.shape[1]
     names = [inv.get(i, str(i)) for i in range(num_classes)]

@@ -19,6 +19,12 @@ Each configuration is one :class:`ServingBody` (``Predictor._fused_body``),
 the module that ``predict_waveform_batch`` runs and that
 ``infer/export.py`` traces into a serving artifact; its state dict holds
 every weight it reads, K1's conv1 and K5's packed operands included.
+
+A serving mesh (``mesh=``, a mesh of devices in this process from
+``parallel.create_mesh``) runs the batch data-parallel, as the JAX
+predictor's ``shard_map`` over ``data``: the batch padded to a multiple of
+the device count, each shard through a replica of the serving body on its
+device (its own K1, K2 and K5 / K6 launches), the pad rows stripped.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ from speech_intent_recognizer_tpu_torch.ops.conv23 import conv23
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     FrontendModule, FrontendParams, log_mel_conv1_frontend, log_mel_frontend,
     make_frontend_params, padded_samples)
+from speech_intent_recognizer_tpu_torch.parallel.sharding import (
+    check_in_process, replicas, run_sharded)
 
 logger = logging.getLogger(__name__)
 
@@ -108,12 +116,14 @@ class ServingBody(torch.nn.Module):
 
 
 class Predictor:
-    """End-to-end (waveform -> intent) predictor on one device."""
+    """End-to-end (waveform -> intent) predictor on one device, or on the
+    devices of a serving mesh (``mesh``; the model then lives on its first
+    device and ``device`` is not read)."""
 
     def __init__(self, model: CNNAudioGRU, label_map: Dict[str, int],
                  audio_cfg: Optional[AudioConfig] = None,
-                 device: "str | torch.device" = "cuda"):
-        self._setup(model, label_map, audio_cfg, device)
+                 device: "str | torch.device" = "cuda", mesh=None):
+        self._setup(model, label_map, audio_cfg, device, mesh)
         self.frontend_params = make_frontend_params(self.audio_cfg,
                                                     self.device)
         # the fused front-end + conv1 path (K1 -> the conv1_external
@@ -127,10 +137,14 @@ class Predictor:
 
     def _setup(self, model: torch.nn.Module, label_map: Dict[str, int],
                audio_cfg: Optional[AudioConfig],
-               device: "str | torch.device") -> None:
+               device: "str | torch.device", mesh) -> None:
         """What every predictor holds: the device, the model on it in eval
-        mode, the label maps and the audio geometry."""
-        self.device = torch.device(device)
+        mode, the label maps, the audio geometry and the serving mesh."""
+        check_in_process(mesh)
+        self.mesh = mesh
+        self._replicas = None  # (body, its replica on each mesh device)
+        self.device = torch.device(mesh.devices[0] if mesh is not None
+                                   else device)
         self.model = model.to(self.device).eval()
         self.label_map = label_map
         self.inv_label_map = {v: k for k, v in label_map.items()}
@@ -142,12 +156,14 @@ class Predictor:
                         num_classes: Optional[int] = None,
                         fold_bn: bool = True,
                         device: "str | torch.device" = "cuda",
-                        pool_impl: str = "torch") -> "Predictor":
+                        pool_impl: str = "torch",
+                        mesh=None) -> "Predictor":
         """``model_path``: a ``.pt`` / ``.pth`` state dict or a ``.msgpack``
         of the JAX trainer; the model takes the checkpoint's widths.
         ``pool_impl``: the conv epilogue of the fused path's conv2 /
         conv3, ``"torch"`` (bias-add, ReLU, max-pool) or ``"kernel"`` (K6);
-        it is read only where that path serves."""
+        it is read only where that path serves.  ``mesh``: the serving
+        mesh."""
         from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
             load_model_checkpoint)
         from speech_intent_recognizer_tpu_torch.data.labelmap import (
@@ -164,12 +180,12 @@ class Predictor:
             folded = fold_batchnorm(state)
             model = CNNAudioGRU(fold_bn=True, **widths)
             model.load_state_dict(folded)
-            pred = cls(model, label_map, audio_cfg, device)
+            pred = cls(model, label_map, audio_cfg, device, mesh)
             pred._maybe_enable_conv1_fusion(folded, pool_impl)
             return pred
         model = CNNAudioGRU(**widths)
         model.load_state_dict(state)
-        return cls(model, label_map, audio_cfg, device)
+        return cls(model, label_map, audio_cfg, device, mesh)
 
     def _widths(self) -> dict:
         """The served model's widths, for its inference variants."""
@@ -249,7 +265,14 @@ class Predictor:
 
     def _probabilities(self, wf: torch.Tensor, ln: torch.Tensor
                        ) -> torch.Tensor:
-        return self._fused_body()(wf, ln)
+        body = self._fused_body()
+        if self.mesh is None:
+            return body(wf, ln)
+        if self._replicas is None or self._replicas[0] is not body:
+            self._replicas = (body, replicas(body, self.mesh))
+        bodies = self._replicas[1]
+        return run_sharded(lambda i, w, n: bodies[i](w, n), self.mesh, wf,
+                           ln)
 
     def predict_waveform_batch(self, waveforms, lengths) -> np.ndarray:
         """(B, L) float32 + (B,) lengths -> (B, C) probabilities.
@@ -354,8 +377,8 @@ class Wav2VecPredictor(Predictor):
 
     def __init__(self, model: torch.nn.Module, label_map: Dict[str, int],
                  audio_cfg: Optional[AudioConfig] = None,
-                 device: "str | torch.device" = "cuda"):
-        self._setup(model, label_map, audio_cfg, device)
+                 device: "str | torch.device" = "cuda", mesh=None):
+        self._setup(model, label_map, audio_cfg, device, mesh)
         self._body = Wav2VecServingBody(self.model)
 
     @classmethod
@@ -372,7 +395,7 @@ class Wav2VecPredictor(Predictor):
         comes from ``wav2vec_config``, else the ``wav2vec_config`` of the
         ``.json`` beside the checkpoint, else the weights' shapes
         (``infer_wav2vec_config``).  ``compute_dtype`` fp32 by default, as
-        the JAX predictor builds its model."""
+        the JAX predictor builds its model.  ``mesh``: the serving mesh."""
         import json
 
         from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
@@ -384,9 +407,6 @@ class Wav2VecPredictor(Predictor):
         from speech_intent_recognizer_tpu_torch.models.wav2vec import (
             Wav2Vec2Config, Wav2VecIntent)
 
-        if mesh is not None:
-            raise NotImplementedError("a serving mesh is not ported (ROADMAP "
-                                      "Queue 1 item 9, parallel/)")
         label_map = load_label_map(label_map_path)
         state = load_model_checkpoint(model_path)
         if num_classes is None:
@@ -405,7 +425,7 @@ class Wav2VecPredictor(Predictor):
                  if k.startswith("wav2vec.")})
         model = Wav2VecIntent(wav2vec_config, num_classes, compute_dtype)
         model.load_state_dict(state)
-        return cls(model, label_map, audio_cfg, device)
+        return cls(model, label_map, audio_cfg, device, mesh)
 
     def _fused_body(self) -> Wav2VecServingBody:
         return self._body

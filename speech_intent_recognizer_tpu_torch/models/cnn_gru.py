@@ -42,6 +42,7 @@ from torch import nn
 from speech_intent_recognizer_tpu_torch.ops.gru import gru_bidirectional
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     bias_relu_pool2)
+from speech_intent_recognizer_tpu_torch.ops.global_batch import rand_rows
 
 _DIRS = ("", "_reverse")
 
@@ -52,9 +53,11 @@ def _uniform_(t: torch.Tensor, bound: float,
         t.uniform_(-bound, bound, generator=generator)
 
 
-def _dropout(x: torch.Tensor, p: float,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+def _dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """``generator``: a ``torch.Generator``, or an
+    ``ops.global_batch.ShardedGenerator`` (the global batch's mask, this
+    process's rows)."""
+    keep = rand_rows(x.shape, generator, x.device) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -69,7 +72,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     Eval mode normalizes with the running statistics.  Parameter and
     buffer names are ``nn.BatchNorm2d``'s (``num_batches_tracked``
     included), so reference ``.pt`` files load.
+
+    With a process group in ``sync_group`` (data-parallel training,
+    ``CNNAudioGRU.set_sync_group``) the train-mode statistics are the
+    global batch's, as under the JAX package's ``data`` mesh:
+    :class:`_SyncBatchNorm`.  Without one nothing differs from the
+    one-device path.
     """
+
+    sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # On the card, channels-last: torch's native kernels then spread each
@@ -83,18 +94,106 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
+        if self.sync_group is not None:
+            return _SyncBatchNorm.apply(x, self.weight, self.bias, self,
+                                        self.sync_group)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked += 1
+            var, mean = torch.var_mean(x, _DIMS, correction=0)
+        self.update_running_stats(mean, var)
         # Not F.batch_norm: on the card it takes cuDNN's kernels, whose
         # backward put conv2.weight's gradient 6e-3 to 9e-3 of its largest
         # value off the CPU's in a full-width fp32 train step at B=16
         # (H100); the native kernels hold it to 2e-5.
         return torch.native_batch_norm(x, self.weight, self.bias, None, None,
                                        True, 0.0, self.eps)[0]
+
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor,
+                             var: torch.Tensor) -> None:
+        """The Flax update, with the biased batch variance."""
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked += 1
+
+
+_DIMS = (0, 2, 3)  # every axis of an NCHW tensor but the channel's
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the rows of every process of ``group``.
+
+    ``torch.nn.SyncBatchNorm`` does not serve: it refuses CPU tensors and
+    updates the running variance with the unbiased estimate.  Forward:
+    each process's (mean, M2, count) per channel, put in a zero buffer at
+    its rank and summed over the group in one all-reduce, combined in rank
+    order (Chan's parallel variance, the same arithmetic on every process);
+    the biased variance normalizes and updates the running statistics.
+    The normalization is ``native_batch_norm`` in eval form on those
+    statistics (on the card torch's native kernels, not cuDNN's, as in the
+    one-device path).  Backward: sum(dy) and sum(dy * (x - mean)) summed
+    over the group in one all-reduce; the weight and bias gradients are
+    this process's own sums, since the trainer sums every gradient over
+    the group afterwards.  On the card both reductions and the input
+    gradient are torch's native SyncBatchNorm kernels; on the CPU, which
+    has none, the same arithmetic in tensor ops.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn: BatchNorm2d, group):
+        world = torch.distributed.get_world_size(group)
+        rank = torch.distributed.get_rank(group)
+        c = x.shape[1]
+        n_local = x.numel() // c
+        with torch.no_grad():
+            var_l, mean_l = torch.var_mean(x, _DIMS, correction=0)
+            stats = x.new_zeros((world, 2 * c + 1))
+            # device to device (a Python number written into a CUDA
+            # tensor would wait for the card)
+            stats[rank] = torch.cat([mean_l, var_l * n_local,
+                                     mean_l.new_full((1,), n_local)])
+            torch.distributed.all_reduce(stats, group=group)
+            counts = stats[:, 2 * c:]
+            n = counts.sum()
+            mean = (stats[:, :c] * counts).sum(0) / n
+            m2 = (stats[:, c:2 * c]
+                  + counts * (stats[:, :c] - mean).square()).sum(0)
+            var = m2 / n
+            bn.update_running_stats(mean, var)
+        y = torch.native_batch_norm(x, weight, bias, mean, var, False, 0.0,
+                                    bn.eps)[0]
+        invstd = torch.rsqrt(var + bn.eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.count = group, n.to(torch.int32).reshape(1)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dy = dy.contiguous(memory_format=torch.channels_last if x.is_cuda
+                           else torch.contiguous_format)
+        c = x.shape[1]
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+        else:
+            sum_dy = dy.sum(_DIMS)
+            sum_dy_xmu = (dy * (x - mean[:, None, None])).sum(_DIMS)
+            dw, db = sum_dy_xmu * invstd, sum_dy
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        torch.distributed.all_reduce(sums, group=ctx.group)
+        g_dy, g_dy_xmu = sums[:c], sums[c:]
+        if x.is_cuda:
+            dx = torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, weight, g_dy, g_dy_xmu,
+                ctx.count.to(x.device))
+        else:
+            n = ctx.count.float()
+            proj = (g_dy_xmu / n) * invstd.square()
+            dx = ((dy - g_dy[:, None, None] / n
+                   - (x - mean[:, None, None]) * proj[:, None, None])
+                  * (weight * invstd)[:, None, None])
+        return dx, dw, db, None, None
 
 
 class TorchGRU(nn.Module):
@@ -210,6 +309,14 @@ class CNNAudioGRU(nn.Module):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
         self.gru.reset_parameters(generator)
+
+    def set_sync_group(self, group) -> None:
+        """Reduce every BatchNorm's train-mode statistics over the processes
+        of ``group`` (a data-parallel trainer's), or, with None, over this
+        process's rows alone."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.sync_group = group
 
     def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
         conv = getattr(self, f"conv{i}")

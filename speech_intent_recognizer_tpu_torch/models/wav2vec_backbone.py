@@ -36,6 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_intent_recognizer_tpu_torch.ops.global_batch import (
+    base_generator, rand_rows)
+
 
 def feat_extract_output_lengths(config, input_lengths: torch.Tensor
                                 ) -> torch.Tensor:
@@ -60,10 +63,13 @@ def feature_space_attention_mask(config, attention_mask: torch.Tensor,
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator) -> torch.Tensor:
+    """``generator``: a ``torch.Generator`` or an
+    ``ops.global_batch.ShardedGenerator`` (the global batch's mask, this
+    process's rows; dim 0 is the batch)."""
     if not training or p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = rand_rows(x.shape, generator, x.device) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -283,7 +289,8 @@ class Encoder(nn.Module):
             if self.training and self.layerdrop > 0.0:
                 # LayerDrop as the JAX package runs it: the layer is
                 # computed, then skipped w.p. layerdrop (no rescale)
-                u = torch.rand((), generator=generator, device=x.device)
+                u = torch.rand((), generator=base_generator(generator),
+                               device=x.device)
                 y = torch.where(u < 1.0 - self.layerdrop, y, x)
             x = y
         if self.stable:

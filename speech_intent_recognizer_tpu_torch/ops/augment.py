@@ -31,6 +31,12 @@ Every random number comes from the caller's ``torch.Generator`` in
 :func:`draw_augment`; :func:`apply_augment` takes those draws explicitly,
 so a test can feed it the draws the JAX function makes from its key.
 :func:`time_shift` and :func:`_linear_resample` are the scalar goldens.
+
+In a data-parallel step the generator is an
+``ops.global_batch.ShardedGenerator``: each process draws the global
+batch's numbers (the (B, L) noise too) and keeps its rows, and
+:func:`mixup` takes its partners from every process's rows through the
+process group it is given.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from speech_intent_recognizer_tpu_torch.ops.global_batch import (
+    base_generator, gather_rows, rand_rows, randn_rows, row_shard)
 
 RATE_DEN = 64
 RATE_KS = tuple(range(55, 74))
@@ -57,14 +66,14 @@ class AugmentDraws(NamedTuple):
     noise: torch.Tensor  # (B, L) N(0, 1)
 
 
-def draw_augment(b: int, n: int, generator: torch.Generator,
+def draw_augment(b: int, n: int, generator,
                  device: "str | torch.device", shift_limit: float = 0.1,
                  noise_range: tuple = (1e-3, 1e-2),
                  speed_range: tuple = (0.85, 1.15),
                  pitch_semitones: float = 2.0) -> AugmentDraws:
     """All draws for B rows of n samples from ``generator`` (on
     ``device``)."""
-    u = torch.rand((9, b), generator=generator, device=device)
+    u = rand_rows((9, b), generator, device, dim=1)
 
     def scaled(row, lo, hi):
         return u[row] * (hi - lo) + lo
@@ -74,7 +83,7 @@ def draw_augment(b: int, n: int, generator: torch.Generator,
         shift_frac=scaled(5, -shift_limit, shift_limit),
         semitones=scaled(6, -pitch_semitones, pitch_semitones),
         speed=scaled(7, *speed_range), level=scaled(8, *noise_range),
-        noise=torch.randn((b, n), generator=generator, device=device))
+        noise=randn_rows((b, n), generator, device))
 
 
 def _linear_resample(x: torch.Tensor, rate: float) -> torch.Tensor:
@@ -170,7 +179,7 @@ def apply_augment(waves: torch.Tensor, lengths: torch.Tensor,
 
 
 def augment_waveforms(waves: torch.Tensor, lengths: torch.Tensor,
-                      generator: torch.Generator, augment_prob: float = 0.7,
+                      generator, augment_prob: float = 0.7,
                       shift_limit: float = 0.1,
                       noise_range: tuple = (1e-3, 1e-2),
                       speed_range: tuple = (0.85, 1.15),
@@ -203,16 +212,26 @@ def _beta_symmetric(n: int, alpha: float, generator: torch.Generator,
 
 
 def mixup(mels: torch.Tensor, labels_onehot: torch.Tensor,
-          generator: torch.Generator, alpha: float = 0.2):
+          generator, alpha: float = 0.2, group=None):
     """(B, n_mels, T) features and (B, C) one-hot labels -> mixed pair:
     each sample mixes with a random partner by a Beta(alpha, alpha) weight
-    lambda, kept >= 0.5 so the dominant sample comes first."""
-    b = mels.shape[0]
-    lam = _beta_symmetric(b, alpha, generator, mels.device)
+    lambda, kept >= 0.5 so the dominant sample comes first.
+
+    With a ``ShardedGenerator`` the weights and the permutation are the
+    global batch's, and the partners come from every process's rows,
+    gathered over ``group`` (required then)."""
+    rank, world = row_shard(generator)
+    gen = base_generator(generator)
+    n = mels.shape[0]
+    lam = _beta_symmetric(n * world, alpha, gen, mels.device)
     lam = torch.maximum(lam, 1.0 - lam)
-    perm = torch.randperm(b, generator=generator, device=mels.device)
+    perm = torch.randperm(n * world, generator=gen, device=mels.device)
+    mine = slice(rank * n, (rank + 1) * n)  # this process's rows
+    lam, perm = lam[mine], perm[mine]
+    mels_all = gather_rows(mels, generator, group)
+    labels_all = gather_rows(labels_onehot, generator, group)
     lam_m = lam[:, None, None].to(mels.dtype)
-    mixed = lam_m * mels + (1.0 - lam_m) * mels[perm]
+    mixed = lam_m * mels + (1.0 - lam_m) * mels_all[perm]
     lam_l = lam[:, None].to(labels_onehot.dtype)
-    mixed_labels = lam_l * labels_onehot + (1.0 - lam_l) * labels_onehot[perm]
+    mixed_labels = lam_l * labels_onehot + (1.0 - lam_l) * labels_all[perm]
     return mixed, mixed_labels

@@ -7,12 +7,16 @@ probability ``augment_prob``, a time mask and a frequency mask each applied
 with probability ``GATE_PROB`` (0.5); the mask width is drawn uniformly from
 [0, param), the start uniformly from [0, size - width), masked bins are 0.
 Batched on the features' device; every draw comes from the caller's
-``torch.Generator`` (the streams cannot match JAX's).
+``torch.Generator`` (the streams cannot match JAX's), or from an
+``ops.global_batch.ShardedGenerator``: the global batch's draws, this
+process's rows.
 """
 
 from __future__ import annotations
 
 import torch
+
+from speech_intent_recognizer_tpu_torch.ops.global_batch import rand_rows
 
 GATE_PROB = 0.5  # each of the time and frequency masks, once augmented
 
@@ -25,12 +29,12 @@ def _axis_keep(width: torch.Tensor, start: torch.Tensor, size: int
             | (idx[None, :] >= (start + width)[:, None]))
 
 
-def spec_augment(mels: torch.Tensor, generator: torch.Generator,
+def spec_augment(mels: torch.Tensor, generator,
                  augment_prob: float = 0.7, time_mask_param: int = 20,
                  freq_mask_param: int = 10) -> torch.Tensor:
     """Batched SpecAugment: (B, n_mels, T) -> (B, n_mels, T)."""
     b, n_mels, t = mels.shape
-    u = torch.rand((7, b), generator=generator, device=mels.device)
+    u = rand_rows((7, b), generator, mels.device, dim=1)
     outer = u[0] < augment_prob
     tgate = outer & (u[1] < GATE_PROB)
     fgate = outer & (u[2] < GATE_PROB)

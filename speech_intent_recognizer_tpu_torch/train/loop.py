@@ -23,6 +23,20 @@ dropout from one ``torch.Generator`` seeded from ``(seed, epoch)``, so a
 resumed run continues exactly.  Early stopping and best-model tracking follow
 ``train.py:263-302`` with the JAX package's rule: always export a best
 model once.
+
+Data-parallel mode (``Trainer(mesh=)``, a mesh over processes from
+``parallel.create_mesh`` in a ``torch.distributed`` group): every process
+holds the whole set and draws the same ``(perm, weights)``, and runs its
+own rows of each global batch, with its own K3, K2 and K2T launches.  Its
+step is the one-process step on the global batch, as the JAX step on a
+``data`` mesh is: the draws are the global batch's
+(``parallel.sharding.sharded_generator``), BatchNorm's statistics are
+reduced over the group (``CNNAudioGRU.set_sync_group``), the loss is
+divided by the global batch's weight (each process holds the whole
+weights row, so no collective), and the gradients are summed over the
+group in one all-reduce after ``backward()``.  Metrics and
+the stop flag are reduced too, so early stopping and the best model agree
+on every process; process 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +57,12 @@ from speech_intent_recognizer_tpu_torch.ops.augment import (
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     log_mel_frontend, make_frontend_params)
 from speech_intent_recognizer_tpu_torch.ops.specaugment import spec_augment
+from speech_intent_recognizer_tpu_torch.parallel.distributed import (
+    all_reduce_gradients, all_reduce_max)
+from speech_intent_recognizer_tpu_torch.parallel.mesh import (
+    Mesh, local_batch_size, training_mesh)
+from speech_intent_recognizer_tpu_torch.parallel.sharding import (
+    sharded_generator)
 from speech_intent_recognizer_tpu_torch.train.state import (
     Optimizer, create_optimizer)
 
@@ -50,11 +70,16 @@ logger = logging.getLogger(__name__)
 
 
 def cross_entropy(logits: torch.Tensor, labels_onehot: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
-    """Weighted mean cross-entropy, log-softmax in fp32."""
+                  weights: torch.Tensor,
+                  total_weight: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Weighted mean cross-entropy, log-softmax in fp32.  ``total_weight``:
+    the denominator when these rows are a part of the batch (its whole
+    weight), else ``weights.sum()``."""
     logp = F.log_softmax(logits.float(), dim=-1)
     per_example = -(labels_onehot * logp).sum(dim=-1)
-    return (per_example * weights).sum() / weights.sum().clamp(min=1e-8)
+    total = weights.sum() if total_weight is None else total_weight
+    return (per_example * weights).sum() / total.clamp(min=1e-8)
 
 
 def pad_permutation(generator: torch.Generator, n: int, batch_size: int,
@@ -101,12 +126,19 @@ class TrainResult:
 
 
 class Trainer:
-    """Config-driven trainer for the intent classifier on one device."""
+    """Config-driven trainer for the intent classifier on one device, or
+    on one process's rows of a data-parallel mesh (``mesh=``, a mesh over
+    processes; a mesh of one device in this process is the one-device
+    trainer)."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
                  optimizer: Optional[Optimizer] = None,
                  num_classes: Optional[int] = None,
-                 from_waveforms: bool = False):
+                 from_waveforms: bool = False,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = training_mesh(mesh, "Trainer")
+        if self.mesh is not None:
+            model.set_sync_group(self.mesh.group)
         self.model = model
         self.cfg = cfg
         self.num_classes = num_classes or cfg.model.num_labels
@@ -146,6 +178,23 @@ class Trainer:
         if self.from_waveforms and lengths is None:
             raise ValueError("waveform-resident training needs the lengths")
 
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _local(self, batch: int) -> slice:
+        """This process's rows of a ``batch``-row global batch."""
+        if self.mesh is None:
+            return slice(0, batch)
+        b = local_batch_size(batch, self.mesh)
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def _reduce(self, totals: torch.Tensor) -> torch.Tensor:
+        """Sum per-process metric totals over the mesh."""
+        if self.mesh is not None:
+            torch.distributed.all_reduce(totals, group=self.mesh.group)
+        return totals
+
     def train_epoch(self, features: torch.Tensor, labels: torch.Tensor,
                     perm: torch.Tensor, weights: torch.Tensor,
                     generator: torch.Generator,
@@ -154,15 +203,20 @@ class Trainer:
         augmentation, SpecAugment, mixup and dropout draw from
         ``generator``.  In waveform mode ``features`` are (N, L) int16
         waveforms and ``lengths`` (N,) int32.  -> {"loss", "acc"} (weighted
-        means)."""
+        means).  Data-parallel: ``perm`` and ``weights`` are the global
+        batches, the same on every process, which runs its own rows."""
         self._check_lengths(lengths)
         data = self.cfg.data
         use_mixup = data.mixup_alpha > 0 and data.use_mixup
         wave_aug = data.use_waveform_augment and self.from_waveforms
         model, opt = self.model, self.optimizer
         model.train()
+        mine = self._local(int(perm.shape[1]))
+        generator = sharded_generator(generator, self.mesh)
+        group = None if self.mesh is None else self.mesh.group
         totals = torch.zeros(3, device=features.device)
-        for idx, w in zip(perm, weights):
+        for idx_all, w_all in zip(perm, weights):
+            idx, w, w_sum = idx_all[mine], w_all[mine], w_all.sum()
             x = self._inputs(features, lengths, idx,
                              generator if wave_aug else None)
             y = labels[idx]
@@ -173,36 +227,46 @@ class Trainer:
                                  time_mask_param=data.time_mask_param,
                                  freq_mask_param=data.freq_mask_param)
             if use_mixup:
-                x, y_onehot = mixup(x, y_onehot, generator, data.mixup_alpha)
+                x, y_onehot = mixup(x, y_onehot, generator, data.mixup_alpha,
+                                    group)
             logits = model(x, generator)
-            loss = cross_entropy(logits, y_onehot, w)
+            loss = cross_entropy(logits, y_onehot, w, w_sum)
             opt.zero_grad()
             loss.backward()
+            if self.mesh is not None:
+                all_reduce_gradients(opt.params, self.mesh.group)
             opt.step()
             with torch.no_grad():
                 correct = ((logits.argmax(-1) == y).float() * w).sum()
-                totals += torch.stack([loss * w.sum(), correct, w.sum()])
-        return _means(totals)
+                totals += torch.stack([loss * w_sum, correct, w.sum()])
+        return _means(self._reduce(totals))
 
     @torch.no_grad()
     def evaluate(self, features: torch.Tensor, labels: torch.Tensor,
                  batch_size: Optional[int] = None,
                  lengths: Optional[torch.Tensor] = None) -> dict:
+        """Weighted loss and accuracy over the set; data-parallel, each
+        process runs its rows of each batch (rounded up to a multiple of
+        the data axis) and the totals are summed over the mesh."""
         self._check_lengths(lengths)
         bs = batch_size or (self.cfg.train.batch_size
                             * self.cfg.train.eval_batch_multiplier)
         n = int(features.shape[0])
-        perm, weights = sequential_batches(n, min(bs, n), features.device)
+        bs = min(bs, n)
+        if self.mesh is not None:
+            bs = -(-bs // self.mesh.spec.data) * self.mesh.spec.data
+        perm, weights = sequential_batches(n, bs, features.device)
+        mine = self._local(bs)
         self.model.eval()
         totals = torch.zeros(3, device=features.device)
-        for idx, w in zip(perm, weights):
+        for idx, w in zip(perm[:, mine], weights[:, mine]):
             y = labels[idx]
             logits = self.model(self._inputs(features, lengths, idx))
             loss = cross_entropy(logits, F.one_hot(y, self.num_classes)
                                  .float(), w)
             correct = ((logits.argmax(-1) == y).float() * w).sum()
             totals += torch.stack([loss * w.sum(), correct, w.sum()])
-        return _means(totals)
+        return _means(self._reduce(totals))
 
     def fit(self, train_features: torch.Tensor, train_labels: torch.Tensor,
             val_features: torch.Tensor, val_labels: torch.Tensor,
@@ -213,11 +277,18 @@ class Trainer:
             val_lengths: Optional[torch.Tensor] = None) -> TrainResult:
         """Train from ``start_epoch`` to ``cfg.train.epochs`` with early
         stopping; in waveform mode the features are int16 waveforms and
-        ``train_lengths`` / ``val_lengths`` their lengths."""
+        ``train_lengths`` / ``val_lengths`` their lengths.  Data-parallel:
+        every process passes the whole set; process 0 alone logs and
+        writes checkpoints, and the others wait for its writes."""
         cfg = self.cfg.train
         log = log or logger.info
+        if self.rank != 0:
+            log = _silent
+            checkpointer = None
         n_train = int(train_features.shape[0])
         bs = min(cfg.batch_size, n_train)
+        if self.mesh is not None:  # raises unless bs divides by the axis
+            local_batch_size(bs, self.mesh)
         dev = train_features.device
         result = TrainResult(best_val_acc=best_val_acc, epochs_run=start_epoch)
 
@@ -280,6 +351,12 @@ class Trainer:
                     checkpointer.save_state(self.model, self.optimizer,
                                             epoch + 1, result.best_val_acc,
                                             no_improve)
+                if self.mesh is not None:
+                    # one decision for every process: a signal to any
+                    # stops all.  Process 0 joins after its writes, so no
+                    # process goes on before the checkpoint is on disk
+                    preempted["flag"] = all_reduce_max(
+                        preempted["flag"], self.mesh.group, dev)
 
                 result.epochs_run = epoch + 1
                 if no_improve >= cfg.early_stop_patience:
@@ -295,6 +372,10 @@ class Trainer:
                 signal.signal(sig, handler)
         log(f"training complete; best val accuracy {result.best_val_acc:.4f}")
         return result
+
+
+def _silent(_msg: str) -> None:
+    pass
 
 
 def _means(totals: torch.Tensor) -> dict:

@@ -25,6 +25,14 @@ its patience counts steps, not epochs: the scale halves every second step
 Each epoch's noise, dropout and LayerDrop draw from one generator seeded
 from ``(seed, epoch)`` and its shuffle from ``default_rng(seed + epoch)``,
 so a resumed run matches an uninterrupted one.
+
+Data-parallel (``mesh=``, a mesh over processes from
+``parallel.create_mesh``): every process walks the same global batches and
+decodes only its own rows of each; its draws are the global batch's
+(``parallel.sharding.sharded_generator``); the gradients are averaged over the group
+in one all-reduce, which makes the mean of equal local batches' mean
+losses the global batch's mean; the validation metrics are averaged the
+same way, and process 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -44,7 +52,14 @@ from speech_intent_recognizer_tpu_torch.data.prefetch import (
     BackgroundLoader, device_prefetch)
 from speech_intent_recognizer_tpu_torch.data.wav2vec_data import (
     apply_train_noise, batch_waveforms, draw_train_noise)
-from speech_intent_recognizer_tpu_torch.train.loop import epoch_generator
+from speech_intent_recognizer_tpu_torch.parallel.distributed import (
+    all_reduce_gradients, all_reduce_max)
+from speech_intent_recognizer_tpu_torch.parallel.mesh import (
+    local_batch_size, training_mesh)
+from speech_intent_recognizer_tpu_torch.parallel.sharding import (
+    sharded_generator)
+from speech_intent_recognizer_tpu_torch.train.loop import (
+    _silent, epoch_generator)
 from speech_intent_recognizer_tpu_torch.train.state import (
     ADAM_BETAS, ADAM_EPS, clip_by_global_norm_, lr_schedule)
 
@@ -164,16 +179,15 @@ def create_wav2vec_optimizer(params, lr: float = 1e-4,
 
 class Wav2VecTrainer:
     """Train and evaluate steps and the epoch loop of the wav2vec recipe on
-    the device that holds ``model``."""
+    the device that holds ``model``, data-parallel with a mesh over
+    processes (``mesh``; a mesh of one device in this process is the
+    one-device trainer)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Wav2VecOptimizer,
                  num_classes: int, max_length: int = 80000,
                  sample_rate: int = 16000, noise_prob: float = 0.8,
                  noise_level: float = 1e-3, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (data / model-parallel wav2vec "
-                                      "training) is not ported (ROADMAP "
-                                      "Queue 1 item 9, parallel/)")
+        self.mesh = training_mesh(mesh, "Wav2VecTrainer")
         self.model = model
         self.optimizer = optimizer
         self.num_classes = num_classes
@@ -190,10 +204,14 @@ class Wav2VecTrainer:
         cross-entropy in train mode (dropout and LayerDrop from
         ``generator``).  Returns (loss, accuracy) as device scalars."""
         self.model.train()
+        generator = sharded_generator(generator, self.mesh)
         logits = self.model(x, mask, generator=generator).float()
         loss = F.cross_entropy(logits, y)
         self.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_gradients(self.optimizer.params, self.mesh.group,
+                                 average=True)
         self.optimizer.step(plateau_value)
         acc = (logits.argmax(-1) == y).float().mean()
         return loss.detach(), acc
@@ -203,8 +221,9 @@ class Wav2VecTrainer:
                    plateau_value: float = math.inf):
         """The train step: the reference's additive noise, then
         :meth:`update`."""
-        gate_u, normals = draw_train_noise(tuple(x.shape), x.device,
-                                           generator)
+        gate_u, normals = draw_train_noise(
+            tuple(x.shape), x.device,
+            sharded_generator(generator, self.mesh))
         x = apply_train_noise(x, mask, gate_u, normals, self.noise_prob,
                               self.noise_level)
         return self.update(x, mask, y, generator, plateau_value)
@@ -222,15 +241,20 @@ class Wav2VecTrainer:
         """Full batches only (a partial last batch is dropped, in training
         and validation alike), decoded on a worker thread and copied to the
         device two batches ahead (``data/prefetch.device_prefetch``: pinned
-        memory, non-blocking copies on a side stream)."""
+        memory, non-blocking copies on a side stream).  Data-parallel: this
+        process's rows of each global batch only."""
         n = len(paths)
         order = (np.random.default_rng(seed).permutation(n) if shuffle
                  else np.arange(n))
         labels = np.asarray(labels)
+        mine = slice(0, batch_size)
+        if self.mesh is not None:
+            b = local_batch_size(batch_size, self.mesh)
+            mine = slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
 
         def produce():
             for start in range(0, n - batch_size + 1, batch_size):
-                idx = order[start:start + batch_size]
+                idx = order[start:start + batch_size][mine]
                 x, mask, _ok = batch_waveforms([paths[i] for i in idx],
                                                self.sample_rate,
                                                self.max_length)
@@ -255,6 +279,9 @@ class Wav2VecTrainer:
             BEST_MODEL_FILE)
 
         log = log or logger.info
+        rank = 0 if self.mesh is None else self.mesh.rank
+        if rank != 0:
+            log = _silent
         start_epoch, best_val_acc, best_state, no_improve = 0, -1.0, None, 0
         plateau_value = math.inf
         history = []
@@ -305,6 +332,8 @@ class Wav2VecTrainer:
                     loss, acc = self.evaluate_batch(x, mask, y)
                     vl.append(loss)
                     va.append(acc)
+                vl, va, losses = (self._mean_over_mesh(v)
+                                  for v in (vl, va, losses))
                 val_loss = (float(torch.stack(vl).double().mean()) if vl
                             else math.inf)
                 val_acc = float(torch.stack(va).double().mean()) if va \
@@ -324,7 +353,7 @@ class Wav2VecTrainer:
                     best_val_acc, no_improve = val_acc, 0
                     best_state = {k: v.detach().cpu().clone() for k, v in
                                   self.model.state_dict().items()}
-                    if checkpointer is not None:
+                    if checkpointer is not None and rank == 0:
                         checkpointer.save_best(best_state, best_val_acc,
                                                epoch + 1)
                 else:
@@ -332,7 +361,7 @@ class Wav2VecTrainer:
                     if no_improve >= early_stop_patience:
                         log(f"early stopping after {epoch + 1} epochs")
                         stop = True
-                if checkpointer is not None:
+                if checkpointer is not None and rank == 0:
                     checkpointer.save_payload(
                         {"model": self.model.state_dict(),
                          "optimizer": self.optimizer.state_dict(),
@@ -340,6 +369,11 @@ class Wav2VecTrainer:
                          "epoch": epoch + 1,
                          "best_val_acc": float(best_val_acc),
                          "no_improve": int(no_improve)}, epoch + 1)
+                if self.mesh is not None:
+                    # a signal to any process stops all; process 0 joins
+                    # after its writes
+                    stop_requested["flag"] = all_reduce_max(
+                        stop_requested["flag"], self.mesh.group, self.device)
                 if stop_requested["flag"]:
                     log(f"stopped by signal; state checkpointed at epoch "
                         f"{epoch + 1}")
@@ -354,3 +388,13 @@ class Wav2VecTrainer:
                     pass
         return {"best_val_acc": best_val_acc, "best_state": best_state,
                 "history": history}
+
+    def _mean_over_mesh(self, values: list) -> list:
+        """Per-batch device scalars averaged over the mesh's processes (the
+        global batch's mean over equal local batches)."""
+        if self.mesh is None or not values:
+            return values
+        t = torch.stack(values).float()
+        torch.distributed.all_reduce(t, group=self.mesh.group)
+        return list(t / self.mesh.spec.data)
+

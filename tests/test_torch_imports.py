@@ -59,6 +59,23 @@ print(len(names))
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_parallel_and_dryrun_import_without_jax():
+    """``parallel`` and ``parallel.dryrun`` (which the card's host runs to
+    spawn its ranks) load no JAX module and no module of the JAX
+    package."""
+    code = """
+import sys
+import speech_intent_recognizer_tpu_torch.parallel
+import speech_intent_recognizer_tpu_torch.parallel.dryrun
+bad = sorted(m for m in sys.modules if m.split('.')[0] in (
+    'jax', 'jaxlib', 'flax', 'optax')
+    or m.split('.')[0] == 'speech_intent_recognizer_tpu')
+assert not bad, bad
+"""
+    r = _run(code, REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_streaming_and_serving_modules_import_without_jax_or_msgpack():
     """The streaming, serving and checkpoint-reading modules and their CLIs
     import no JAX, Flax, msgpack or Optax package and no module of the JAX

@@ -346,9 +346,12 @@ def test_resume_continues_exactly(rng, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """The options the port does not run raise; ``cli.train`` refuses
-    ``model_name: wav2vec`` and names ``cli.train_wav2vec``; the wav2vec
-    evaluation is ported and evaluates a tiny checkpoint."""
+    """The options the port does not run raise: ``cli.train`` refuses
+    ``model_name: wav2vec`` and names ``cli.train_wav2vec``, and
+    ``model_axis > 1`` naming ROADMAP.md; the multi-process options are
+    accepted.  The wav2vec evaluation is ported and evaluates a tiny
+    checkpoint, and ``--data_parallel`` over two CPU shards gives the same
+    report."""
     from speech_intent_recognizer_tpu_torch.cli.evaluate import (
         evaluate_from_config)
     from speech_intent_recognizer_tpu_torch.cli.train import check_supported
@@ -363,12 +366,12 @@ def test_unported_options_raise(tmp_path):
     check_supported(Config.from_dict({"train_on_waveforms": True}))
     with pytest.raises(NotImplementedError, match="cli.train_wav2vec"):
         check_supported(Config.from_dict({"model_name": "wav2vec"}))
-    for raw in ({"num_processes": 2}, {"model_axis": 2},
-                {"data_axis": 4}, {"coordinator_address": "localhost:1"}):
-        with pytest.raises(NotImplementedError):
-            check_supported(Config.from_dict(raw))
-    check_supported(Config.from_dict({}))
-    cfg = Config.from_dict({"max_duration": 0.5,
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_supported(Config.from_dict({"model_axis": 2}))
+    for raw in ({"num_processes": 2}, {"data_axis": 4},
+                {"coordinator_address": "localhost:1"}, {}):
+        check_supported(Config.from_dict(raw))
+    cfg = Config.from_dict({"max_duration": 0.5, "data_axis": 2,
                             "save_path": str(tmp_path / "ckpt")})
     model = Wav2VecIntent(small_wav2vec_config(32, 1), 2)
     model.reset_parameters(torch.Generator().manual_seed(0))
@@ -387,9 +390,12 @@ def test_unported_options_raise(tmp_path):
     assert result["confusion_matrix"].sum() == 3
     assert (tmp_path / "ckpt" / "evaluation_results_wav2vec"
             / "classification_report.txt").exists()
-    with pytest.raises(NotImplementedError):
-        evaluate_from_config(cfg, "x.csv", "lm.json", "m.pt",
-                             data_parallel=True, device="cpu")
+    dp = evaluate_from_config(
+        cfg, str(tmp_path / "m.csv"), str(tmp_path / "lm.json"),
+        str(tmp_path / "w2v.pt"), model_type="wav2vec", device="cpu",
+        results_dir=str(tmp_path / "dp"), data_parallel=True)
+    assert np.array_equal(dp["confusion_matrix"], result["confusion_matrix"])
+    assert dp["accuracy"] == result["accuracy"]
 
 
 def test_cli_train_then_evaluate_match_jax_evaluate(tmp_path):

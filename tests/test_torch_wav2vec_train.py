@@ -322,8 +322,31 @@ def test_resumed_run_matches_uninterrupted(tmp_path):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pt.Wav2VecTrainer(_tiny_model(), None, 3, mesh=object())
+    """``mesh=`` runs: a mesh of one device in this process is the
+    one-device trainer, bit for bit (dropout and LayerDrop on); a mesh of
+    several devices in one process raises and names the one-process-per-
+    device launch.  The multi-process mesh: tests/test_torch_distributed.py."""
+    from speech_intent_recognizer_tpu_torch.parallel import create_mesh
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((0.1 * rng.standard_normal((4, L)))
+                         .astype(np.float32))
+    mask = torch.ones((4, L), dtype=torch.int32)
+    y = torch.tensor([0, 1, 2, 1])
+    runs = []
+    for mesh in (None, create_mesh(devices=["cpu"])):
+        model = _tiny_model()
+        trainer = pt.Wav2VecTrainer(model, pt.create_wav2vec_optimizer(
+            model.parameters(), lr=1e-3), 3, max_length=L, mesh=mesh)
+        loss, _ = trainer.train_step(x, mask, y,
+                                     torch.Generator().manual_seed(5))
+        runs.append((float(loss), model.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for name, t in runs[0][1].items():
+        assert torch.equal(t, runs[1][1][name]), name
+    with pytest.raises(ValueError, match="one process per device"):
+        pt.Wav2VecTrainer(_tiny_model(), None, 3,
+                          mesh=create_mesh(devices=["cpu", "cpu"]))
 
 
 # -------------------------------------------------------------------- CLIs
