@@ -159,8 +159,8 @@ Phases:
     K1's and K2's kernels and the annotated region; g.
     ``utils.diagnostics``' smoke test and 2 s stress test (TFLOP/s beside
     the card's name and power limit).
-21. data-parallel training, evaluation and serving (``parallel/``; run
-    last, on phase 15's corpus and model): a. ``cli.train`` with the
+21. data-parallel training, evaluation and serving (``parallel/``; on
+    phase 15's corpus and model): a. ``cli.train`` with the
     config's ``parallel`` section (a ``file://`` coordinator, world 1,
     NCCL) against the same run without, fp32, feature and waveform mode,
     two epochs of one step on 64 rows: launches counted (K2 2 a step and
@@ -178,6 +178,19 @@ Phases:
     serving mesh K1 2, K2 4); c. ``Predictor(mesh=)`` over [dev, dev] on
     37 rows of the test split (K1 2, K2 4) against the meshless rows at
     phase 4's bar.
+22. tensor parallelism (the ``model`` axis of ``parallel/``; runs after
+    21): ``parallel.dryrun.dryrun_multichip(2, "cuda", model_axis=2)``
+    (dp1 x tp2) and ``dryrun_multichip(4, "cuda", model_axis=2)`` (dp2 x
+    tp2), the processes sharing the one card over gloo, fp32, TF32 off:
+    the reference CNN-GRU's feature and waveform steps and evaluations,
+    one wav2vec2-base step (seeded, 4 rows of 1 s a process) and the
+    checkpoint round trip, each held to the one-process step on the
+    global batch by the dry run's bars (every process's parameters equal,
+    the checkpoint bit-equal); each process's launches (feature K2 2, K2T
+    2; waveform K3 1, K2 2, K2T 2; the serving mesh K1 and 2 K2 a data
+    shard) and its bytes of split leaves and of their Adam moments, half
+    the whole model's.  A correctness run on a shared card, not a
+    multi-GPU rate.
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
@@ -185,7 +198,9 @@ the batched finalize of 16 and in the file replay of 16; K2, K3 and K2T
 also ``waveform_launches``, phase 17's; every kernel
 ``artifact_launches``, phase 18's per program call; K2, K3 and K2T
 ``synthetic_launches``, phase 20b's; K1 and K2 ``tts_launches``, phase
-20c's; K1, K2, K3 and K2T ``distributed_launches``, phase 21's), its error
+20c's; K1, K2, K3 and K2T ``distributed_launches``, phase 21's; K1, K2,
+K3 and K2T ``tensor_parallel_launches``, phase 22's, each process's), its
+error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
 or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
@@ -3359,6 +3374,62 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
     return out
 
 
+def check_tensor_parallel(dev) -> dict:
+    """Phase 22: the dry run on the dp1 x tp2 and dp2 x tp2 grids of
+    processes sharing the card; every check of each part is the dry
+    run's, these are each process's launches, bytes and replicas."""
+    from speech_intent_recognizer_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "runs": {}}
+    steps = ("feature", "wav2vec", "waveform", "checkpoint")
+    for n in (2, 4):
+        data = n // 2
+        name = f"dp{data}xtp2"
+        t1 = time.perf_counter()
+        dry = dryrun_multichip(n, device="cuda", model_axis=2,
+                               timeout_s=400.0)
+        seconds = time.perf_counter() - t1
+        parts = dry["meshes"][name]
+        check(set(parts) == set(steps) | {"serving"}
+              and all(r["backend"] == "gloo" for r in dry["ranks"]),
+              f"dryrun_multichip({n}, cuda, model_axis=2): every part on "
+              f"{name} over gloo, {seconds:.1f} s")
+        for r in dry["ranks"]:
+            got = {p["part"]: p for p in r["parts"]}
+            what = f"{name} process {r['rank']}"
+            check_counts(got["feature"]["launches"], {"K2": 2, "K2T": 2},
+                         f"{what}, feature step")
+            check_counts(got["waveform"]["launches"],
+                         {"K3": 1, "K2": 2, "K2T": 2},
+                         f"{what}, waveform step")
+            for part in steps:
+                by = got[part]["bytes"]
+                check(by["split"] > 0 and 2 * by["split"] == by["split_full"]
+                      and 2 * by["adam_split"] == by["adam_split_full"]
+                      and got[part]["replicas_equal"],
+                      f"{what}, {part}: half of each split leaf and of its "
+                      f"Adam moments ({by}), the whole parameters equal on "
+                      f"every process")
+        check_counts(parts["serving"]["launches"],
+                     {"K1": data, "K2": 2 * data},
+                     f"{name} serving mesh of {n} entries")
+        out["runs"][name] = {
+            "seconds": seconds,
+            "parts": {k: {f: v for f, v in p.items() if f != "launches"}
+                      for k, p in parts.items()},
+            "bytes": {f"process_{r['rank']}": {
+                p["part"]: p["bytes"] for p in r["parts"] if "bytes" in p}
+                for r in dry["ranks"]}}
+        out["launches"][name] = {
+            f"process_{r['rank']}": {p["part"]: p["launches"]
+                                     for p in r["parts"] if "launches" in p}
+            for r in dry["ranks"]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3699,6 +3770,8 @@ def main(argv=None) -> int:
         # phase 15's corpus and model; after 20, whose trace once lost K1's
         # record when it ran after this phase ----
         distributed = check_distributed(dev, tmp, e2e_train, timings)
+        # ---- 22. tensor parallelism: the dp1 x tp2 and dp2 x tp2 grids ----
+        tensor_parallel = check_tensor_parallel(dev)
     syn, hold = synthetic["synthetic"], synthetic["holdout"]
 
     log(f"timing on {label} (CUDA events, ms per call):")
@@ -3833,6 +3906,15 @@ def main(argv=None) -> int:
                for proc, parts in dl["dryrun"].items()
                for part, got in parts.items()},
             "serving_mesh_2": dl["serving_mesh"][key]}
+    # launches on phase 22's grids: each process of each dry run (its steps,
+    # evaluations and, on process 0, its serving mesh)
+    tl = tensor_parallel["launches"]
+    for i, key in ((0, "K1"), (1, "K2"), (2, "K3"), (3, "K2T")):
+        kernels[i]["tensor_parallel_launches"] = {
+            f"{grid}_{proc}_{part}": got[key]
+            for grid, procs in tl.items()
+            for proc, parts in procs.items()
+            for part, got in parts.items()}
     for entry_, key in zip(kernels, ("K1", "K2", "K3", "K2T", "K4", "K5",
                                      "K6")):
         entry_["artifact_launches"] = {
@@ -3900,6 +3982,27 @@ def main(argv=None) -> int:
             log("      each gradient's error over its leaf's scale: "
                 + ", ".join(f"{k} {v:.2e}"
                             for k, v in got["grad_errs"].items()))
+    log(f"  phase 22 on {label} took {tensor_parallel['seconds']:.1f} s "
+        f"(a correctness run: the processes of each grid share one card "
+        f"over gloo; not a multi-GPU rate):")
+    for grid, run22 in tensor_parallel["runs"].items():
+        log(f"    {grid}: {run22['seconds']:.1f} s")
+        for part, got in run22["parts"].items():
+            log(f"      {part}: " + ", ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in got.items()
+                if k not in ("grad_errs", "grad_l2_errs", "bytes")))
+            if "grad_errs" in got:
+                log("        each gradient's error over its leaf's scale: "
+                    + ", ".join(f"{k} {v:.2e}"
+                                for k, v in got["grad_errs"].items()))
+        for proc, parts in run22["bytes"].items():
+            log(f"      {proc} bytes (this process / the whole model): "
+                + "; ".join(
+                    f"{part} split leaves {b['split']} / {b['split_full']}, "
+                    f"their Adam moments {b['adam_split']} / "
+                    f"{b['adam_split_full']}, all parameters {b['params']} "
+                    f"/ {b['params_full']}" for part, b in parts.items()))
     print(json.dumps({"wav2vec": wav2vec, "device": label}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -10,9 +10,10 @@ CUDA device by the K3 kernel, or K4 off the reference geometry).
 ``--model_type wav2vec`` evaluates a ``Wav2VecIntent`` checkpoint file by
 file over the manifest (``evaluate_manifest_with_predictor``), its report
 under ``<save_path>/evaluation_results_wav2vec`` by default.
-``--data_parallel`` runs the forward over a mesh of every card (``--device
-cpu``: ``parallel.data_axis`` shards of the CPU), a replica of the model on
-each, as the JAX CLI's mesh over its devices::
+``--data_parallel`` runs the forward over a ``(data, model)`` mesh of every
+card (``--device cpu``: ``parallel.data_axis`` x ``parallel.model_axis``
+entries of the CPU), a replica of the model on each data shard's device,
+the ``model`` axis replicated, as the JAX CLI's mesh over its devices::
 
     python -m speech_intent_recognizer_tpu_torch.cli.evaluate \\
         --test_csv test.csv --label_map label_map.json \\
@@ -41,8 +42,8 @@ from speech_intent_recognizer_tpu_torch.parallel.mesh import create_mesh
 
 
 def data_parallel_mesh(cfg, device):
-    """Every card for ``cuda``; ``parallel.data_axis`` shards (at least
-    one) of any other device."""
+    """Every card for ``cuda``; ``parallel.data_axis`` (at least one) x
+    ``parallel.model_axis`` entries of any other device."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -51,7 +52,8 @@ def data_parallel_mesh(cfg, device):
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     else:
-        devices = [dev] * max(1, cfg.parallel.data_axis)
+        devices = [dev] * (max(1, cfg.parallel.data_axis)
+                           * max(1, cfg.parallel.model_axis))
     return create_mesh(cfg.parallel.data_axis, cfg.parallel.model_axis,
                        devices)
 
@@ -66,7 +68,7 @@ def evaluate_from_config(cfg, test_csv, label_map_path, model_path,
         mesh = data_parallel_mesh(cfg, device)
         device = mesh.devices[0]
         logger.info("data-parallel evaluation over mesh %s on %s",
-                    mesh.shape, [str(d) for d in mesh.devices])
+                    mesh.shape, [str(d) for d in mesh.data_devices])
     if model_type == "wav2vec":
         from speech_intent_recognizer_tpu_torch.data.manifest import (
             read_manifest)

@@ -17,9 +17,11 @@ or ``file:///shared/path``); process p trains on ``cuda:{p % cards}``::
     parallel: {coordinator_address: "localhost:29500", num_processes: 2,
                process_id: 0, data_axis: -1}
 
-``data_axis`` is the process count (-1 takes them all); ``model_axis``
-above 1 (tensor parallelism) is not ported yet.  wav2vec trains with
-``cli.train_wav2vec``.
+The processes form a ``data_axis`` x ``model_axis`` grid (``data_axis``
+-1 takes all that ``model_axis`` leaves): ``model_axis`` above 1 splits
+the GRU, ``attention`` and ``fc`` leaves over each group of that many
+processes (tensor parallelism, ``parallel/sharding.py``), each of which
+runs the same rows.  wav2vec trains with ``cli.train_wav2vec``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
 from speech_intent_recognizer_tpu_torch.parallel.distributed import (
     initialize_distributed)
 from speech_intent_recognizer_tpu_torch.parallel.mesh import create_mesh
+from speech_intent_recognizer_tpu_torch.parallel.sharding import place_params
 from speech_intent_recognizer_tpu_torch.train.checkpoint import Checkpointer
 from speech_intent_recognizer_tpu_torch.train.loop import Trainer
 from speech_intent_recognizer_tpu_torch.train.state import (
@@ -48,16 +51,11 @@ from speech_intent_recognizer_tpu_torch.train.state import (
 
 def check_supported(cfg) -> None:
     """Refuse the JAX package's options that this port does not run."""
-    par = cfg.parallel
     if cfg.model.name != "cnn_gru":
         raise NotImplementedError(
             f"model {cfg.model.name!r}: this CLI trains cnn_gru, as the JAX "
             "package's does; fine-tune wav2vec with "
             "speech_intent_recognizer_tpu_torch.cli.train_wav2vec")
-    if par.model_axis > 1:
-        raise NotImplementedError(
-            f"model_axis={par.model_axis}: tensor parallelism is not ported "
-            "yet (ROADMAP.md, Queue 1: the model axis); the data axis is")
 
 
 def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
@@ -70,14 +68,16 @@ def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
     mesh = None
     if dev is None:  # one process, one device
         dev = torch.device(device)
-        if par.data_axis not in (-1, 1):
-            raise ValueError(
-                f"data_axis={par.data_axis} needs that many processes: set "
-                "parallel.coordinator_address, num_processes, process_id")
+        for axis in ("data_axis", "model_axis"):
+            if getattr(par, axis) not in (-1, 1):
+                raise ValueError(
+                    f"{axis}={getattr(par, axis)} needs that many processes: "
+                    "set parallel.coordinator_address, num_processes, "
+                    "process_id")
     else:
         mesh = create_mesh(par.data_axis, par.model_axis)
         logger.info("process %d of %d on %s, mesh %s", mesh.rank,
-                    mesh.spec.data, dev, mesh.shape)
+                    mesh.spec.num_devices, dev, mesh.shape)
     train_csv = train_csv or cfg.data.train_csv
     val_csv = val_csv or cfg.data.valid_csv
     label_map_path = label_map_path or cfg.data.label_map_path
@@ -99,6 +99,7 @@ def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
         compute_dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32)
     model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
     model.to(dev)
+    place_params(model, mesh)  # this process's parts of the split leaves
     optimizer = optimizer_from_config(cfg, model.parameters(),
                                       train_ds.num_items)
 
@@ -112,7 +113,7 @@ def train_from_config(cfg, train_csv=None, val_csv=None, label_map_path=None,
 
     start_epoch, best_val_acc, no_improve = 0, 0.0, 0
     if resume or cfg.train.resume:
-        book = ckpt.restore_state(model, optimizer)
+        book = ckpt.restore_state(model, optimizer, mesh)
         if book is not None:
             start_epoch = book["epoch"]
             best_val_acc = book["best_val_acc"]

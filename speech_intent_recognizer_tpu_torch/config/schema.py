@@ -161,7 +161,10 @@ class ParallelConfig:
     wide weights when >1) and the multi-process launch.  The port's
     ``cli.train`` reads them: with a coordinator it joins a
     ``torch.distributed`` group of ``num_processes`` (one per device) and
-    trains data-parallel over it; ``model_axis > 1`` is not ported yet."""
+    trains on its ``data_axis`` x ``model_axis`` grid: rows over ``data``,
+    the split leaves over ``model`` (tensor parallelism).  ``cli.evaluate
+    --data_parallel`` builds a ``data`` x ``model`` mesh in one process
+    and runs its data shards."""
 
     data_axis: int = -1  # -1 = all remaining devices
     model_axis: int = 1

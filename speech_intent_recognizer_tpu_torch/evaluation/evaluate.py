@@ -9,9 +9,10 @@ checkpoint's head.
 
 With ``mesh=`` (a mesh of devices in this process, ``parallel.create_mesh``)
 the forward is data-parallel, as the JAX version's ``shard_map`` over the
-``data`` axis: a replica of the model on each of the mesh's devices, each
+``data`` axis: a replica of the model on each data shard's device, each
 batch rounded up to a multiple of the data axis and split over them, the
-pad rows stripped.
+pad rows stripped; a ``model`` axis is replicated, as under JAX's
+``shard_map(in_specs=P("data"))``.
 """
 
 from __future__ import annotations

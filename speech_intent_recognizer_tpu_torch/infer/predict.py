@@ -23,8 +23,9 @@ every weight it reads, K1's conv1 and K5's packed operands included.
 A serving mesh (``mesh=``, a mesh of devices in this process from
 ``parallel.create_mesh``) runs the batch data-parallel, as the JAX
 predictor's ``shard_map`` over ``data``: the batch padded to a multiple of
-the device count, each shard through a replica of the serving body on its
-device (its own K1, K2 and K5 / K6 launches), the pad rows stripped.
+the data axis, each data shard through a replica of the serving body on
+its device (its own K1, K2 and K5 / K6 launches), the pad rows stripped; a
+``model`` axis is replicated (shard ``d`` runs on ``devices[d * model]``).
 """
 
 from __future__ import annotations

@@ -43,6 +43,8 @@ from speech_intent_recognizer_tpu_torch.ops.gru import gru_bidirectional
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     bias_relu_pool2)
 from speech_intent_recognizer_tpu_torch.ops.global_batch import rand_rows
+from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
+    gather_on_use, split_attention_pool)
 
 _DIRS = ("", "_reverse")
 
@@ -203,7 +205,16 @@ class TorchGRU(nn.Module):
     (``weight_ih_l{k}[_reverse]`` etc., rows in [r; z; n] order).  The
     recurrence runs in :func:`..ops.gru.gru_bidirectional` (the K2 kernel
     on CUDA); the input projections are one GEMM per direction and layer.
+
+    With a model group (``model_group``, ``CNNAudioGRU.set_model_group``)
+    a leaf that holds this process's rows of the gate-stacked 3H (one that
+    ``parallel.sharding.place_params`` cut) is gathered whole before use:
+    the recurrence (K2 and K2T on the card) reads every row of W_hh at
+    every step, so each process runs the whole GRU on its rows, and its
+    gradient of a part is its slice of the whole gradient.
     """
+
+    model_group = None
 
     def __init__(self, input_size: int, hidden_size: int,
                  num_layers: int = 2, dropout: float = 0.5,
@@ -228,6 +239,11 @@ class TorchGRU(nn.Module):
         for p in self.parameters():
             _uniform_(p, 1.0 / math.sqrt(self.hidden_size), generator)
 
+    def _whole(self, p: torch.Tensor) -> torch.Tensor:
+        if p.shape[0] == 3 * self.hidden_size:
+            return p
+        return gather_on_use(p, self.model_group, 0)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # x: (B, T, F) -> (B, T, 2H)
@@ -236,7 +252,8 @@ class TorchGRU(nn.Module):
             xc = x.to(dt)
             gx, w_hh, b_hh = [], [], []
             for sfx in _DIRS:
-                p = {n: getattr(self, f"{n}_l{layer}{sfx}").to(dt)
+                p = {n: self._whole(getattr(self, f"{n}_l{layer}{sfx}"))
+                     .to(dt)
                      for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
                 gx.append(F.linear(xc, p["weight_ih"], p["bias_ih"])
                           .transpose(0, 1))  # (T, B, 3H)
@@ -312,11 +329,18 @@ class CNNAudioGRU(nn.Module):
 
     def set_sync_group(self, group) -> None:
         """Reduce every BatchNorm's train-mode statistics over the processes
-        of ``group`` (a data-parallel trainer's), or, with None, over this
-        process's rows alone."""
+        of ``group`` (a data-parallel trainer's data group), or, with None,
+        over this process's rows alone."""
         for m in self.modules():
             if isinstance(m, BatchNorm2d):
                 m.sync_group = group
+
+    def set_model_group(self, group) -> None:
+        """The model group over which this process holds parts of the GRU,
+        ``attention`` and ``fc`` leaves (``parallel.sharding.
+        place_params`` cuts them and calls this), or None."""
+        self.model_group = group
+        self.gru.model_group = group
 
     def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
         conv = getattr(self, f"conv{i}")
@@ -381,6 +405,9 @@ class CNNAudioGRU(nn.Module):
               generator: Optional[torch.Generator]) -> torch.Tensor:
         x = self.gru(x, generator)
         dt = self.compute_dtype
+        if self.fc.weight.shape[1] != x.shape[-1]:  # row-parallel head
+            return split_attention_pool(x, self.attention, self.fc,
+                                        self.model_group, dt)
         scores = F.linear(x.to(dt), self.attention.weight.to(dt),
                           self.attention.bias.to(dt))
         weights = torch.softmax(scores.float(), dim=1)  # over time

@@ -28,7 +28,9 @@ import torch
 from torch import nn
 
 from speech_intent_recognizer_tpu_torch.models.wav2vec_backbone import (
-    Wav2Vec2Backbone, init_backbone_)
+    Wav2Vec2Backbone, init_backbone_, set_model_group)
+from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
+    split_attention_pool)
 
 logger = logging.getLogger(__name__)
 
@@ -113,7 +115,12 @@ class Wav2VecIntent(nn.Module):
     fp32 logits.  The waveforms are rounded to the compute dtype first, as
     the JAX model does; the head runs in fp32.  The pooling softmax over
     time does not mask padded frames (the JAX package's
-    ``models/wav2vec.py:116``)."""
+    ``models/wav2vec.py:116``).  With a model group
+    (:meth:`set_model_group`) the encoder runs Megatron-split
+    (``models/wav2vec_backbone.py``) and the head row-parallel, as the
+    CNN-GRU's."""
+
+    model_group = None
 
     def __init__(self, config: Wav2Vec2Config, num_classes: int = 31,
                  compute_dtype=torch.float32):
@@ -132,6 +139,13 @@ class Wav2VecIntent(nn.Module):
         init_backbone_(self, generator)
         return self
 
+    def set_model_group(self, group) -> None:
+        """The model group over which this process holds parts of the
+        encoder's and the head's split leaves (``parallel.sharding.
+        place_params`` cuts them and calls this), or None."""
+        self.model_group = group
+        set_model_group(self.wav2vec, group)
+
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 mask_time_indices: Optional[torch.Tensor] = None,
@@ -139,6 +153,9 @@ class Wav2VecIntent(nn.Module):
         hidden = self.wav2vec(input_values.to(self.compute_dtype),
                               attention_mask, mask_time_indices,
                               generator).float()
+        if self.fc.weight.shape[1] != hidden.shape[-1]:  # row-parallel
+            return split_attention_pool(hidden, self.attention, self.fc,
+                                        self.model_group)
         weights = torch.softmax(self.attention(hidden), dim=1)
         return self.fc((hidden * weights).sum(dim=1))
 

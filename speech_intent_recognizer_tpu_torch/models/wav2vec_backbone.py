@@ -25,6 +25,20 @@ The norms are torch's own kernels (two-pass variance), where Flax 0.12 uses
 E[x^2] - E[x]^2: a difference within 1e-4 of the JAX package's output
 (``tests/test_torch_wav2vec.py``).  Conv activations are (B, C, T), the
 transformer's (B, T, H).
+
+Tensor parallelism (a model group set by ``set_model_group``, the leaves
+cut by ``parallel.sharding.place_params``), Megatron style: ``q_proj``,
+``k_proj``, ``v_proj`` and ``intermediate_dense`` hold this process's
+output columns, ``out_proj`` and ``output_dense`` its input columns.  The
+input of a column-parallel layer passes Megatron's *f*
+(``ops/model_parallel.copy_to_model``), a row-parallel layer's partial
+products are summed over the group (*g*) before its bias.  Each process
+runs the attention of its own heads; where its columns cut a head (a
+column count that divides by the model axis but not into whole heads)
+q, k and v are gathered whole and every process runs every head, then
+keeps its columns of the result behind *f*.  A dropout inside the split
+draws the whole layer's mask and keeps this process's heads or columns,
+so every process draws what the one-process step draws.
 """
 
 from __future__ import annotations
@@ -37,7 +51,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from speech_intent_recognizer_tpu_torch.ops.global_batch import (
-    base_generator, rand_rows)
+    base_generator, rand_part, rand_rows)
+from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
+    copy_to_model, gather_on_use, model_part, part_slice, row_parallel)
 
 
 def feat_extract_output_lengths(config, input_lengths: torch.Tensor
@@ -63,13 +79,19 @@ def feature_space_attention_mask(config, attention_mask: torch.Tensor,
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
-             generator) -> torch.Tensor:
+             generator, part=None) -> torch.Tensor:
     """``generator``: a ``torch.Generator`` or an
     ``ops.global_batch.ShardedGenerator`` (the global batch's mask, this
-    process's rows; dim 0 is the batch)."""
+    process's rows; dim 0 is the batch).  ``part``: ``(dim, index,
+    count)`` when ``x`` is this process's part of the layer's output along
+    ``dim`` (the whole mask drawn, the part kept)."""
     if not training or p <= 0.0:
         return x
-    keep = rand_rows(x.shape, generator, x.device) >= p
+    if part is None:
+        u = rand_rows(x.shape, generator, x.device)
+    else:
+        u = rand_part(x.shape, generator, x.device, *part)
+    keep = u >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -180,6 +202,8 @@ class PositionalConvEmbedding(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with the torch wav2vec2 scaling layout."""
 
+    model_group = None
+
     def __init__(self, config, dtype=torch.float32):
         super().__init__()
         h = config.hidden_size
@@ -194,25 +218,47 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
                 generator=None) -> torch.Tensor:
         b, t, h = x.shape
-        dt, nh = self.dtype, self.n_heads
+        dt, nh, group = self.dtype, self.n_heads, self.model_group
         hd = h // nh
+        cols = self.q_proj.weight.shape[0]  # this process's columns
+        split = cols != h
+        if split:
+            x = copy_to_model(x, group)
+        q, k, v = (_dense(proj, x, dt)
+                   for proj in (self.q_proj, self.k_proj, self.v_proj))
+        # the heads this process runs: its own, or (its columns cut a head)
+        # every head, from q, k and v gathered whole
+        cut = split and cols % hd != 0
+        if cut:
+            q, k, v = (gather_on_use(a, group, -1) for a in (q, k, v))
+        heads, part = nh, None
+        if split and not cut:
+            index, count = model_part(group)
+            heads, part = cols // hd, (1, index, count)
 
-        def split(p):  # (B, T, H) -> (B, heads, T, head_dim)
-            return p.reshape(b, t, nh, hd).transpose(1, 2)
+        def split_heads(p):  # (B, T, heads * hd) -> (B, heads, T, hd)
+            return p.reshape(b, t, heads, hd).transpose(1, 2)
 
-        q = split(_dense(self.q_proj, x, dt)) * (hd ** -0.5)
-        k = split(_dense(self.k_proj, x, dt))
-        v = split(_dense(self.v_proj, x, dt))
+        q = split_heads(q) * (hd ** -0.5)
+        k, v = split_heads(k), split_heads(v)
         scores = torch.matmul(q, k.transpose(-1, -2)).float()
         if attn_bias is not None:
             scores = scores + attn_bias
         probs = torch.softmax(scores, dim=-1).to(dt)
-        probs = _dropout(probs, self.p, self.training, generator)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, h)
+        probs = _dropout(probs, self.p, self.training, generator, part)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(
+            b, t, heads * hd)
+        if cut:
+            out = copy_to_model(out, group)[..., part_slice(h, group)]
+        if split:
+            return row_parallel(out, self.out_proj.weight,
+                                self.out_proj.bias, group)
         return _dense(self.out_proj, out, dt)
 
 
 class FeedForward(nn.Module):
+    model_group = None
+
     def __init__(self, config, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -224,9 +270,20 @@ class FeedForward(nn.Module):
                                       config.hidden_size)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        dense = self.intermediate_dense
+        split = dense.weight.shape[0] != dense.out_features
+        part = None
+        if split:
+            x = copy_to_model(x, self.model_group)
+            index, count = model_part(self.model_group)
+            part = (-1, index, count)
         x = F.gelu(_dense(self.intermediate_dense, x, self.dtype))
-        x = _dropout(x, self.p_act, self.training, generator)
-        x = _dense(self.output_dense, x, self.dtype)
+        x = _dropout(x, self.p_act, self.training, generator, part)
+        if split:
+            x = row_parallel(x, self.output_dense.weight,
+                             self.output_dense.bias, self.model_group)
+        else:
+            x = _dense(self.output_dense, x, self.dtype)
         return _dropout(x, self.p_out, self.training, generator)
 
 
@@ -296,6 +353,14 @@ class Encoder(nn.Module):
         if self.stable:
             x = _layer_norm(self.layer_norm, x)
         return x
+
+
+def set_model_group(module: nn.Module, group) -> None:
+    """Hand every attention and feed-forward block of ``module`` the model
+    group over which it holds parts of its leaves, or None."""
+    for m in module.modules():
+        if isinstance(m, (Attention, FeedForward)):
+            m.model_group = group
 
 
 class Wav2Vec2Backbone(nn.Module):

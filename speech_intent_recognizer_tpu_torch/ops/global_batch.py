@@ -70,9 +70,22 @@ def randn_rows(shape, generator, device, dim: int = 0) -> torch.Tensor:
     return _rows(torch.randn, shape, generator, device, dim)
 
 
+def rand_part(shape, generator, device, dim: int, index: int,
+              count: int) -> torch.Tensor:
+    """``torch.rand`` for this process's rows and its part ``index`` of
+    ``count`` equal parts of dimension ``dim`` (``shape[dim]`` is the
+    part's size: a model-axis shard's attention heads or columns): the
+    draw at the whole shape, narrowed, so the generator advances as the
+    one-process draw advances it."""
+    whole = list(shape)
+    n = whole[dim]
+    whole[dim] = n * count
+    return rand_rows(whole, generator, device).narrow(dim, index * n, n)
+
+
 def gather_rows(x: torch.Tensor, generator, group: Any) -> torch.Tensor:
     """Every process's rows of the global batch, in rank order, on every
-    process of ``group``: this process's rows at their place in a zero
+    process of ``group`` (the data group): this process's rows at their place in a zero
     buffer, summed over the group (exact: each element is one value plus
     zeros).  An all-reduce, because gloo's all-gather does not take CUDA
     tensors reliably and its all-reduce does.  Raises when the rows are a

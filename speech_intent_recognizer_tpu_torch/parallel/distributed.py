@@ -26,6 +26,8 @@ logger = logging.getLogger(__name__)
 
 # a collective that waits longer than this raises instead of hanging
 DEFAULT_TIMEOUT_S = 300.0
+# the timeout of the group initialize_distributed joined, for its subgroups
+_timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
 
 
 def _init_method(address: str) -> str:
@@ -75,6 +77,8 @@ def initialize_distributed(
     else:
         raise ValueError(f"device {device!r}: 'cuda' or 'cpu'")
     backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    global _timeout
+    _timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend, init_method=_init_method(coordinator_address),
         world_size=int(num_processes), rank=int(process_id),
@@ -96,6 +100,13 @@ def rank() -> int:
 def world_size() -> int:
     """The default group's process count (1 without one)."""
     return dist.get_world_size() if is_initialized() else 1
+
+
+def new_group(ranks: Sequence[int]):
+    """A subgroup of the default group (every process must create it, in
+    the same order) whose collectives raise after the default group's
+    timeout."""
+    return dist.new_group(list(ranks), timeout=_timeout)
 
 
 def barrier() -> None:
@@ -123,11 +134,13 @@ def shard_list(items: Sequence, process_index=None, process_count=None):
 
 @torch.no_grad()
 def all_reduce_gradients(params, group, average: bool = False) -> None:
-    """Sum (or average) the gradients of ``params`` over ``group`` in one
-    all-reduce of a flat fp32 buffer, as XLA's psum reduces them under a
-    ``data`` mesh.  Parameters without a gradient are left out: every
-    process runs the same graph, so every process leaves out the same
-    ones."""
+    """Sum (or average) the gradients of ``params`` over ``group`` (a
+    mesh's data group) in one all-reduce of a flat fp32 buffer, as XLA's
+    psum reduces them under a ``data`` mesh.  A leaf split over the
+    ``model`` axis has its part here, and the processes of a data group
+    hold the same part.  Parameters without a gradient are left out:
+    every process runs the same graph, so every process leaves out the
+    same ones."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
@@ -140,6 +153,23 @@ def all_reduce_gradients(params, group, average: bool = False) -> None:
         n = g.numel()
         g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+@torch.no_grad()
+def model_sq_norm(grads: Sequence[torch.Tensor], split: Sequence[bool],
+                  group) -> torch.Tensor:
+    """The squared fp32 global norm of a model whose leaves ``split`` over
+    ``group`` (a mesh's model group) are this process's parts: the parts'
+    squared norms summed over the group, the replicated leaves' counted
+    once; the same on every process of the group."""
+    sq = [torch.linalg.vector_norm(g.float()).square() for g in grads]
+    parts = [s for s, is_part in zip(sq, split) if is_part]
+    whole = [s for s, is_part in zip(sq, split) if not is_part]
+    total = torch.stack(parts).sum() if parts else sq[0].new_zeros(())
+    dist.all_reduce(total, group=group)
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return total
 
 
 def all_reduce_max(flag: bool, group, device) -> bool:

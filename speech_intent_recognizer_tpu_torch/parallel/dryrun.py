@@ -1,9 +1,12 @@
-"""Data-parallel dry run of the port: the counterpart of the JAX package's
-``__graft_entry__.dryrun_multichip`` on the ``data`` axis.
+"""Dry run of the port on a ``(data, model)`` grid of processes: the
+counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``
+(its pure data-parallel mesh and its dp x tp meshes).
 
 :func:`dryrun_multichip` starts ``n`` processes (fresh interpreters: CUDA
 is never forked) joined by ``torch.distributed`` over a ``file://`` store,
-each with a group timeout, and each runs five parts:
+each with a group timeout.  For each model axis asked for (``model_axis``:
+one, or several in turn in the same processes) they form the ``n / model``
+x ``model`` grid and each runs five parts:
 
 1. ``feature``: one data-parallel train step from features with
    SpecAugment, mixup and dropout on, then an evaluation;
@@ -20,17 +23,22 @@ each with a group timeout, and each runs five parts:
 
 Parts 1-3 are held to the one-process step on the global batch, which
 process 0 runs beside them from the same weights, data and generator:
-loss, every gradient after the all-reduce, BatchNorm's running statistics
-and the evaluation, within ``BARS``.  Each part prints a line
-as the JAX dry run does, and reports each process's kernel launches.  On
-the CPU the model is narrow; on CUDA it has the reference widths, 64 rows
-a process, fp32 with TF32 off; NCCL when every process has its own card,
-gloo when they share one::
+loss, every gradient after the all-reduce (a split leaf's parts gathered
+whole), BatchNorm's running statistics and the evaluation, within
+``BARS``.  Each part prints a line as the JAX dry run does, and reports
+each process's kernel launches and its bytes of parameters and Adam
+moments beside the whole model's (``parallel.sharding.local_bytes``).  On
+the CPU the models are narrow (the CNN-GRU at conv 8/16/16, GRU 32; wav2vec
+at hidden 32, two heads, so that a model axis of 4 cuts inside a head); on
+CUDA the CNN-GRU has the reference widths, 64 rows a process, and wav2vec
+is wav2vec2-base (seeded), 4 rows of 1 s a process, fp32 with TF32 off;
+NCCL when every process has its own card, gloo when they share one::
 
     python -m speech_intent_recognizer_tpu_torch.parallel.dryrun --n 2
-    python -m speech_intent_recognizer_tpu_torch.parallel.dryrun --n 2 --device cpu
+    python -m speech_intent_recognizer_tpu_torch.parallel.dryrun --n 4 --model_axis 2 --device cpu
 
-(the first on the card, the default).
+(the first on the card, the default).  A part of a mesh with a model axis
+writes under ``dp<data>xtp<model>/`` of the output directory.
 """
 
 from __future__ import annotations
@@ -45,6 +53,11 @@ import time
 
 import numpy as np
 import torch
+
+from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
+    gather_parts)
+from speech_intent_recognizer_tpu_torch.parallel.sharding import (
+    full_state_dict, local_bytes, place_params, split_dim)
 
 MODULE = "speech_intent_recognizer_tpu_torch.parallel.dryrun"
 CLASSES = 4
@@ -81,12 +94,15 @@ ZERO_GRADS = ("attention.bias",)
 STEP_TIMES = 5
 # per device kind: widths, rows a process, frames, seconds of audio (the
 # CPU's 1.6 s fill 50 of its 64 frames, as 5 s fill 157 of the reference's
-# 200)
+# 200); the wav2vec model (None: wav2vec2-base), its rows a process and
+# samples a row
 SIZES = {
     "cpu": dict(conv_channels=(8, 16, 16), gru_hidden=32, rows=4,
-                frames=64, max_duration=1.6, w2v_samples=4000),
+                frames=64, max_duration=1.6, w2v_hidden=32, w2v_rows=4,
+                w2v_samples=4000),
     "cuda": dict(conv_channels=(32, 64, 128), gru_hidden=256, rows=64,
-                 frames=200, max_duration=5.0, w2v_samples=16000),
+                 frames=200, max_duration=5.0, w2v_hidden=None, w2v_rows=4,
+                 w2v_samples=16000),
 }
 
 
@@ -127,13 +143,28 @@ def _size(t: torch.Tensor, kind: str) -> float:
     return float(t.abs().max() if kind == "max" else t.norm())
 
 
-def _grad_errs(model, ref_model, kind: str = "max") -> dict:
+def _grads(model) -> dict:
+    return {n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _full_grads(model, mesh) -> dict:
+    """Every gradient, a split leaf's parts gathered whole over the model
+    group (collective: every process calls it)."""
+    out = {}
+    for name, g in _grads(model).items():
+        d = split_dim(model.get_parameter(name))
+        if d is not None:
+            g = gather_parts(g, mesh.model_group, d)
+        out[name] = g
+    return out
+
+
+def _grad_errs(grads: dict, ref_grads: dict, kind: str = "max") -> dict:
     """Each gradient's error over that leaf's own size in the reference
     step (at least GRAD_FLOOR of the step's largest; the step's largest
     for ZERO_GRADS), both in the norm ``kind``: ``max`` (largest
     magnitude) or ``l2`` (Euclidean)."""
-    ref_grads = {n: p.grad for n, p in ref_model.named_parameters()
-                 if p.grad is not None}
     step = max(_size(g, kind) for g in ref_grads.values())
 
     def scale(n):
@@ -141,8 +172,8 @@ def _grad_errs(model, ref_model, kind: str = "max") -> dict:
             return step
         return max(_size(ref_grads[n], kind), GRAD_FLOOR * step)
 
-    return {n: _size(p.grad - ref_grads[n], kind) / scale(n)
-            for n, p in model.named_parameters() if p.grad is not None}
+    return {n: _size(g - ref_grads[n], kind) / scale(n)
+            for n, g in grads.items()}
 
 
 def _worst(errs: dict) -> dict:
@@ -159,20 +190,23 @@ def _worst(errs: dict) -> dict:
     return out
 
 
-def _compare(dp_model, ref_model, dp: dict, ref: dict) -> dict:
-    """Errors of the data-parallel step against the one-process step."""
-    grads = _grad_errs(dp_model, ref_model)
-    l2 = _grad_errs(dp_model, ref_model, "l2")
+def _compare(grads: dict, buffers: dict, ref_model, dp: dict,
+             ref: dict) -> dict:
+    """Errors of the step on the mesh (its whole gradients and buffers)
+    against the one-process step."""
+    ref_grads = _grads(ref_model)
+    errs_max = _grad_errs(grads, ref_grads)
+    l2 = _grad_errs(grads, ref_grads, "l2")
     ref_bufs = dict(ref_model.named_buffers())
-    stats = [_scaled_err(b, ref_bufs[n]) for n, b in dp_model.named_buffers()
+    stats = [_scaled_err(b, ref_bufs[n]) for n, b in buffers.items()
              if "running" in n]
     errs = {f"{k}_err": abs(dp[k] - ref[k]) / (abs(ref[k]) or 1.0)
             for k in dp}
-    for key, (leaf, e) in _worst(grads).items():
+    for key, (leaf, e) in _worst(errs_max).items():
         errs[f"{key}_err"], errs[f"worst_{key}"] = e, leaf
     if "conv_grad" in _worst(l2):
         errs["conv_grad_l2_err"] = _worst(l2)["conv_grad"][1]
-    errs.update(stats_err=max(stats, default=0.0), grad_errs=grads,
+    errs.update(stats_err=max(stats, default=0.0), grad_errs=errs_max,
                 grad_l2_errs=l2)
     return errs
 
@@ -192,10 +226,12 @@ def _spread(run, ref_model) -> dict:
             other = run(None)[0]
         finally:
             torch.set_num_threads(threads)
-        out["spread"] = max(_grad_errs(other, ref_model).values())
+        out["spread"] = max(_grad_errs(_grads(other),
+                                       _grads(ref_model)).values())
     other = run(None, nudge=True)[0]
     for kind, suffix in (("max", ""), ("l2", "_l2")):
-        for key, (_, e) in _worst(_grad_errs(other, ref_model, kind)).items():
+        for key, (_, e) in _worst(_grad_errs(
+                _grads(other), _grads(ref_model), kind)).items():
             out[f"ulp_spread_{key}{suffix}"] = e
     return out
 
@@ -223,14 +259,22 @@ def _hold(part: str, errs: dict, kind: str) -> None:
 
 
 def _same_on_every_rank(model, mesh) -> bool:
-    """Whether every process holds process 0's parameters, bit for bit."""
-    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    """Whether every process holds process 0's whole parameters, bit for
+    bit (a split leaf's parts gathered over the model group)."""
+    flat = torch.cat([
+        (p.detach() if split_dim(p) is None
+         else gather_parts(p.detach(), mesh.model_group, split_dim(p)))
+        .reshape(-1) for p in model.parameters()])
     ref = flat.clone()
     torch.distributed.broadcast(ref, 0, group=mesh.group)
     same = torch.tensor([float(torch.equal(ref, flat))], device=flat.device)
     torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN,
                                  group=mesh.group)
     return bool(same.item())
+
+
+def _mesh_name(mesh) -> str:
+    return f"dp{mesh.spec.data}xtp{mesh.spec.model}"
 
 
 def _cnn(dropout: float, size, dev, seed: int = 0):
@@ -291,12 +335,15 @@ def _cnn_step(mesh, dev, size, raw: dict, waves: bool) -> dict:
                        "eval_acc": ev["acc"]}, (counts, trainer)
 
     model, metrics, (counts, trainer) = run(mesh)
+    grads = _full_grads(model, mesh)
     result = {"part": "waveform" if waves else "feature", **metrics,
               "launches": counts,
+              "bytes": local_bytes(model, trainer.optimizer, mesh),
               "replicas_equal": _same_on_every_rank(model, mesh)}
     if mesh.rank == 0:
         ref_model, ref, _ = run(None)
-        result.update(_compare(model, ref_model, metrics, ref),
+        result.update(_compare(grads, dict(model.named_buffers()),
+                               ref_model, metrics, ref),
                       **_spread(run, ref_model))
         _hold(result["part"], result, dev.type)
     # host ms of further data-parallel steps (every process takes part)
@@ -328,16 +375,19 @@ def waveform_part(mesh, dev, size, out_dir) -> dict:
 
 
 def wav2vec_part(mesh, dev, size, out_dir) -> dict:
-    """Part 2: one small-config wav2vec step (noise, dropout, LayerDrop)."""
+    """Part 2: one wav2vec step (noise, dropout, LayerDrop on)."""
     from speech_intent_recognizer_tpu_torch.models.wav2vec import (
-        Wav2VecIntent, init_wav2vec, small_wav2vec_config)
+        Wav2Vec2Config, Wav2VecIntent, init_wav2vec, small_wav2vec_config)
     from speech_intent_recognizer_tpu_torch.train.loop import (
         epoch_generator)
     from speech_intent_recognizer_tpu_torch.train.wav2vec_trainer import (
         Wav2VecTrainer, create_wav2vec_optimizer)
 
     length = size["w2v_samples"]
-    b = mesh.spec.data * size["rows"]
+    b = mesh.spec.data * size["w2v_rows"]
+    config = (Wav2Vec2Config() if size["w2v_hidden"] is None
+              else small_wav2vec_config(hidden_size=size["w2v_hidden"],
+                                        num_layers=2))
     rng = np.random.default_rng(2)
     x = torch.from_numpy((0.1 * rng.standard_normal((b, length)))
                          .astype(np.float32)).to(dev)
@@ -347,9 +397,7 @@ def wav2vec_part(mesh, dev, size, out_dir) -> dict:
     y = torch.from_numpy(rng.integers(0, CLASSES, b)).to(dev)
 
     def run(m, nudge=False):
-        model = init_wav2vec(Wav2VecIntent(
-            small_wav2vec_config(hidden_size=32, num_layers=2), CLASSES),
-            0).to(dev)
+        model = init_wav2vec(Wav2VecIntent(config, CLASSES), 0).to(dev)
         if nudge:
             _nudge(model)
         trainer = Wav2VecTrainer(model, create_wav2vec_optimizer(
@@ -358,31 +406,35 @@ def wav2vec_part(mesh, dev, size, out_dir) -> dict:
         rows = slice(0, b)
         if m is not None:
             k = b // m.spec.data
-            rows = slice(m.rank * k, (m.rank + 1) * k)
+            rows = slice(m.data_index * k, (m.data_index + 1) * k)
         loss, _acc = trainer.train_step(x[rows], mask[rows], y[rows],
                                         epoch_generator(0, 0, dev))
         if m is not None:  # the global batch's mean of equal local means
-            torch.distributed.all_reduce(loss, group=m.group)
+            torch.distributed.all_reduce(loss, group=m.data_group)
             loss = loss / m.spec.data
-        return model, {"train_loss": float(loss)}
+        return model, {"train_loss": float(loss)}, trainer
 
-    model, metrics = run(mesh)
+    model, metrics, trainer = run(mesh)
+    grads = _full_grads(model, mesh)
     result = {"part": "wav2vec", **metrics,
+              "bytes": local_bytes(model, trainer.optimizer, mesh),
               "replicas_equal": _same_on_every_rank(model, mesh)}
     if mesh.rank == 0:
-        ref_model, ref = run(None)
-        result.update(_compare(model, ref_model, metrics, ref),
+        ref_model, ref, _ = run(None)
+        result.update(_compare(grads, {}, ref_model, metrics, ref),
                       **_spread(run, ref_model))
         _hold("wav2vec", result, dev.type)
     return result
 
 
 def checkpoint_part(mesh, dev, size, out_dir) -> dict:
-    """Part 4: a deterministic step, a checkpoint of process 0, a fresh
-    model and optimizer restored from it on every process; the next step
-    bit-equal to the uninterrupted run's.  Process 0 writes the first
-    step's inputs and result to ``deterministic_step.pt`` (the CPU tests
-    hold it to the JAX trainer on a ``data`` mesh)."""
+    """Part 4: a deterministic step, a checkpoint written by process 0
+    (whole leaves and moments, gathered over each model group), a fresh
+    model and optimizer restored from it on every process (cut to its
+    parts again); the next step bit-equal to the uninterrupted run's.
+    Process 0 writes the first step's inputs and result to
+    ``deterministic_step.pt`` (the CPU tests hold it to the JAX trainer on
+    the same mesh)."""
     from speech_intent_recognizer_tpu_torch.config import Config
     from speech_intent_recognizer_tpu_torch.train.checkpoint import (
         Checkpointer)
@@ -415,10 +467,10 @@ def checkpoint_part(mesh, dev, size, out_dir) -> dict:
     trainer = Trainer(model, cfg, num_classes=CLASSES, mesh=mesh)
     first = trainer.train_epoch(feats, labels, perm[:1], w[:1],
                                 epoch_generator(0, 0, dev))
-    after = state(model)
+    after = full_state_dict(model, mesh)
     ckpt = Checkpointer(os.path.join(out_dir, "checkpoint"))
+    ckpt.save_state(model, trainer.optimizer, 1, 0.0, 0, mesh=mesh)
     if mesh.rank == 0:
-        ckpt.save_state(model, trainer.optimizer, 1, 0.0, 0)
         torch.save({"config": raw, "init": init, "after_step": after,
                     "features": feats.cpu(), "labels": labels.cpu(),
                     "perm": perm[:1].cpu(), "weights": w[:1].cpu(),
@@ -427,24 +479,26 @@ def checkpoint_part(mesh, dev, size, out_dir) -> dict:
     torch.distributed.barrier(group=mesh.group)
     trainer.train_epoch(feats, labels, perm[1:], w[1:],
                         epoch_generator(0, 1, dev))
-    restored = _cnn(0.0, size, dev, seed=99)
+    restored = place_params(_cnn(0.0, size, dev, seed=99), mesh)
     opt = optimizer_from_config(cfg, restored.parameters(), n)
-    book = ckpt.restore_state(restored, opt)
+    book = ckpt.restore_state(restored, opt, mesh)
     Trainer(restored, cfg, optimizer=opt, num_classes=CLASSES,
             mesh=mesh).train_epoch(feats, labels, perm[1:], w[1:],
                                    epoch_generator(0, 1, dev))
-    a, r = state(model), state(restored)
+    a, r = full_state_dict(model, mesh), full_state_dict(restored, mesh)
     bit_equal = book is not None and all(torch.equal(a[k], r[k]) for k in a)
     if not bit_equal:
         raise AssertionError("checkpoint: the restored run's next step is "
                              "not bit-equal to the uninterrupted run's")
     return {"part": "checkpoint", "train_loss": first["loss"],
             "bit_equal": bit_equal,
+            "bytes": local_bytes(model, trainer.optimizer, mesh),
             "replicas_equal": _same_on_every_rank(model, mesh)}
 
 
 def serving_part(mesh, dev, size, out_dir) -> dict:
-    """Part 5 (process 0): the serving mesh on a ragged batch."""
+    """Part 5 (process 0): the serving mesh (``n`` entries of the device,
+    the mesh's model axis replicated) on a ragged batch."""
     from speech_intent_recognizer_tpu_torch.data.labelmap import (
         save_label_map)
     from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
@@ -452,16 +506,16 @@ def serving_part(mesh, dev, size, out_dir) -> dict:
 
     if mesh.rank != 0:
         return {"part": "serving"}
-    n = mesh.spec.data
+    n = mesh.spec.data * mesh.spec.model
     model = _cnn(0.0, size, "cpu")
     path = os.path.join(out_dir, "serving_model.pt")
     torch.save(model.state_dict(), path)
     lm = os.path.join(out_dir, "serving_labels.json")
     save_label_map({f"intent_{i}": i for i in range(CLASSES)}, lm)
-    serving = create_mesh(devices=[dev] * n)
+    serving = create_mesh(model_axis=mesh.spec.model, devices=[dev] * n)
     pred = Predictor.from_checkpoint(path, lm, device=dev, mesh=serving)
     plain = Predictor.from_checkpoint(path, lm, device=dev)
-    rows = n + 3
+    rows = mesh.spec.data + 3
     rng = np.random.default_rng(5)
     width = pred._buffer_width()
     lengths = rng.integers(1, pred.audio_cfg.max_samples + 1, rows)
@@ -495,13 +549,19 @@ def _line(n: int, mesh, r: dict) -> str:
             if k in r]
     body = " ".join(f"{k}={r[k]:.6g}" if isinstance(r[k], float)
                     else f"{k}={r[k]}" for k in keys)
+    if "bytes" in r:
+        by = r["bytes"]
+        body += (f" split_bytes={by['split']}/{by['split_full']}"
+                 f" adam_split_bytes={by['adam_split']}/"
+                 f"{by['adam_split_full']}")
     return f"dryrun_multichip(n={n}): mesh={mesh.shape} {r['part']} {body} OK"
 
 
 def run_rank(rank: int, n: int, device: str, store: str, out_dir: str,
-             timeout_s: float) -> None:
-    """One process of the dry run: join the group, run every part, write
-    ``rank<r>.json`` into ``out_dir``."""
+             timeout_s: float, model_axes=(1,)) -> None:
+    """One process of the dry run: join the group, run every part on the
+    grid of each model axis in turn, write ``rank<r>.json`` into
+    ``out_dir``."""
     from speech_intent_recognizer_tpu_torch.parallel.distributed import (
         initialize_distributed)
     from speech_intent_recognizer_tpu_torch.parallel.mesh import create_mesh
@@ -519,15 +579,23 @@ def run_rank(rank: int, n: int, device: str, store: str, out_dir: str,
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    mesh = create_mesh()
     size = SIZES[kind]
     results = []
     try:
-        for part in PARTS:
-            r = part(mesh, dev, size, out_dir)
-            results.append(r)
-            if rank == 0:
-                print(_line(n, mesh, r), flush=True)
+        for model_axis in model_axes:
+            mesh = create_mesh(model_axis=model_axis)
+            sub = out_dir
+            if model_axis > 1:
+                sub = os.path.join(out_dir, _mesh_name(mesh))
+                os.makedirs(sub, exist_ok=True)
+            for part in PARTS:
+                t0 = time.perf_counter()
+                r = part(mesh, dev, size, sub)
+                r.update(mesh=_mesh_name(mesh),
+                         seconds=time.perf_counter() - t0)
+                results.append(r)
+                if rank == 0:
+                    print(_line(n, mesh, r), flush=True)
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "backend": backend, "device": str(dev),
@@ -537,13 +605,19 @@ def run_rank(rank: int, n: int, device: str, store: str, out_dir: str,
 
 def dryrun_multichip(n_devices: int = 2, device: str = "cuda",
                      out_dir: str | None = None, timeout_s: float = 600.0,
-                     group_timeout_s: float = 120.0) -> dict:
+                     group_timeout_s: float = 120.0,
+                     model_axis: "int | tuple" = 1) -> dict:
     """Run the dry run over ``n_devices`` processes on ``device`` (``cpu``
-    or ``cuda``); every process ends or is killed within ``timeout_s``.
-    Prints process 0's lines; raises if any process failed.  Returns
-    ``{"parts": {name: process 0's result}, "ranks": [each process's
-    results]}``; ``out_dir`` keeps the files (else a temporary
-    directory).  Raises on ``cuda`` when there is no card."""
+    or ``cuda``), on the ``n_devices / model_axis`` x ``model_axis`` grid
+    (``model_axis`` a tuple: each grid in turn, in the same processes);
+    every process ends or is killed within ``timeout_s``.  Prints process
+    0's lines; raises if any process failed.  Returns ``{"parts": {name:
+    process 0's result on the first grid}, "meshes": {"dp<d>xtp<m>":
+    {name: process 0's result}}, "ranks": [each process's results]}``;
+    ``out_dir`` keeps the files (else a temporary directory).  Raises on
+    ``cuda`` when there is no card."""
+    axes = (model_axis,) if isinstance(model_axis, int) else tuple(
+        model_axis)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("dryrun_multichip: device 'cuda' asked for, but "
                            "torch.cuda.is_available() is False (pass "
@@ -559,7 +633,8 @@ def dryrun_multichip(n_devices: int = 2, device: str = "cuda",
         procs = [subprocess.Popen(
             [sys.executable, "-m", MODULE, "--rank", str(r), "--n",
              str(n_devices), "--device", device, "--store", store, "--out",
-             out, "--group-timeout", str(group_timeout_s)],
+             out, "--group-timeout", str(group_timeout_s), "--model_axis",
+             *map(str, axes)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True) for r in range(n_devices)]
         outputs = []
@@ -582,7 +657,10 @@ def dryrun_multichip(n_devices: int = 2, device: str = "cuda",
         for r in range(n_devices):
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-    return {"parts": {p["part"]: p for p in ranks[0]["parts"]},
+    meshes = {}
+    for p in ranks[0]["parts"]:
+        meshes.setdefault(p["mesh"], {})[p["part"]] = p
+    return {"parts": next(iter(meshes.values())), "meshes": meshes,
             "ranks": ranks}
 
 
@@ -596,13 +674,17 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default=None, help="(internal)")
     p.add_argument("--group-timeout", type=float, default=120.0,
                    help="seconds a collective may wait")
+    p.add_argument("--model_axis", type=int, nargs="+", default=[1],
+                   help="the model axis of the grid (several: each grid in "
+                        "turn)")
     args = p.parse_args(argv)
     if args.rank is not None:
         run_rank(args.rank, args.n, args.device, args.store, args.out,
-                 args.group_timeout)
+                 args.group_timeout, tuple(args.model_axis))
         return {}
     return dryrun_multichip(args.n, args.device,
-                            group_timeout_s=args.group_timeout)
+                            group_timeout_s=args.group_timeout,
+                            model_axis=tuple(args.model_axis))
 
 
 if __name__ == "__main__":

@@ -5,20 +5,23 @@ mesh is one grid of devices that one program sees.  Here a mesh is one of
 two things:
 
 * **over processes** (``group`` set, ``devices`` None): one process per
-  device, joined by ``torch.distributed``; the ``data`` axis is the
-  group's world size and each process runs its own rows of every batch.
-  The trainers take this form (``train/loop.py``,
-  ``train/wav2vec_trainer.py``).
+  device, joined by ``torch.distributed``.  The processes form the JAX
+  grid ``reshape(data, model)``: process ``r`` is data index ``r //
+  model`` and model index ``r % model``.  A **data group** holds the
+  processes of one model index (they run different rows of every batch
+  and sum their gradients); a **model group** holds the processes of one
+  data index (they run the same rows, each with its part of every leaf
+  split over ``model``, ``parallel/sharding.py``).  The trainers take this
+  form (``train/loop.py``, ``train/wav2vec_trainer.py``).
 * **in one process** (``devices`` set): an ordered list of torch devices,
-  one per shard of a batch.  Serving and evaluation take this form
+  ``data * model`` of them.  Serving and evaluation take this form
   (``infer/predict.py``, ``evaluation/evaluate.py``): a replica of the
-  model on each device, each shard run where it lives.  The list may
-  repeat a device: ``[cuda:0, cuda:0]`` is two shards on one card, the
-  analog of XLA's forced host device count, which the CPU tests and the
-  one-card checks use.
-
-The ``model`` axis (tensor parallelism) is not ported yet: ``create_mesh``
-refuses ``model_axis > 1`` (ROADMAP.md, Queue 1).
+  model on each data shard's device, ``devices[d * model]`` for shard
+  ``d``, each shard run where it lives; the ``model`` axis is replicated,
+  as the JAX package's ``shard_map(in_specs=P("data"))`` does.  The list
+  may repeat a device: ``[cuda:0, cuda:0]`` is two shards on one card,
+  the analog of XLA's forced host device count, which the CPU tests and
+  the one-card checks use.
 """
 
 from __future__ import annotations
@@ -47,11 +50,14 @@ class MeshSpec:
 @dataclass(frozen=True)
 class Mesh:
     """``data`` x ``model`` shards, either one per device of ``devices``
-    (in this process) or one per process of ``group``."""
+    (in this process) or one per process of ``group``, with that
+    process's data group and model group."""
 
     spec: MeshSpec
     devices: Optional[Tuple[torch.device, ...]] = None
-    group: Any = None  # a torch.distributed process group
+    group: Any = None  # a torch.distributed process group: every process
+    data_group: Any = None  # this process's; ``group`` when model is 1
+    model_group: Any = None  # this process's; None when model is 1
 
     @property
     def shape(self) -> dict:
@@ -63,8 +69,23 @@ class Mesh:
 
     @property
     def rank(self) -> int:
-        """This process's shard of a mesh over processes."""
+        """This process's rank in a mesh over processes."""
         return torch.distributed.get_rank(self.group)
+
+    @property
+    def data_index(self) -> int:
+        """This process's data shard: the rows it runs."""
+        return self.rank // self.spec.model
+
+    @property
+    def model_index(self) -> int:
+        """This process's part of every leaf split over ``model``."""
+        return self.rank % self.spec.model
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """The device of each data shard of an in-process mesh."""
+        return self.devices[::self.spec.model]
 
 
 def _local_devices() -> list:
@@ -94,7 +115,8 @@ def create_mesh(
     initialize_distributed`): a mesh over its processes.  Else: a mesh in
     this process over every CUDA device, or the CPU when there is none.
     ``data_axis=-1`` takes all the shards that ``model_axis`` leaves; the
-    checks are the JAX package's."""
+    checks are the JAX package's.  Over processes it creates the grid's
+    data and model groups, so every process of the group must call it."""
     if devices is not None:
         devs = tuple(_indexed(d) for d in devices)
         n, group = len(devs), None
@@ -110,17 +132,40 @@ def create_mesh(
     data = n // model if data_axis in (-1, None) else int(data_axis)
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} does not cover {n} devices")
-    if model > 1:
-        raise NotImplementedError(
-            f"model_axis={model}: tensor parallelism is not ported yet "
-            "(ROADMAP.md, Queue 1: the model axis)")
-    return Mesh(MeshSpec(data, model), devs, group)
+    if group is None:
+        return Mesh(MeshSpec(data, model), devs)
+    data_group, model_group = _grid_groups(data, model)
+    return Mesh(MeshSpec(data, model), None, group, data_group, model_group)
+
+
+def _grid_groups(data: int, model: int) -> tuple:
+    """This process's (data group, model group) of the ``data`` x
+    ``model`` grid of the default group's processes.  ``new_group`` is
+    collective: every process creates every group, in the same order,
+    with the default group's timeout."""
+    world = torch.distributed.group.WORLD
+    if model == 1:
+        return world, None
+    rank = distributed.rank()
+    mine = {}
+    for m in range(model):
+        ranks = [d * model + m for d in range(data)]
+        g = distributed.new_group(ranks)
+        if rank in ranks:
+            mine["data"] = g
+    for d in range(data):
+        ranks = [d * model + m for m in range(model)]
+        g = world if data == 1 else distributed.new_group(ranks)
+        if rank in ranks:
+            mine["model"] = g
+    return mine["data"], mine["model"]
 
 
 def training_mesh(mesh: Optional[Mesh], what: str) -> Optional[Mesh]:
-    """The mesh a trainer runs data-parallel on: ``mesh`` when it spans
-    processes, None for no mesh or one device in this process (the
-    one-device trainer); several devices in one process raise."""
+    """The mesh a trainer runs on: ``mesh`` when it spans processes, None
+    for no mesh or one data shard in this process (the one-device
+    trainer; an in-process ``model`` axis is replicated); several data
+    shards in one process raise."""
     if mesh is None or mesh.over_processes:
         return mesh
     if mesh.spec.data > 1:

@@ -18,6 +18,12 @@ Counterpart of ``speech_intent_recognizer_tpu/train/checkpoint.py``:
 The JAX package writes its resumable state as orbax directories; this
 package writes ``torch.save`` files and reads neither package's the other
 way, as with the best-model formats.
+
+On a mesh that splits leaves over its ``model`` axis (``mesh=``) a file
+holds whole leaves and whole Adam moments, gathered over each model group
+(``parallel/sharding.py``), in the one-process format: every process
+calls :meth:`Checkpointer.save_state` and process 0 writes;
+:meth:`Checkpointer.restore_state` cuts them to this process's parts.
 """
 
 from __future__ import annotations
@@ -30,6 +36,10 @@ import re
 from typing import Optional
 
 import torch
+
+from speech_intent_recognizer_tpu_torch.parallel.sharding import (
+    full_optimizer_state, full_state_dict, sharded_optimizer_state,
+    sharded_state_dict)
 
 logger = logging.getLogger(__name__)
 
@@ -77,12 +87,20 @@ class Checkpointer:
         return sorted(found)
 
     def save_state(self, model: torch.nn.Module, optimizer, epoch: int,
-                   best_val_acc: float, no_improve: int) -> None:
-        self.save_payload({"model": model.state_dict(),
-                           "optimizer": optimizer.state_dict(),
-                           "epoch": int(epoch),
-                           "best_val_acc": float(best_val_acc),
-                           "no_improve": int(no_improve)}, epoch)
+                   best_val_acc: float, no_improve: int, mesh=None) -> None:
+        """The model, the optimizer and the bookkeeping as ``state/
+        epoch_<epoch>.pt``.  With a ``mesh`` over processes every process
+        calls this (a split model is gathered over each model group) and
+        process 0 writes."""
+        writes = mesh is None or not mesh.over_processes or mesh.rank == 0
+        if not writes and mesh.spec.model == 1:
+            return  # nothing to gather
+        payload = {"model": full_state_dict(model, mesh),
+                   "optimizer": full_optimizer_state(optimizer, mesh),
+                   "epoch": int(epoch), "best_val_acc": float(best_val_acc),
+                   "no_improve": int(no_improve)}
+        if writes:
+            self.save_payload(payload, epoch)
 
     def save_payload(self, payload: dict, step: int) -> None:
         """Save a resumable-state dict (tensors, numbers, strings, nested
@@ -105,16 +123,19 @@ class Checkpointer:
         files = self._state_files()
         return files[-1][0] if files else None
 
-    def restore_state(self, model: torch.nn.Module, optimizer
+    def restore_state(self, model: torch.nn.Module, optimizer, mesh=None
                       ) -> Optional[dict]:
-        """Load the newest full state into ``model`` and ``optimizer``;
-        returns the bookkeeping (epoch, best_val_acc, no_improve), or None
-        when there is none."""
+        """Load the newest full state into ``model`` and ``optimizer`` (on
+        a ``mesh`` with a model axis, placed ones: each split leaf and its
+        moments cut to this process's part); returns the bookkeeping
+        (epoch, best_val_acc, no_improve), or None when there is none."""
         payload = self.restore_payload(next(model.parameters()).device)
         if payload is None:
             return None
-        model.load_state_dict(payload["model"])
-        optimizer.load_state_dict(payload["optimizer"])
+        model.load_state_dict(sharded_state_dict(payload["model"], model,
+                                                 mesh))
+        optimizer.load_state_dict(sharded_optimizer_state(
+            payload["optimizer"], optimizer, mesh))
         book = {"epoch": int(payload["epoch"]),
                 "best_val_acc": float(payload["best_val_acc"]),
                 "no_improve": int(payload["no_improve"])}

@@ -37,6 +37,15 @@ weights row, so no collective), and the gradients are summed over the
 group in one all-reduce after ``backward()``.  Metrics and
 the stop flag are reduced too, so early stopping and the best model agree
 on every process; process 0 alone writes checkpoints.
+
+On a ``(data, model)`` grid (``create_mesh(model_axis=)``) the rows, the
+draws, BatchNorm's statistics, the metric totals and the gradient sum are
+the data group's (``Mesh.data_group``); the processes of a model group run
+the same rows, each with its parts of the GRU, ``attention`` and ``fc``
+leaves (``parallel.sharding.place_params``, which the trainer applies),
+and the clip sums the parts' norms over the model group.  Checkpoints
+hold whole leaves and whole Adam moments, gathered over each model group
+(every process takes part; process 0 writes), in the one-process format.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from speech_intent_recognizer_tpu_torch.parallel.distributed import (
 from speech_intent_recognizer_tpu_torch.parallel.mesh import (
     Mesh, local_batch_size, training_mesh)
 from speech_intent_recognizer_tpu_torch.parallel.sharding import (
-    sharded_generator)
+    full_state_dict, place_params, sharded_generator)
 from speech_intent_recognizer_tpu_torch.train.state import (
     Optimizer, create_optimizer)
 
@@ -127,9 +136,12 @@ class TrainResult:
 
 class Trainer:
     """Config-driven trainer for the intent classifier on one device, or
-    on one process's rows of a data-parallel mesh (``mesh=``, a mesh over
-    processes; a mesh of one device in this process is the one-device
-    trainer)."""
+    on one process's rows (and parts of the split leaves) of a mesh
+    (``mesh=``, a mesh over processes; a mesh of one data shard in this
+    process is the one-device trainer).  On a mesh with a model axis the
+    model's split leaves are cut here (:func:`..parallel.sharding.
+    place_params`) unless they already are; a given ``optimizer`` must
+    be built after that cut."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
                  optimizer: Optional[Optimizer] = None,
@@ -138,7 +150,16 @@ class Trainer:
                  mesh: Optional[Mesh] = None):
         self.mesh = training_mesh(mesh, "Trainer")
         if self.mesh is not None:
-            model.set_sync_group(self.mesh.group)
+            # on a grid with a model axis, a data group of one process
+            # holds the whole batch: native BatchNorm is then the
+            # one-process arithmetic, bit for bit (the synchronized path's
+            # last bits move the conv stack's gradients by ReLU / max-pool
+            # routing).  A data-parallel run keeps the synchronized path
+            # at every size, one process included: on a one-card host
+            # that is the run that exercises it
+            sync = self.mesh.spec.data > 1 or self.mesh.spec.model == 1
+            model.set_sync_group(self.mesh.data_group if sync else None)
+            place_params(model, self.mesh)
         self.model = model
         self.cfg = cfg
         self.num_classes = num_classes or cfg.model.num_labels
@@ -146,6 +167,8 @@ class Trainer:
             model.parameters(), lr=cfg.train.lr,
             weight_decay=cfg.train.weight_decay,
             grad_clip=cfg.train.grad_clip)
+        if self.mesh is not None:
+            self.optimizer.model_group = self.mesh.model_group
         self.from_waveforms = from_waveforms
         self._frontend_params = None
         if from_waveforms:
@@ -187,12 +210,13 @@ class Trainer:
         if self.mesh is None:
             return slice(0, batch)
         b = local_batch_size(batch, self.mesh)
-        return slice(self.rank * b, (self.rank + 1) * b)
+        d = self.mesh.data_index
+        return slice(d * b, (d + 1) * b)
 
     def _reduce(self, totals: torch.Tensor) -> torch.Tensor:
-        """Sum per-process metric totals over the mesh."""
+        """Sum per-process metric totals over the mesh's data group."""
         if self.mesh is not None:
-            torch.distributed.all_reduce(totals, group=self.mesh.group)
+            torch.distributed.all_reduce(totals, group=self.mesh.data_group)
         return totals
 
     def train_epoch(self, features: torch.Tensor, labels: torch.Tensor,
@@ -213,7 +237,7 @@ class Trainer:
         model.train()
         mine = self._local(int(perm.shape[1]))
         generator = sharded_generator(generator, self.mesh)
-        group = None if self.mesh is None else self.mesh.group
+        group = None if self.mesh is None else self.mesh.data_group
         totals = torch.zeros(3, device=features.device)
         for idx_all, w_all in zip(perm, weights):
             idx, w, w_sum = idx_all[mine], w_all[mine], w_all.sum()
@@ -234,7 +258,7 @@ class Trainer:
             opt.zero_grad()
             loss.backward()
             if self.mesh is not None:
-                all_reduce_gradients(opt.params, self.mesh.group)
+                all_reduce_gradients(opt.params, self.mesh.data_group)
             opt.step()
             with torch.no_grad():
                 correct = ((logits.argmax(-1) == y).float() * w).sum()
@@ -278,13 +302,13 @@ class Trainer:
         """Train from ``start_epoch`` to ``cfg.train.epochs`` with early
         stopping; in waveform mode the features are int16 waveforms and
         ``train_lengths`` / ``val_lengths`` their lengths.  Data-parallel:
-        every process passes the whole set; process 0 alone logs and
-        writes checkpoints, and the others wait for its writes."""
+        every process passes the whole set (and its checkpointer); process
+        0 alone logs and writes checkpoints, and the others wait for its
+        writes."""
         cfg = self.cfg.train
         log = log or logger.info
         if self.rank != 0:
             log = _silent
-            checkpointer = None
         n_train = int(train_features.shape[0])
         bs = min(cfg.batch_size, n_train)
         if self.mesh is not None:  # raises unless bs divides by the axis
@@ -335,10 +359,9 @@ class Trainer:
                 if (val_m["acc"] > result.best_val_acc
                         or result.best_state is None):
                     result.best_val_acc = val_m["acc"]
-                    result.best_state = {
-                        k: v.detach().cpu().clone()
-                        for k, v in self.model.state_dict().items()}
-                    if checkpointer is not None:
+                    result.best_state = full_state_dict(self.model,
+                                                        self.mesh)
+                    if checkpointer is not None and self.rank == 0:
                         checkpointer.save_best(result.best_state,
                                                result.best_val_acc, epoch + 1)
                 if improved:
@@ -350,7 +373,7 @@ class Trainer:
                 if checkpointer is not None:
                     checkpointer.save_state(self.model, self.optimizer,
                                             epoch + 1, result.best_val_acc,
-                                            no_improve)
+                                            no_improve, mesh=self.mesh)
                 if self.mesh is not None:
                     # one decision for every process: a signal to any
                     # stops all.  Process 0 joins after its writes, so no

@@ -12,6 +12,13 @@ torch Adam's ``weight_decay``), ``scale_by_adam`` and the learning rate
   term — so the clip sees the raw gradients, as in the chain;
 * the schedule gives, for the k-th update (k from 0), the learning rate the
   optax schedule gives at count k.
+
+On a mesh that splits leaves over its ``model`` axis
+(``parallel/sharding.place_params``) each process holds its parts of
+those leaves, their gradients and their Adam moments; the clip's global
+norm sums the parts' squares over the model group
+(``Optimizer.model_group``, set by the trainer) and counts the replicated
+leaves once, so every process scales by the one-process step's factor.
 """
 
 from __future__ import annotations
@@ -20,6 +27,10 @@ import math
 from typing import Callable, Iterable, Optional
 
 import torch
+
+from speech_intent_recognizer_tpu_torch.parallel.distributed import (
+    model_sq_norm)
+from speech_intent_recognizer_tpu_torch.parallel.sharding import split_dim
 
 # the reference recipe's Adam constants (optax.scale_by_adam defaults)
 ADAM_BETAS = (0.9, 0.999)
@@ -57,21 +68,41 @@ def lr_schedule(lr: float, warmup_steps: int = 0, schedule: str = "constant",
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float) -> None:
+def clip_by_global_norm_(grads: list, max_norm: float, split=None,
+                         group=None) -> None:
     """optax ``clip_by_global_norm`` in place: scale every gradient by
     ``max_norm / norm`` when their fp32 global norm reaches ``max_norm``
-    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``)."""
+    (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``).  ``group``:
+    a model group, over which the gradients flagged in ``split`` are this
+    process's parts of split leaves (:func:`..parallel.distributed.
+    model_sq_norm`)."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    if group is not None:
+        norm = model_sq_norm(grads, split, group).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
 
 
+def clip_split_(params: list, max_norm: float, group) -> None:
+    """:func:`clip_by_global_norm_` over the gradients of ``params`` (those
+    that have one), the split leaves' parts summed over ``group`` (a model
+    group, or None)."""
+    with_grad = [p for p in params if p.grad is not None]
+    clip_by_global_norm_([p.grad for p in with_grad], max_norm,
+                         [split_dim(p) is not None for p in with_grad],
+                         group)
+
+
 class Optimizer:
     """The reference recipe's Adam chain over a model's parameters."""
+
+    # the model group of split leaves (set by a trainer on such a mesh)
+    model_group = None
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float = 5e-5,
                  weight_decay: float = 1e-4, grad_clip: Optional[float] = 1.0,
@@ -93,14 +124,17 @@ class Optimizer:
         """Clip (optax ``clip_by_global_norm``), then the Adam update at
         this count's learning rate."""
         if self.grad_clip is not None:
-            clip_by_global_norm_(
-                [p.grad for p in self.params if p.grad is not None],
-                self.grad_clip)
+            clip_split_(self.params, self.grad_clip, self.model_group)
         lr = self.lr if self.schedule is None else self.schedule(self.count)
         for group in self.adam.param_groups:
             group["lr"] = lr
         self.adam.step()
         self.count += 1
+
+    def moments(self, p: torch.nn.Parameter) -> list:
+        """Adam's moments of ``p`` (none before its first update)."""
+        state = self.adam.state.get(p, {})
+        return [state[k] for k in ("exp_avg", "exp_avg_sq") if k in state]
 
     def state_dict(self) -> dict:
         return {"adam": self.adam.state_dict(), "count": self.count}

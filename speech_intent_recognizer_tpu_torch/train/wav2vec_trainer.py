@@ -33,6 +33,14 @@ decodes only its own rows of each; its draws are the global batch's
 in one all-reduce, which makes the mean of equal local batches' mean
 losses the global batch's mean; the validation metrics are averaged the
 same way, and process 0 alone logs and writes checkpoints.
+
+On a ``(data, model)`` grid the rows, the draws, the gradient mean and the
+metric means are the data group's; the encoder and the head are
+Megatron-split over the model group (``parallel.sharding.place_params``,
+applied here, as the JAX trainer takes placed parameters), the clip sums
+the parts' norms over it, and checkpoints hold whole leaves and moments,
+gathered over each model group (every process takes part; process 0
+writes).
 """
 
 from __future__ import annotations
@@ -57,11 +65,12 @@ from speech_intent_recognizer_tpu_torch.parallel.distributed import (
 from speech_intent_recognizer_tpu_torch.parallel.mesh import (
     local_batch_size, training_mesh)
 from speech_intent_recognizer_tpu_torch.parallel.sharding import (
-    sharded_generator)
+    full_optimizer_state, full_state_dict, place_params,
+    sharded_generator, sharded_optimizer_state, sharded_state_dict)
 from speech_intent_recognizer_tpu_torch.train.loop import (
     _silent, epoch_generator)
 from speech_intent_recognizer_tpu_torch.train.state import (
-    ADAM_BETAS, ADAM_EPS, clip_by_global_norm_, lr_schedule)
+    ADAM_BETAS, ADAM_EPS, clip_split_, lr_schedule)
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +118,9 @@ class Wav2VecOptimizer:
     optax-form global-norm clip, then AdamW at ``lr`` times the plateau
     scale, or at the warmup-cosine schedule's rate for this count."""
 
+    # the model group of split leaves (set by a trainer on such a mesh)
+    model_group = None
+
     def __init__(self, params, lr: float = 1e-4, weight_decay: float = 0.01,
                  grad_clip: Optional[float] = 1.0,
                  plateau: Optional[ReduceOnPlateau] = None,
@@ -134,8 +146,7 @@ class Wav2VecOptimizer:
             if p.grad is None:  # optax updates (decays) it with a zero grad
                 p.grad = torch.zeros_like(p)
         if self.grad_clip is not None:
-            clip_by_global_norm_([p.grad for p in self.params],
-                                 self.grad_clip)
+            clip_split_(self.params, self.grad_clip, self.model_group)
         lr = self.lr if self.schedule is None else self.schedule(self.count)
         if self.plateau is not None:
             lr = lr * self.plateau.update(value)
@@ -143,6 +154,11 @@ class Wav2VecOptimizer:
             group["lr"] = lr
         self.adamw.step()
         self.count += 1
+
+    def moments(self, p: torch.nn.Parameter) -> list:
+        """AdamW's moments of ``p`` (none before its first update)."""
+        state = self.adamw.state.get(p, {})
+        return [state[k] for k in ("exp_avg", "exp_avg_sq") if k in state]
 
     def state_dict(self) -> dict:
         return {"adamw": self.adamw.state_dict(), "count": self.count,
@@ -179,15 +195,21 @@ def create_wav2vec_optimizer(params, lr: float = 1e-4,
 
 class Wav2VecTrainer:
     """Train and evaluate steps and the epoch loop of the wav2vec recipe on
-    the device that holds ``model``, data-parallel with a mesh over
-    processes (``mesh``; a mesh of one device in this process is the
-    one-device trainer)."""
+    the device that holds ``model``, on a mesh over processes (``mesh``; a
+    mesh of one data shard in this process is the one-device trainer).
+    With a model axis the split leaves are cut here unless they already
+    are; build ``optimizer`` after that cut (its moments take the parts'
+    shapes at the first update, so an optimizer built before serves as
+    long as it has not stepped)."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Wav2VecOptimizer,
                  num_classes: int, max_length: int = 80000,
                  sample_rate: int = 16000, noise_prob: float = 0.8,
                  noise_level: float = 1e-3, mesh=None):
         self.mesh = training_mesh(mesh, "Wav2VecTrainer")
+        if self.mesh is not None:
+            place_params(model, self.mesh)
+            optimizer.model_group = self.mesh.model_group
         self.model = model
         self.optimizer = optimizer
         self.num_classes = num_classes
@@ -210,7 +232,7 @@ class Wav2VecTrainer:
         self.optimizer.zero_grad()
         loss.backward()
         if self.mesh is not None:
-            all_reduce_gradients(self.optimizer.params, self.mesh.group,
+            all_reduce_gradients(self.optimizer.params, self.mesh.data_group,
                                  average=True)
         self.optimizer.step(plateau_value)
         acc = (logits.argmax(-1) == y).float().mean()
@@ -250,7 +272,8 @@ class Wav2VecTrainer:
         mine = slice(0, batch_size)
         if self.mesh is not None:
             b = local_batch_size(batch_size, self.mesh)
-            mine = slice(self.mesh.rank * b, (self.mesh.rank + 1) * b)
+            d = self.mesh.data_index
+            mine = slice(d * b, (d + 1) * b)
 
         def produce():
             for start in range(0, n - batch_size + 1, batch_size):
@@ -288,8 +311,10 @@ class Wav2VecTrainer:
         if checkpointer is not None and resume:
             restored = checkpointer.restore_payload(self.device)
             if restored is not None:
-                self.model.load_state_dict(restored["model"])
-                self.optimizer.load_state_dict(restored["optimizer"])
+                self.model.load_state_dict(sharded_state_dict(
+                    restored["model"], self.model, self.mesh))
+                self.optimizer.load_state_dict(sharded_optimizer_state(
+                    restored["optimizer"], self.optimizer, self.mesh))
                 plateau_value = float(restored["plateau_value"])
                 start_epoch = int(restored["epoch"])
                 best_val_acc = float(restored["best_val_acc"])
@@ -351,8 +376,7 @@ class Wav2VecTrainer:
                 stop = False
                 if val_acc > best_val_acc:
                     best_val_acc, no_improve = val_acc, 0
-                    best_state = {k: v.detach().cpu().clone() for k, v in
-                                  self.model.state_dict().items()}
+                    best_state = full_state_dict(self.model, self.mesh)
                     if checkpointer is not None and rank == 0:
                         checkpointer.save_best(best_state, best_val_acc,
                                                epoch + 1)
@@ -361,14 +385,18 @@ class Wav2VecTrainer:
                     if no_improve >= early_stop_patience:
                         log(f"early stopping after {epoch + 1} epochs")
                         stop = True
-                if checkpointer is not None and rank == 0:
-                    checkpointer.save_payload(
-                        {"model": self.model.state_dict(),
-                         "optimizer": self.optimizer.state_dict(),
-                         "plateau_value": float(plateau_value),
-                         "epoch": epoch + 1,
-                         "best_val_acc": float(best_val_acc),
-                         "no_improve": int(no_improve)}, epoch + 1)
+                split = self.mesh is not None and self.mesh.spec.model > 1
+                if checkpointer is not None and (rank == 0 or split):
+                    payload = {
+                        "model": full_state_dict(self.model, self.mesh),
+                        "optimizer": full_optimizer_state(self.optimizer,
+                                                          self.mesh),
+                        "plateau_value": float(plateau_value),
+                        "epoch": epoch + 1,
+                        "best_val_acc": float(best_val_acc),
+                        "no_improve": int(no_improve)}
+                    if rank == 0:
+                        checkpointer.save_payload(payload, epoch + 1)
                 if self.mesh is not None:
                     # a signal to any process stops all; process 0 joins
                     # after its writes
@@ -390,11 +418,11 @@ class Wav2VecTrainer:
                 "history": history}
 
     def _mean_over_mesh(self, values: list) -> list:
-        """Per-batch device scalars averaged over the mesh's processes (the
+        """Per-batch device scalars averaged over the mesh's data group (the
         global batch's mean over equal local batches)."""
         if self.mesh is None or not values:
             return values
         t = torch.stack(values).float()
-        torch.distributed.all_reduce(t, group=self.mesh.group)
+        torch.distributed.all_reduce(t, group=self.mesh.data_group)
         return list(t / self.mesh.spec.data)
 

@@ -81,10 +81,11 @@ def _raises(fn):
 
 def test_create_mesh_and_local_batch_size_raise_where_jax_raises():
     """Every (devices, data_axis, model_axis) of up to 8 devices: where the
-    JAX package raises ValueError the port does; where it builds a mesh
-    the port builds the same shape, or refuses ``model_axis > 1`` with
-    NotImplementedError naming ROADMAP.md.  ``local_batch_size`` raises on
-    the same batches."""
+    JAX package raises ValueError the port does; where it builds a mesh,
+    ``model_axis > 1`` included, the port builds the same shape, whose
+    data shards run on every ``model``-th entry (the model axis
+    replicated in one process).  ``local_batch_size`` raises on the same
+    batches."""
     for n in range(1, 9):
         for data in (-1, None, 1, 2, 3, 4, 8):
             for model in (1, 2, 3, 4):
@@ -94,20 +95,18 @@ def test_create_mesh_and_local_batch_size_raise_where_jax_raises():
                 if want is not None:
                     assert got is ValueError, (n, data, model)
                     continue
+                assert got is None, (n, data, model)
                 jm = ref_mesh.create_mesh(data, model, jax.devices()[:n])
-                if model > 1:
-                    assert got is NotImplementedError, (n, data, model)
-                    with pytest.raises(NotImplementedError,
-                                       match="ROADMAP.md"):
-                        create_mesh(data, model, ["cpu"] * n)
-                    continue
-                tm = create_mesh(data, model, ["cpu"] * n)
+                devices = [torch.device("cpu", i) for i in range(n)]
+                tm = create_mesh(data, model, devices)
                 assert tm.shape == dict(jm.shape)
+                assert tm.data_devices == tuple(devices[::model])
+                assert len(tm.data_devices) == jm.shape["data"]
                 for batch in range(0, 20):
                     assert (_raises(lambda: local_batch_size(batch, tm))
                             == _raises(lambda: ref_mesh.local_batch_size(
                                 batch, jm)))
-                    if batch % n == 0:
+                    if batch % jm.shape["data"] == 0:
                         assert (local_batch_size(batch, tm)
                                 == ref_mesh.local_batch_size(batch, jm))
 

@@ -347,14 +347,16 @@ def test_resume_continues_exactly(rng, tmp_path):
 
 def test_unported_options_raise(tmp_path):
     """The options the port does not run raise: ``cli.train`` refuses
-    ``model_name: wav2vec`` and names ``cli.train_wav2vec``, and
-    ``model_axis > 1`` naming ROADMAP.md; the multi-process options are
-    accepted.  The wav2vec evaluation is ported and evaluates a tiny
-    checkpoint, and ``--data_parallel`` over two CPU shards gives the same
-    report."""
+    ``model_name: wav2vec`` and names ``cli.train_wav2vec``; the
+    multi-process options and ``model_axis > 1`` (tensor parallelism) are
+    accepted, and a model axis without that many processes raises
+    ValueError, as JAX's ``create_mesh`` on one device.  The wav2vec
+    evaluation is ported and evaluates a tiny checkpoint, and
+    ``--data_parallel`` over two CPU shards gives the same report."""
     from speech_intent_recognizer_tpu_torch.cli.evaluate import (
         evaluate_from_config)
-    from speech_intent_recognizer_tpu_torch.cli.train import check_supported
+    from speech_intent_recognizer_tpu_torch.cli.train import (
+        check_supported, train_from_config)
     from speech_intent_recognizer_tpu_torch.data.audio_io import save_wav
     from speech_intent_recognizer_tpu_torch.models.wav2vec import (
         Wav2VecIntent, small_wav2vec_config)
@@ -366,11 +368,11 @@ def test_unported_options_raise(tmp_path):
     check_supported(Config.from_dict({"train_on_waveforms": True}))
     with pytest.raises(NotImplementedError, match="cli.train_wav2vec"):
         check_supported(Config.from_dict({"model_name": "wav2vec"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_supported(Config.from_dict({"model_axis": 2}))
-    for raw in ({"num_processes": 2}, {"data_axis": 4},
+    for raw in ({"model_axis": 2}, {"num_processes": 2}, {"data_axis": 4},
                 {"coordinator_address": "localhost:1"}, {}):
         check_supported(Config.from_dict(raw))
+    with pytest.raises(ValueError, match="model_axis=2 needs"):
+        train_from_config(Config.from_dict({"model_axis": 2}), device="cpu")
     cfg = Config.from_dict({"max_duration": 0.5, "data_axis": 2,
                             "save_path": str(tmp_path / "ckpt")})
     model = Wav2VecIntent(small_wav2vec_config(32, 1), 2)
