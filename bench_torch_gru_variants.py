@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Where the time of the port's tensor-core GRU kernels goes: builds
-variants of ``speech_intent_recognizer_tpu_torch/csrc/gru_layer.cu`` and
+"""Where the time of the port's cluster GRU kernels goes: builds variants
+of ``speech_intent_recognizer_tpu_torch/csrc/gru_layer.cu`` and
 ``gru_layer_bwd.cu`` with parts cut out and times the kernels alone (the
 C entry points, without the wrappers' PyTorch work) side by side on one
 NVIDIA GPU, in one process, with CUDA events.
@@ -20,9 +20,15 @@ cut out computes wrong values; only its time is read:
   as committed; without the lo half of dgh (one bf16 rounding); without the
   dh product; without the gh product; without the dgx / dgh stores; without
   the exchange of partial sums and its barrier;
-* the CUDA-core kernels of both sources at their tile heights, for scale.
+* the fp32 K2 (``sir_gru_layer_cluster``) at B = 1 / 16 / 256 / 2048, T=25,
+  at every tile height its shared memory allows: as committed (clusters of
+  8, W in registers); clusters of 4 (W in shared memory); clusters of 8
+  with W in shared memory; without the cluster barrier; without the
+  exchange of h_t; with W read from L2 at every step; without the product;
+* the CUDA-core kernels of both sources at their tile heights, for scale
+  (the fp32 K2's in fp32 operands, as the plan weighs it).
 
-Prints the card's name and power limit, each tensor-core kernel's
+Prints the card's name and power limit, each cluster kernel's
 registers and spills as ptxas reports them, and least / median / most of
 five timed blocks in ms.  Needs one card and nvcc; imports nothing of JAX.
 
@@ -44,11 +50,11 @@ import torch
 from bench_torch_fft_variants import CSRC, blocks_ms, replace_once
 from speech_intent_recognizer_tpu_torch import _build
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS)
+    CLUSTER_ROWS, MMA_ROWS, MMA_ROWS_BACKWARD, SMEM_LIMIT, TILE_ROWS)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
 
-FWD, BWD = "gru_layer.cu", "gru_layer_bwd.cu"
+FWD, BWD, HEAD = "gru_layer.cu", "gru_layer_bwd.cu", "gru_mma.cuh"
 
 
 def no_barrier(unit):
@@ -88,6 +94,47 @@ NO_GRAD_STORES = (BWD, re.compile(
 NO_PARTIAL_SUMS = (BWD, re.compile(r"            st_cluster_8\(box_out.*?\);\n",
                                    re.S), "            ;\n")
 
+F32_WAIT = ("    if (t > 0) cluster_wait();  // every rank's slab of h_{t-1} "
+            "is in tile cur\n")
+F32_ARRIVE = "    cluster_arrive();  // h_t is on its way to every rank\n"
+F32_LAST = "  if (steps > 0) cluster_wait();  // the last step's arrive\n"
+F32_NO_BARRIER = [(FWD, F32_WAIT, ""), (FWD, F32_ARRIVE, ""),
+                  (FWD, F32_LAST, "  cluster_arrive();\n  cluster_wait();\n")]
+F32_NO_EXCHANGE = (FWD, "            st_cluster_16(map_to_rank(at, r), bits);",
+                   "            ;")
+F32_C4 = (HEAD, "constexpr int kF32Cluster = 8;",
+          "constexpr int kF32Cluster = 4;")
+# the rank's slice of W^T in shared memory ([kq][gate][unit][4] floats,
+# after the partial sums) in place of registers: the load, the reads and
+# the launch's shared-memory size
+F32_W_SHARED = [
+    (FWD, re.compile(r"  float4 wr\[KQ\]\[3\]\[UPL\];\n.*?"
+                     r"p\[3 \* kGates\]\);\n      }\n", re.S), """\
+  float* const w_s = part + kF32Slices * M * 3 * U;
+  for (int e = tid; e < kHidden * 3 * U; e += kThreads) {
+    const int unit = e % U, gate = (e / U) % 3, k = e / (3 * U);
+    w_s[(((k >> 2) * 3 + gate) * U + unit) * 4 + (k & 3)] =
+        wd[static_cast<size_t>(k) * kGates + gate * kHidden + unit0 + unit];
+  }
+"""),
+    (FWD, "            const float4 wv = wr[kq][gate][i];\n", """\
+            const float4 wv = *reinterpret_cast<const float4*>(
+                w_s + (((KQ * warp + kq) * 3 + gate) * U + lane + 32 * i) * 4);
+"""),
+    (FWD, "  const int smem = f32_smem_bytes(M);\n",
+     "  const int smem = f32_smem_bytes(M) + 4 * kHidden * 3 * kF32Units;\n")]
+F32_W_FROM_L2 = (FWD, "            const float4 wv = wr[kq][gate][i];\n", """\
+            const float* wg = wd +
+                static_cast<size_t>(kF32SliceK * warp + 4 * kq) * kGates +
+                gate * kHidden + unit0 + lane + 32 * i;
+            const float4 wv = make_float4(__ldg(wg), __ldg(wg + kGates),
+                                          __ldg(wg + 2 * kGates),
+                                          __ldg(wg + 3 * kGates));
+""")
+F32_NO_PRODUCT = (FWD, re.compile(
+    r"              acc\[rb\]\[gate\]\[i\] = fmaf\(hv\[rb\]\.w.*?\)\)\)\);\n",
+    re.S), "              ;\n")
+
 # name -> (the .cu to build, edits)
 VARIANTS = {
     "K2 as committed": (FWD, []),
@@ -106,7 +153,31 @@ VARIANTS = {
     "K2T without the exchange of partial sums and its barrier": (
         BWD, [NO_PARTIAL_SUMS, *no_barrier(BWD)]),
     "K2T with one multiply-add for each gate function": (BWD, CHEAP_GATES),
+    "fp32 K2 in clusters of 4, W in shared memory": (
+        FWD, [F32_C4, *F32_W_SHARED]),
+    "fp32 K2 in clusters of 8, W in shared memory": (FWD, F32_W_SHARED),
+    "fp32 K2 without the cluster barrier": (FWD, F32_NO_BARRIER),
+    "fp32 K2 without the exchange of h_t": (FWD, [F32_NO_EXCHANGE]),
+    "fp32 K2 with W read from L2 at every step": (FWD, [F32_W_FROM_L2]),
+    "fp32 K2 without the product": (FWD, [F32_NO_PRODUCT]),
 }
+
+
+def f32_smem_bytes(rows: int, cluster: int, w_shared: bool) -> int:
+    """Shared memory of an fp32 K2 build: ``cluster_smem_bytes``' h tiles
+    and partial sums at ``cluster`` blocks a cluster, and the rank's slice
+    of W^T where it sits in shared memory."""
+    units = 256 // cluster
+    return 4 * (2 * rows * 256 + 8 * rows * 3 * units
+                + (256 * 3 * units if w_shared else 0))
+
+
+def f32_heights(name: str) -> tuple:
+    """The fp32 K2 tile heights a variant's shared memory allows."""
+    cluster = 4 if "clusters of 4" in name else 8
+    shared = "shared memory" in name
+    return tuple(r for r in CLUSTER_ROWS
+                 if f32_smem_bytes(r, cluster, shared) <= SMEM_LIMIT)
 
 
 def apply_edits(name: str, src: str) -> None:
@@ -136,7 +207,8 @@ def build_all(root: str) -> dict:
                 f"{lines[k + 2].split(': ', 1)[-1]}; {lines[k + 1].strip()}"
                 for k, line in enumerate(lines) if (m := re.search(
                     r"Function properties for \S*?(gru_layer(?:_bwd)?_mma_"
-                    r"kernelILi\d+E)", line))]
+                    r"kernelILi\d+E|gru_layer_cluster_kernelILi\d+E)",
+                    line))]
         lib = ctypes.CDLL(so)
         for entry, argtypes in _build._SIGNATURES.items():
             if hasattr(lib, entry):
@@ -179,6 +251,8 @@ def main() -> int:
                 gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
                 steps, batch, hidden, 32, stream))
             for name, (lib, _) in libs.items():
+                if name.startswith("fp32 "):
+                    continue
                 forward = name.startswith("K2 ")
                 if forward and batch != 1024:
                     for rows in MMA_ROWS:
@@ -214,6 +288,34 @@ def main() -> int:
                                   dgx.data_ptr(), dgh.data_ptr(), steps, batch,
                                   hidden, rows, stream)), 10) + " ms",
                           flush=True)
+        for batch in (1, 16, 256, 2048):
+            g = torch.Generator(device=dev).manual_seed(batch)
+            gx = torch.randn((2, steps, batch, 3 * hidden), device=dev,
+                             generator=g)
+            w = 0.05 * torch.randn((2, hidden, 3 * hidden), device=dev,
+                                   generator=g)
+            bn = 0.1 * torch.randn((2, 1, hidden), device=dev, generator=g)
+            ys = torch.empty((2, steps, batch, hidden), device=dev)
+            iters = 50 if batch <= 16 else 20 if batch <= 256 else 5
+            fp32 = [("fp32 K2 as committed", libs["K2 as committed"][0])] + [
+                (name, lib) for name, (lib, _) in libs.items()
+                if name.startswith("fp32 ")]
+            for name, lib in fp32:
+                for rows in f32_heights(name):
+                    if batch >= 256 and rows < 4:
+                        continue   # a hundred waves and more
+                    print(f"{name}, B={batch}, {rows}-row tiles: " + blocks_ms(
+                        lambda: checked(name, lib.sir_gru_layer_cluster(
+                            gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                            ys.data_ptr(), steps, batch, hidden, rows,
+                            stream)), iters) + " ms", flush=True)
+            lib = libs["K2 as committed"][0]
+            for rows in TILE_ROWS:
+                print(f"fp32 K2 CUDA-core kernel, B={batch}, {rows}-row tiles: "
+                      + blocks_ms(lambda: checked("K2", lib.sir_gru_layer_f32(
+                          gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                          ys.data_ptr(), steps, batch, hidden, rows,
+                          stream)), iters) + " ms", flush=True)
     return 0
 
 

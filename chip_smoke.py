@@ -33,15 +33,17 @@ Phases:
 1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc`` and,
    alongside, ``native/build.sh`` (libsirdsp, the streaming featurizer's
    native mode) when the checkout has no build, and print what K1, K3, K4,
-   K5 and the tensor-core K2 and K2T take as built:
+   K5, the tensor-core K2 and K2T and the fp32 cluster K2 take as built:
    registers, spilled bytes, shared memory, threads and resident blocks per
-   SM, for K2 and K2T also the cluster size and resident clusters per card;
+   SM, for the cluster kernels also the cluster size and resident clusters
+   per card;
 2. K1 (front-end + conv1) against its plain PyTorch version: the check
    lengths with 1 and 0, rows that mix silence and full-scale signal,
    batches of 1, 3 and 257, the main path's B=256;
 3. K2 (GRU recurrence) against its plain version, bf16 and fp32: every
-   kernel build a call can launch (tensor-core at each tile height, CUDA-core
-   at each, and the one the card picks) at B = 1 to 2048 and T = 1, 25, 40,
+   kernel build a call can launch (tensor-core at each tile height in bf16,
+   the fp32 cluster kernel at each in fp32, CUDA-core at each, and the one
+   the card picks) at B = 1 to 2048 and T = 1, 25, 40,
    each launched twice for the same bits, then with the seeded checkpoint's
    recurrent weights;
 4. serving end to end: the main path once at B=256 with the launch
@@ -92,7 +94,8 @@ Phases:
     by room noise, through its own ``StreamingRecognizer`` session in each
     featurizer mode (host, native, device), the counters reset before and
     read after each (K4 once at the finalize, in device mode also once per
-    block of frames; K2 twice; nothing else), labels equal to
+    block of frames; K2 twice, both the fp32 cluster kernel, counted under
+    its own key; nothing else), labels equal to
     ``predict_file``'s, accuracy >= 0.9, the finalize's operands on the card
     within 1e-5 of the CPU; 16 files replayed as ``cli.stream --audio`` does
     (``FileAudioSource``: digital zeros after each; ``run_live``), counters
@@ -103,10 +106,15 @@ Phases:
     partial hypothesis mid-utterance, partials and results equal to the
     direct recognizer's; the committed narrow ``.msgpack`` fixture served
     like its ``.pt`` twin; K4 at 4 / 16 / 64 frames (the streamed tails and
-    full-scale noise) and the fp32 K2 at B = 1 / 16 against their plain
-    versions; and timings: end of speech -> result p50 / p90, the feed of
+    full-scale noise) and the fp32 K2 (the build the card picks and the
+    CUDA-core kernel at B = 1 / 16 / 256 / 2048, every cluster-kernel
+    height at B = 1 / 16) against their plain versions; and timings: end of speech -> result p50 / p90, the feed of
     one chunk per mode, the finalize of 1 and of 16 queued sessions (host
-    clock), K4 and the fp32 K2 at those sizes (CUDA events);
+    clock), K4 at those sizes and the fp32 K2 at those batches beside the
+    CUDA-core kernel and cuDNN's fp32 layer with TF32 off and on (CUDA
+    events); then end of speech in each mode and the finalize of 1 and of
+    16 again, with the fp32 cluster K2 and with the CUDA-core K2 forced, in
+    turns (every run's two K2 launches counted by kernel);
 17. ``cli.run_pipeline`` on the tone corpus in waveform mode with waveform
     augmentation, bf16, full width (preprocess validating every WAV, int16
     waveform caches, training with K3 in every step, evaluate), the
@@ -194,7 +202,9 @@ Phases:
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
-the batched finalize of 16 and in the file replay of 16; K2, K3 and K2T
+the batched finalize of 16 and in the file replay of 16, and K2
+``stream_launches_cluster``, how many of those were the fp32 cluster
+kernel; K2, K3 and K2T
 also ``waveform_launches``, phase 17's; every kernel
 ``artifact_launches``, phase 18's per program call; K2, K3 and K2T
 ``synthetic_launches``, phase 20b's; K1 and K2 ``tts_launches``, phase
@@ -218,6 +228,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import os
 import subprocess
@@ -262,8 +273,9 @@ from speech_intent_recognizer_tpu_torch.ops.frontend import (
     padded_samples)
 from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan, _gru_layer_backward_plain,
-    _gru_layer_plain, gru_layer, gru_layer_backward, picked_plan)
+    CLUSTER_ROWS, MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan,
+    _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
+    gru_layer_backward, picked_plan, tile_rows)
 from speech_intent_recognizer_tpu_torch.ops import pool_epilogue as pool_ops
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
@@ -378,9 +390,11 @@ ROOM_NOISE = 0.001
 TRAILING_S = 1.5
 LATENCY_UTTERANCES = 30
 # K4 and the fp32 K2 at the streaming path's sizes: tail frames of 1, 4 and
-# 16 utterances; one session and a batched flush of 16
+# 16 utterances; one session and a batched flush of 16; the fp32 K2 also at
+# the evaluation's batches, beside the CUDA-core kernel and cuDNN
 STREAM_K4_FRAMES = (4, 16, 64)
 STREAM_K2_BATCHES = (1, 16)
+FP32_K2_BATCHES = (1, 16, 256, 2048)
 # each server session asks for a partial hypothesis after this chunk
 PARTIAL_AT = 8
 # phase 18: serving artifacts of phase 15's model.  The programs of each
@@ -662,10 +676,13 @@ def k2_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
 def gru_variants(dtype, backward: bool = False) -> list:
     """Every ``rows=`` argument that launches a different kernel build for
     this operand type: what the card picks (None), each tensor-core tile
-    height (bf16 only), each CUDA-core tile height."""
+    height (bf16 only), each fp32 cluster-kernel height (the fp32 forward
+    only), each CUDA-core tile height."""
     heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
     mma = [Plan("mma", r) for r in heights] if dtype == torch.bfloat16 else []
-    return [None, *mma, *TILE_ROWS]
+    cluster = ([Plan("cluster", r) for r in CLUSTER_ROWS]
+               if dtype == torch.float32 and not backward else [])
+    return [None, *mma, *cluster, *TILE_ROWS]
 
 
 def plan_name(rows, b: int, dtype, dev, backward: bool = False) -> str:
@@ -1494,19 +1511,21 @@ def stream_split(pred, cpu_pred, paths, labels, offline, mode) -> dict:
         run = stream_file(pred, path, mode, seed)
         got = counters()
         want = {**dict.fromkeys(got, 0), "K4": 1 + run["blocks"], "K2": 2}
-        if got != want:
+        if got != want or cluster_launches() != 2:
             raise AssertionError(f"stream {mode} {path}: launched {got}, "
-                                 f"want {want}")
-        for k in totals:
+                                 f"want {want}; fp32 cluster K2 "
+                                 f"{cluster_launches()}, want 2")
+        for k in got:
             totals[k] += got[k]
+        totals["K2_cluster"] = totals.get("K2_cluster", 0) + cluster_launches()
         results.append(run["result"])
         operands.append(run["rec"].operands)
         latency.append(run["latency_s"])
         feeds += run["feed_s"]
     blocks = " and once per featurizer block" if mode == "device" else ""
     log(f"ok: stream {mode}: each of {len(paths)} utterances launched K4 once "
-        f"at the finalize{blocks} and K2 twice, nothing else (totals "
-        f"{totals})")
+        f"at the finalize{blocks} and K2 twice, both the fp32 cluster "
+        f"kernel, nothing else (totals {totals})")
     streamed = [r["predicted_label"] for r in results]
     served = [o["predicted_label"] for o in offline]
     differ = [(os.path.basename(p), a, b, round(r["confidence"], 4))
@@ -1554,11 +1573,13 @@ def check_file_replay(pred, cpu_pred, paths, offline) -> dict:
         card = run_live(StreamingRecognizer(pred), FileAudioSource(path))
         got = counters()
         want = {**dict.fromkeys(got, 0), "K4": len(card), "K2": 2 * len(card)}
-        if not card or got != want:
+        if not card or got != want or cluster_launches() != 2 * len(card):
             raise AssertionError(f"replay {path}: {len(card)} results, "
-                                 f"launched {got}, want {want}")
-        for k in totals:
+                                 f"launched {got}, want {want}; fp32 "
+                                 f"cluster K2 {cluster_launches()}")
+        for k in got:
             totals[k] += got[k]
+        totals["K2_cluster"] = totals.get("K2_cluster", 0) + cluster_launches()
         cpu = run_live(StreamingRecognizer(cpu_pred), FileAudioSource(path))
         if [r["predicted_label"] for r in card] != [
                 r["predicted_label"] for r in cpu]:
@@ -1568,8 +1589,9 @@ def check_file_replay(pred, cpu_pred, paths, offline) -> dict:
         agree += card[0]["predicted_label"] == off["predicted_label"]
     check(worst <= STREAM_CPU_BAR,
           f"file replay (FileAudioSource + run_live, auto mode) of "
-          f"{len(paths)} WAVs: K4 once and K2 twice an utterance (totals "
-          f"{totals}), labels equal to the CPU's, confidences within "
+          f"{len(paths)} WAVs: K4 once and K2 twice an utterance, both the "
+          f"fp32 cluster kernel (totals {totals}), labels equal to the "
+          f"CPU's, confidences within "
           f"{worst:.3e} <= {STREAM_CPU_BAR}")
     log(f"file replay: the first label equals predict_file's on {agree} of "
         f"{len(paths)} WAVs (digital silence; logged, not gated)")
@@ -1613,6 +1635,9 @@ def check_batched_flush(pred, paths, profile: bool = False) -> dict:
           f"({ended[0]}) and were dispatched by max_batch, none left queued")
     check_counts(got, {"K4": 1, "K2": 2},
                  f"the batched finalize of {len(recs)} sessions")
+    check(cluster_launches() == 2, f"the batched finalize of {len(recs)} "
+          f"sessions: both K2 launches the fp32 cluster kernel")
+    got["K2_cluster"] = cluster_launches()
     worst = 0.0
     for rec, r in zip(recs, results):
         single = fused_finalize(pred.model, pred.frontend_params,
@@ -1650,7 +1675,8 @@ def check_batched_flush(pred, paths, profile: bool = False) -> dict:
 
             log_profile(f"finalize of {n} queued session(s)", step,
                         gpu_label())
-    return {"launches": got, "row_err": worst, "times_s": times}
+    return {"launches": got, "row_err": worst, "times_s": times,
+            "operands": [rec.operands for rec in recs]}
 
 
 async def serve_sessions(pred, paths, sock: str) -> list:
@@ -1741,21 +1767,115 @@ def time_streaming_kernels(dev, tails, timings, bounds, spreads) -> None:
             lambda: fk._mel_db_plain(frames, fe, dft), 50)
         bounds[f"k4_stream_n{n}"] = bound(nbytes(frames) + n * 64 * 4,
                                           (frontend_flops(fe, n), FP32_FLOPS))
-    for b in STREAM_K2_BATCHES:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in FP32_K2_BATCHES:
         gx, w, bn = k2_inputs(b, torch.float32, dev, seed=b)
-        got, want = gru_layer(gx, w, bn), _gru_layer_plain(gx, w, bn)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        check(bool(torch.isfinite(got).all()) and err <= K2_FP32_TOL,
-              f"K2 fp32 vs plain at B={b} T=25, the build the card picks "
-              f"({plan_name(None, b, torch.float32, dev)}): max |err| "
-              f"{err:.3e} <= {K2_FP32_TOL}")
+        old = Plan("simt", tile_rows(b, sms))
+        want = _gru_layer_plain(gx, w, bn)
+        # at the streaming batches every forced build of the cluster kernel
+        forced = ([Plan("cluster", r) for r in CLUSTER_ROWS]
+                  if b in STREAM_K2_BATCHES else [])
+        for rows in (None, old, *forced):
+            got = gru_layer(gx, w, bn, rows=rows)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(bool(torch.isfinite(got).all()) and err <= K2_FP32_TOL,
+                  f"K2 fp32 vs plain at B={b} T=25, "
+                  f"{plan_name(rows, b, torch.float32, dev)}: max |err| "
+                  f"{err:.3e} <= {K2_FP32_TOL}")
+        iters = 100 if b <= 16 else 20 if b <= 256 else 5
         timed(timings, spreads, f"k2_fp32_b{b}", lambda: gru_layer(gx, w, bn),
-              100)
+              iters)
+        timed(timings, spreads, f"k2_fp32_simt_b{b}",
+              lambda: gru_layer(gx, w, bn, rows=old), iters)
+        # the kernels alone: their C entry points, without the wrapper's
+        # host work (at B=1 the wrapper's call takes longer than the kernel)
+        lib, ys = _build.load(), torch.empty_like(want)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        picked = picked_plan(b, 256, torch.float32, dev)
+        for key, fn, rows in (
+                ("k2_fp32_kernel", lib.sir_gru_layer_cluster
+                 if picked.kernel == "cluster" else lib.sir_gru_layer_f32,
+                 picked.rows),
+                ("k2_fp32_simt_kernel", lib.sir_gru_layer_f32, old.rows)):
+            timed(timings, spreads, f"{key}_b{b}",
+                  lambda: _build.check(fn(
+                      gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                      ys.data_ptr(), 25, b, 256, rows, stream), key), iters)
         timings[f"k2_fp32_plain_b{b}"] = cuda_ms(
-            lambda: _gru_layer_plain(gx, w, bn), 10)
+            lambda: _gru_layer_plain(gx, w, bn), 10 if b <= 256 else 2)
         bounds[f"k2_fp32_b{b}"] = bound(nbytes(gx, w, bn) + gx.numel() // 3 * 4,
                                         (2.0 * gx.numel() * 256, FP32_FLOPS))
+        # the yardstick: one cuDNN fp32 layer (input product included), as
+        # phase 9's bf16 one, with TF32 off (the fp32-equal number) and on;
+        # and with a one-wide input, so that its time is the recurrence's
+        for tf32, key, width in ((False, "cudnn_gru_layer_fp32", 1024),
+                                 (True, "cudnn_gru_layer_tf32", 1024),
+                                 (False, "cudnn_gru_layer_fp32_narrow", 1)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                cudnn = torch.nn.GRU(width, 256, num_layers=1,
+                                     batch_first=True, bidirectional=True,
+                                     device=dev).eval()
+                cudnn.flatten_parameters()
+                x = torch.randn((b, 25, width), device=dev)
+                with torch.inference_mode():
+                    timed(timings, spreads, f"{key}_b{b}", lambda: cudnn(x),
+                          iters)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        del gx, w, bn, want, ys
+
+
+def compare_fp32_plans(pred, paths, operands) -> dict:
+    """Phase 16g: the streaming path with the fp32 cluster K2 (what the
+    plan picks) and with the CUDA-core K2 it replaced forced
+    (:func:`fp32_plan`), in turns in one run: end of speech -> result at
+    B=1 in each featurizer mode over the first LATENCY_UTTERANCES test WAVs
+    (which kernel goes first alternates utterance by utterance), and the
+    finalize of 1 and of 16 queued sessions (rounds of A B B A, host clock,
+    flush to result dicts; the first two rounds warm up).  Every run
+    launches K2 twice, both the kernel asked for."""
+
+    def counted(kernel, what):
+        got = gru_layer.kernel_launches[kernel]
+        if gru_layer.launches != 2 or got != 2:
+            raise AssertionError(f"{what} with the {kernel} K2: launched "
+                                 f"{gru_layer.launches} K2, {got} of them "
+                                 f"{kernel}, want 2 and 2")
+
+    eos = {}
+    for mode in STREAM_MODES:
+        eos[mode] = {"cluster": [], "simt": []}
+        for i, path in enumerate(paths[:LATENCY_UTTERANCES]):
+            for kernel in (("cluster", "simt") if i % 2 == 0
+                           else ("simt", "cluster")):
+                torch.cuda.synchronize()
+                reset_counters()
+                with fp32_plan(kernel):
+                    run = stream_file(pred, path, mode, i)
+                counted(kernel, f"stream {mode} {path}")
+                eos[mode][kernel].append(run["latency_s"])
+    timer = BatchFinalizer(pred, max_batch=4 * STREAM_SESSIONS)
+    inv = pred.inv_label_map
+    finalize = {}
+    for n in (1, len(operands)):
+        finalize[n] = {"cluster": [], "simt": []}
+        for rnd in range(22):
+            order = ("cluster", "simt") if rnd % 2 == 0 else ("simt", "cluster")
+            for kernel in order + order[::-1]:
+                with fp32_plan(kernel):
+                    queued = [timer.submit(*ops, inv) for ops in operands[:n]]
+                    torch.cuda.synchronize()
+                    reset_counters()
+                    t0 = time.perf_counter()
+                    timer.flush()
+                    PendingResult.get_all(queued)
+                    dt = time.perf_counter() - t0
+                counted(kernel, f"the finalize of {n}")
+                if rnd >= 2:
+                    finalize[n][kernel].append(dt)
+    return {"eos": eos, "finalize": finalize}
 
 
 def check_streaming(dev, tmp: str, run: dict, timings, bounds, spreads,
@@ -1808,6 +1928,7 @@ def check_streaming(dev, tmp: str, run: dict, timings, bounds, spreads,
     check_fixture(dev)
     time_streaming_kernels(dev, out["modes"]["native"]["tails"], timings,
                            bounds, spreads)
+    out["plans"] = compare_fp32_plans(pred, paths, out["batched"]["operands"])
     return out
 
 
@@ -1986,6 +2107,35 @@ def reset_counters() -> None:
     for fn in (fk.frontend_conv1, fk.frontend, fk.mel_db, gru_layer,
                gru_layer_backward, conv23, bias_relu_pool2):
         fn.launches = 0
+    gru_layer.kernel_launches.update(dict.fromkeys(gru_layer.kernel_launches,
+                                                   0))
+
+
+def cluster_launches() -> int:
+    """K2 launches of the fp32 cluster kernel since the last reset."""
+    return gru_layer.kernel_launches["cluster"]
+
+
+@contextlib.contextmanager
+def fp32_plan(kernel: str):
+    """Inside, the fp32 forward at H = 256 launches ``kernel``: "cluster"
+    (what the plan picks on an H100 at the streaming sizes) or "simt" (the
+    CUDA-core kernel at ``tile_rows``' height, the kernel it replaced), so
+    that the streaming path can be timed with each in one run."""
+    picked = gru_ops.picked_plan
+
+    def forced(batch, hidden, dtype, device, backward=False):
+        plan = picked(batch, hidden, dtype, device, backward)
+        if kernel == "simt" and plan.kernel == "cluster":
+            return Plan("simt", tile_rows(batch, torch.cuda.get_device_properties(
+                device).multi_processor_count))
+        return plan
+
+    gru_ops.picked_plan = forced
+    try:
+        yield
+    finally:
+        gru_ops.picked_plan = picked
 
 
 def counters() -> dict:
@@ -3473,12 +3623,13 @@ def main(argv=None) -> int:
     check(all(r["blocks_per_sm"] >= 1 for r in resources.values())
           and all(r.get("clusters_per_card", 1) >= 1
                   for r in resources.values()),
-          "K1, K3, K4, K5 and the tensor-core K2 and K2T as built fit an "
-          "SM, and at least one cluster of K2 and K2T the card")
+          "K1, K3, K4, K5, the tensor-core K2 and K2T and the fp32 cluster "
+          "K2 as built fit an SM, and at least one cluster of each cluster "
+          "kernel the card")
     log(f"resources on {label} (registers per thread, local (spilled) bytes per "
         f"thread, shared memory per block, threads per block, resident "
-        f"blocks per SM; for K2 and K2T also blocks per cluster and resident "
-        f"clusters per card): " + json.dumps(resources))
+        f"blocks per SM; for the cluster kernels also blocks per cluster and "
+        f"resident clusters per card): " + json.dumps(resources))
 
     # ---- 2. K1 vs plain (check lengths, then the main path's B=256) ----
     rng = np.random.default_rng(0)
@@ -3811,6 +3962,37 @@ def main(argv=None) -> int:
         log(f"    finalize of {n} queued session(s), flush to result dicts: "
             f"p50 {percentile_ms(samples, 50):.3f} / p90 "
             f"{percentile_ms(samples, 90):.3f} over {len(samples)}")
+    plans = stream["plans"]
+    log(f"    the fp32 K2 of the streaming path, cluster kernel (picked) vs "
+        f"the CUDA-core kernel forced, in turns in this run on {label}, "
+        f"host clock, ms p50 / p90:")
+    for mode, lat in plans["eos"].items():
+        log(f"      {mode}: end of speech -> result at B=1, "
+            + "; ".join(f"{k} {percentile_ms(v, 50):.3f} / "
+                        f"{percentile_ms(v, 90):.3f}" for k, v in lat.items())
+            + f" over {len(lat['cluster'])} utterances each")
+    for n, fin in plans["finalize"].items():
+        log(f"      finalize of {n} queued session(s): "
+            + "; ".join(f"{k} {percentile_ms(v, 50):.3f} / "
+                        f"{percentile_ms(v, 90):.3f}" for k, v in fin.items())
+            + f" over {len(fin['cluster'])} each")
+    for b in FP32_K2_BATCHES:
+        log(f"    fp32 K2 at B={b}, T=25, ms a layer (median of five blocks; "
+            f"the kernel alone, then the wrapper's call) on {label}: "
+            f"{plan_name(None, b, torch.float32, dev)} "
+            f"{timings[f'k2_fp32_kernel_b{b}']:.4f} / "
+            f"{timings[f'k2_fp32_b{b}']:.4f}, CUDA-core kernel "
+            f"({plan_key(Plan('simt', tile_rows(b, sms)))}) "
+            f"{timings[f'k2_fp32_simt_kernel_b{b}']:.4f} / "
+            f"{timings[f'k2_fp32_simt_b{b}']:.4f}, cuDNN fp32 nn.GRU layer "
+            f"with its input product, TF32 off "
+            f"{timings[f'cudnn_gru_layer_fp32_b{b}']:.4f} (with TF32, not "
+            f"fp32-equal: {timings[f'cudnn_gru_layer_tf32_b{b}']:.4f}; "
+            f"a one-wide input, the recurrence alone, TF32 off: "
+            f"{timings[f'cudnn_gru_layer_fp32_narrow_b{b}']:.4f}), "
+            f"plain {timings[f'k2_fp32_plain_b{b}']:.4f}; bound "
+            f"{bounds[f'k2_fp32_b{b}'][0]:.4f} "
+            f"({bounds[f'k2_fp32_b{b}'][1]})")
     replay = stream["replay"]
     log(f"    file replay of {STREAM_SESSIONS} WAVs (digital silence): card vs "
         f"CPU confidence err {replay['cpu_err']:.3e}; label equal to "
@@ -3862,7 +4044,7 @@ def main(argv=None) -> int:
                  f"batched_{STREAM_SESSIONS}":
                      stream["batched"]["launches"][kernel],
                  f"replay_{STREAM_SESSIONS}": stream["replay"]["launches"][kernel]}
-        for kernel in ("K2", "K4")}
+        for kernel in ("K2", "K4", "K2_cluster")}
     kernels = [
         entry("frontend_conv1", "k1", K1_SOURCE, K1_REPLACES,
               main_launches["K1"], k1_err),
@@ -3882,6 +4064,9 @@ def main(argv=None) -> int:
               f"k6_library_b{b}"),
     ]
     kernels[1]["stream_launches"] = stream_launches["K2"]
+    # of those, launches of the fp32 cluster kernel (K2's fp32 build at
+    # hidden 256, which the streaming path runs)
+    kernels[1]["stream_launches_cluster"] = stream_launches["K2_cluster"]
     kernels[4]["stream_launches"] = stream_launches["K4"]
     # launches on the waveform-resident path (phase 17's run_pipeline)
     for i, key in ((1, "K2"), (2, "K3"), (3, "K2T")):

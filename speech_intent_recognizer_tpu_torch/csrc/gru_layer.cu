@@ -9,7 +9,7 @@
 // recurrent product runs on operands rounded to the operand type with fp32
 // sums; h is carried in fp32 across steps and the gate math is fp32.
 //
-// Two kernels; ops/gru.py::gru_plan says which one a call takes.
+// Three kernels; ops/gru.py::gru_plan says which one a call takes.
 //
 // 1. gru_layer_mma_kernel: bf16, H = 256, the kernel that serves and
 //    trains.  What bounds the recurrence on the H100 is the serial chain of
@@ -33,12 +33,33 @@
 //      double-buffered, so one cluster barrier per step orders everything;
 //    * the step's slice of gx (the kernel's only read from device memory)
 //      is fetched one step ahead with cp.async into a two-stage ring.
-// 2. gru_layer_kernel: fp32 or bf16 operands, any H that is a multiple of
+// 2. gru_layer_cluster_kernel: fp32, H = 256, the parity path (the
+//    streaming finalize, fp32 evaluation, the forward of an fp32 train
+//    step).  TF32 tensor cores would break the 1e-5 bar that holds fp32
+//    results to the JAX package, so the product stays on CUDA cores in
+//    fp32 FMAs.  W_hh^T is 786,432 bytes a direction in fp32, and what
+//    bounded the CUDA-core kernel below at small batches was streaming it
+//    from L2 into one SM a direction at every step.  The design
+//    (decomposition and index maps in gru_mma.cuh):
+//    * a cluster of 8 blocks owns one tile of 1 to 32 batch rows; each
+//      rank keeps the r, z and n columns of its 32 units (98,304 bytes) on
+//      chip for the whole launch: 96 floats in each thread's registers;
+//    * warp s multiplies the tile's h_{t-1} by k-slice s of that slice,
+//      h read as broadcast float4s from the rank's h tile; the eight
+//      partial sums of a (row, unit) meet in shared memory, and the thread
+//      that gates the pair adds them in slice order (the same bits on every
+//      launch) and keeps h in an fp32 register;
+//    * a quad of lanes gathers its four units of h_t with shuffles, and
+//      each lane of the quad stores them, 16 bytes, into two of the eight
+//      ranks' other h tile (its own among them), so no block barrier
+//      separates the gates from the exchange; one split cluster barrier a
+//      step orders the exchange against the next product;
+//    * gx of the next step is loaded into registers after the arrive, so
+//      its latency hides behind the barrier.
+// 3. gru_layer_kernel: fp32 or bf16 operands, any H that is a multiple of
 //    32, fp32 FMAs on CUDA cores, one thread per hidden unit, W_hh streamed
 //    from L2 at every step, tiles of 4 or 16 rows (ops/gru.py::tile_rows).
-//    It is the fp32 parity path: TF32 tensor cores would break the 1e-5 bar
-//    that holds fp32 results to the JAX package, so fp32 operands stay
-//    here, as does bf16 at any H other than 256.
+//    It serves bf16 and fp32 at any H other than 256.
 //
 // Times stand in PERF.md, each with the card's name and power limit.
 
@@ -366,6 +387,210 @@ int dispatch_mma(const void* gx, const void* w, const float* bn, void* out,
   }
 }
 
+// ---- the fp32 cluster kernel ----
+
+// gx of step t for the (row, unit) pairs tid + 256 j of a tile of M rows
+// and U units a rank (rows past the tile or the batch read as 0).
+template <int M, int U, int P>
+__device__ __forceinline__ void load_gx_pairs(float (&g)[P][3],
+                                              const float* __restrict__ gxd,
+                                              int t, int batch, int row0,
+                                              int unit0, int unit) {
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int row = (static_cast<int>(threadIdx.x) + kThreads * j) / U;
+    if (row < M && row0 + row < batch) {
+      const float* src = gxd +
+          (static_cast<size_t>(t) * batch + row0 + row) * kGates + unit0 +
+          unit;
+      g[j][0] = __ldg(src);
+      g[j][1] = __ldg(src + kHidden);
+      g[j][2] = __ldg(src + 2 * kHidden);
+    } else {
+      g[j][0] = g[j][1] = g[j][2] = 0.f;
+    }
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_layer_cluster_kernel(const float* __restrict__ gx,
+                         const float* __restrict__ w,
+                         const float* __restrict__ bn,
+                         float* __restrict__ out, int steps, int batch) {
+  constexpr int U = kF32Units;            // units a rank
+  constexpr int UPL = U / 32;             // units a lane
+  constexpr int KQ = kF32SliceK / 4;      // float4s of a k-slice
+  constexpr int RB = M < 8 ? M : 8;       // rows multiplied together
+  constexpr int P = (M * U + kThreads - 1) / kThreads;  // pairs a thread gates
+  extern __shared__ __align__(16) float f32_mem[];
+  float* const part = f32_mem + f32_h_floats(M);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = static_cast<int>(cluster_rank());
+  const int dir = blockIdx.y;
+  const int row0 = static_cast<int>(blockIdx.x / kF32Cluster) * M;
+  const int unit0 = rank * U;
+  const float* wd = w + static_cast<size_t>(dir) * kHidden * kGates;
+  const float* gxd = gx + static_cast<size_t>(dir) * steps * batch * kGates;
+  float* outd = out + static_cast<size_t>(dir) * steps * batch * kHidden;
+
+  // the rank's slice of W^T, read from device memory once into registers
+  float4 wr[KQ][3][UPL];
+#pragma unroll
+  for (int kq = 0; kq < KQ; ++kq)
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+      for (int i = 0; i < UPL; ++i) {
+        const float* p = wd +
+            static_cast<size_t>(kF32SliceK * warp + 4 * kq) * kGates +
+            gate * kHidden + unit0 + lane + 32 * i;
+        wr[kq][gate][i] =
+            make_float4(p[0], p[kGates], p[2 * kGates], p[3 * kGates]);
+      }
+
+  // the (row, unit) pairs this thread gates: tid + 256 j, all of one unit
+  // and, since U is a multiple of 32, a warp's pairs of one row
+  const int unit = tid % U;
+  const float bnj = bn[dir * kHidden + unit0 + unit];
+  float h[P], g[P][3];
+#pragma unroll
+  for (int j = 0; j < P; ++j) h[j] = 0.f;
+  // h_{-1} = 0 in tile 0; the other tile is written before it is read
+  for (int i = tid; i < M * kHidden; i += kThreads) f32_mem[i] = 0.f;
+  if (steps > 0) load_gx_pairs<M, U>(g, gxd, 0, batch, row0, unit0, unit);
+  __syncthreads();
+  // no rank writes another's shared memory before every rank runs
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t = 0; t < steps; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    if (t > 0) cluster_wait();  // every rank's slab of h_{t-1} is in tile cur
+    const float* hc = f32_mem + cur * M * kHidden;
+    float* hn = f32_mem + nxt * M * kHidden;
+    for (int r0 = 0; r0 < M; r0 += RB) {
+      float acc[RB][3][UPL];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int i = 0; i < UPL; ++i) acc[rb][gate][i] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < KQ; ++kq) {
+        float4 hv[RB];
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb)
+          hv[rb] = *reinterpret_cast<const float4*>(
+              hc + (r0 + rb) * kHidden + kF32SliceK * warp + 4 * kq);
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int i = 0; i < UPL; ++i) {
+            const float4 wv = wr[kq][gate][i];
+#pragma unroll
+            for (int rb = 0; rb < RB; ++rb)
+              acc[rb][gate][i] = fmaf(hv[rb].w, wv.w, fmaf(hv[rb].z, wv.z,
+                  fmaf(hv[rb].y, wv.y, fmaf(hv[rb].x, wv.x,
+                                            acc[rb][gate][i]))));
+          }
+      }
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+          for (int i = 0; i < UPL; ++i)
+            part[f32_partial_index(M, warp, r0 + rb, gate, lane + 32 * i)] =
+                acc[rb][gate][i];
+    }
+    __syncthreads();  // every warp's partial sums are in
+
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int row = (tid + kThreads * j) / U;
+      if (row < M) {
+        float s[3];
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          s[gate] = part[f32_partial_index(M, 0, row, gate, unit)];
+#pragma unroll
+          for (int sl = 1; sl < kF32Slices; ++sl)
+            s[gate] += part[f32_partial_index(M, sl, row, gate, unit)];
+        }
+        const float rg = sigmoid(g[j][0] + s[0]);
+        const float zg = sigmoid(g[j][1] + s[1]);
+        const float ng = tanhf(g[j][2] + rg * (s[2] + bnj));
+        h[j] = (1.f - zg) * ng + zg * h[j];
+        if (row0 + row < batch)
+          outd[(static_cast<size_t>(t) * batch + row0 + row) * kHidden +
+               unit0 + unit] = h[j];
+        // the exchange: the four units of a quad of lanes as one float4,
+        // which lane 4 q + e stores into ranks e, e + 4 (its own among
+        // them) at the same place of their tile `nxt`
+        if (t + 1 < steps) {
+          const int q0 = lane & ~3;
+          const uint4 bits = make_uint4(
+              __float_as_uint(__shfl_sync(0xffffffffu, h[j], q0)),
+              __float_as_uint(__shfl_sync(0xffffffffu, h[j], q0 + 1)),
+              __float_as_uint(__shfl_sync(0xffffffffu, h[j], q0 + 2)),
+              __float_as_uint(__shfl_sync(0xffffffffu, h[j], q0 + 3)));
+          const uint32_t at =
+              smem_addr(hn + row * kHidden + unit0 + (unit & ~3));
+          for (int r = lane & 3; r < kF32Cluster; r += 4)
+            st_cluster_16(map_to_rank(at, r), bits);
+        }
+      }
+    }
+    cluster_arrive();  // h_t is on its way to every rank
+    if (t + 1 < steps)
+      load_gx_pairs<M, U>(g, gxd, t + 1, batch, row0, unit0, unit);
+  }
+  // no rank leaves while another may still write into it
+  if (steps > 0) cluster_wait();  // the last step's arrive
+}
+
+template <int M>
+int launch_cluster(const void* gx, const void* w, const float* bn, void* out,
+                   int steps, int batch, cudaStream_t stream, int* out_info) {
+  auto kernel = gru_layer_cluster_kernel<M>;
+  const int smem = f32_smem_bytes(M);
+  if (out_info) return cluster_info<kF32Cluster>(kernel, smem, out_info);
+  static bool ready[kMaxDevices] = {};
+  const int tiles = (batch + M - 1) / M;
+  return static_cast<int>(launch_clusters<kF32Cluster>(
+      kernel, ready, dim3(kF32Cluster * tiles, 2), smem, stream,
+      static_cast<const float*>(gx), static_cast<const float*>(w), bn,
+      static_cast<float*>(out), steps, batch));
+}
+
+int dispatch_cluster(const void* gx, const void* w, const float* bn,
+                     void* out, int steps, int batch, int hidden, int rows,
+                     cudaStream_t stream, int* out_info) {
+  if (steps < 0 || batch < 0 || hidden != kHidden)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!out_info && (steps == 0 || batch == 0)) return 0;
+  switch (rows) {
+    case 1:
+      return launch_cluster<1>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 2:
+      return launch_cluster<2>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 4:
+      return launch_cluster<4>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 8:
+      return launch_cluster<8>(gx, w, bn, out, steps, batch, stream, out_info);
+    case 16:
+      return launch_cluster<16>(gx, w, bn, out, steps, batch, stream,
+                                out_info);
+    case 32:
+      return launch_cluster<32>(gx, w, bn, out, steps, batch, stream,
+                                out_info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int sir_gru_layer_bf16(const void* gx, const void* w,
@@ -398,4 +623,19 @@ extern "C" int sir_gru_layer_mma(const void* gx, const void* w,
 extern "C" int sir_gru_layer_mma_info(int rows, int* out) {
   return dispatch_mma(nullptr, nullptr, nullptr, nullptr, 0, 0, kHidden, rows,
                       nullptr, out);
+}
+
+// The fp32 cluster kernel: fp32, hidden = 256, rows in {1, 2, 4, 8, 16, 32}.
+extern "C" int sir_gru_layer_cluster(const void* gx, const void* w,
+                                     const float* bn, void* out, int steps,
+                                     int batch, int hidden, int rows,
+                                     void* stream) {
+  return dispatch_cluster(gx, w, bn, out, steps, batch, hidden, rows,
+                          static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// out[0..6] as sir_gru_layer_mma_info's, for the fp32 cluster kernel.
+extern "C" int sir_gru_layer_cluster_info(int rows, int* out) {
+  return dispatch_cluster(nullptr, nullptr, nullptr, nullptr, 0, 0, kHidden,
+                          rows, nullptr, out);
 }

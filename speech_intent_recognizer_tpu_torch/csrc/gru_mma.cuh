@@ -1,5 +1,6 @@
-// Building blocks of the tensor-core GRU kernels (gru_layer.cu,
-// gru_layer_bwd.cu): H = 256, bf16 operands, fp32 sums.
+// Building blocks of the cluster GRU kernels (gru_layer.cu,
+// gru_layer_bwd.cu): H = 256; the tensor-core kernels' bf16 operands and
+// fp32 sums, and (at the end) the fp32 kernel's decomposition.
 //
 // The decomposition both kernels share.  A thread-block cluster of
 // kCluster = 4 blocks owns one tile of batch rows in one direction; rank c
@@ -233,11 +234,11 @@ __device__ __forceinline__ void load_gx_slice(
 
 constexpr int kMaxDevices = 64;
 
-// Launch with clusters of kCluster blocks along x.  `ready[device]` records
-// that the kernel's shared-memory size is set on that device and that at
-// least one cluster of this shape fits it; a card where none fits gets
-// cudaErrorLaunchOutOfResources.
-template <typename Kernel, typename... Args>
+// Launch with clusters of `Cluster` blocks along x.  `ready[device]`
+// records that the kernel's shared-memory size is set on that device and
+// that at least one cluster of this shape fits it; a card where none fits
+// gets cudaErrorLaunchOutOfResources.
+template <int Cluster = kCluster, typename Kernel, typename... Args>
 cudaError_t launch_clusters(Kernel kernel, bool (&ready)[kMaxDevices],
                             dim3 grid, int smem, cudaStream_t stream,
                             Args... args) {
@@ -257,7 +258,7 @@ cudaError_t launch_clusters(Kernel kernel, bool (&ready)[kMaxDevices],
   cfg.stream = stream;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.x = Cluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
@@ -276,7 +277,7 @@ cudaError_t launch_clusters(Kernel kernel, bool (&ready)[kMaxDevices],
 
 // kernel_info.cuh's five numbers, then out[5] = blocks per cluster and
 // out[6] = clusters of this shape resident on the card at once.
-template <typename Kernel>
+template <int Cluster = kCluster, typename Kernel>
 int cluster_info(Kernel kernel, int smem, int* out) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -289,12 +290,12 @@ int cluster_info(Kernel kernel, int smem, int* out) {
                                                       kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * 64, 2);
+  cfg.gridDim = dim3(Cluster * 64, 2);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.x = Cluster;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
@@ -307,9 +308,58 @@ int cluster_info(Kernel kernel, int smem, int* out) {
   out[2] = static_cast<int>(fa.sharedSizeBytes) + smem;
   out[3] = kThreads;
   out[4] = blocks;
-  out[5] = kCluster;
+  out[5] = Cluster;
   out[6] = clusters;
   return 0;
+}
+
+// ---- the fp32 kernel's decomposition (gru_layer.cu,
+// gru_layer_cluster_kernel): fp32 operands at H = 256, fp32 FMAs on CUDA
+// cores (the parity path: no TF32) ----
+//
+// A cluster of kF32Cluster = 8 blocks owns one tile of M batch rows in
+// one direction.  Rank c owns the U = 32 hidden units [U c, U c + U) and
+// the r, z and n columns of W_hh^T for them, a (256 x 3U) fp32 slice of
+// 98,304 bytes.  Warp s of a rank sums over the k-slice [32 s, 32 s + 32)
+// and lane l over unit l of the rank, so a thread holds
+// W^T[k][gate * 256 + U c + l] for its 32 k and 3 gates, four consecutive
+// k to a float4: 96 floats, which stay in its registers for the whole
+// launch.
+//
+// A step: every warp multiplies the M rows of h_{t-1} (fp32, read as
+// broadcast float4s of the rank's h tile) by its k-slice and leaves its
+// partial sums at f32_partial_index; after a block barrier thread p gates
+// the (row, unit) pairs p, p + 256, ... (row = pair / U, unit = pair % U),
+// summing the eight partials in slice order, keeps h in an fp32 register
+// and stores ys; the four lanes of a quad (four consecutive units of one
+// row) gather their h_t as one float4, and lane 4 q + e stores it
+// (st.shared::cluster) at the same place of the other h tile of ranks e
+// and e + 4; one split cluster barrier a step orders that exchange
+// against the next product.  tests/test_torch_gru_plan.py models these
+// maps in NumPy.
+
+constexpr int kF32Cluster = 8;                     // blocks a cluster
+constexpr int kF32Units = kHidden / kF32Cluster;   // U, units a rank
+constexpr int kF32Slices = kThreads / 32;          // k-slices, one a warp
+constexpr int kF32SliceK = kHidden / kF32Slices;   // 32 k a slice
+
+// Floats of the tile region: two h tiles of M x 256.
+__host__ __device__ constexpr int f32_h_floats(int rows) {
+  return 2 * rows * kHidden;
+}
+
+// Index (floats) of a partial sum in the region after the h tiles:
+// [slice][row][gate][unit of the rank].
+__host__ __device__ constexpr int f32_partial_index(int rows, int slice,
+                                                    int row, int gate,
+                                                    int unit) {
+  return ((slice * rows + row) * 3 + gate) * kF32Units + unit;
+}
+
+// Dynamic shared memory of the fp32 kernel: the h tiles and the partial
+// sums.
+__host__ __device__ constexpr int f32_smem_bytes(int rows) {
+  return 4 * (f32_h_floats(rows) + kF32Slices * rows * 3 * kF32Units);
 }
 
 }  // namespace gru_mma

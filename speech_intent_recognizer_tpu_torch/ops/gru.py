@@ -12,11 +12,13 @@ wrappers, plain versions, counters, and the autograd function joining them.
   adjoints dgh; dW and db_hn are one batched fp32 GEMM and a sum over them
   here, as the JAX package leaves its weight-gradient product to XLA.
 
-Each source holds two kernels and :func:`gru_plan` says which one a call
-launches: the tensor-core kernel (``"mma"``: bf16 operands at H = 256, W_hh
-resident on chip across a cluster of four blocks; needs ``sm_90a``
-clusters), or the CUDA-core kernel (``"simt"``: fp32 operands, the parity
-path, and bf16 at any other H; W_hh streams from L2 every step).
+:func:`gru_plan` says which kernel a call launches: the tensor-core
+kernel (``"mma"``: bf16 operands at H = 256, W_hh resident on chip across a
+cluster of four blocks; needs ``sm_90a`` clusters), the fp32 cluster kernel
+(``"cluster"``, forward only: fp32 operands at H = 256, the parity path,
+W_hh resident on chip across a cluster of eight blocks, fp32 FMAs on CUDA
+cores), or the CUDA-core kernel (``"simt"``: every other H and the fp32
+backward; W_hh streams from L2 every step).
 
 Under autograd :func:`gru_layer` runs through :class:`_GRULayer`, which
 saves (gx, w, bn, ys) as ``_gru_layer_diff_fwd`` does.  The forward kernel
@@ -75,12 +77,23 @@ MMA_ROWS_BACKWARD = (16, 32)
 MMA_STEP_OVERHEAD = (26, 7)
 # shared memory a block may use on sm_90
 SMEM_LIMIT = 232448
+# the fp32 cluster kernel (forward, H = MMA_HIDDEN): blocks per cluster,
+# the batch rows per cluster csrc/gru_layer.cu instantiates, and the k-slices
+# (warps) whose partial sums meet in shared memory
+CLUSTER_SIZE = 8
+CLUSTER_ROWS = (1, 2, 4, 8, 16, 32)
+CLUSTER_SLICES = 8
+# us per step of the fp32 cluster kernel, a fixed part and one per row of a
+# tile (times the waves of clusters): a least-squares fit to its times on an
+# H100 (every height at B = 1 / 16 / 256 / 2048, T = 25; PERF.md)
+CLUSTER_STEP_US = (0.92, 0.214)
 
 
 class Plan(NamedTuple):
     """What a call launches: ``kernel`` is ``"mma"`` (tensor cores, W_hh on
-    chip across a cluster) or ``"simt"`` (CUDA cores, W_hh from L2);
-    ``rows`` the batch rows per cluster or block."""
+    chip across a cluster), ``"cluster"`` (fp32 on CUDA cores, W_hh on chip
+    across a cluster) or ``"simt"`` (CUDA cores, W_hh from L2); ``rows``
+    the batch rows per cluster or block."""
     kernel: str
     rows: int
 
@@ -106,23 +119,53 @@ def mma_smem_bytes(rows: int, backward: bool = False) -> int:
     return rows * (2 * 512 + 2 * 384)
 
 
+def cluster_smem_bytes(rows: int) -> int:
+    """Dynamic shared memory of the fp32 cluster kernel with ``rows``-row
+    tiles, as ``f32_smem_bytes`` in ``csrc/gru_mma.cuh`` counts it: two h
+    tiles (rows x 1,024 B) and the k-slices' partial sums (8 x rows x 3 x
+    H / 8 floats).  W_hh^T is in registers."""
+    return 4 * (2 * rows * MMA_HIDDEN
+                + CLUSTER_SLICES * rows * 3 * (MMA_HIDDEN // CLUSTER_SIZE))
+
+
+def _waves(batch: int, rows: int, clusters: int) -> int:
+    """Rounds of ``clusters`` resident clusters that 2 x ceil(batch / rows)
+    clusters take."""
+    return -(-2 * -(-batch // rows) // clusters)
+
+
 def gru_plan(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
              backward: bool = False, clusters: "int | None" = None) -> Plan:
     """The kernel and tile height a CUDA call of :func:`gru_layer` (or, with
     ``backward``, :func:`gru_layer_backward`) launches.
 
-    bf16 operands at ``hidden == MMA_HIDDEN`` take the tensor-core kernel.
-    One block fills an SM, so ``clusters`` clusters run at once (what
-    ``cudaOccupancyMaxActiveClusters`` reports: 30 on an H100 with 132 SMs,
-    whose clusters may not span two GPCs; without it, ``sm_count //
-    MMA_CLUSTER``), the 2 x ceil(batch / rows) clusters of a launch run in
-    waves, and a wave lasts T steps of about ``MMA_STEP_OVERHEAD + rows``
-    time units each.  The height with the least waves x step cost wins, the
-    shorter one on a tie.  Everything else (fp32 operands, the parity path;
-    other hidden sizes) takes the CUDA-core kernel at :func:`tile_rows`.
+    ``clusters`` is how many clusters of the kernel the operands would take
+    run at once (what ``cudaOccupancyMaxActiveClusters`` reports; one block
+    fills an SM).  bf16 operands at ``hidden == MMA_HIDDEN`` take the
+    tensor-core kernel: without ``clusters``, ``sm_count // MMA_CLUSTER``
+    (30 on an H100 with 132 SMs, whose clusters may not span two GPCs); the
+    2 x ceil(batch / rows) clusters of a launch run in waves, and a wave
+    lasts T steps of about ``MMA_STEP_OVERHEAD + rows`` time units each.
+    The height with the least waves x step cost wins, the shorter one on a
+    tie.  The fp32 forward at ``hidden == MMA_HIDDEN`` takes the cluster
+    kernel at the height with the least waves (of ``clusters``, without it
+    ``sm_count // CLUSTER_SIZE``) x ``CLUSTER_STEP_US``, the shorter on a
+    tie.  Everything else (the fp32 backward, other hidden sizes) takes the
+    CUDA-core kernel at :func:`tile_rows`.
     """
-    if dtype != torch.bfloat16 or hidden != MMA_HIDDEN:
-        return Plan("simt", tile_rows(batch, sm_count))
+    simt = Plan("simt", tile_rows(batch, sm_count))
+    if hidden != MMA_HIDDEN or dtype not in (torch.bfloat16, torch.float32):
+        return simt
+    if dtype == torch.float32:
+        if backward:
+            return simt
+        resident = max(clusters or sm_count // CLUSTER_SIZE, 1)
+
+        def us(rows):
+            return _waves(batch, rows, resident) * (
+                CLUSTER_STEP_US[0] + CLUSTER_STEP_US[1] * rows)
+
+        return Plan("cluster", min(CLUSTER_ROWS, key=lambda r: (us(r), r)))
     if clusters is None:
         clusters = sm_count // MMA_CLUSTER
     clusters = max(clusters, 1)
@@ -130,8 +173,7 @@ def gru_plan(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
     overhead = MMA_STEP_OVERHEAD[backward]
 
     def cost(rows):
-        waves = -(-2 * -(-batch // rows) // clusters)
-        return waves * (overhead + rows)
+        return _waves(batch, rows, clusters) * (overhead + rows)
 
     return Plan("mma", min(heights, key=lambda rows: (cost(rows), rows)))
 
@@ -148,7 +190,8 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
       rows: None launches what :func:`gru_plan` picks for the card.  For
         checks and timing, an int of ``TILE_ROWS`` forces the CUDA-core
         kernel at that height and a :class:`Plan` forces that kernel and
-        height (``Plan("mma", 64)``).  Ignored on the CPU.
+        height (``Plan("mma", 64)``, ``Plan("cluster", 2)``).  Ignored on
+        the CPU.
 
     Returns (2, T, B, H) hidden states in ``gx.dtype``, direction 1 in
     reversed time.  CPU tensors take the plain version; CUDA tensors
@@ -178,6 +221,8 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
 
 
 gru_layer.launches = 0
+# the same launches by kernel (a Plan's ``kernel``)
+gru_layer.kernel_launches = {"simt": 0, "mma": 0, "cluster": 0}
 
 
 def _check_cuda(gx, tensors, rows, backward=False) -> "Plan | None":
@@ -205,6 +250,17 @@ def _check_cuda(gx, tensors, rows, backward=False) -> "Plan | None":
             raise ValueError(f"the tensor-core kernel takes bfloat16 at "
                              f"hidden {MMA_HIDDEN}, got {gx.dtype} at "
                              f"{hidden}")
+    elif plan.kernel == "cluster":
+        if backward:
+            raise ValueError("the fp32 cluster kernel has no backward: "
+                             "force a CUDA-core height under autograd")
+        if plan.rows not in CLUSTER_ROWS:
+            raise ValueError(f"the fp32 cluster kernel takes rows of "
+                             f"{CLUSTER_ROWS}, got {plan.rows}")
+        if gx.dtype != torch.float32 or hidden != MMA_HIDDEN:
+            raise ValueError(f"the fp32 cluster kernel takes float32 at "
+                             f"hidden {MMA_HIDDEN}, got {gx.dtype} at "
+                             f"{hidden}")
     else:
         raise ValueError(f"unknown kernel {plan.kernel!r}")
     return plan
@@ -222,13 +278,15 @@ def _cuda_plan(gx, tensors, rows, backward=False) -> Plan:
 _clusters: dict = {}
 
 
-def _resident_clusters(device: torch.device, backward: bool) -> int:
-    """Clusters of the tensor-core kernel (at its tallest tile) that the
-    card runs at once; asked once per device."""
-    key = (torch.device(device).index or 0, backward)
+def _resident_clusters(device: torch.device, name: str) -> int:
+    """Clusters of the cluster kernel ``name`` (a :func:`kernel_resources`
+    family, at its tallest tile) that the card runs at once; asked once per
+    device."""
+    key = (torch.device(device).index or 0, name)
     if key not in _clusters:
-        name = "gru_layer_bwd_mma" if backward else "gru_layer_mma"
-        rows = (MMA_ROWS_BACKWARD if backward else MMA_ROWS)[-1]
+        rows = {"gru_layer_mma": MMA_ROWS,
+                "gru_layer_bwd_mma": MMA_ROWS_BACKWARD,
+                "gru_layer_cluster": CLUSTER_ROWS}[name][-1]
         _clusters[key] = kernel_resources(device)[f"{name}_rows{rows}"][
             "clusters_per_card"]
     return _clusters[key]
@@ -237,12 +295,16 @@ def _resident_clusters(device: torch.device, backward: bool) -> int:
 def picked_plan(batch: int, hidden: int, dtype: torch.dtype,
                 device: "str | torch.device", backward: bool = False) -> Plan:
     """:func:`gru_plan` for the card ``device``: its SM count and, for the
-    tensor-core kernel, the clusters it runs at once."""
-    mma = dtype == torch.bfloat16 and hidden == MMA_HIDDEN
+    cluster kernels, the clusters it runs at once."""
+    name = None
+    if hidden == MMA_HIDDEN and dtype == torch.bfloat16:
+        name = "gru_layer_bwd_mma" if backward else "gru_layer_mma"
+    elif hidden == MMA_HIDDEN and dtype == torch.float32 and not backward:
+        name = "gru_layer_cluster"
     return gru_plan(batch, hidden, dtype,
                     torch.cuda.get_device_properties(
                         device).multi_processor_count, backward,
-                    _resident_clusters(device, backward) if mma else None)
+                    _resident_clusters(device, name) if name else None)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -268,6 +330,8 @@ def _gru_layer_cuda(gx, w, bn, kernel, rows):
     if plan.kernel == "mma":
         fn = lib.sir_gru_layer_mma
         gx, w = _aligned(gx), _aligned(w)
+    elif plan.kernel == "cluster":
+        fn = lib.sir_gru_layer_cluster
     else:
         fn = (lib.sir_gru_layer_bf16 if gx.dtype == torch.bfloat16
               else lib.sir_gru_layer_f32)
@@ -277,6 +341,7 @@ def _gru_layer_cuda(gx, w, bn, kernel, rows):
                 torch.cuda.current_stream(gx.device).cuda_stream)
     _build.check(rc, "gru_layer")
     gru_layer.launches += 1
+    gru_layer.kernel_launches[plan.kernel] += 1
     return out
 
 
@@ -389,10 +454,11 @@ gru_layer_backward.launches = 0
 
 
 def kernel_resources(dev: "str | torch.device") -> dict:
-    """What the built tensor-core kernels take on the card ``dev``, per
-    tile height: registers per thread, local (spilled) bytes per thread,
-    shared memory per block, threads per block, resident blocks per SM,
-    blocks per cluster, and clusters resident on the card at once."""
+    """What the built cluster kernels (tensor-core K2 and K2T, fp32 K2)
+    take on the card ``dev``, per tile height: registers per thread, local
+    (spilled) bytes per thread, shared memory per block, threads per block,
+    resident blocks per SM, blocks per cluster, and clusters resident on
+    the card at once."""
     import ctypes
 
     lib = _build.load()
@@ -403,7 +469,9 @@ def kernel_resources(dev: "str | torch.device") -> dict:
         for name, fn, heights in (
                 ("gru_layer_mma", lib.sir_gru_layer_mma_info, MMA_ROWS),
                 ("gru_layer_bwd_mma", lib.sir_gru_layer_bwd_mma_info,
-                 MMA_ROWS_BACKWARD)):
+                 MMA_ROWS_BACKWARD),
+                ("gru_layer_cluster", lib.sir_gru_layer_cluster_info,
+                 CLUSTER_ROWS)):
             for rows in heights:
                 out = (ctypes.c_int * len(keys))()
                 _build.check(fn(rows, ctypes.addressof(out)),

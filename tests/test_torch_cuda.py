@@ -21,9 +21,9 @@ from speech_intent_recognizer_tpu_torch.ops.frontend import (
     padded_samples)
 from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan, _gru_layer_backward_plain,
-    _gru_layer_plain, gru_bidirectional, gru_layer, gru_layer_backward,
-    picked_plan)
+    CLUSTER_ROWS, CLUSTER_SIZE, MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan,
+    _gru_layer_backward_plain, _gru_layer_plain, gru_bidirectional,
+    gru_layer, gru_layer_backward, picked_plan)
 
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
@@ -187,6 +187,28 @@ def test_gru_layer_tensor_core_kernel_matches_plain(dev, batch, steps, rows):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("rows", CLUSTER_ROWS)
+@pytest.mark.parametrize("steps", [1, 25])
+@pytest.mark.parametrize("batch", [1, 16, 17, 256])
+def test_gru_layer_cluster_kernel_matches_plain(dev, batch, steps, rows):
+    """The fp32 cluster K2 (H = 256, W_hh^T resident across a cluster of
+    eight) at every tile height, on full and ragged tiles and T = 1 / 25:
+    within the fp32 bar of 1e-5 of the plain version (fp32 FMAs, only the
+    summation order differs), the same bits on a second launch (partial
+    sums added in a fixed order), counted under its own key."""
+    gx, w, bn, _ = _gru_operands(dev, batch, steps, dtype=torch.float32)
+    gru_layer.kernel_launches["cluster"] = 0
+    got = gru_layer(gx, w, bn, rows=Plan("cluster", rows))
+    again = gru_layer(gx, w, bn, rows=Plan("cluster", rows))
+    want = _gru_layer_plain(gx, w, bn)
+    torch.cuda.synchronize()
+    assert gru_layer.kernel_launches["cluster"] == 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("rows", MMA_ROWS_BACKWARD)
 @pytest.mark.parametrize("batch,steps", [
     (1, 25), (3, 25), (64, 25), (256, 25), (257, 25), (1030, 25), (2048, 25),
@@ -214,20 +236,26 @@ def test_gru_layer_backward_tensor_core_kernel_matches_plain(dev, batch,
 
 
 def test_gru_plan_on_the_card(dev):
-    """What a call launches: bf16 at H = 256 the tensor-core kernel, fp32
-    and any other H the CUDA-core kernel (and a forced tensor-core launch
-    of those raises); the launch counters count both kernels."""
+    """What a call launches: bf16 at H = 256 the tensor-core kernel, the
+    fp32 forward at H = 256 the cluster kernel at B = 1 and 16 (the
+    streaming finalize), the fp32 backward and any other H the CUDA-core
+    kernel (and a forced tensor-core or cluster launch of what they do not
+    take raises); the launch counters count every kernel, each under its
+    own key."""
     for backward in (False, True):
         heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
         for batch in (1, 256, 1024, 2048):
             p = picked_plan(batch, 256, torch.bfloat16, dev, backward)
             assert p.kernel == "mma" and p.rows in heights
-        assert picked_plan(256, 256, torch.float32, dev,
-                           backward).kernel == "simt"
         assert picked_plan(256, 128, torch.bfloat16, dev,
                            backward).kernel == "simt"
+    for batch in (1, 16):
+        p = picked_plan(batch, 256, torch.float32, dev)
+        assert p.kernel == "cluster" and p.rows in CLUSTER_ROWS
+    assert picked_plan(256, 256, torch.float32, dev, True).kernel == "simt"
     gx, w, bn, dys = _gru_operands(dev, 5, 7, hidden=128)
     gru_layer.launches = 0
+    gru_layer.kernel_launches.update(simt=0, mma=0, cluster=0)
     got = gru_layer(gx, w, bn)  # bf16 at H = 128: the CUDA-core kernel
     torch.cuda.synchronize()
     assert gru_layer.launches == 1
@@ -235,10 +263,23 @@ def test_gru_plan_on_the_card(dev):
     assert float((got.float() - want.float()).abs().max()) <= 1e-2
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         gru_layer(gx, w, bn, rows=Plan("mma", 32))
+    with pytest.raises(ValueError, match="cluster kernel takes"):
+        gru_layer(gx.float(), w.float(), bn, rows=Plan("cluster", 1))
     gx, w, bn, dys = _gru_operands(dev, 5, 7, dtype=torch.float32)
+    gru_layer(gx, w, bn)  # fp32 at H = 256, B = 5: the cluster kernel
+    torch.cuda.synchronize()
+    assert gru_layer.launches == 2
+    assert gru_layer.kernel_launches == {"simt": 1, "mma": 0, "cluster": 1}
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         gru_layer_backward(gx, w, bn, _gru_layer_plain(gx, w, bn), dys,
                            rows=Plan("mma", 32))
+    with pytest.raises(ValueError, match="no backward"):
+        gru_layer_backward(gx, w, bn, _gru_layer_plain(gx, w, bn), dys,
+                           rows=Plan("cluster", 1))
+    with pytest.raises(ValueError, match="cluster kernel takes"):
+        gru_layer(gx.bfloat16(), w.bfloat16(), bn, rows=Plan("cluster", 1))
+    with pytest.raises(ValueError, match="rows of"):
+        gru_layer(gx, w, bn, rows=Plan("cluster", 3))
     with pytest.raises(ValueError, match="rows of"):
         gru_layer(gx.bfloat16(), w.bfloat16(), bn, rows=Plan("mma", 8))
 
@@ -258,21 +299,28 @@ def test_gru_tensor_core_kernel_takes_an_offset_view(dev):
 
 
 def test_gru_kernel_resources(dev):
-    """The tensor-core K2 and K2T as built: every tile height fits an SM
-    (one block of 256 threads), spills nothing, stays inside 227 KB of
-    shared memory at exactly the size the plan counts, and at least one
-    cluster of four fits the card."""
+    """The cluster kernels as built: every tile height fits an SM (one
+    block of 256 threads), spills nothing, stays inside 227 KB of shared
+    memory at exactly the size the plan counts, and at least one cluster
+    (of four for the tensor-core K2 and K2T, of eight for the fp32 K2) fits
+    the card."""
     found = gru_ops.kernel_resources(dev)
     assert set(found) == (
         {f"gru_layer_mma_rows{r}" for r in MMA_ROWS}
-        | {f"gru_layer_bwd_mma_rows{r}" for r in MMA_ROWS_BACKWARD})
+        | {f"gru_layer_bwd_mma_rows{r}" for r in MMA_ROWS_BACKWARD}
+        | {f"gru_layer_cluster_rows{r}" for r in CLUSTER_ROWS})
     for name, r in found.items():
         rows = int(name.rsplit("rows", 1)[1])
         assert r["threads"] == 256 and r["blocks_per_sm"] == 1, name
         assert 0 < r["registers"] <= 255 and r["local_bytes"] == 0, name
-        assert r["shared_bytes"] == gru_ops.mma_smem_bytes(
-            rows, "bwd" in name) <= gru_ops.SMEM_LIMIT, name
-        assert r["cluster"] == gru_ops.MMA_CLUSTER
+        if "cluster" in name:
+            assert r["shared_bytes"] == gru_ops.cluster_smem_bytes(rows)
+            assert r["cluster"] == CLUSTER_SIZE
+        else:
+            assert r["shared_bytes"] == gru_ops.mma_smem_bytes(
+                rows, "bwd" in name)
+            assert r["cluster"] == gru_ops.MMA_CLUSTER
+        assert r["shared_bytes"] <= gru_ops.SMEM_LIMIT, name
         assert r["clusters_per_card"] >= 1, name
 
 

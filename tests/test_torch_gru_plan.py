@@ -1,4 +1,4 @@
-"""The decomposition and the index maps of the tensor-core GRU kernels
+"""The decomposition and the index maps of the cluster GRU kernels
 (``speech_intent_recognizer_tpu_torch/csrc/gru_mma.cuh``, ``gru_layer.cu``,
 ``gru_layer_bwd.cu``), modelled in NumPy where no card is present.
 
@@ -12,9 +12,12 @@ new h goes to every rank's other tile.  The backward model adds the slice of
 W by rows in shared memory, dgh as bf16 hi | lo halves, the partial sums of
 dh_prev and their inbox.  Shared memory starts as NaN and a tile that was
 read is set to NaN again, so a read of an address nobody wrote shows.  The
-models are held against ``_gru_layer_plain`` / ``_gru_layer_backward_plain``;
-the kernels themselves are held against them on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+fp32 cluster kernel's model holds each thread's part of W_hh^T (in its
+registers), the k-slices' partial sums, the gated pairs and the exchange of
+h_t over eight ranks, and counts every write into each
+rank's h tile.  The models are held against ``_gru_layer_plain`` /
+``_gru_layer_backward_plain``; the kernels themselves are held against them
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import os
 import re
@@ -28,9 +31,10 @@ import torch
 from speech_intent_recognizer_tpu_torch import _build
 from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    MMA_CLUSTER, MMA_HIDDEN, MMA_ROWS, MMA_ROWS_BACKWARD, SMEM_LIMIT,
-    TILE_ROWS, Plan, _gru_layer_backward_plain, _gru_layer_plain, gru_plan,
-    mma_smem_bytes, tile_rows)
+    CLUSTER_ROWS, CLUSTER_SIZE, CLUSTER_SLICES, CLUSTER_STEP_US, MMA_CLUSTER,
+    MMA_HIDDEN, MMA_ROWS, MMA_ROWS_BACKWARD, SMEM_LIMIT,
+    TILE_ROWS, Plan, _gru_layer_backward_plain, _gru_layer_plain,
+    cluster_smem_bytes, gru_plan, mma_smem_bytes, tile_rows)
 
 H, H3 = 256, 768
 K_TILES = H // 16
@@ -642,6 +646,180 @@ def test_partial_sums_over_ranks_give_the_adjoint_product(cluster):
     np.testing.assert_allclose(total, dgh @ w.T, rtol=0, atol=1e-10)
 
 
+# ---- gru_layer.cu: the fp32 cluster kernel (gru_mma.cuh's fp32 maps) ----
+
+SLICE_K = H // CLUSTER_SLICES                  # kF32SliceK
+THREADS = 32 * CLUSTER_SLICES                  # kThreads
+UNITS = H // CLUSTER_SIZE                      # kF32Units
+
+
+def f32_partial_index(rows, slice_, row, gate, unit):
+    """``gru_mma::f32_partial_index``: [slice][row][gate][unit] floats."""
+    return ((slice_ * rows + row) * 3 + gate) * UNITS + unit
+
+
+def thread_w(wt, rank, warp, lane):
+    """The float4s thread (warp, lane) of rank ``rank`` multiplies by, as
+    the register load of ``gru_layer_cluster_kernel`` reads them from W^T
+    (H, 3H): (SLICE_K / 4, 3 gates, U / 32 units, 4 k)."""
+    k = SLICE_K * warp + 4 * np.arange(SLICE_K // 4)[:, None, None, None] \
+        + np.arange(4)
+    col = (np.arange(3)[None, :, None, None] * H + rank * UNITS + lane
+           + 32 * np.arange(UNITS // 32)[None, None, :, None])
+    return wt[k, col]
+
+
+def cluster_forward_model(gx, w, bn, rows):
+    """``gru_layer_cluster_kernel<rows>`` for every cluster of the
+    launch: fp32 gx (2, T, B, 3H), w (2, H, 3H), bn (2, 1, H) -> ys
+    (2, T, B, H).  Each rank's two h tiles start NaN (tile 0 zeroed);
+    after a step's products every rank's tile ``cur`` is set to NaN again;
+    the exchange is the gating lanes' own: a quad of lanes (four units of
+    one row) gathers its float4 of h_t and lane 4 q + e stores it into
+    ranks e, e + 4, ...; the writes into each rank's tile ``nxt`` are
+    counted and each (row, unit) must be written exactly once a step."""
+    steps, batch = gx.shape[1:3]
+    cluster, units = CLUSTER_SIZE, UNITS
+    pairs = -(-rows * units // THREADS)
+    p = np.arange(THREADS)[None, :] + THREADS * np.arange(pairs)[:, None]
+    prow, punit = p // units, p % units          # the pairs thread p gates
+    assert (punit == np.arange(THREADS) % units).all()
+    live = prow < rows
+    ys = np.full((2, steps, batch, H), np.nan, np.float32)
+    for d in range(2):
+        held = [[[thread_w(w[d], rank, warp, lane)
+                  for lane in range(32)] for warp in range(CLUSTER_SLICES)]
+                for rank in range(cluster)]
+        for row0 in range(0, batch, rows):
+            tiles = np.full((cluster, 2, rows, H), np.nan, np.float32)
+            tiles[:, 0] = 0.0                    # h_{-1} = 0
+            h = np.zeros((cluster, pairs, THREADS), np.float32)
+            for t in range(steps):
+                cur, nxt = t & 1, (t & 1) ^ 1
+                assert cur != nxt
+                writes = np.zeros((cluster, rows, H), np.int64)
+                for rank in range(cluster):
+                    unit0 = rank * units
+                    hc = tiles[rank, cur]
+                    assert np.isfinite(hc).all(), "read of an unwritten h"
+                    part = np.full(CLUSTER_SLICES * rows * 3 * units, np.nan,
+                                   np.float32)
+                    for warp in range(CLUSTER_SLICES):
+                        hk = hc[:, SLICE_K * warp:SLICE_K * (warp + 1)]
+                        for lane in range(32):
+                            wv = held[rank][warp][lane]   # (kq, 3, UPL, 4)
+                            wk = wv.transpose(0, 3, 1, 2).reshape(SLICE_K, -1)
+                            acc = (hk @ wk).reshape(rows, 3, units // 32)
+                            for i in range(units // 32):
+                                for gate in range(3):
+                                    idx = f32_partial_index(
+                                        rows, warp, np.arange(rows),
+                                        gate, lane + 32 * i)
+                                    assert np.isnan(part[idx]).all()
+                                    part[idx] = acc[:, gate, i]
+                    r_, u_ = prow[live], punit[live]
+                    s = [part[f32_partial_index(rows, 0, r_, gate, u_)]
+                         for gate in range(3)]
+                    for sl in range(1, CLUSTER_SLICES):   # in slice order
+                        for gate in range(3):
+                            s[gate] = s[gate] + part[f32_partial_index(
+                                rows, sl, r_, gate, u_)]
+                    valid = row0 + r_ < batch
+                    gxr = np.zeros((3, len(r_)), np.float32)
+                    for gate in range(3):
+                        gxr[gate, valid] = gx[d, t, row0 + r_[valid],
+                                              gate * H + unit0 + u_[valid]]
+                    r = sigmoid(gxr[0] + s[0])
+                    z = sigmoid(gxr[1] + s[1])
+                    n = np.tanh(gxr[2] + r * (s[2] + bn[d, 0, unit0 + u_]))
+                    new = ((1.0 - z) * n + z * h[rank][live]).astype(
+                        np.float32)
+                    h[rank][live] = new
+                    ys[d, t, row0 + r_[valid], unit0 + u_[valid]] = new[valid]
+                    if t + 1 < steps:
+                        hnew = np.full((rows, units), np.nan, np.float32)
+                        hnew[r_, u_] = new
+                        for row, unit in zip(r_, u_):
+                            lane, q0 = unit % 32, unit & ~3
+                            quad = hnew[row, q0:q0 + 4]   # the shuffles
+                            assert np.isfinite(quad).all()
+                            for dst in range(lane & 3, cluster, 4):
+                                col = unit0 + q0
+                                tiles[dst, nxt, row, col:col + 4] = quad
+                                writes[dst, row, col:col + 4] += 1
+                # every rank has read tile `cur`: nobody may read it again
+                # before it is rewritten
+                tiles[:, cur] = np.nan
+                if t + 1 < steps:
+                    assert (writes == 1).all(), "each unit once into each rank"
+    return ys
+
+
+def test_cluster_kernel_holds_each_w_element_once():
+    """The threads of a cluster of eight hold every element of W^T (H x
+    3H) exactly once; rank c holds the r, z and n columns of its units
+    [U c, U c + U) and no other; a thread holds 96 floats (its registers),
+    all of its own k-slice, and its three gates of a float4 are r, z and n
+    of one unit."""
+    wt = np.arange(H * H3, dtype=np.float64).reshape(H, H3)
+    seen = []
+    for rank in range(CLUSTER_SIZE):
+        cols = set()
+        for warp in range(CLUSTER_SLICES):
+            for lane in range(32):
+                held = thread_w(wt, rank, warp, lane)
+                assert held.size == 96
+                c = held % H3
+                assert (c[:, 1] - c[:, 0] == H).all()
+                assert (c[:, 2] - c[:, 0] == 2 * H).all()
+                assert (held // H3 >= SLICE_K * warp).all()
+                assert (held // H3 < SLICE_K * (warp + 1)).all()
+                seen.append(held.ravel())
+                cols |= set((c % H).ravel())
+        assert cols == set(range(rank * UNITS, (rank + 1) * UNITS))
+    seen = np.concatenate(seen)
+    assert len(seen) == H * H3 and len(set(seen)) == H * H3
+
+
+@pytest.mark.parametrize("rows", CLUSTER_ROWS)
+def test_cluster_partial_sums_are_a_bijection_without_conflicts(rows):
+    """The partial sums of a tile: every (slice, row, gate, unit) at its own
+    float; a warp's store (one slice, row and gate; lanes over units) and a
+    gating warp's read (one row; lanes over units) touch 32 consecutive
+    floats, one a bank."""
+    idx = f32_partial_index(rows,
+                            np.arange(CLUSTER_SLICES)[:, None, None, None],
+                            np.arange(rows)[None, :, None, None],
+                            np.arange(3)[None, None, :, None],
+                            np.arange(UNITS)[None, None, None, :])
+    assert sorted(idx.ravel()) == list(range(CLUSTER_SLICES * rows * 3 * UNITS))
+    for sl in range(CLUSTER_SLICES):
+        for row in range(rows):
+            for gate in range(3):
+                a = f32_partial_index(rows, sl, row, gate, LANES)
+                assert sorted(a % 32) == list(range(32))
+
+
+@pytest.mark.parametrize("rows,batch,steps", [
+    (1, 1, 3), (2, 3, 2), (4, 7, 2), (8, 8, 2), (16, 17, 2), (32, 33, 2),
+    (1, 2, 4), (4, 5, 3)])
+def test_cluster_forward_model_matches_plain(rows, batch, steps):
+    """Products over eight k-slices, partial sums added in slice order,
+    gates, and the exchange over eight ranks reproduce the fp32 recurrence
+    on full and ragged tiles within the fp32 bar (1e-5) of
+    ``_gru_layer_plain``: every output element is written, no read finds an
+    unwritten h, every rank's next tile receives each unit of h_t exactly
+    once, and no step writes the tile it reads."""
+    r = np.random.default_rng(rows + batch)
+    gx = r.standard_normal((2, steps, batch, H3)).astype(np.float32)
+    w = (0.05 * r.standard_normal((2, H, H3))).astype(np.float32)
+    bn = (0.1 * r.standard_normal((2, 1, H))).astype(np.float32)
+    got = cluster_forward_model(gx, w, bn, rows)
+    want = _gru_layer_plain(*(torch.from_numpy(a) for a in (gx, w, bn)))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-5)
+
+
 # ---- shared memory and the dispatcher ----
 
 def _eval_constexpr(src, name, **values):
@@ -674,6 +852,29 @@ def test_shared_memory_of_every_tile_height_fits(backward):
         assert mma_smem_bytes(2 * MMA_ROWS[-1]) > SMEM_LIMIT
 
 
+def _f32_smem_of_the_source(rows):
+    """``gru_mma::f32_smem_bytes`` evaluated from its text."""
+    head = source("gru_mma.cuh")
+    body = re.search(r"int f32_smem_bytes\(.*?\{\s*return (.*?);", head,
+                     re.S).group(1)
+    return eval(body.replace("/", "//"), {  # noqa: S307
+        "f32_h_floats": lambda r: 2 * r * H, "kF32Slices": CLUSTER_SLICES,
+        "kF32Units": UNITS, "rows": rows})
+
+
+@pytest.mark.parametrize("rows", CLUSTER_ROWS)
+def test_cluster_kernel_shared_memory_fits(rows):
+    """Every height of the fp32 cluster kernel needs at most 232,448
+    bytes: two h tiles and the eight k-slices' partial sums, as the
+    source's ``f32_smem_bytes`` counts them (W^T is in registers); the
+    next height up, 64 rows, does not fit."""
+    need = cluster_smem_bytes(rows)
+    assert need <= SMEM_LIMIT
+    assert need == _f32_smem_of_the_source(rows)
+    assert need == 4 * (2 * rows * H + CLUSTER_SLICES * rows * 3 * UNITS)
+    assert cluster_smem_bytes(2 * CLUSTER_ROWS[-1]) > SMEM_LIMIT
+
+
 def test_python_constants_are_the_sources():
     head = source("gru_mma.cuh")
     assert int(re.search(r"kHidden = (\d+);", head).group(1)) == MMA_HIDDEN
@@ -685,6 +886,18 @@ def test_python_constants_are_the_sources():
         assert tuple(int(r) for r, _ in cases) == heights
         assert all(int(r) == 16 * int(mt) for r, mt in cases)
     assert SMEM_LIMIT == 232448
+    assert int(re.search(r"constexpr int kF32Cluster = (\d+);", head)
+               .group(1)) == CLUSTER_SIZE
+    assert "kF32Units = kHidden / kF32Cluster" in head
+    body = source("gru_layer.cu")
+    dispatch = body.split("int dispatch_cluster(")[1].split("\n}\n")[0]
+    cases = re.findall(r"case (\d+):\s*return launch_cluster<(\d+)>",
+                       dispatch)
+    assert tuple(int(r) for r, _ in cases) == CLUSTER_ROWS
+    assert all(r == m for r, m in cases)
+    assert "kF32Slices = kThreads / 32" in head
+    assert int(re.search(r"kThreads = (\d+);", head).group(1)) // 32 \
+        == CLUSTER_SLICES
 
 
 @pytest.mark.parametrize("backward", [False, True])
@@ -732,12 +945,55 @@ def test_gru_plan_on_an_h100(batch, backward, rows):
     (256, torch.float32), (128, torch.bfloat16), (512, torch.bfloat16),
     (128, torch.float32)])
 def test_gru_plan_keeps_the_cuda_core_kernel(hidden, dtype, backward):
-    """fp32 operands (the parity path) and any H other than 256 take the
-    CUDA-core kernel at ``tile_rows``' height, by rule and not by failure."""
+    """The fp32 backward and any H other than 256 take the CUDA-core kernel
+    at ``tile_rows``' height, by rule and not by failure; the fp32 forward
+    at H = 256 takes the cluster kernel at the height of least fitted cost
+    at every batch."""
     for batch, sms in ((1, 132), (256, 132), (2048, 132), (64, 8)):
         plan = gru_plan(batch, hidden, dtype, sms, backward, 30)
+        if dtype == torch.float32 and hidden == 256 and not backward:
+            assert plan == Plan("cluster", min(
+                CLUSTER_ROWS, key=lambda r: (_cluster_us(batch, r, 30), r)))
+            continue
         assert plan == Plan("simt", tile_rows(batch, sms))
         assert plan.rows in TILE_ROWS
+
+
+def _cluster_us(batch, rows, resident):
+    return -(-2 * -(-batch // rows) // resident) * (
+        CLUSTER_STEP_US[0] + CLUSTER_STEP_US[1] * rows)
+
+
+@pytest.mark.parametrize("sms,clusters", [(132, 15), (132, None), (108, 12),
+                                          (16, 2), (264, 30)])
+def test_cluster_plan_over_a_grid(sms, clusters):
+    """fp32 at H = 256, forward: always the cluster kernel, at the built
+    height whose waves x (fixed + per-row cost) is the least (the shorter
+    on a tie); every pick fits shared memory."""
+    resident = clusters if clusters is not None else sms // CLUSTER_SIZE
+    for batch in (1, 2, 3, 15, 16, 17, 64, 255, 256, 257, 1024, 2048, 4096,
+                  10000):
+        plan = gru_plan(batch, 256, torch.float32, sms, False, clusters)
+        best = min(_cluster_us(batch, r, resident) for r in CLUSTER_ROWS)
+        assert plan.kernel == "cluster" and plan.rows in CLUSTER_ROWS
+        assert _cluster_us(batch, plan.rows, resident) == best
+        assert all(_cluster_us(batch, r, resident) > best
+                   for r in CLUSTER_ROWS if r < plan.rows)
+        assert cluster_smem_bytes(plan.rows) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("batch,rows", [(1, 1), (2, 1), (16, 4), (17, 4),
+                                        (64, 16), (256, 16), (2048, 32)])
+def test_cluster_plan_on_an_h100(batch, rows):
+    """The picks on the card the step costs were fitted on (132 SMs, 15
+    resident clusters of eight): the cluster kernel at B = 1 and 16 (the
+    streaming finalize) and at 256 / 2048 (evaluation), at each of which it
+    measured faster than the CUDA-core kernel; the fp32 backward stays on
+    the CUDA-core kernel."""
+    assert gru_plan(batch, 256, torch.float32, 132, False, 15) == Plan(
+        "cluster", rows)
+    assert gru_plan(batch, 256, torch.float32, 132, True, 15) == Plan(
+        "simt", tile_rows(batch, 132))
 
 
 # ---- entry points ----
@@ -756,13 +1012,17 @@ def test_gru_entry_points_match_their_ctypes_signatures():
         "sir_gru_layer_bf16", "sir_gru_layer_f32", "sir_gru_layer_mma",
         "sir_gru_layer_mma_info", "sir_gru_layer_bwd_bf16",
         "sir_gru_layer_bwd_f32", "sir_gru_layer_bwd_mma",
-        "sir_gru_layer_bwd_mma_info"}
+        "sir_gru_layer_bwd_mma_info", "sir_gru_layer_cluster",
+        "sir_gru_layer_cluster_info"}
     for entry, pointers in found.items():
         assert [t is _build._P for t in _build._SIGNATURES[entry]] \
             == pointers, entry
     assert (sum(found["sir_gru_layer_bwd_bf16"])
             == sum(found["sir_gru_layer_bwd_mma"]) + 1)
     assert found["sir_gru_layer_mma"] == found["sir_gru_layer_bf16"]
+    assert found["sir_gru_layer_cluster"] == found["sir_gru_layer_f32"]
+    assert (found["sir_gru_layer_cluster_info"]
+            == found["sir_gru_layer_mma_info"])
 
 
 def _python(args, cwd):
@@ -807,9 +1067,11 @@ def test_gru_variants_bench_fails_without_gpu():
 @pytest.mark.parametrize("batch,rows", [(1, 4), (16, 4)])
 def test_gru_plan_of_the_streaming_path(batch, rows):
     """The streaming finalize and partial result run the fp32 model at
-    B = 1 (one session) and up to 16 (a batched flush), T = 25: the
-    CUDA-core kernel with 4-row tiles on an H100 (132 SMs), the forward
-    and the backward build alike."""
-    for backward in (False, True):
-        assert gru_plan(batch, 256, torch.float32, 132, backward,
-                        30) == Plan("simt", rows)
+    B = 1 (one session) and up to 16 (a batched flush), T = 25: on an H100
+    (132 SMs, 15 resident clusters of eight) the forward takes the fp32
+    cluster kernel, the backward build the CUDA-core kernel with 4-row
+    tiles."""
+    assert gru_plan(batch, 256, torch.float32, 132, False, 15).kernel \
+        == "cluster"
+    assert gru_plan(batch, 256, torch.float32, 132, True, 15) == Plan(
+        "simt", rows)
