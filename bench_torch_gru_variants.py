@@ -25,8 +25,15 @@ cut out computes wrong values; only its time is read:
   8, W in registers); clusters of 4 (W in shared memory); clusters of 8
   with W in shared memory; without the cluster barrier; without the
   exchange of h_t; with W read from L2 at every step; without the product;
+* the fp32 K2T (``sir_gru_layer_bwd_cluster``) at B = 16 / 64 / 256 /
+  1024, T=25, at every tile height, and at B = 16 and 1024 with its parts
+  cut out: as committed (the slice of W^T by rows of k in shared memory
+  for dh_prev); the register slice with a shuffle transpose-reduction in
+  its place; without the cluster barrier; without the exchange (the
+  partial sums stored into the rank's own inbox); with the gh product
+  after the wait for the partial sums; without the products;
 * the CUDA-core kernels of both sources at their tile heights, for scale
-  (the fp32 K2's in fp32 operands, as the plan weighs it).
+  (the fp32 K2's and K2T's in fp32 operands, as the plan weighs them).
 
 Prints the card's name and power limit, each cluster kernel's
 registers and spills as ptxas reports them, and least / median / most of
@@ -50,7 +57,8 @@ import torch
 from bench_torch_fft_variants import CSRC, blocks_ms, replace_once
 from speech_intent_recognizer_tpu_torch import _build
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    CLUSTER_ROWS, MMA_ROWS, MMA_ROWS_BACKWARD, SMEM_LIMIT, TILE_ROWS)
+    CLUSTER_ROWS, CLUSTER_ROWS_BACKWARD, MMA_ROWS, MMA_ROWS_BACKWARD,
+    SMEM_LIMIT, TILE_ROWS)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
 
@@ -135,6 +143,66 @@ F32_NO_PRODUCT = (FWD, re.compile(
     r"              acc\[rb\]\[gate\]\[i\] = fmaf\(hv\[rb\]\.w.*?\)\)\)\);\n",
     re.S), "              ;\n")
 
+F32B_WAIT = ("    if (!last) cluster_wait();  // every rank's partial sums of "
+             "step t + 1\n")
+F32B_NO_BARRIER = [
+    (BWD, F32B_WAIT, ""),
+    (BWD, "    cluster_arrive();  // the partial sums are on their way to "
+     "their owners\n", ""),
+    (BWD, "  if (steps > 0) cluster_wait();  // the last step's arrive\n",
+     "  cluster_arrive();\n  cluster_wait();\n")]
+F32B_OWN_INBOX = (BWD, "      for (int r = 0; r < M; ++r) "
+                  "st_cluster_4(box_out + 4 * U * r, acc[r]);", """\
+      for (int r = 0; r < M; ++r)
+        inbox[f32_inbox_index(M, t & 1, rank, r, lane)] = acc[r];""")
+# dh_prev from the register slice: thread (s, l) forms the 32 products of
+# its k-slice for unit l, then the warp sums them over its lanes so that
+# lane l holds k = 32 s + l (31 shuffles a row); no slice by rows is loaded
+F32B_W_REGISTERS = [
+    (BWD, re.compile(r"  for \(int i = tid; i < kHidden \* C3 / 4; .*?"
+                     r"true\);\n  }\n", re.S), ""),
+    (BWD, re.compile(r"      float acc\[M\];\n#pragma unroll\n      for "
+                     r"\(int r = 0; r < M; \+\+r\) acc\[r\] = 0\.f;\n"
+                     r"      const float\* wk = .*?"
+                     r"(?=      // k = 32 warp \+ lane)", re.S), """\
+      float acc[M];
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        const float d0 = dg[r * C3 + lane], d1 = dg[r * C3 + U + lane],
+                    d2 = dg[r * C3 + 2 * U + lane];
+        float x[kF32SliceK];
+#pragma unroll
+        for (int kq = 0; kq < KQ; ++kq) {
+          const float4 a = wr[kq][0], b = wr[kq][1], c = wr[kq][2];
+          x[4 * kq] = fmaf(d2, c.x, fmaf(d1, b.x, d0 * a.x));
+          x[4 * kq + 1] = fmaf(d2, c.y, fmaf(d1, b.y, d0 * a.y));
+          x[4 * kq + 2] = fmaf(d2, c.z, fmaf(d1, b.z, d0 * a.z));
+          x[4 * kq + 3] = fmaf(d2, c.w, fmaf(d1, b.w, d0 * a.w));
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          const bool up = lane & o;
+#pragma unroll
+          for (int i = 0; i < o; ++i) {
+            const float send = up ? x[i] : x[i + o];
+            x[i] = (up ? x[i + o] : x[i]) +
+                   __shfl_xor_sync(0xffffffffu, send, o);
+          }
+        }
+        acc[r] = x[0];
+      }
+""")]
+F32B_GH_AFTER_WAIT = [
+    (BWD, F32B_WAIT, ""),
+    (BWD, "    // gh = h_prev W over this warp's k-slice: waits for no other "
+     "rank\n", "    if (t != steps - 1) cluster_wait();\n")]
+F32B_NO_PRODUCTS = [
+    (BWD, re.compile(r"            acc\[rb\]\[gate\] = fmaf\(hv\[rb\]\.w.*?"
+                     r"acc\[rb\]\[gate\]\)\)\)\);\n", re.S),
+     "            ;\n"),
+    (BWD, re.compile(r"          acc\[r\] = fmaf\(d\.w, wv\.w, .*?"
+                     r"acc\[r\]\)\)\)\);\n", re.S), "          ;\n")]
+
 # name -> (the .cu to build, edits)
 VARIANTS = {
     "K2 as committed": (FWD, []),
@@ -160,6 +228,12 @@ VARIANTS = {
     "fp32 K2 without the exchange of h_t": (FWD, [F32_NO_EXCHANGE]),
     "fp32 K2 with W read from L2 at every step": (FWD, [F32_W_FROM_L2]),
     "fp32 K2 without the product": (FWD, [F32_NO_PRODUCT]),
+    "fp32 K2T with the register slice and a shuffle reduction for dh_prev": (
+        BWD, F32B_W_REGISTERS),
+    "fp32 K2T without the cluster barrier": (BWD, F32B_NO_BARRIER),
+    "fp32 K2T without the exchange (own inbox)": (BWD, [F32B_OWN_INBOX]),
+    "fp32 K2T with the gh product after the wait": (BWD, F32B_GH_AFTER_WAIT),
+    "fp32 K2T without the products": (BWD, F32B_NO_PRODUCTS),
 }
 
 
@@ -207,7 +281,7 @@ def build_all(root: str) -> dict:
                 f"{lines[k + 2].split(': ', 1)[-1]}; {lines[k + 1].strip()}"
                 for k, line in enumerate(lines) if (m := re.search(
                     r"Function properties for \S*?(gru_layer(?:_bwd)?_mma_"
-                    r"kernelILi\d+E|gru_layer_cluster_kernelILi\d+E)",
+                    r"kernelILi\d+E|gru_layer(?:_bwd)?_cluster_kernelILi\d+E)",
                     line))]
         lib = ctypes.CDLL(so)
         for entry, argtypes in _build._SIGNATURES.items():
@@ -299,7 +373,7 @@ def main() -> int:
             iters = 50 if batch <= 16 else 20 if batch <= 256 else 5
             fp32 = [("fp32 K2 as committed", libs["K2 as committed"][0])] + [
                 (name, lib) for name, (lib, _) in libs.items()
-                if name.startswith("fp32 ")]
+                if name.startswith("fp32 K2 ")]
             for name, lib in fp32:
                 for rows in f32_heights(name):
                     if batch >= 256 and rows < 4:
@@ -316,7 +390,44 @@ def main() -> int:
                           gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
                           ys.data_ptr(), steps, batch, hidden, rows,
                           stream)), iters) + " ms", flush=True)
+        time_fp32_backward(libs, dev, stream, steps, hidden, checked)
     return 0
+
+
+def time_fp32_backward(libs, dev, stream, steps, hidden, checked) -> None:
+    """The fp32 K2T: as committed at every height and B = 16 / 64 / 256 /
+    1024, its variants at B = 16 and 1024, the CUDA-core kernel beside."""
+    variants = [("fp32 K2T as committed", libs["K2T as committed"][0])] + [
+        (name, lib) for name, (lib, _) in libs.items()
+        if name.startswith("fp32 K2T ")]
+    for batch in (16, 64, 256, 1024):
+        g = torch.Generator(device=dev).manual_seed(batch)
+        gx = torch.randn((2, steps, batch, 3 * hidden), device=dev,
+                         generator=g)
+        w = 0.05 * torch.randn((2, hidden, 3 * hidden), device=dev,
+                               generator=g)
+        wt = w.transpose(1, 2).contiguous()
+        bn = 0.1 * torch.randn((2, 1, hidden), device=dev, generator=g)
+        ys = torch.randn((2, steps, batch, hidden), device=dev, generator=g)
+        dys = torch.randn((2, steps, batch, hidden), device=dev, generator=g)
+        dgx, dgh = torch.empty_like(gx), torch.empty_like(gx)
+        iters = 20 if batch <= 64 else 10 if batch <= 256 else 5
+        for name, lib in (variants if batch in (16, 1024) else variants[:1]):
+            for rows in CLUSTER_ROWS_BACKWARD:
+                print(f"{name}, B={batch}, {rows}-row tiles: " + blocks_ms(
+                    lambda: checked(name, lib.sir_gru_layer_bwd_cluster(
+                        gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                        ys.data_ptr(), dys.data_ptr(), dgx.data_ptr(),
+                        dgh.data_ptr(), steps, batch, hidden, rows,
+                        stream)), iters) + " ms", flush=True)
+        lib = variants[0][1]
+        for rows in TILE_ROWS:
+            print(f"fp32 K2T CUDA-core kernel, B={batch}, {rows}-row tiles: "
+                  + blocks_ms(lambda: checked("K2T", lib.sir_gru_layer_bwd_f32(
+                      gx.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                      bn.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+                      dgx.data_ptr(), dgh.data_ptr(), steps, batch, hidden,
+                      rows, stream)), iters) + " ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,8 @@ Phases:
 1. build the kernels from ``speech_intent_recognizer_tpu_torch/csrc`` and,
    alongside, ``native/build.sh`` (libsirdsp, the streaming featurizer's
    native mode) when the checkout has no build, and print what K1, K3, K4,
-   K5, the tensor-core K2 and K2T and the fp32 cluster K2 take as built:
+   K5, the tensor-core K2 and K2T and the fp32 cluster K2 and K2T take as
+   built:
    registers, spilled bytes, shared memory, threads and resident blocks per
    SM, for the cluster kernels also the cluster size and resident clusters
    per card;
@@ -82,10 +83,19 @@ Phases:
     and raw, with lengths 1 and 0, batches of 1, 3 and 257, and silent and
     padded frames in raw dB (exactly -100 and 0);
 12. K2T (GRU backward) against its plain version and against autograd
-    through the plain forward: every build, the batches and T of phase 3,
+    through the plain forward: every build (tensor-core at each tile
+    height in bf16, the fp32 cluster backward at each in fp32, CUDA-core
+    at each, and the one the card picks), the batches and T of phase 3,
     twice for the same bits, and the checkpoint's weights;
 13. one fp32 training step (two batches) on the card against the CPU;
-14. timings of K3, K2T and the bf16 train step with CUDA events;
+14. timings of K3, K2T and the bf16 train step with CUDA events; cuDNN's
+    bf16 GRU backward beside K2T (a one-wide input, the backward alone on
+    a kept graph); the fp32 K2T at B = 16 / 64 / 256 / 1024 (its kernel
+    alone and through ``gru_layer_backward``, the CUDA-core kernel the same
+    two ways, cuDNN's fp32 backward with TF32 off, the plain version,
+    bounds); the fp32 train step at B = 16 / 64 (host clock) with the
+    cluster K2T and with the CUDA-core K2T forced, three rounds of A B B A
+    (every step's two K2T launches counted by kernel);
 15. training end to end through the CLIs (precompute -> train -> evaluate
     -> serve the best model), with the launch counters reset just before
     and read just after each CLI (K3 in the precompute, K2 and K2T in
@@ -166,26 +176,29 @@ Phases:
     ``utils.trace`` around one B=256 ``predict_waveform_batch`` names
     K1's and K2's kernels and the annotated region; g.
     ``utils.diagnostics``' smoke test and 2 s stress test (TFLOP/s beside
-    the card's name and power limit).
+    the card's name and power limit); h. accuracy control (a)'s recipe
+    (``examples.convergence_ab.train_port``: fp32, B=16) for one epoch on
+    b's features, every K2T launch the fp32 cluster backward.
 21. data-parallel training, evaluation and serving (``parallel/``; on
     phase 15's corpus and model): a. ``cli.train`` with the
     config's ``parallel`` section (a ``file://`` coordinator, world 1,
     NCCL) against the same run without, fp32, feature and waveform mode,
     two epochs of one step on 64 rows: launches counted (K2 2 a step and
-    eval batch, K2T 2 a step, in waveform mode K3 1 a step and eval
-    batch), losses at phase 13's bar, after each step BatchNorm's running
-    statistics at phase 13's bar and at most 1e-4 of the weights more than
-    lr / 2 apart (a changed gradient sign under Adam); the bf16 feature
+    eval batch, K2T 2 a step, both the fp32 cluster backward, in waveform
+    mode K3 1 a step and eval batch), losses at phase 13's bar, after
+    each step BatchNorm's running statistics at phase 13's bar and at most
+    1e-4 of the weights more than lr / 2 apart (a changed gradient sign
+    under Adam); the bf16 feature
     step at B=256 and the waveform step at B=512 / 1024 with the DP
     machinery at world 1 against the one-process step (three blocks of A
     B B A), and the augmentation's draws at B=512 / 1024; b.
     ``parallel.dryrun.dryrun_multichip(2, "cuda")``: two processes on the
     one card over gloo, every part's line printed, each step held to the
     one-process step at B=2x64 by the dry run's bars, each process's
-    launches (feature K2 2, K2T 2; waveform K3 1, K2 2, K2T 2; its
-    serving mesh K1 2, K2 4); c. ``Predictor(mesh=)`` over [dev, dev] on
-    37 rows of the test split (K1 2, K2 4) against the meshless rows at
-    phase 4's bar.
+    launches (feature K2 2, K2T 2; waveform K3 1, K2 2, K2T 2, each K2T
+    the fp32 cluster backward; its serving mesh K1 2, K2 4); c.
+    ``Predictor(mesh=)`` over [dev, dev] on 37 rows of the test split (K1
+    2, K2 4) against the meshless rows at phase 4's bar.
 22. tensor parallelism (the ``model`` axis of ``parallel/``; runs after
     21): ``parallel.dryrun.dryrun_multichip(2, "cuda", model_axis=2)``
     (dp1 x tp2) and ``dryrun_multichip(4, "cuda", model_axis=2)`` (dp2 x
@@ -195,10 +208,10 @@ Phases:
     checkpoint round trip, each held to the one-process step on the
     global batch by the dry run's bars (every process's parameters equal,
     the checkpoint bit-equal); each process's launches (feature K2 2, K2T
-    2; waveform K3 1, K2 2, K2T 2; the serving mesh K1 and 2 K2 a data
-    shard) and its bytes of split leaves and of their Adam moments, half
-    the whole model's.  A correctness run on a shared card, not a
-    multi-GPU rate.
+    2; waveform K3 1, K2 2, K2T 2, each K2T the fp32 cluster backward; the
+    serving mesh K1 and 2 K2 a data shard) and its bytes of split leaves
+    and of their Adam moments, half the whole model's.  A correctness run
+    on a shared card, not a multi-GPU rate.
 
 The ``kernels`` line gives each kernel's launches on its path (K2 and K4
 also ``stream_launches``: over the test split in each featurizer mode, in
@@ -209,7 +222,11 @@ also ``waveform_launches``, phase 17's; every kernel
 ``artifact_launches``, phase 18's per program call; K2, K3 and K2T
 ``synthetic_launches``, phase 20b's; K1 and K2 ``tts_launches``, phase
 20c's; K1, K2, K3 and K2T ``distributed_launches``, phase 21's; K1, K2,
-K3 and K2T ``tensor_parallel_launches``, phase 22's, each process's), its
+K3 and K2T ``tensor_parallel_launches``, phase 22's, each process's; K2T
+``control_a_launches``, phase 20h's, and ``fp32``: the fp32 cluster
+backward's launches on phases 20h, 21 and 22, its error, times, bounds
+and library call at B = 16 / 64 / 256 / 1024 and the fp32 train step
+with it and with the CUDA-core K2T), its
 error
 against its plain version, its time, the plain version's, the least time
 the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
@@ -273,7 +290,8 @@ from speech_intent_recognizer_tpu_torch.ops.frontend import (
     padded_samples)
 from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    CLUSTER_ROWS, MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan,
+    CLUSTER_ROWS, CLUSTER_ROWS_BACKWARD, MMA_ROWS, MMA_ROWS_BACKWARD,
+    TILE_ROWS, Plan,
     _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
     gru_layer_backward, picked_plan, tile_rows)
 from speech_intent_recognizer_tpu_torch.ops import pool_epilogue as pool_ops
@@ -395,6 +413,11 @@ LATENCY_UTTERANCES = 30
 STREAM_K4_FRAMES = (4, 16, 64)
 STREAM_K2_BATCHES = (1, 16)
 FP32_K2_BATCHES = (1, 16, 256, 2048)
+# the fp32 K2T timed at these batches (T = 25): control (a)'s B=16, the dry
+# runs' 64 a process, and two larger; the fp32 train step with either K2T
+# at 16 and 64, in rounds of A B B A of this many steps a block
+FP32_K2T_BATCHES = (16, 64, 256, 1024)
+FP32_STEP_ITERS, FP32_STEP_ROUNDS = 10, 3
 # each server session asks for a partial hypothesis after this chunk
 PARTIAL_AT = 8
 # phase 18: serving artifacts of phase 15's model.  The programs of each
@@ -676,12 +699,13 @@ def k2_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
 def gru_variants(dtype, backward: bool = False) -> list:
     """Every ``rows=`` argument that launches a different kernel build for
     this operand type: what the card picks (None), each tensor-core tile
-    height (bf16 only), each fp32 cluster-kernel height (the fp32 forward
-    only), each CUDA-core tile height."""
+    height (bf16 only), each fp32 cluster-kernel height (fp32 only, the
+    backward's with ``backward``), each CUDA-core tile height."""
     heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
     mma = [Plan("mma", r) for r in heights] if dtype == torch.bfloat16 else []
-    cluster = ([Plan("cluster", r) for r in CLUSTER_ROWS]
-               if dtype == torch.float32 and not backward else [])
+    cluster = ([Plan("cluster", r) for r in (
+        CLUSTER_ROWS_BACKWARD if backward else CLUSTER_ROWS)]
+               if dtype == torch.float32 else [])
     return [None, *mma, *cluster, *TILE_ROWS]
 
 
@@ -1184,15 +1208,17 @@ def train_end_to_end(tmp: str, dev) -> dict:
             "label_map": label_map, "test_csv": csvs["test"], "csvs": csvs}
 
 
-def train_step_timer(dev, b: int, mesh=None):
-    """One bf16 train step (forward, backward, Adam) of the full-width
-    model at batch b from device-resident features, as a callable; with
-    ``mesh`` (phase 21) the data-parallel step over it."""
+def train_step_timer(dev, b: int, mesh=None, bf16: bool = True):
+    """One bf16 (or, with ``bf16`` false, fp32) train step (forward,
+    backward, Adam) of the full-width model at batch b from device-resident
+    features, as a callable; with ``mesh`` (phase 21) the data-parallel
+    step over it."""
     from speech_intent_recognizer_tpu_torch.config import Config
     from speech_intent_recognizer_tpu_torch.train.loop import Trainer
 
-    cfg = Config.from_dict({"bf16": True, "batch_size": b})
-    model = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16)
+    cfg = Config.from_dict({"bf16": bf16, "batch_size": b})
+    model = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16
+                        if bf16 else torch.float32)
     model.reset_parameters(torch.Generator().manual_seed(b))
     trainer = Trainer(model.to(dev), cfg, mesh=mesh)
     feats = torch.randn((b, 64, 200), device=dev)
@@ -2107,8 +2133,114 @@ def reset_counters() -> None:
     for fn in (fk.frontend_conv1, fk.frontend, fk.mel_db, gru_layer,
                gru_layer_backward, conv23, bias_relu_pool2):
         fn.launches = 0
-    gru_layer.kernel_launches.update(dict.fromkeys(gru_layer.kernel_launches,
-                                                   0))
+    for fn in (gru_layer, gru_layer_backward):
+        fn.kernel_launches.update(dict.fromkeys(fn.kernel_launches, 0))
+
+
+def cudnn_backward(dev, b: int, dtype):
+    """cuDNN's GRU layer backward (bidirectional, H = 256, T = 25) at batch
+    b in ``dtype`` with a one-wide input, so that its work is the
+    recurrence's adjoint and the weight gradients; the forward runs once
+    and its graph is kept, the callable runs the backward alone."""
+    cudnn = torch.nn.GRU(1, 256, num_layers=1, batch_first=True,
+                         bidirectional=True, device=dev, dtype=dtype)
+    cudnn.flatten_parameters()
+    x = torch.randn((b, 25, 1), device=dev, dtype=dtype, requires_grad=True)
+    out = cudnn(x)[0]
+    grad = torch.randn_like(out)
+    leaves = [x, *cudnn.parameters()]
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
+def time_fp32_k2t(dev, timings, bounds, spreads) -> None:
+    """Phase 14b: the fp32 K2T at the fp32 training batches (T = 25): the
+    build the card picks and the CUDA-core kernel it replaced, each alone
+    (the C entry point) and through ``gru_layer_backward``; cuDNN's fp32
+    backward (TF32 off); the plain version; the bounds, the kernel's with
+    its two products, the wrapper's with the dW product as well."""
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in FP32_K2T_BATCHES:
+        gx, w, bn, ys, dys = k2t_inputs(b, torch.float32, dev, seed=b)
+        picked = picked_plan(b, 256, torch.float32, dev, True)
+        old = Plan("simt", tile_rows(b, sms))
+        log(f"fp32 K2T at B={b} launches "
+            f"{plan_name(None, b, torch.float32, dev, True)} ({sms} SMs)")
+        iters = 20 if b <= 64 else 10 if b <= 256 else 5
+        timed(timings, spreads, f"k2t_fp32_b{b}",
+              lambda: gru_layer_backward(gx, w, bn, ys, dys), iters)
+        timed(timings, spreads, f"k2t_fp32_simt_b{b}",
+              lambda: gru_layer_backward(gx, w, bn, ys, dys, rows=old),
+              iters)
+        wt = w.transpose(1, 2).contiguous()
+        dgx, dgh = torch.empty_like(gx), torch.empty_like(gx)
+        check(picked.kernel == "cluster", f"fp32 K2T at B={b}: the plan "
+              f"picks the cluster backward ({picked})")
+        timed(timings, spreads, f"k2t_fp32_kernel_b{b}",
+              lambda: _build.check(lib.sir_gru_layer_bwd_cluster(
+                  gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
+                  dys.data_ptr(), dgx.data_ptr(), dgh.data_ptr(), 25, b, 256,
+                  picked.rows, stream), "fp32 K2T"), iters)
+        timed(timings, spreads, f"k2t_fp32_simt_kernel_b{b}",
+              lambda: _build.check(lib.sir_gru_layer_bwd_f32(
+                  gx.data_ptr(), w.data_ptr(), wt.data_ptr(), bn.data_ptr(),
+                  ys.data_ptr(), dys.data_ptr(), dgx.data_ptr(),
+                  dgh.data_ptr(), 25, b, 256, old.rows, stream),
+                  "fp32 K2T"), iters)
+        timed(timings, spreads, f"cudnn_gru_backward_fp32_b{b}",
+              cudnn_backward(dev, b, torch.float32), iters)
+        timings[f"k2t_fp32_plain_b{b}"] = cuda_ms(
+            lambda: _gru_layer_backward_plain(gx, w, bn, ys, dys), 3)
+        product = 2.0 * gx.numel() * 256
+        bounds[f"k2t_fp32_kernel_b{b}"] = bound(
+            nbytes(gx, gx, gx, w, bn, ys, dys), (2 * product, FP32_FLOPS))
+        bounds[f"k2t_fp32_b{b}"] = bound(
+            nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4,
+            (3 * product, FP32_FLOPS))
+        del gx, w, bn, ys, dys, wt, dgx, dgh
+
+
+def compare_fp32_k2t_steps(dev) -> dict:
+    """Phase 14c: the fp32 train step at B = 16 and 64 (host clock, ms a
+    step over blocks of FP32_STEP_ITERS) with the cluster K2T (what the
+    plan picks) and the CUDA-core K2T forced, FP32_STEP_ROUNDS rounds of A
+    B B A after a warm-up of each; every block's K2T launches counted by
+    kernel (2 a step, all of the kernel asked for)."""
+    out = {}
+    for b in (16, 64):
+        step = train_step_timer(dev, b, bf16=False)
+        times = {"cluster": [], "simt": []}
+
+        def block(kernel, record=True):
+            with fp32_plan(kernel, backward=True):
+                torch.cuda.synchronize()
+                reset_counters()
+                t0 = time.perf_counter()
+                for _ in range(FP32_STEP_ITERS):
+                    step()
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3 / FP32_STEP_ITERS
+            got = counters()
+            want = 2 * FP32_STEP_ITERS if kernel == "cluster" else 0
+            if got["K2T"] != 2 * FP32_STEP_ITERS or got["K2T_cluster"] != want:
+                raise AssertionError(f"fp32 step B={b} with the {kernel} "
+                                     f"K2T launched {got}")
+            if record:
+                times[kernel].append(dt)
+
+        block("cluster", False)
+        block("simt", False)
+        for _ in range(FP32_STEP_ROUNDS):
+            for kernel in ("cluster", "simt", "simt", "cluster"):
+                block(kernel)
+        out[b] = times
+        log(f"  fp32 train step B={b}, host clock, ms a step over "
+            f"{FP32_STEP_ITERS} steps, {FP32_STEP_ROUNDS} rounds of A B B A: "
+            f"cluster K2T {[round(t, 4) for t in times['cluster']]}, "
+            f"CUDA-core K2T {[round(t, 4) for t in times['simt']]}")
+        del step
+    return out
 
 
 def cluster_launches() -> int:
@@ -2117,16 +2249,17 @@ def cluster_launches() -> int:
 
 
 @contextlib.contextmanager
-def fp32_plan(kernel: str):
-    """Inside, the fp32 forward at H = 256 launches ``kernel``: "cluster"
-    (what the plan picks on an H100 at the streaming sizes) or "simt" (the
-    CUDA-core kernel at ``tile_rows``' height, the kernel it replaced), so
-    that the streaming path can be timed with each in one run."""
+def fp32_plan(kernel: str, backward: bool = False):
+    """Inside, the fp32 forward (with ``backward``, the fp32 backward) at
+    H = 256 launches ``kernel``: "cluster" (what the plan picks on an H100)
+    or "simt" (the CUDA-core kernel at ``tile_rows``' height, the kernel it
+    replaced), so that a path can be timed with each in one run."""
     picked = gru_ops.picked_plan
 
-    def forced(batch, hidden, dtype, device, backward=False):
-        plan = picked(batch, hidden, dtype, device, backward)
-        if kernel == "simt" and plan.kernel == "cluster":
+    def forced(batch, hidden, dtype, device, is_backward=False):
+        plan = picked(batch, hidden, dtype, device, is_backward)
+        if (kernel == "simt" and plan.kernel == "cluster"
+                and is_backward == backward):
             return Plan("simt", tile_rows(batch, torch.cuda.get_device_properties(
                 device).multi_processor_count))
         return plan
@@ -2142,7 +2275,9 @@ def counters() -> dict:
     return {"K1": fk.frontend_conv1.launches, "K2": gru_layer.launches,
             "K3": fk.frontend.launches, "K2T": gru_layer_backward.launches,
             "K4": fk.mel_db.launches, "K5": conv23.launches,
-            "K6": bias_relu_pool2.launches}
+            "K6": bias_relu_pool2.launches,
+            # of K2T's, the launches of the fp32 cluster backward
+            "K2T_cluster": gru_layer_backward.kernel_launches["cluster"]}
 
 
 def check_counts(got: dict, want: dict, what: str) -> None:
@@ -3297,8 +3432,9 @@ def check_synthetic(dev, tmp: str, label: str) -> dict:
                   for x, sr in decoded),
           f"generate_tts_samples --engine synthetic: {len(wavs)} WAVs, each "
           f"decoded by load_audio")
-    # b-g
+    # b-h
     run = synthetic_pipeline(dev, tmp)
+    control_a = control_a_smoke(dev, tmp)
     holdout = tts_holdout(dev, tmp, tts_dir, run)
     librosa = librosa_mode(dev, run, tts_dir)
     prefetch = prefetch_epoch(dev, run)
@@ -3312,7 +3448,34 @@ def check_synthetic(dev, tmp: str, label: str) -> dict:
     seconds = time.perf_counter() - t_phase
     return {"synthetic": run, "holdout": holdout, "librosa": librosa,
             "prefetch": prefetch, "trace": traced, "stress": stress,
-            "seconds": seconds}
+            "control_a": control_a, "seconds": seconds}
+
+
+def control_a_smoke(dev, tmp: str) -> dict:
+    """Phase 20h: accuracy control (a)'s recipe
+    (``examples.convergence_ab.train_port``: the reference model in fp32,
+    B=16) for one epoch on phase 20b's features, the counters reset just
+    before and read just after: K2T twice a step, every launch the fp32
+    cluster backward."""
+    from speech_intent_recognizer_tpu_torch.examples import convergence_ab
+
+    feats, labels, v_feats, v_labels = convergence_ab.load_features_npz(
+        os.path.join(tmp, "ab_corpus", "features.npz"), 0.2)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    acc, _ = convergence_ab.train_port(feats, labels, v_feats, v_labels, 1,
+                                       batch=16, device=str(dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    steps = -(-len(feats) // 16)
+    check(launches["K2T"] == launches["K2T_cluster"] == 2 * steps,
+          f"control (a)'s recipe, one epoch of {steps} fp32 steps at B=16: "
+          f"K2T launched {launches['K2T']}x, {launches['K2T_cluster']} of "
+          f"them the fp32 cluster backward (want {2 * steps} and "
+          f"{2 * steps}); held-out acc {acc:.4f}, {seconds:.1f} s")
+    return {"launches": launches, "acc": acc, "seconds": seconds}
 
 
 def check_wav2vec(dev, tmp: str, run: dict, label: str,
@@ -3409,7 +3572,8 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
               f"cli.train {mode}: a process group of 1 over NCCL")
         steps = DP_EPOCHS * -(-DP_TRAIN // TRAIN_BATCH)
         evals = DP_EPOCHS * -(-DP_VAL // (2 * TRAIN_BATCH))
-        want = {"K2": 2 * steps + 2 * evals, "K2T": 2 * steps}
+        want = {"K2": 2 * steps + 2 * evals, "K2T": 2 * steps,
+                "K2T_cluster": 2 * steps}
         if waveform:
             want["K3"] = steps + evals
         check_counts(plain_launches, want, f"cli.train {mode}, one process")
@@ -3488,10 +3652,11 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
           f"{out['dryrun_s']:.1f} s")
     for r in dry["ranks"]:
         parts = {p["part"]: p for p in r["parts"]}
-        check_counts(parts["feature"]["launches"], {"K2": 2, "K2T": 2},
+        check_counts(parts["feature"]["launches"],
+                     {"K2": 2, "K2T": 2, "K2T_cluster": 2},
                      f"dryrun process {r['rank']}, feature step")
         check_counts(parts["waveform"]["launches"],
-                     {"K3": 1, "K2": 2, "K2T": 2},
+                     {"K3": 1, "K2": 2, "K2T": 2, "K2T_cluster": 2},
                      f"dryrun process {r['rank']}, waveform step")
     check_counts(dry["parts"]["serving"]["launches"], {"K1": 2, "K2": 4},
                  "dryrun serving mesh of 2")
@@ -3549,10 +3714,11 @@ def check_tensor_parallel(dev) -> dict:
         for r in dry["ranks"]:
             got = {p["part"]: p for p in r["parts"]}
             what = f"{name} process {r['rank']}"
-            check_counts(got["feature"]["launches"], {"K2": 2, "K2T": 2},
+            check_counts(got["feature"]["launches"],
+                         {"K2": 2, "K2T": 2, "K2T_cluster": 2},
                          f"{what}, feature step")
             check_counts(got["waveform"]["launches"],
-                         {"K3": 1, "K2": 2, "K2T": 2},
+                         {"K3": 1, "K2": 2, "K2T": 2, "K2T_cluster": 2},
                          f"{what}, waveform step")
             for part in steps:
                 by = got[part]["bytes"]
@@ -3887,12 +4053,17 @@ def main(argv=None) -> int:
             return torch.autograd.grad(_gru_layer_plain(*leaves), leaves, dys)
 
         timings[f"k2t_autograd_plain_b{b}"] = cuda_ms(autograd_plain, 5)
+        # the library call: cuDNN's bf16 GRU backward (input, weights)
+        timed(timings, spreads, f"cudnn_gru_backward_b{b}",
+              cudnn_backward(dev, b, torch.bfloat16), 10)
+    time_fp32_k2t(dev, timings, bounds, spreads)
     for b in (16, 256, 1024):
         step = train_step_timer(dev, b)
         timings[f"train_step_bf16_b{b}"] = cuda_ms(step, 10)
         if args.profile and b == 256:
             log_profile(f"bf16 train step B={b}", step, label)
         del step
+    fp32_steps = compare_fp32_k2t_steps(dev)
 
     # ---- 15. training end to end through the CLIs ----
     # ---- 16. streaming and serving on the trained model ----
@@ -4017,6 +4188,25 @@ def main(argv=None) -> int:
             f"{timings[f'wave_step_augment_b{wb}']:.3f}, K3 "
             f"{timings[f'wave_step_k3_b{wb}']:.3f}, the rest "
             f"{rest:.3f}")
+    for fb in FP32_K2T_BATCHES:
+        log(f"    fp32 K2T at B={fb}, T=25, ms a layer (median of five "
+            f"blocks; the kernel alone, then gru_layer_backward's call) on "
+            f"{label}: {plan_name(None, fb, torch.float32, dev, True)} "
+            f"{timings[f'k2t_fp32_kernel_b{fb}']:.4f} / "
+            f"{timings[f'k2t_fp32_b{fb}']:.4f}, CUDA-core kernel "
+            f"{timings[f'k2t_fp32_simt_kernel_b{fb}']:.4f} / "
+            f"{timings[f'k2t_fp32_simt_b{fb}']:.4f}, cuDNN fp32 backward "
+            f"(one-wide input, TF32 off) "
+            f"{timings[f'cudnn_gru_backward_fp32_b{fb}']:.4f}, plain "
+            f"{timings[f'k2t_fp32_plain_b{fb}']:.4f}; bound kernel "
+            f"{bounds[f'k2t_fp32_kernel_b{fb}'][0]:.4f} "
+            f"({bounds[f'k2t_fp32_kernel_b{fb}'][1]}), with dW "
+            f"{bounds[f'k2t_fp32_b{fb}'][0]:.4f}")
+    for sb, t in fp32_steps.items():
+        log(f"    fp32 train step B={sb} (host clock, mean of "
+            f"{FP32_STEP_ROUNDS} rounds of A B B A): cluster K2T "
+            f"{np.mean(t['cluster']):.4f} ms, CUDA-core K2T "
+            f"{np.mean(t['simt']):.4f} ms")
     log(f"  serving artifacts on {label} (phase 18 took "
         f"{export_phase_s:.1f} s): launches per program call "
         f"{exported['launches']}")
@@ -4033,9 +4223,9 @@ def main(argv=None) -> int:
 
     log(f"kernels at B={b} on {label}: launches on each kernel's path, error "
         f"vs its plain version, ms per call; library_ms: cuDNN nn.GRU layer "
-        f"(K2), torch.fft.rfft + matmul on the frames (K3, K4), the model's "
-        f"conv stages 2 and 3 (K5), bias-add + ReLU + max-pool at conv2 "
-        f"(K6)")
+        f"(K2), its backward with a one-wide input (K2T), torch.fft.rfft + "
+        f"matmul on the frames (K3, K4), the model's conv stages 2 and 3 "
+        f"(K5), bias-add + ReLU + max-pool at conv2 (K6)")
     # launches on the streaming path: over the test split in each featurizer
     # mode, in the batched finalize of 16 and in the file replay of 16
     stream_launches = {
@@ -4054,7 +4244,7 @@ def main(argv=None) -> int:
               e2e_train["k3_launches"], max(k3_err, pipeline["k3_err"]),
               f"k3_library_b{b}"),
         entry("gru_layer_backward", "k2t", K2T_SOURCE, K2T_REPLACES,
-              e2e_train["k2t_launches"], k2t_err),
+              e2e_train["k2t_launches"], k2t_err, f"cudnn_gru_backward_b{b}"),
         entry("mel_db", "k4", K4_SOURCE, K4_REPLACES, hop256_launches["K4"],
               k4_err, f"k4_library_b{b}"),
         entry("conv23", "k5", K5_SOURCE, K5_REPLACES,
@@ -4100,6 +4290,40 @@ def main(argv=None) -> int:
             for grid, procs in tl.items()
             for proc, parts in procs.items()
             for part, got in parts.items()}
+    # the fp32 cluster backward (K2T's fp32 build at hidden 256): its
+    # launches on the fp32 training paths (phase 20h; the fp32 steps of
+    # phases 21 and 22), its error (phase 12), its times against the
+    # CUDA-core K2T, cuDNN's fp32 backward and the plain version, bounds
+    kernels[3]["control_a_launches"] = synthetic["control_a"]["launches"][
+        "K2T"]
+    kernels[3]["fp32"] = {
+        "route": "cuda", "source": K2T_SOURCE, "replaces": K2T_REPLACES,
+        "max_abs_err": k2t_err,
+        "launches_cluster": {
+            "control_a": synthetic["control_a"]["launches"]["K2T_cluster"],
+            **{f"cli_train_{m}_world1": dl[f"cli_train_{m}"]["K2T_cluster"]
+               for m in ("feature", "waveform")},
+            **{f"dryrun_{proc}_{part}": got["K2T_cluster"]
+               for proc, parts in dl["dryrun"].items()
+               for part, got in parts.items()},
+            **{f"{grid}_{proc}_{part}": got["K2T_cluster"]
+               for grid, procs in tl.items()
+               for proc, parts in procs.items()
+               for part, got in parts.items()}},
+        **{f"b{fb}": {
+            "ms": timings[f"k2t_fp32_kernel_b{fb}"],
+            "wrapper_ms": timings[f"k2t_fp32_b{fb}"],
+            "simt_ms": timings[f"k2t_fp32_simt_kernel_b{fb}"],
+            "simt_wrapper_ms": timings[f"k2t_fp32_simt_b{fb}"],
+            "plain_ms": timings[f"k2t_fp32_plain_b{fb}"],
+            "bound_ms": bounds[f"k2t_fp32_kernel_b{fb}"][0],
+            "bound_by": bounds[f"k2t_fp32_kernel_b{fb}"][1],
+            "wrapper_bound_ms": bounds[f"k2t_fp32_b{fb}"][0],
+            "library_ms": timings[f"cudnn_gru_backward_fp32_b{fb}"]}
+           for fb in FP32_K2T_BATCHES},
+        "train_step_fp32_host_ms": {
+            f"b{sb}": {k: float(np.mean(v)) for k, v in t.items()}
+            for sb, t in fp32_steps.items()}}
     for entry_, key in zip(kernels, ("K1", "K2", "K3", "K2T", "K4", "K5",
                                      "K6")):
         entry_["artifact_launches"] = {

@@ -45,12 +45,15 @@ _SIGNATURES = {
     # tensor-core GRU kernels (bf16, hidden 256); no transposed W
     "sir_gru_layer_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "sir_gru_layer_bwd_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # the fp32 cluster kernel (hidden 256, forward)
+    # the fp32 cluster kernels (hidden 256), forward and backward
     "sir_gru_layer_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_gru_layer_bwd_cluster": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P],
     # their resources per tile height: out = int[7] on the host
     "sir_gru_layer_mma_info": [_I, _P],
     "sir_gru_layer_bwd_mma_info": [_I, _P],
     "sir_gru_layer_cluster_info": [_I, _P],
+    "sir_gru_layer_bwd_cluster_info": [_I, _P],
     "sir_mel_db": [_P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _I, _P,
                    _P],
     # resources of the built front-end kernels: out = int[5] on the host

@@ -22,7 +22,7 @@
 // workspace at B = 1024, T = 25, H = 256 is 2 * 25 * 1024 * 768 * 4 B =
 // 157 MB.
 //
-// Two kernels; ops/gru.py::gru_plan says which one a call takes.
+// Three kernels; ops/gru.py::gru_plan says which one a call takes.
 //
 // 1. gru_layer_bwd_mma_kernel: bf16, H = 256, the kernel that trains.  What
 //    bounds it on the H100 is the serial chain of T steps, each with two
@@ -55,11 +55,25 @@
 //    * the step's h_prev tile, gx slice and dys slice are fetched with
 //      cp.async while the dh product of the step before runs; one cluster
 //      barrier per step.
-// 2. gru_layer_bwd_kernel: fp32 or bf16 operands, any H that is a multiple
+// 2. gru_layer_bwd_cluster_kernel: fp32, H = 256, the fp32 parity path
+//    (TF32 would break the per-element gradient bar that holds it to the
+//    JAX package; expf / tanhf, fp32 FMAs on CUDA cores).  fp32 W_hh^T is
+//    786,432 bytes a direction, which no SM holds, and a kernel that streams
+//    it from L2 at every step spends ~18 us a step on it, twice in the
+//    backward.  The design is the fp32 forward's (gru_mma.cuh, "the fp32
+//    backward"): a cluster of 8 blocks per (direction, tile of rows), rank
+//    c holding the r, z, n columns of units [32c, 32c + 32) in registers
+//    for gh = h_prev W, and the same slice again in shared memory by rows
+//    of k for dh_prev; each rank's partial sums of dh_prev go to their
+//    owner ranks through distributed shared memory and are added there in
+//    rank order: no atomics, the same bits every launch.  The h_prev tile
+//    of the step before is copied by cp.async while a step runs, and the gh
+//    product, which waits for no other rank, runs before the wait for the
+//    partial sums.
+// 3. gru_layer_bwd_kernel: fp32 or bf16 operands, any H that is a multiple
 //    of 32, fp32 FMAs on CUDA cores, one thread per hidden unit, W streamed
-//    from L2 twice a step (w for gh, wt for dh_prev).  It is the fp32 parity
-//    path (TF32 would break the per-element gradient bar that holds it to
-//    the JAX package) and serves bf16 at any H other than 256.
+//    from L2 twice a step (w for gh, wt for dh_prev).  It serves every H
+//    other than 256.
 //
 // Times stand in PERF.md, each with the card's name and power limit.
 
@@ -546,6 +560,284 @@ int dispatch_mma(const void* gx, const void* w, const float* bn,
   }
 }
 
+
+// ---- the fp32 cluster kernel ----
+
+// gx and dys of step t for the (row, unit) pairs tid + 256 j of a tile of M
+// rows, unit = lane of rank unit0 / 32 (0 in rows past the tile or batch).
+template <int M, int P>
+__device__ __forceinline__ void load_bwd_pairs(float (&g)[P][3],
+                                               float (&dy)[P],
+                                               const float* __restrict__ gxd,
+                                               const float* __restrict__ dysd,
+                                               int t, int batch, int row0,
+                                               int unit0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int row = (static_cast<int>(threadIdx.x) + kThreads * j) / 32;
+    if (row < M && row0 + row < batch) {
+      const size_t at = static_cast<size_t>(t) * batch + row0 + row;
+      const float* src = gxd + at * kGates + unit0 + lane;
+      g[j][0] = __ldg(src);
+      g[j][1] = __ldg(src + kHidden);
+      g[j][2] = __ldg(src + 2 * kHidden);
+      dy[j] = __ldg(dysd + at * kHidden + unit0 + lane);
+    } else {
+      g[j][0] = g[j][1] = g[j][2] = dy[j] = 0.f;
+    }
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_layer_bwd_cluster_kernel(const float* __restrict__ gx,
+                             const float* __restrict__ w,
+                             const float* __restrict__ bn,
+                             const float* __restrict__ ys,
+                             const float* __restrict__ dys,
+                             float* __restrict__ dgx,
+                             float* __restrict__ dgh, int steps, int batch) {
+  constexpr int U = kF32Units;                 // units a rank, one a lane
+  constexpr int C3 = 3 * U;                    // the rank's columns of W^T
+  constexpr int KQ = kF32SliceK / 4;           // float4s of a k-slice
+  constexpr int RB = M < 8 ? M : 8;            // rows multiplied together
+  constexpr int P = (M * U + kThreads - 1) / kThreads;  // pairs a thread gates
+  static_assert(U == 32, "a lane per unit of the rank");
+  extern __shared__ __align__(16) float f32_mem[];
+  float* const wts = f32_mem;                          // [k][kF32WtStride]
+  float* const hp = wts + kHidden * kF32WtStride;      // [2][M][256]
+  float* const part = hp + f32_h_floats(M);            // f32_partial_index
+  float* const dg = part + kF32Slices * M * C3;        // [M][C3]
+  float* const inbox = dg + M * C3;                    // f32_inbox_index
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = static_cast<int>(cluster_rank());
+  const int dir = blockIdx.y;
+  const int row0 = static_cast<int>(blockIdx.x / kF32Cluster) * M;
+  const int unit0 = rank * U;
+  const float* wd = w + static_cast<size_t>(dir) * kHidden * kGates;
+  const size_t dir_rows = static_cast<size_t>(dir) * steps * batch;
+  const float* gxd = gx + dir_rows * kGates;
+  const float* ysd = ys + dir_rows * kHidden;
+  const float* dysd = dys + dir_rows * kHidden;
+
+  // the slice by rows of k, for dh_prev: chunk c of row k holds the
+  // columns of gate c / 8, units 4 (c % 8) .. 4 (c % 8) + 3
+  for (int i = tid; i < kHidden * C3 / 4; i += kThreads) {
+    const int k = i / (C3 / 4), c = i % (C3 / 4);
+    cp_async_16(smem_addr(wts + k * kF32WtStride + 4 * c),
+                wd + static_cast<size_t>(k) * kGates + (c >> 3) * kHidden +
+                    unit0 + 4 * (c & 7),
+                true);
+  }
+  // the same slice in registers, for gh: the forward's float4s of k
+  float4 wr[KQ][3];
+#pragma unroll
+  for (int kq = 0; kq < KQ; ++kq)
+#pragma unroll
+    for (int gate = 0; gate < 3; ++gate) {
+      const float* p = wd +
+          static_cast<size_t>(kF32SliceK * warp + 4 * kq) * kGates +
+          gate * kHidden + unit0 + lane;
+      wr[kq][gate] =
+          make_float4(p[0], p[kGates], p[2 * kGates], p[3 * kGates]);
+    }
+
+  // start the copy of step t's h_prev tile: ys[t - 1], zeros at t = 0 and
+  // in rows past the batch
+  auto load_h = [&](int t) {
+    float* dst = hp + (t & 1) * M * kHidden;
+    for (int i = tid; i < M * kHidden / 4; i += kThreads) {
+      const int row = i / (kHidden / 4), c = i % (kHidden / 4);
+      const bool valid = t > 0 && row0 + row < batch;
+      cp_async_16(smem_addr(dst + row * kHidden + 4 * c),
+                  ysd + (valid ? (static_cast<size_t>(t - 1) * batch + row0 +
+                                  row) * kHidden + 4 * c
+                               : 0),
+                  valid);
+    }
+  };
+
+  // the (row, unit) pairs this thread gates: tid + 256 j, all of unit lane
+  const float bnj = bn[dir * kHidden + unit0 + lane];
+  float g[P][3], dy[P], dhz[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) dhz[j] = 0.f;   // dh_tot * z of step t + 1
+  if (steps > 0) {
+    load_h(steps - 1);
+    load_bwd_pairs<M>(g, dy, gxd, dysd, steps - 1, batch, row0, unit0);
+  }
+  cp_async_commit();
+  // no rank writes another's shared memory before every rank runs
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t = steps - 1; t >= 0; --t) {
+    cp_async_wait<0>();
+    __syncthreads();  // step t's h_prev tile (and the slice by rows) are whole
+    if (t > 0) load_h(t - 1);
+    cp_async_commit();
+    const float* hc = hp + (t & 1) * M * kHidden;
+
+    // gh = h_prev W over this warp's k-slice: waits for no other rank
+    for (int r0 = 0; r0 < M; r0 += RB) {
+      float acc[RB][3];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb)
+        acc[rb][0] = acc[rb][1] = acc[rb][2] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < KQ; ++kq) {
+        float4 hv[RB];
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb)
+          hv[rb] = *reinterpret_cast<const float4*>(
+              hc + (r0 + rb) * kHidden + kF32SliceK * warp + 4 * kq);
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          const float4 wv = wr[kq][gate];
+#pragma unroll
+          for (int rb = 0; rb < RB; ++rb)
+            acc[rb][gate] = fmaf(hv[rb].w, wv.w, fmaf(hv[rb].z, wv.z,
+                fmaf(hv[rb].y, wv.y, fmaf(hv[rb].x, wv.x, acc[rb][gate]))));
+        }
+      }
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate)
+          part[f32_partial_index(M, warp, r0 + rb, gate, lane)] =
+              acc[rb][gate];
+    }
+    __syncthreads();  // every warp's partial sums are in
+
+    const bool last = t == steps - 1;   // the first step run: dh = 0
+    if (!last) cluster_wait();  // every rank's partial sums of step t + 1
+    const float* box = inbox + f32_inbox_index(M, (t + 1) & 1, 0, 0, 0);
+    const size_t step_row = dir_rows + static_cast<size_t>(t) * batch;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int row = (tid + kThreads * j) / U;
+      if (row < M) {
+        float s[3];
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          s[gate] = part[f32_partial_index(M, 0, row, gate, lane)];
+#pragma unroll
+          for (int sl = 1; sl < kF32Slices; ++sl)
+            s[gate] += part[f32_partial_index(M, sl, row, gate, lane)];
+        }
+        float din = 0.f;
+        if (!last) {
+#pragma unroll
+          for (int src = 0; src < kF32Cluster; ++src)
+            din += box[f32_inbox_index(M, 0, src, row, lane)];
+        }
+        const bool valid = row0 + row < batch;
+        const float rg = sigmoid(g[j][0] + s[0]);
+        const float zg = sigmoid(g[j][1] + s[1]);
+        const float ghn_b = s[2] + bnj;
+        const float ng = tanhf(g[j][2] + rg * ghn_b);
+        const float hpv = hc[row * kHidden + unit0 + lane];
+        const float dh_tot = dhz[j] + din + dy[j];
+        const float dn = dh_tot * (1.f - zg);
+        const float dz = dh_tot * (hpv - ng);
+        float dan = dn * (1.f - ng * ng);
+        float dar = dan * ghn_b * rg * (1.f - rg);
+        float daz = dz * zg * (1.f - zg);
+        float dgn = dan * rg;
+        dhz[j] = dh_tot * zg;
+        if (valid) {
+          const size_t o = (step_row + row0 + row) * kGates + unit0 + lane;
+          dgx[o] = dar;
+          dgx[o + kHidden] = daz;
+          dgx[o + 2 * kHidden] = dan;
+          dgh[o] = dar;
+          dgh[o + kHidden] = daz;
+          dgh[o + 2 * kHidden] = dgn;
+        } else {
+          dar = daz = dgn = 0.f;
+        }
+        dg[row * C3 + lane] = dar;
+        dg[row * C3 + U + lane] = daz;
+        dg[row * C3 + 2 * U + lane] = dgn;
+      }
+    }
+    __syncthreads();  // the dgh tile is whole; the partial sums are read
+
+    if (t > 0) {
+      // this rank's part of dh_prev[:, k] for every row, k = tid: row k of
+      // the slice times the dgh tile, over the rank's columns in order
+      float acc[M];
+#pragma unroll
+      for (int r = 0; r < M; ++r) acc[r] = 0.f;
+      const float* wk = wts + tid * kF32WtStride;
+#pragma unroll 4
+      for (int c = 0; c < C3; c += 4) {
+        const float4 wv = *reinterpret_cast<const float4*>(wk + c);
+#pragma unroll
+        for (int r = 0; r < M; ++r) {
+          const float4 d = *reinterpret_cast<const float4*>(dg + r * C3 + c);
+          acc[r] = fmaf(d.w, wv.w, fmaf(d.z, wv.z,
+                   fmaf(d.y, wv.y, fmaf(d.x, wv.x, acc[r]))));
+        }
+      }
+      // k = 32 warp + lane is unit `lane` of rank `warp`
+      const uint32_t box_out = map_to_rank(
+          smem_addr(inbox + f32_inbox_index(M, t & 1, rank, 0, lane)), warp);
+#pragma unroll
+      for (int r = 0; r < M; ++r) st_cluster_4(box_out + 4 * U * r, acc[r]);
+    }
+    cluster_arrive();  // the partial sums are on their way to their owners
+    if (t > 0) load_bwd_pairs<M>(g, dy, gxd, dysd, t - 1, batch, row0, unit0);
+  }
+  // no rank leaves while another may still write into it
+  if (steps > 0) cluster_wait();  // the last step's arrive
+}
+
+template <int M>
+int launch_cluster(const void* gx, const void* w, const float* bn,
+                   const void* ys, const void* dys, void* dgx, float* dgh,
+                   int steps, int batch, cudaStream_t stream, int* out_info) {
+  auto kernel = gru_layer_bwd_cluster_kernel<M>;
+  const int smem = f32_bwd_smem_bytes(M);
+  if (out_info) return cluster_info<kF32Cluster>(kernel, smem, out_info);
+  static bool ready[kMaxDevices] = {};
+  const int tiles = (batch + M - 1) / M;
+  return static_cast<int>(launch_clusters<kF32Cluster>(
+      kernel, ready, dim3(kF32Cluster * tiles, 2), smem, stream,
+      static_cast<const float*>(gx), static_cast<const float*>(w), bn,
+      static_cast<const float*>(ys), static_cast<const float*>(dys),
+      static_cast<float*>(dgx), dgh, steps, batch));
+}
+
+int dispatch_cluster(const void* gx, const void* w, const float* bn,
+                     const void* ys, const void* dys, void* dgx, float* dgh,
+                     int steps, int batch, int hidden, int rows,
+                     cudaStream_t stream, int* out_info) {
+  if (steps < 0 || batch < 0 || hidden != kHidden)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!out_info && (steps == 0 || batch == 0)) return 0;
+  switch (rows) {
+    case 1:
+      return launch_cluster<1>(gx, w, bn, ys, dys, dgx, dgh, steps, batch,
+                               stream, out_info);
+    case 2:
+      return launch_cluster<2>(gx, w, bn, ys, dys, dgx, dgh, steps, batch,
+                               stream, out_info);
+    case 4:
+      return launch_cluster<4>(gx, w, bn, ys, dys, dgx, dgh, steps, batch,
+                               stream, out_info);
+    case 8:
+      return launch_cluster<8>(gx, w, bn, ys, dys, dgx, dgh, steps, batch,
+                               stream, out_info);
+    case 16:
+      return launch_cluster<16>(gx, w, bn, ys, dys, dgx, dgh, steps, batch,
+                                stream, out_info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int sir_gru_layer_bwd_bf16(const void* gx, const void* w,
@@ -585,4 +877,22 @@ extern "C" int sir_gru_layer_bwd_mma(const void* gx, const void* w,
 extern "C" int sir_gru_layer_bwd_mma_info(int rows, int* out) {
   return dispatch_mma(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                       nullptr, 0, 0, kHidden, rows, nullptr, out);
+}
+
+// The fp32 cluster kernel: fp32, hidden = 256, rows in {1, 2, 4, 8, 16}; it
+// takes no transposed copy of w.
+extern "C" int sir_gru_layer_bwd_cluster(const void* gx, const void* w,
+                                         const float* bn, const void* ys,
+                                         const void* dys, void* dgx,
+                                         float* dgh, int steps, int batch,
+                                         int hidden, int rows, void* stream) {
+  return dispatch_cluster(gx, w, bn, ys, dys, dgx, dgh, steps, batch, hidden,
+                          rows, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// out[0..6] as sir_gru_layer_bwd_mma_info's, for the fp32 cluster kernel.
+extern "C" int sir_gru_layer_bwd_cluster_info(int rows, int* out) {
+  return dispatch_cluster(nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, 0, 0, kHidden, rows, nullptr,
+                          out);
 }

@@ -73,6 +73,11 @@ __device__ __forceinline__ void st_cluster_16(uint32_t addr, uint4 v) {
                : "memory");
 }
 
+__device__ __forceinline__ void st_cluster_4(uint32_t addr, float a) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" :: "r"(addr), "f"(a)
+               : "memory");
+}
+
 __device__ __forceinline__ void st_cluster_8(uint32_t addr, float a, float b) {
   asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
                :: "r"(addr), "f"(a), "f"(b) : "memory");
@@ -360,6 +365,42 @@ __host__ __device__ constexpr int f32_partial_index(int rows, int slice,
 // sums.
 __host__ __device__ constexpr int f32_smem_bytes(int rows) {
   return 4 * (f32_h_floats(rows) + kF32Slices * rows * 3 * kF32Units);
+}
+
+// ---- the fp32 backward (gru_layer_bwd.cu, gru_layer_bwd_cluster_kernel) ----
+//
+// The same cluster of eight, the same (direction, tile of M rows) and the
+// same slice of W^T in the same registers as the forward, for gh = h_prev W
+// (h_prev is the stored ys[t - 1], copied into an h_prev tile by cp.async
+// one step ahead), with its partial sums at f32_partial_index.  The gating
+// thread of a (row, unit) pair keeps dh in fp32 registers and writes the
+// row's dgh of the rank's 3U columns into a dgh tile.  dh_prev sums over
+// all 3H columns, which the split by unit spreads over the ranks: thread k
+// of rank c multiplies the dgh tile (broadcast float4s) by row k of a
+// second copy of the rank's slice, kept in shared memory by rows of k
+// (kF32WtStride floats a row, the 3U columns and 4 of padding, so that the
+// eight 16-byte reads of a quarter warp fall on all 32 banks), which gives
+// the rank's partial sum of dh_prev[:, k] for every row.  Warp s holds
+// k in [32 s, 32 s + 32), the units of rank s: it stores its partial sums
+// (st.shared::cluster) at f32_inbox_index(.., buffer t & 1, source c, row,
+// lane) of rank s, and the owner adds the eight sources in rank order at
+// the next step; one split cluster barrier a step.
+
+constexpr int kF32WtStride = 3 * kF32Units + 4;   // floats a row of k
+
+// Index (floats) of a partial sum of dh_prev in the inbox:
+// [buffer][source rank][row][unit of the owner].
+__host__ __device__ constexpr int f32_inbox_index(int rows, int buf, int src,
+                                                  int row, int unit) {
+  return ((buf * kF32Cluster + src) * rows + row) * kF32Units + unit;
+}
+
+// Dynamic shared memory of the fp32 backward: the slice by rows of k, two
+// h_prev tiles, the gh partial sums, the dgh tile and the inbox.
+__host__ __device__ constexpr int f32_bwd_smem_bytes(int rows) {
+  return 4 * (kHidden * kF32WtStride + f32_h_floats(rows) +
+              kF32Slices * rows * 3 * kF32Units + rows * 3 * kF32Units +
+              2 * kF32Cluster * rows * kF32Units);
 }
 
 }  // namespace gru_mma

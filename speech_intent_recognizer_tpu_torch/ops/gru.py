@@ -15,10 +15,10 @@ wrappers, plain versions, counters, and the autograd function joining them.
 :func:`gru_plan` says which kernel a call launches: the tensor-core
 kernel (``"mma"``: bf16 operands at H = 256, W_hh resident on chip across a
 cluster of four blocks; needs ``sm_90a`` clusters), the fp32 cluster kernel
-(``"cluster"``, forward only: fp32 operands at H = 256, the parity path,
-W_hh resident on chip across a cluster of eight blocks, fp32 FMAs on CUDA
-cores), or the CUDA-core kernel (``"simt"``: every other H and the fp32
-backward; W_hh streams from L2 every step).
+(``"cluster"``, forward and backward: fp32 operands at H = 256, the parity
+path, W_hh resident on chip across a cluster of eight blocks, fp32 FMAs on
+CUDA cores), or the CUDA-core kernel (``"simt"``: every other H; W_hh
+streams from L2 every step).
 
 Under autograd :func:`gru_layer` runs through :class:`_GRULayer`, which
 saves (gx, w, bn, ys) as ``_gru_layer_diff_fwd`` does.  The forward kernel
@@ -87,6 +87,16 @@ CLUSTER_SLICES = 8
 # tile (times the waves of clusters): a least-squares fit to its times on an
 # H100 (every height at B = 1 / 16 / 256 / 2048, T = 25; PERF.md)
 CLUSTER_STEP_US = (0.92, 0.214)
+# the fp32 cluster backward (csrc/gru_layer_bwd.cu): the batch rows per
+# cluster it instantiates, and its us per step as CLUSTER_STEP_US counts
+# the forward's: a least-squares fit (relative errors) to its times on an
+# H100 (every height at B = 16 / 64 / 256 / 1024, T = 25,
+# bench_torch_gru_variants.py; PERF.md)
+CLUSTER_ROWS_BACKWARD = (1, 2, 4, 8, 16)
+CLUSTER_BWD_STEP_US = (1.78, 0.397)
+# floats of a row of k of the backward's slice of W^T in shared memory: its
+# 3 H / CLUSTER_SIZE columns and 4 of padding
+CLUSTER_WT_STRIDE = 3 * (MMA_HIDDEN // CLUSTER_SIZE) + 4
 
 
 class Plan(NamedTuple):
@@ -119,13 +129,21 @@ def mma_smem_bytes(rows: int, backward: bool = False) -> int:
     return rows * (2 * 512 + 2 * 384)
 
 
-def cluster_smem_bytes(rows: int) -> int:
+def cluster_smem_bytes(rows: int, backward: bool = False) -> int:
     """Dynamic shared memory of the fp32 cluster kernel with ``rows``-row
-    tiles, as ``f32_smem_bytes`` in ``csrc/gru_mma.cuh`` counts it: two h
-    tiles (rows x 1,024 B) and the k-slices' partial sums (8 x rows x 3 x
-    H / 8 floats).  W_hh^T is in registers."""
-    return 4 * (2 * rows * MMA_HIDDEN
-                + CLUSTER_SLICES * rows * 3 * (MMA_HIDDEN // CLUSTER_SIZE))
+    tiles, as ``f32_smem_bytes`` / ``f32_bwd_smem_bytes`` in
+    ``csrc/gru_mma.cuh`` count it: two h (h_prev) tiles (rows x 1,024 B)
+    and the k-slices' partial sums (8 x rows x 3 x H / 8 floats); W_hh^T is
+    in registers.  The backward adds the rank's slice of W^T by rows of k
+    (H x ``CLUSTER_WT_STRIDE`` floats), the dgh tile (rows x 3 H / 8) and
+    the inbox of partial sums of dh_prev (2 buffers x 8 ranks x rows x
+    H / 8)."""
+    units = MMA_HIDDEN // CLUSTER_SIZE
+    floats = 2 * rows * MMA_HIDDEN + CLUSTER_SLICES * rows * 3 * units
+    if backward:
+        floats += (MMA_HIDDEN * CLUSTER_WT_STRIDE + rows * 3 * units
+                   + 2 * CLUSTER_SIZE * rows * units)
+    return 4 * floats
 
 
 def _waves(batch: int, rows: int, clusters: int) -> int:
@@ -147,25 +165,24 @@ def gru_plan(batch: int, hidden: int, dtype: torch.dtype, sm_count: int,
     2 x ceil(batch / rows) clusters of a launch run in waves, and a wave
     lasts T steps of about ``MMA_STEP_OVERHEAD + rows`` time units each.
     The height with the least waves x step cost wins, the shorter one on a
-    tie.  The fp32 forward at ``hidden == MMA_HIDDEN`` takes the cluster
-    kernel at the height with the least waves (of ``clusters``, without it
-    ``sm_count // CLUSTER_SIZE``) x ``CLUSTER_STEP_US``, the shorter on a
-    tie.  Everything else (the fp32 backward, other hidden sizes) takes the
-    CUDA-core kernel at :func:`tile_rows`.
+    tie.  fp32 at ``hidden == MMA_HIDDEN`` takes the cluster kernel at the
+    height with the least waves (of ``clusters``, without it ``sm_count //
+    CLUSTER_SIZE``) x the step cost (``CLUSTER_STEP_US``, backward
+    ``CLUSTER_BWD_STEP_US``), the shorter on a tie.  Other hidden sizes
+    take the CUDA-core kernel at :func:`tile_rows`.
     """
     simt = Plan("simt", tile_rows(batch, sm_count))
     if hidden != MMA_HIDDEN or dtype not in (torch.bfloat16, torch.float32):
         return simt
     if dtype == torch.float32:
-        if backward:
-            return simt
         resident = max(clusters or sm_count // CLUSTER_SIZE, 1)
+        fixed, per_row = CLUSTER_BWD_STEP_US if backward else CLUSTER_STEP_US
 
         def us(rows):
-            return _waves(batch, rows, resident) * (
-                CLUSTER_STEP_US[0] + CLUSTER_STEP_US[1] * rows)
+            return _waves(batch, rows, resident) * (fixed + per_row * rows)
 
-        return Plan("cluster", min(CLUSTER_ROWS, key=lambda r: (us(r), r)))
+        heights = CLUSTER_ROWS_BACKWARD if backward else CLUSTER_ROWS
+        return Plan("cluster", min(heights, key=lambda r: (us(r), r)))
     if clusters is None:
         clusters = sm_count // MMA_CLUSTER
     clusters = max(clusters, 1)
@@ -251,12 +268,11 @@ def _check_cuda(gx, tensors, rows, backward=False) -> "Plan | None":
                              f"hidden {MMA_HIDDEN}, got {gx.dtype} at "
                              f"{hidden}")
     elif plan.kernel == "cluster":
-        if backward:
-            raise ValueError("the fp32 cluster kernel has no backward: "
-                             "force a CUDA-core height under autograd")
-        if plan.rows not in CLUSTER_ROWS:
-            raise ValueError(f"the fp32 cluster kernel takes rows of "
-                             f"{CLUSTER_ROWS}, got {plan.rows}")
+        heights = CLUSTER_ROWS_BACKWARD if backward else CLUSTER_ROWS
+        if plan.rows not in heights:
+            raise ValueError(f"the fp32 cluster kernel"
+                             f"{'s backward' if backward else ''} takes "
+                             f"rows of {heights}, got {plan.rows}")
         if gx.dtype != torch.float32 or hidden != MMA_HIDDEN:
             raise ValueError(f"the fp32 cluster kernel takes float32 at "
                              f"hidden {MMA_HIDDEN}, got {gx.dtype} at "
@@ -286,7 +302,8 @@ def _resident_clusters(device: torch.device, name: str) -> int:
     if key not in _clusters:
         rows = {"gru_layer_mma": MMA_ROWS,
                 "gru_layer_bwd_mma": MMA_ROWS_BACKWARD,
-                "gru_layer_cluster": CLUSTER_ROWS}[name][-1]
+                "gru_layer_cluster": CLUSTER_ROWS,
+                "gru_layer_bwd_cluster": CLUSTER_ROWS_BACKWARD}[name][-1]
         _clusters[key] = kernel_resources(device)[f"{name}_rows{rows}"][
             "clusters_per_card"]
     return _clusters[key]
@@ -299,8 +316,8 @@ def picked_plan(batch: int, hidden: int, dtype: torch.dtype,
     name = None
     if hidden == MMA_HIDDEN and dtype == torch.bfloat16:
         name = "gru_layer_bwd_mma" if backward else "gru_layer_mma"
-    elif hidden == MMA_HIDDEN and dtype == torch.float32 and not backward:
-        name = "gru_layer_cluster"
+    elif hidden == MMA_HIDDEN and dtype == torch.float32:
+        name = "gru_layer_bwd_cluster" if backward else "gru_layer_cluster"
     return gru_plan(batch, hidden, dtype,
                     torch.cuda.get_device_properties(
                         device).multi_processor_count, backward,
@@ -308,7 +325,8 @@ def picked_plan(batch: int, hidden: int, dtype: torch.dtype,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The tensor-core kernels move 16 bytes at a time."""
+    """The tensor-core kernels and the fp32 cluster backward copy 16 bytes
+    at a time."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -406,7 +424,8 @@ def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
     ``ys`` and the cotangent ``dys`` (2, T, B, H).  CPU tensors take the
     plain version; CUDA tensors (bfloat16 or float32 operands) launch the
     kernel, then form dW = sum h_prev^T dgh with one batched fp32 GEMM and
-    dbn = sum dgh_n, or raise.
+    dbn = sum dgh_n, or raise.  ``rows``: as :func:`gru_layer`'s, with the
+    backward's heights (``MMA_ROWS_BACKWARD``, ``CLUSTER_ROWS_BACKWARD``).
     """
     if gx.device.type == "cpu":
         return _gru_layer_backward_plain(gx, w, bn, ys, dys)
@@ -426,12 +445,13 @@ def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
     lib = _build.load()
     stream = torch.cuda.current_stream(gx.device).cuda_stream
     with torch.cuda.device(gx.device):
-        if plan.kernel == "mma":  # reads w in both orientations
+        if plan.kernel in ("mma", "cluster"):  # read w in both orientations
             gx, w, ys, dys = (_aligned(t) for t in (gx, w, ys, dys))
-            rc = lib.sir_gru_layer_bwd_mma(
-                gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
-                dys.data_ptr(), dgx.data_ptr(), dgh.data_ptr(), steps, batch,
-                hidden, plan.rows, stream)
+            fn = (lib.sir_gru_layer_bwd_mma if plan.kernel == "mma"
+                  else lib.sir_gru_layer_bwd_cluster)
+            rc = fn(gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
+                    ys.data_ptr(), dys.data_ptr(), dgx.data_ptr(),
+                    dgh.data_ptr(), steps, batch, hidden, plan.rows, stream)
         else:  # one thread per unit: W^T too, for coalesced reads
             wt = w.transpose(1, 2).contiguous()
             fn = (lib.sir_gru_layer_bwd_bf16 if gx.dtype == torch.bfloat16
@@ -442,6 +462,7 @@ def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
                     plan.rows, stream)
     _build.check(rc, "gru_layer_backward")
     gru_layer_backward.launches += 1
+    gru_layer_backward.kernel_launches[plan.kernel] += 1
     h_prev = torch.cat([ys.new_zeros((2, 1, batch, hidden)), ys[:, :-1]],
                        dim=1).float().reshape(2, steps * batch, hidden)
     dgh = dgh.reshape(2, steps * batch, three_h)
@@ -451,14 +472,16 @@ def gru_layer_backward(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
 
 
 gru_layer_backward.launches = 0
+# the same launches by kernel (a Plan's ``kernel``)
+gru_layer_backward.kernel_launches = {"simt": 0, "mma": 0, "cluster": 0}
 
 
 def kernel_resources(dev: "str | torch.device") -> dict:
-    """What the built cluster kernels (tensor-core K2 and K2T, fp32 K2)
-    take on the card ``dev``, per tile height: registers per thread, local
-    (spilled) bytes per thread, shared memory per block, threads per block,
-    resident blocks per SM, blocks per cluster, and clusters resident on
-    the card at once."""
+    """What the built cluster kernels (tensor-core K2 and K2T, fp32 K2 and
+    K2T) take on the card ``dev``, per tile height: registers per thread,
+    local (spilled) bytes per thread, shared memory per block, threads per
+    block, resident blocks per SM, blocks per cluster, and clusters
+    resident on the card at once."""
     import ctypes
 
     lib = _build.load()
@@ -471,7 +494,9 @@ def kernel_resources(dev: "str | torch.device") -> dict:
                 ("gru_layer_bwd_mma", lib.sir_gru_layer_bwd_mma_info,
                  MMA_ROWS_BACKWARD),
                 ("gru_layer_cluster", lib.sir_gru_layer_cluster_info,
-                 CLUSTER_ROWS)):
+                 CLUSTER_ROWS),
+                ("gru_layer_bwd_cluster", lib.sir_gru_layer_bwd_cluster_info,
+                 CLUSTER_ROWS_BACKWARD)):
             for rows in heights:
                 out = (ctypes.c_int * len(keys))()
                 _build.check(fn(rows, ctypes.addressof(out)),

@@ -122,12 +122,18 @@ def _counters() -> dict:
 def reset_launches() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    backward = _counters()["K2T"]
+    backward.kernel_launches.update(dict.fromkeys(backward.kernel_launches, 0))
 
 
 def launches(device) -> dict:
+    """Each kernel's launches, and of K2T's those of the fp32 cluster
+    backward (``K2T_cluster``)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in _counters().items()}
+    counters = _counters()
+    return {**{k: fn.launches for k, fn in counters.items()},
+            "K2T_cluster": counters["K2T"].kernel_launches["cluster"]}
 
 
 def _err(got: torch.Tensor, want: torch.Tensor) -> float:

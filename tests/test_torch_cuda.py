@@ -209,6 +209,32 @@ def test_gru_layer_cluster_kernel_matches_plain(dev, batch, steps, rows):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("rows", gru_ops.CLUSTER_ROWS_BACKWARD)
+@pytest.mark.parametrize("batch,steps", [(1, 25), (3, 1), (17, 25),
+                                         (257, 25), (3, 40)])
+def test_gru_layer_backward_cluster_kernel_matches_plain(dev, batch, steps,
+                                                         rows):
+    """The fp32 cluster K2T (H = 256, W_hh^T resident across a cluster of
+    eight) at every tile height, on full and ragged tiles and T = 1 / 25 /
+    40: dgx within 2e-5 + 2e-4 * |want| per element, dW and db_hn within
+    2e-5 + 2e-4 * max|want| of the plain version, the same bits on a
+    second launch (partial sums added in a fixed order), counted under its
+    own key."""
+    gx, w, bn, dys = _gru_operands(dev, batch, steps, dtype=torch.float32)
+    ys = _gru_layer_plain(gx, w, bn)
+    gru_layer_backward.kernel_launches["cluster"] = 0
+    got = gru_layer_backward(gx, w, bn, ys, dys, rows=Plan("cluster", rows))
+    again = gru_layer_backward(gx, w, bn, ys, dys, rows=Plan("cluster", rows))
+    want = _gru_layer_backward_plain(gx, w, bn, ys, dys)
+    torch.cuda.synchronize()
+    assert gru_layer_backward.kernel_launches["cluster"] == 2
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-5)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == b.dtype and torch.equal(a, c)
+        assert float((a - b).abs().max()) <= 2e-5 + 2e-4 * float(
+            b.abs().max())
+
+
 @pytest.mark.parametrize("rows", MMA_ROWS_BACKWARD)
 @pytest.mark.parametrize("batch,steps", [
     (1, 25), (3, 25), (64, 25), (256, 25), (257, 25), (1030, 25), (2048, 25),
@@ -238,10 +264,10 @@ def test_gru_layer_backward_tensor_core_kernel_matches_plain(dev, batch,
 def test_gru_plan_on_the_card(dev):
     """What a call launches: bf16 at H = 256 the tensor-core kernel, the
     fp32 forward at H = 256 the cluster kernel at B = 1 and 16 (the
-    streaming finalize), the fp32 backward and any other H the CUDA-core
-    kernel (and a forced tensor-core or cluster launch of what they do not
-    take raises); the launch counters count every kernel, each under its
-    own key."""
+    streaming finalize), the fp32 backward at H = 256 the cluster backward,
+    any other H the CUDA-core kernel (and a forced tensor-core or cluster
+    launch of what they do not take raises); the launch counters count
+    every kernel, each under its own key."""
     for backward in (False, True):
         heights = MMA_ROWS_BACKWARD if backward else MMA_ROWS
         for batch in (1, 256, 1024, 2048):
@@ -252,7 +278,7 @@ def test_gru_plan_on_the_card(dev):
     for batch in (1, 16):
         p = picked_plan(batch, 256, torch.float32, dev)
         assert p.kernel == "cluster" and p.rows in CLUSTER_ROWS
-    assert picked_plan(256, 256, torch.float32, dev, True).kernel == "simt"
+    assert picked_plan(256, 256, torch.float32, dev, True).kernel == "cluster"
     gx, w, bn, dys = _gru_operands(dev, 5, 7, hidden=128)
     gru_layer.launches = 0
     gru_layer.kernel_launches.update(simt=0, mma=0, cluster=0)
@@ -273,9 +299,9 @@ def test_gru_plan_on_the_card(dev):
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         gru_layer_backward(gx, w, bn, _gru_layer_plain(gx, w, bn), dys,
                            rows=Plan("mma", 32))
-    with pytest.raises(ValueError, match="no backward"):
+    with pytest.raises(ValueError, match="backward takes rows of"):
         gru_layer_backward(gx, w, bn, _gru_layer_plain(gx, w, bn), dys,
-                           rows=Plan("cluster", 1))
+                           rows=Plan("cluster", 32))
     with pytest.raises(ValueError, match="cluster kernel takes"):
         gru_layer(gx.bfloat16(), w.bfloat16(), bn, rows=Plan("cluster", 1))
     with pytest.raises(ValueError, match="rows of"):
@@ -302,19 +328,22 @@ def test_gru_kernel_resources(dev):
     """The cluster kernels as built: every tile height fits an SM (one
     block of 256 threads), spills nothing, stays inside 227 KB of shared
     memory at exactly the size the plan counts, and at least one cluster
-    (of four for the tensor-core K2 and K2T, of eight for the fp32 K2) fits
-    the card."""
+    (of four for the tensor-core K2 and K2T, of eight for the fp32 K2 and
+    K2T) fits the card."""
     found = gru_ops.kernel_resources(dev)
     assert set(found) == (
         {f"gru_layer_mma_rows{r}" for r in MMA_ROWS}
         | {f"gru_layer_bwd_mma_rows{r}" for r in MMA_ROWS_BACKWARD}
-        | {f"gru_layer_cluster_rows{r}" for r in CLUSTER_ROWS})
+        | {f"gru_layer_cluster_rows{r}" for r in CLUSTER_ROWS}
+        | {f"gru_layer_bwd_cluster_rows{r}"
+           for r in gru_ops.CLUSTER_ROWS_BACKWARD})
     for name, r in found.items():
         rows = int(name.rsplit("rows", 1)[1])
         assert r["threads"] == 256 and r["blocks_per_sm"] == 1, name
         assert 0 < r["registers"] <= 255 and r["local_bytes"] == 0, name
         if "cluster" in name:
-            assert r["shared_bytes"] == gru_ops.cluster_smem_bytes(rows)
+            assert r["shared_bytes"] == gru_ops.cluster_smem_bytes(
+                rows, "bwd" in name)
             assert r["cluster"] == CLUSTER_SIZE
         else:
             assert r["shared_bytes"] == gru_ops.mma_smem_bytes(

@@ -12,8 +12,9 @@ from speech_intent_recognizer_tpu.models.cnn_gru import (
 from speech_intent_recognizer_tpu.ops.gru_pallas import (
     _gru_layer_call, gru_bidirectional_pallas)
 from speech_intent_recognizer_tpu_torch.ops.gru import (
-    CLUSTER_ROWS, CLUSTER_SIZE, CLUSTER_STEP_US, TILE_ROWS, Plan,
-    gru_bidirectional, gru_layer, gru_plan, tile_rows)
+    CLUSTER_BWD_STEP_US, CLUSTER_ROWS, CLUSTER_ROWS_BACKWARD, CLUSTER_SIZE,
+    CLUSTER_STEP_US, TILE_ROWS, Plan, gru_bidirectional, gru_layer, gru_plan,
+    tile_rows)
 
 T, B, H = 25, 4, 256
 
@@ -70,13 +71,14 @@ def test_plain_layer_is_differentiable_on_cpu(rng):
     assert gx.grad is not None and torch.isfinite(gx.grad).all()
 
 
-def _cluster_rows(batch, sms):
+def _cluster_rows(batch, sms, backward=False):
     """The fp32 cluster kernel's height of least fitted cost, ``sms // 8``
     clusters resident: waves of clusters x (fixed + per-row us a step)."""
     resident = max(sms // CLUSTER_SIZE, 1)
-    return min(CLUSTER_ROWS, key=lambda r: (
-        -(-2 * -(-batch // r) // resident)
-        * (CLUSTER_STEP_US[0] + CLUSTER_STEP_US[1] * r), r))
+    fixed, per_row = CLUSTER_BWD_STEP_US if backward else CLUSTER_STEP_US
+    heights = CLUSTER_ROWS_BACKWARD if backward else CLUSTER_ROWS
+    return min(heights, key=lambda r: (
+        -(-2 * -(-batch // r) // resident) * (fixed + per_row * r), r))
 
 
 @pytest.mark.parametrize("batch,sms,rows", [
@@ -85,16 +87,17 @@ def _cluster_rows(batch, sms):
     (4096, 264, 16), (63, 8, 16), (48, 8, 4)])
 def test_tile_rows_fills_every_sm(batch, sms, rows):
     """The CUDA-core kernels: 16-row tiles only where 2 * ceil(B / 16)
-    blocks cover every SM.  They are what ``gru_plan`` launches for the
-    fp32 backward (the fp32 forward at H = 256 takes the cluster kernel at
-    its height of least fitted cost) and for bf16 at a hidden size the
-    tensor-core kernel does not take, forward and backward."""
+    blocks cover every SM.  They are what ``gru_plan`` launches for a
+    hidden size the tensor-core and the fp32 cluster kernels do not take,
+    forward and backward; fp32 at H = 256 takes the cluster kernel, forward
+    and backward, at its height of least fitted cost."""
     assert tile_rows(batch, sms) == rows
     assert rows in TILE_ROWS
     for backward in (False, True):
         plan = gru_plan(batch, 256, torch.float32, sms, backward)
-        assert plan == (Plan("simt", rows) if backward
-                        else Plan("cluster", _cluster_rows(batch, sms)))
+        assert plan == Plan("cluster", _cluster_rows(batch, sms, backward))
+        assert gru_plan(batch, 128, torch.float32, sms, backward) == Plan(
+            "simt", rows)
         assert gru_plan(batch, 128, torch.bfloat16, sms, backward) == Plan(
             "simt", rows)
         assert gru_plan(batch, 256, torch.bfloat16, sms,
