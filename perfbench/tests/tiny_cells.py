@@ -1,0 +1,32 @@
+"""Cells of the benchmark at sizes a CPU test can hold: the same
+configurations and traffic with fewer rows, sessions and layers."""
+
+from core.bench import Cell
+
+SMALL_W2V = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=128, conv_dim=[32] * 7,
+                 num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+def small_cell(name: str) -> Cell:
+    cell = Cell(name)
+    if name == "cnn_gru.infer.b2048":
+        cell.traffic.update(batch=3, pool_batches=2, warmup_calls=1,
+                            slice_calls=2)
+    elif name == "w2v2_base.infer.b64":
+        cell.config.update(SMALL_W2V)
+        cell.traffic.update(batch=2, pool_batches=2, warmup_calls=1,
+                            slice_calls=2, width=16000, min_seconds=0.3,
+                            max_seconds=1.0)
+    elif name == "cnn_gru.stream.live":
+        cell.traffic.update(sessions=3, slice_seconds=2, wait_s=20)
+    elif name == "cnn_gru.train.b1024":
+        # 64 rows a step: a 16-row step's loss reads past the limit set at
+        # 1024 rows a step, where the mean is over more rows
+        cell.traffic.update(rows=384, steps_per_call=1, slice_calls=1)
+        cell.traffic["recipe"] = dict(cell.traffic["recipe"], batch_size=64)
+    return cell
+
+
+# a window that closes a few utterances at the small cell's load
+SECONDS = {"cnn_gru.stream.live": 6.0}
