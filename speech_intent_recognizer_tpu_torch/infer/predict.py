@@ -48,6 +48,7 @@ from speech_intent_recognizer_tpu_torch.ops.frontend import (
     make_frontend_params, padded_samples)
 from speech_intent_recognizer_tpu_torch.parallel.sharding import (
     check_in_process, replicas, run_sharded)
+from speech_intent_recognizer_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -106,13 +107,16 @@ class ServingBody(torch.nn.Module):
         if waveforms.dim() == 3:  # rows of a flat buffer
             waveforms = waveforms.flatten(1)
         fe = self.frontend.params
-        if not self.with_conv1:
-            x = log_mel_frontend(waveforms, lengths, fe)
-        else:
-            x = log_mel_conv1_frontend(waveforms, lengths, fe,
-                                       self.conv1_weight, self.conv1_bias)
+        with span("sir.frontend"):
+            if not self.with_conv1:
+                x = log_mel_frontend(waveforms, lengths, fe)
+            else:
+                x = log_mel_conv1_frontend(waveforms, lengths, fe,
+                                           self.conv1_weight,
+                                           self.conv1_bias)
         if self.with_conv23:
-            x = conv23(x, *(getattr(self, n) for n in self._CONV23))
+            with span("sir.conv"):
+                x = conv23(x, *(getattr(self, n) for n in self._CONV23))
         return torch.softmax(self.model(x).float(), dim=-1)
 
 
@@ -280,12 +284,18 @@ class Predictor:
 
         ``waveforms`` is a NumPy array or a tensor (one already on the
         predictor's device is used in place); each row is zero-padded past
-        its true length, and lengths stay below L."""
-        with torch.inference_mode():
-            wf = torch.as_tensor(waveforms).to(self.device, torch.float32)
-            ln = torch.as_tensor(lengths).to(self.device, torch.int32)
-            probs = self._probabilities(wf.contiguous(), ln.contiguous())
-            return probs.cpu().numpy()
+        its true length, and lengths stay below L.  Traced as the span
+        ``sir.predict``, with its copies to the device and of the
+        probabilities to the host in spans of their own."""
+        with span("sir.predict"), torch.inference_mode():
+            with span("sir.predict.upload"):
+                wf = torch.as_tensor(waveforms).to(
+                    self.device, torch.float32).contiguous()
+                ln = torch.as_tensor(lengths).to(
+                    self.device, torch.int32).contiguous()
+            probs = self._probabilities(wf, ln)
+            with span("sir.predict.fetch"):
+                return probs.cpu().numpy()
 
     # ------------------------------------------------------------- file API
 

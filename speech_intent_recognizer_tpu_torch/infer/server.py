@@ -12,6 +12,14 @@ event loop, and the drain loop sends each once its
 :meth:`PendingResult.ready` event says the probabilities have reached the
 host, so no read of a CUDA tensor ever blocks the loop.
 
+Traced (while a ``torch.profiler`` runs; ``utils/profiling.py``), a client
+line is the span ``sir.server.message``, a drain pass that flushes or
+sends is ``sir.server.tick`` and the writing of its results
+``sir.server.send``; each utterance leaves the record ``utterance``
+(connection, session, ordinal; t_submit, t_dispatch, t_sent) and each
+timed-out wait of a drain loop the record ``tick`` (connection; due,
+woke), in ``time.perf_counter_ns()``.
+
 Wire protocol: newline-delimited JSON over a Unix or TCP socket.
 
   client -> {"op": "chunk",  "session": "s1", "pcm": "<base64 float32>"}
@@ -27,14 +35,17 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import itertools
 import json
 import logging
+import time
 from typing import Dict, Optional
 
 import numpy as np
 
 from speech_intent_recognizer_tpu_torch.infer.streaming import (
     BatchFinalizer, PendingResult, StreamingRecognizer)
+from speech_intent_recognizer_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -54,6 +65,7 @@ class IntentServer:
         # a drain tick runs as one device pass
         self.batcher = BatchFinalizer(predictor) if batch_finalize else None
         self._server: Optional[asyncio.AbstractServer] = None
+        self._connections = itertools.count()
 
     def _new_recognizer(self) -> StreamingRecognizer:
         return StreamingRecognizer(
@@ -63,36 +75,116 @@ class IntentServer:
 
     # ------------------------------------------------------- one connection
 
+    def _tick_span(self, pending: list):
+        """The span ``sir.server.tick`` of a drain pass that has something
+        to flush or send; an empty pass (most of them, one a connection a
+        tick) gets none."""
+        if profiling.tracing() and (
+                (self.batcher is not None and self.batcher.queued())
+                or any(item[2].ready() for item in pending)):
+            return profiling.span("sir.server.tick")
+        return profiling.NULL
+
     async def _handle(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
+        conn = next(self._connections)
         sessions: Dict[str, StreamingRecognizer] = {}
-        pending: list = []  # (event, session_id, PendingResult)
+        utterances: Dict[str, int] = {}  # results submitted, a session
+        # (event, session_id, PendingResult, record head): the head of an
+        # utterance's record is (connection, session, ordinal, t_submit)
+        pending: list = []
         send_lock = asyncio.Lock()
         closed = asyncio.Event()
+        interval_ns = int(self.drain_interval * 1e9)
 
         async def send(obj: dict) -> None:
             async with send_lock:
                 writer.write((json.dumps(obj) + "\n").encode())
                 await writer.drain()
 
+        def submitted(sid: str, result) -> None:
+            n = utterances[sid] = utterances.get(sid, 0) + 1
+            pending.append(("result", sid, result,
+                            (conn, sid, n, profiling.stamp())))
+
+        def on_message(line: bytes) -> Optional[dict]:
+            """Act on one client line; returns the reply to send now, if
+            any (results go out through the drain loop)."""
+            try:
+                msg = json.loads(line)
+                op = msg["op"]
+                sid = str(msg.get("session", "default"))
+            except (ValueError, KeyError, TypeError) as e:
+                return {"event": "error", "message": f"bad message: {e}"}
+            if op == "chunk":
+                rec = sessions.get(sid)
+                if rec is None:
+                    rec = sessions[sid] = self._new_recognizer()
+                try:
+                    pcm = np.frombuffer(base64.b64decode(msg["pcm"]),
+                                        np.float32)
+                except (KeyError, ValueError, TypeError) as e:
+                    return {"event": "error", "session": sid,
+                            "message": f"bad pcm: {e}"}
+                result = rec.feed(pcm)
+                if result is not None:
+                    submitted(sid, result)
+            elif op == "partial":
+                rec = sessions.get(sid)
+                out = rec.partial_result() if rec is not None else None
+                if out is None:
+                    return {"event": "partial", "session": sid,
+                            "recording": False}
+                pending.append(("partial", sid, out, None))
+            elif op == "flush":
+                rec = sessions.get(sid)
+                result = rec.flush() if rec is not None else None
+                if result is not None:
+                    submitted(sid, result)
+            elif op == "close":
+                sessions.pop(sid, None)
+            else:
+                return {"event": "error", "session": sid,
+                        "message": f"unknown op {op!r}"}
+            return None
+
+        def deliver() -> bool:
+            """Write every ready result's line; returns whether any was
+            written.  An utterance's record is kept after its line."""
+            ready = [item for item in pending if item[2].ready()]
+            if not ready:
+                return False
+            with profiling.span("sir.server.send"):
+                for item in ready:
+                    pending.remove(item)
+                PendingResult.get_all([item[2] for item in ready])
+                for event, sid, r, head in ready:
+                    writer.write((json.dumps({"event": event, "session": sid,
+                                              **r.resolve()}) + "\n"
+                                  ).encode())
+                    if head is not None:
+                        profiling.record("utterance", *head, r.dispatched_ns,
+                                         profiling.stamp())
+            return True
+
         async def drain_loop() -> None:
             """Push finished results without blocking reads."""
             while not closed.is_set():
-                if self.batcher is not None:
-                    self.batcher.flush()
-                ready = [item for item in pending if item[2].ready()]
-                if ready:
-                    for item in ready:
-                        pending.remove(item)
-                    PendingResult.get_all([r for *_, r in ready])
-                    for event, sid, r in ready:
-                        await send({"event": event, "session": sid,
-                                    **r.resolve()})
+                with self._tick_span(pending):
+                    if self.batcher is not None:
+                        self.batcher.flush()
+                    wrote = deliver()
+                if wrote:
+                    async with send_lock:
+                        await writer.drain()
+                due = profiling.stamp()
                 try:
                     await asyncio.wait_for(closed.wait(),
                                            timeout=self.drain_interval)
                 except asyncio.TimeoutError:
-                    pass
+                    if due is not None:
+                        profiling.record("tick", conn, due + interval_ns,
+                                         time.perf_counter_ns())
 
         drainer = asyncio.ensure_future(drain_loop())
         try:
@@ -100,46 +192,10 @@ class IntentServer:
                 line = await reader.readline()
                 if not line:
                     break
-                try:
-                    msg = json.loads(line)
-                    op = msg["op"]
-                    sid = str(msg.get("session", "default"))
-                except (ValueError, KeyError, TypeError) as e:
-                    await send({"event": "error",
-                                "message": f"bad message: {e}"})
-                    continue
-                if op == "chunk":
-                    rec = sessions.get(sid)
-                    if rec is None:
-                        rec = sessions[sid] = self._new_recognizer()
-                    try:
-                        pcm = np.frombuffer(
-                            base64.b64decode(msg["pcm"]), np.float32)
-                    except (KeyError, ValueError, TypeError) as e:
-                        await send({"event": "error", "session": sid,
-                                    "message": f"bad pcm: {e}"})
-                        continue
-                    result = rec.feed(pcm)
-                    if result is not None:
-                        pending.append(("result", sid, result))
-                elif op == "partial":
-                    rec = sessions.get(sid)
-                    out = rec.partial_result() if rec is not None else None
-                    if out is None:
-                        await send({"event": "partial", "session": sid,
-                                    "recording": False})
-                    else:
-                        pending.append(("partial", sid, out))
-                elif op == "flush":
-                    rec = sessions.get(sid)
-                    result = rec.flush() if rec is not None else None
-                    if result is not None:
-                        pending.append(("result", sid, result))
-                elif op == "close":
-                    sessions.pop(sid, None)
-                else:
-                    await send({"event": "error", "session": sid,
-                                "message": f"unknown op {op!r}"})
+                with profiling.span("sir.server.message"):
+                    reply = on_message(line)
+                if reply is not None:
+                    await send(reply)
         finally:
             closed.set()
             await drainer

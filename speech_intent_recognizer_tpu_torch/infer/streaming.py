@@ -47,6 +47,7 @@ from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     FrontendModule, FrontendParams, make_frontend_params)
+from speech_intent_recognizer_tpu_torch.utils.profiling import span, stamp
 
 logger = logging.getLogger(__name__)
 
@@ -316,11 +317,14 @@ def fused_finalize(model: torch.nn.Module, params: FrontendParams,
     Returns (N, C) float32 probabilities on the device.
     """
     dev = params.window.device
-    mel = torch.from_numpy(np.ascontiguousarray(mel_bufs, np.float32)).to(dev)
-    frames = torch.from_numpy(np.ascontiguousarray(tails, np.float32)).to(dev)
-    lengths = torch.from_numpy(np.stack([np.asarray(counts, np.int64),
-                                         np.asarray(n_tails, np.int64)])
+    with span("sir.finalize.upload"):
+        mel = torch.from_numpy(np.ascontiguousarray(mel_bufs, np.float32)
                                ).to(dev)
+        frames = torch.from_numpy(np.ascontiguousarray(tails, np.float32)
+                                  ).to(dev)
+        lengths = torch.from_numpy(np.stack([np.asarray(counts, np.int64),
+                                             np.asarray(n_tails, np.int64)])
+                                   ).to(dev)
     with torch.inference_mode():
         return finalize_tensors(model, params, mel, frames, lengths[0],
                                 lengths[1])
@@ -450,7 +454,12 @@ class PendingResult(Mapping):
     unchanged when ``async_results`` is on.
     """
 
+    # perf_counter_ns() of the dispatch of the device work, while tracing
+    dispatched_ns: Optional[int] = None
+
     def __init__(self, probs: Optional[torch.Tensor], inv_label_map):
+        if probs is not None:
+            self.dispatched_ns = stamp()
         self._fetch = None if probs is None else _Fetch(probs)
         self._row = None  # set by BatchFinalizer: row of a batched result
         self._inv = inv_label_map
@@ -562,20 +571,29 @@ class BatchFinalizer:
             self.flush()
         return r
 
+    def queued(self) -> int:
+        """The finalizes waiting for the next flush."""
+        return len(self._queue)
+
     def flush(self) -> int:
         """Dispatch every queued finalize as one device pass; returns how
-        many there were."""
+        many there were.  Traced as the span ``sir.batcher.flush``, its
+        copies to the device and its fetch to the host in spans of their
+        own; each result's ``dispatched_ns`` is the flush's start."""
         if not self._queue:
             return 0
-        q, self._queue = self._queue, []
-        _, mels, counts, tails, n_tails = zip(*q)
-        probs = fused_finalize(self.predictor.model,
-                               self.predictor.frontend_params,
-                               np.stack(mels), np.asarray(counts),
-                               np.stack(tails), np.asarray(n_tails))
-        fetch = _Fetch(probs)
-        for i, (r, *_rest) in enumerate(q):
-            r._fetch, r._row = fetch, i
+        with span("sir.batcher.flush"):
+            t = stamp()
+            q, self._queue = self._queue, []
+            _, mels, counts, tails, n_tails = zip(*q)
+            probs = fused_finalize(self.predictor.model,
+                                   self.predictor.frontend_params,
+                                   np.stack(mels), np.asarray(counts),
+                                   np.stack(tails), np.asarray(n_tails))
+            with span("sir.finalize.fetch"):
+                fetch = _Fetch(probs)
+            for i, (r, *_rest) in enumerate(q):
+                r._fetch, r._row, r.dispatched_ns = fetch, i, t
         return len(q)
 
 
@@ -673,8 +691,11 @@ class StreamingRecognizer:
 
     def feed(self, chunk: np.ndarray):
         """Feed one chunk; returns a result at end-of-utterance, else
-        None."""
-        chunk = np.asarray(chunk, np.float32).reshape(-1)
+        None.  Traced as the span ``sir.stream.feed``."""
+        with span("sir.stream.feed"):
+            return self._feed(np.asarray(chunk, np.float32).reshape(-1))
+
+    def _feed(self, chunk: np.ndarray):
         speech = self.vad.is_speech(chunk)
 
         if not self._recording:

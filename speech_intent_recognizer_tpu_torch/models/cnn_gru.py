@@ -45,6 +45,7 @@ from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
 from speech_intent_recognizer_tpu_torch.ops.global_batch import rand_rows
 from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
     gather_on_use, split_attention_pool)
+from speech_intent_recognizer_tpu_torch.utils.profiling import span
 
 _DIRS = ("", "_reverse")
 
@@ -247,6 +248,11 @@ class TorchGRU(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # x: (B, T, F) -> (B, T, 2H)
+        with span("sir.gru"):
+            return self._layers(x, generator)
+
+    def _layers(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
         dt = self.compute_dtype
         for layer in range(self.num_layers):
             xc = x.to(dt)
@@ -354,6 +360,17 @@ class CNNAudioGRU(nn.Module):
             x = getattr(self, f"bn{i}")(x)
         return F.max_pool2d(F.relu(x).to(dt), 2)
 
+    def _conv_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's conv stages; conv2 and conv3 in the span
+        ``sir.conv`` (conv1, where the model holds it, before it)."""
+        stages = list(self._stages)
+        if stages[:1] == [1]:
+            x = self._conv(stages.pop(0), x)
+        with span("sir.conv"):
+            for i in stages:
+                x = self._conv(i, x)
+        return x
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.conv_external:
@@ -362,9 +379,7 @@ class CNNAudioGRU(nn.Module):
             return self._forward_conv1_external(x, generator)
         if x.dim() == 3:
             x = x.unsqueeze(1)  # (B, 1, n_mels, T)
-        x = x.to(self.compute_dtype)
-        for i in self._stages:
-            x = self._conv(i, x)
+        x = self._conv_stack(x.to(self.compute_dtype))
         # (B, C, M', T') -> (B, T', C * M'), channel-major (reference
         # models.py:54-57)
         b, c, m, t = x.shape
@@ -381,9 +396,7 @@ class CNNAudioGRU(nn.Module):
         if x.dim() == 3:
             b, t, mc = x.shape
             x = x.view(b, t, mc // c1, c1)
-        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        for i in self._stages:
-            x = self._conv(i, x)
+        x = self._conv_stack(x.permute(0, 3, 1, 2).to(self.compute_dtype))
         b, c, t, m = x.shape
         x = x.permute(0, 2, 1, 3).reshape(b, t, c * m)
         return self._head(x, generator)

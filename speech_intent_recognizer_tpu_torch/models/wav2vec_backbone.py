@@ -54,6 +54,7 @@ from speech_intent_recognizer_tpu_torch.ops.global_batch import (
     base_generator, rand_part, rand_rows)
 from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
     copy_to_model, gather_on_use, model_part, part_slice, row_parallel)
+from speech_intent_recognizer_tpu_torch.utils.profiling import span
 
 
 def feat_extract_output_lengths(config, input_lengths: torch.Tensor
@@ -150,10 +151,11 @@ class FeatureEncoder(nn.Module):
             for i in range(config.num_feat_extract_layers))
 
     def forward(self, input_values: torch.Tensor) -> torch.Tensor:
-        x = input_values[:, None, :].to(self.dtype)
-        for layer in self.conv_layers:
-            x = layer(x)
-        return x
+        with span("sir.w2v.encoder"):
+            x = input_values[:, None, :].to(self.dtype)
+            for layer in self.conv_layers:
+                x = layer(x)
+            return x
 
 
 class FeatureProjection(nn.Module):
@@ -331,6 +333,11 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None,
                 generator=None) -> torch.Tensor:
+        with span("sir.w2v.transformer"):
+            return self._layers(x, keep, generator)
+
+    def _layers(self, x: torch.Tensor, keep: Optional[torch.Tensor],
+                generator) -> torch.Tensor:
         attn_bias = None
         if keep is not None:
             keep = keep.float()  # (B, T')

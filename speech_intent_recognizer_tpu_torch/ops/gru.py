@@ -37,6 +37,7 @@ import torch
 
 from speech_intent_recognizer_tpu_torch import _build
 from speech_intent_recognizer_tpu_torch.ops import library
+from speech_intent_recognizer_tpu_torch.utils.profiling import span
 
 
 def _gru_layer_plain(gx: torch.Tensor, w: torch.Tensor,
@@ -519,7 +520,8 @@ class _GRULayer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dys):
         gx, w, bn, ys = ctx.saved_tensors
-        dgx, dw, dbn = gru_layer_backward(gx, w, bn, ys, dys, ctx.rows)
+        with span("sir.gru.backward"):
+            dgx, dw, dbn = gru_layer_backward(gx, w, bn, ys, dys, ctx.rows)
         return dgx, dw, dbn, None
 
 

@@ -74,6 +74,7 @@ from speech_intent_recognizer_tpu_torch.parallel.sharding import (
     full_state_dict, place_params, sharded_generator)
 from speech_intent_recognizer_tpu_torch.train.state import (
     Optimizer, create_optimizer)
+from speech_intent_recognizer_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -228,7 +229,10 @@ class Trainer:
         ``generator``.  In waveform mode ``features`` are (N, L) int16
         waveforms and ``lengths`` (N,) int32.  -> {"loss", "acc"} (weighted
         means).  Data-parallel: ``perm`` and ``weights`` are the global
-        batches, the same on every process, which runs its own rows."""
+        batches, the same on every process, which runs its own rows.
+        Traced, a step's phases are the spans ``sir.train.inputs``,
+        ``.forward``, ``.backward`` and ``.optimizer``, and the copy of the
+        metrics to the host after the last step ``sir.train.metrics``."""
         self._check_lengths(lengths)
         data = self.cfg.data
         use_mixup = data.mixup_alpha > 0 and data.use_mixup
@@ -240,30 +244,35 @@ class Trainer:
         group = None if self.mesh is None else self.mesh.data_group
         totals = torch.zeros(3, device=features.device)
         for idx_all, w_all in zip(perm, weights):
-            idx, w, w_sum = idx_all[mine], w_all[mine], w_all.sum()
-            x = self._inputs(features, lengths, idx,
-                             generator if wave_aug else None)
-            y = labels[idx]
-            y_onehot = F.one_hot(y, self.num_classes).float()
-            if data.use_augmentation:
-                x = spec_augment(x, generator,
-                                 augment_prob=data.augment_prob,
-                                 time_mask_param=data.time_mask_param,
-                                 freq_mask_param=data.freq_mask_param)
-            if use_mixup:
-                x, y_onehot = mixup(x, y_onehot, generator, data.mixup_alpha,
-                                    group)
-            logits = model(x, generator)
-            loss = cross_entropy(logits, y_onehot, w, w_sum)
-            opt.zero_grad()
-            loss.backward()
-            if self.mesh is not None:
-                all_reduce_gradients(opt.params, self.mesh.data_group)
-            opt.step()
+            with span("sir.train.inputs"):
+                idx, w, w_sum = idx_all[mine], w_all[mine], w_all.sum()
+                x = self._inputs(features, lengths, idx,
+                                 generator if wave_aug else None)
+                y = labels[idx]
+                y_onehot = F.one_hot(y, self.num_classes).float()
+                if data.use_augmentation:
+                    x = spec_augment(x, generator,
+                                     augment_prob=data.augment_prob,
+                                     time_mask_param=data.time_mask_param,
+                                     freq_mask_param=data.freq_mask_param)
+                if use_mixup:
+                    x, y_onehot = mixup(x, y_onehot, generator,
+                                        data.mixup_alpha, group)
+            with span("sir.train.forward"):
+                logits = model(x, generator)
+                loss = cross_entropy(logits, y_onehot, w, w_sum)
+            with span("sir.train.backward"):
+                opt.zero_grad()
+                loss.backward()
+                if self.mesh is not None:
+                    all_reduce_gradients(opt.params, self.mesh.data_group)
+            with span("sir.train.optimizer"):
+                opt.step()
             with torch.no_grad():
                 correct = ((logits.argmax(-1) == y).float() * w).sum()
                 totals += torch.stack([loss * w_sum, correct, w.sum()])
-        return _means(self._reduce(totals))
+        with span("sir.train.metrics"):
+            return _means(self._reduce(totals))
 
     @torch.no_grad()
     def evaluate(self, features: torch.Tensor, labels: torch.Tensor,

@@ -6,14 +6,12 @@ from speech_intent_recognizer_tpu_torch.utils.diagnostics import (
     print_device_info,
 )
 from speech_intent_recognizer_tpu_torch.utils.profiling import (
-    StepTimer,
     device_memory_stats,
     trace,
     trace_annotation,
 )
 
 __all__ = [
-    "StepTimer",
     "device_memory_stats",
     "device_smoke_test",
     "print_device_info",

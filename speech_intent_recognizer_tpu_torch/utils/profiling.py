@@ -1,5 +1,5 @@
-"""Tracing, step timing, a per-kernel breakdown of device time, device
-memory.
+"""Tracing, the program's own spans and records, a per-kernel breakdown
+of device time, device memory.
 
 Counterpart of ``speech_intent_recognizer_tpu/utils/profiling.py`` for the
 card: ``torch.profiler`` takes the place of ``jax.profiler``.
@@ -7,12 +7,17 @@ card: ``torch.profiler`` takes the place of ``jax.profiler``.
 * :func:`trace` — context manager writing a Chrome trace (``chrome://tracing``,
   Perfetto) of the host and the card;
 * :func:`trace_annotation` — a named region inside a trace;
+* :func:`span`, :func:`record` — the program's own spans (every name starts
+  with ``sir.``) and per-request records.  Tracing is on exactly while a
+  ``torch.profiler`` runs in the process: a span is then a
+  ``record_function``, an event of the profiler's trace beside the kernels
+  it launched, and a record (a tuple of ``time.perf_counter_ns()`` stamps
+  and an identifier) is kept in memory for :func:`records`.  With no
+  profiler a span is one shared null context and a record is dropped, at
+  the cost of one read of the profiler's flag;
 * :func:`device_memory_stats` — per-card live / peak bytes;
-* :class:`StepTimer` — EMA step timing on the host clock, with derived
-  rates;
 * :func:`step_times` / :func:`kernel_breakdown` — the port's own: the
-  ``--profile`` phase of ``chip_smoke.py`` drives them on the main path,
-  and ``PERF.md`` section 5 is written from what they print.
+  ``--profile`` phase of ``chip_smoke.py`` drives them on the main path.
 """
 
 from __future__ import annotations
@@ -24,6 +29,49 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+NULL = contextlib.nullcontext()  # the span of an untraced call
+_records: Dict[str, list] = {}
+
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def tracing() -> bool:
+        """True while a ``torch.profiler`` runs in this process (the flag
+        the profiler sets as it starts and clears as it stops)."""
+        return _autograd_profiler._is_profiler_enabled
+else:  # a torch that keeps the flag in C++ alone
+    def tracing() -> bool:
+        """True while a ``torch.profiler`` runs in this process."""
+        return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str):
+    """``with span("sir.predict"):`` — a named region of the program on
+    the profiler's timeline while a profiler runs, else :data:`NULL`
+    (``record_function`` costs microseconds even with no profiler)."""
+    return torch.profiler.record_function(name) if tracing() else NULL
+
+
+def stamp() -> Optional[int]:
+    """``time.perf_counter_ns()`` while tracing, else None."""
+    return time.perf_counter_ns() if tracing() else None
+
+
+def record(kind: str, *fields) -> None:
+    """Keep the tuple ``fields`` among the records of ``kind`` while
+    tracing; drop it otherwise."""
+    if tracing():
+        _records.setdefault(kind, []).append(fields)
+
+
+def records(kind: str) -> list:
+    """The records of ``kind`` kept since the last :func:`clear_records`,
+    in the order they were made."""
+    return list(_records.get(kind, ()))
+
+
+def clear_records() -> None:
+    _records.clear()
 
 
 @contextlib.contextmanager
@@ -49,31 +97,6 @@ def trace(logdir: str):
 def trace_annotation(name: str):
     """Named region for the profiler timeline (``record_function``)."""
     return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Exponential-moving-average step timer (host clock): the time from
-    entering to leaving the ``with`` block.  Device work is asynchronous,
-    so a step's time covers its device work only where the step ends in a
-    copy to the host, as in the JAX package."""
-
-    def __init__(self, decay: float = 0.9):
-        self.decay = decay
-        self.ema: Optional[float] = None
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.ema = dt if self.ema is None else (
-            self.decay * self.ema + (1 - self.decay) * dt)
-        return False
-
-    def rate(self, items_per_step: int) -> float:
-        return items_per_step / self.ema if self.ema else 0.0
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

@@ -3,8 +3,7 @@
 ``resample_np`` (rtol 1e-4 / atol 1e-5, ``tests/test_audio_io.py:122-127``);
 ``data/prefetch.device_prefetch`` (order, buffer sizes 1-3, empty and
 short iterators) and ``Wav2VecTrainer``'s epoch through it (losses equal
-to the same epoch with synchronous copies); ``utils/profiling.StepTimer``
-against JAX's on one sequence of clock readings; ``trace`` /
+to the same epoch with synchronous copies); ``trace`` /
 ``trace_annotation``; and ``utils/diagnostics``."""
 
 import json
@@ -17,12 +16,11 @@ import torch
 import jax.numpy as jnp
 
 from speech_intent_recognizer_tpu.ops.resample import resample_jax
-from speech_intent_recognizer_tpu.utils import profiling as jax_profiling
 from speech_intent_recognizer_tpu_torch import utils
 from speech_intent_recognizer_tpu_torch.data.audio_io import save_wav
 from speech_intent_recognizer_tpu_torch.data.prefetch import device_prefetch
 from speech_intent_recognizer_tpu_torch.ops import resample_np, resample_torch
-from speech_intent_recognizer_tpu_torch.utils import diagnostics, profiling
+from speech_intent_recognizer_tpu_torch.utils import diagnostics
 
 
 @pytest.mark.parametrize("orig,new", [(24000, 16000), (44100, 16000),
@@ -120,23 +118,6 @@ def test_wav2vec_epoch_equal_to_synchronous_copies(tmp_path, monkeypatch):
         assert torch.equal(state[name], t), name
 
 
-def test_step_timer_matches_jax(monkeypatch):
-    readings = [0.0, 0.010, 1.0, 1.030, 2.0, 2.015, 3.0, 3.05]
-    timers = []
-    for module in (profiling, jax_profiling):
-        ticks = iter(readings)
-        monkeypatch.setattr(module.time, "perf_counter", lambda: next(ticks))
-        t = module.StepTimer(decay=0.8)
-        assert t.rate(10) == 0.0
-        for _ in range(4):
-            with t:
-                pass
-        timers.append((t.ema, t.rate(64)))
-    assert timers[0] == timers[1]
-    assert timers[0][0] == pytest.approx(
-        0.8 * (0.8 * (0.8 * 0.010 + 0.2 * 0.030) + 0.2 * 0.015) + 0.2 * 0.05)
-
-
 def test_trace_names_the_annotated_region(tmp_path):
     with utils.trace(str(tmp_path / "trace")):
         with utils.trace_annotation("sir_annotated_region"):
@@ -159,5 +140,5 @@ def test_diagnostics(capsys):
     out = capsys.readouterr().out
     assert "devices" in out and "optimizer walkthrough: OK" in out
     assert set(utils.__all__) == {
-        "StepTimer", "device_memory_stats", "device_smoke_test",
+        "device_memory_stats", "device_smoke_test",
         "print_device_info", "trace", "trace_annotation"}
