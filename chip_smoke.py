@@ -6,11 +6,13 @@ Drives the port's paths at the full width of the reference model
 hand-written CUDA kernels, and checks everything it measures:
 
 * serving: ``Predictor.from_checkpoint`` -> ``predict_waveform_batch``,
-  batch inference from waveform to intent probabilities (K1, K2);
+  batch inference from waveform to intent probabilities (K1, K5, K2:
+  conv2 + conv3 in one kernel by default where K5's contract holds);
 * training from precomputed features: the precompute, train and evaluate
   CLIs on a seeded synthetic tone corpus (K3 in the precompute, K2 and its
   backward K2T in training), then the trained model served;
-* the two opt-in configurations of serving: conv2 + conv3 in one kernel
+* the named configurations of serving: torch's epilogues
+  (``pool_impl="torch"``: K1, K2), conv2 + conv3 in one kernel after that
   (``enable_conv23_kernel``: K1, K5, K2) and the conv epilogue kernel
   (``pool_impl="kernel"``: K1, K6 twice, K2);
 * serving off the reference geometry (hop 256, 400 frames): the unfused
@@ -48,8 +50,8 @@ Phases:
    each launched twice for the same bits, then with the seeded checkpoint's
    recurrent weights;
 4. serving end to end: the main path once at B=256 with the launch
-   counters reset just before and read just after (K1 must launch once, K2
-   twice), then the parity gates of the reference ``bench.py``: plain
+   counters reset just before and read just after (K1 and K5 must launch
+   once, K2 twice), then the parity gates of the reference ``bench.py``: plain
    front-end vs the fp64 golden (< 0.05), fused probabilities vs golden
    features through the plain unfused folded model (< 0.02, equal argmax),
    and the main run's rows vs the same predictor on the CPU;
@@ -64,19 +66,20 @@ Phases:
 7. the front-end and the predictor at hop 256 / 400 frames through K4,
    against the plain front-end and the fp64 golden (K4 once per batch, K3
    never), and silent utterances in raw dB (exactly the floor);
-8. the conv23 and ``pool_impl="kernel"`` configurations at B=256 against
-   the default path, with every counter reset before and read after each
-   (K1 1, K5 1, K2 2; K1 1, K6 2, K2 2), and ``test_model --conv23`` /
-   ``--pool-impl kernel`` on a WAV file;
+8. the ``pool_impl="torch"``, conv23 (``enable_conv23_kernel`` after
+   ``pool_impl="torch"``) and ``pool_impl="kernel"`` configurations at
+   B=256 against the default path, with every counter reset before and
+   read after each (K1 1, K2 2; K1 1, K5 1, K2 2; K1 1, K6 2, K2 2), and
+   ``test_model --conv23`` / ``--pool-impl kernel`` on a WAV file;
 9. timings with CUDA events, each next to the card's name and power limit:
    K1 and K2 (every build); K4 (also at 512 and 2048 points), K5, K6, their
    plain versions and the library calls they stand beside; K1, K2, K2T, K3,
    K4, K5, cuDNN's GRU layer (bf16 and fp16), cuDNN's conv2 + conv3 pair
    and that pair with K6 after each conv as the median of five timed
-   blocks with the least and the most; the three serving
-   configurations in the order A B C C B A;
+   blocks with the least and the most; the four serving
+   configurations in the order A B C D D C B A;
 10. with ``--profile`` only: step-time percentiles and the per-kernel
-    breakdown of device time (``utils/profiling.py``) of the three serving
+    breakdown of device time (``utils/profiling.py``) of the four serving
     configurations at B=256 and 2048, of one bf16 train step at B=256, and
     (in phase 16) of the streaming finalize of 1 and of 16 queued sessions;
 11. K3 (front-end) against its plain version, f32 and bf16 out, normalized
@@ -140,11 +143,12 @@ Phases:
     step's per-kernel breakdown at B=256);
 18. serving artifacts of phase 15's model (``infer.export``): the
     production flavour of the default configuration pinned at B = 8, 256
-    and 2048, of conv23 and ``pool_impl="kernel"`` at 256 and of the
-    unfused fp32 predictor at 8, the portable flavour and the streaming
-    artifact, each loaded by its own process (all at once) that counts
-    what a program call launches (default K1 1, K2 2; conv23 K1 1, K5 1,
-    K2 2; pool kernel K1 1, K6 2, K2 2; unfused K3 1, K2 2; the streaming
+    and 2048, of ``pool_impl="torch"``, conv23 and ``pool_impl="kernel"``
+    at 256 and of the unfused fp32 predictor at 8, the portable flavour and
+    the streaming artifact, each loaded by its own process (all at once)
+    that counts what a program call launches (default K1 1, K5 1, K2 2;
+    torch K1 1, K2 2; conv23 K1 1, K5 1, K2 2; pool kernel K1 1, K6 2,
+    K2 2; unfused K3 1, K2 2; the streaming
     finalize K4 1, K2 2; the portable nothing) and lists the port's modules
     it imported (none of models, predictor, training, data; the portable
     no kernel op either); production rows bit-equal to the live predictor
@@ -167,7 +171,7 @@ Phases:
     split (a full-width bf16 model; K3 once a precompute batch, K2T 2 a
     step, K2 2 a step, eval batch and evaluate-stage batch); c.
     ``cli.test_tts_samples`` with that model over the 38 TTS WAVs on the
-    card (K1 38, K2 76, nothing else) and with ``--device cpu``: equal
+    card (K1 38, K5 38, K2 76, nothing else) and with ``--device cpu``: equal
     labels, confidences within phase 4's bar, the accuracy printed; d. a
     librosa-mode predictor (plain front-end: no K1, K3 or K4) on the card
     against the CPU and against the fp64 golden features; e. one
@@ -196,9 +200,9 @@ Phases:
     one card over gloo, every part's line printed, each step held to the
     one-process step at B=2x64 by the dry run's bars, each process's
     launches (feature K2 2, K2T 2; waveform K3 1, K2 2, K2T 2, each K2T
-    the fp32 cluster backward; its serving mesh K1 2, K2 4); c.
+    the fp32 cluster backward; its serving mesh K1 2, K5 2, K2 4); c.
     ``Predictor(mesh=)`` over [dev, dev] on 37 rows of the test split (K1
-    2, K2 4) against the meshless rows at phase 4's bar.
+    2, K5 2, K2 4) against the meshless rows at phase 4's bar.
 22. tensor parallelism (the ``model`` axis of ``parallel/``; runs after
     21): ``parallel.dryrun.dryrun_multichip(2, "cuda", model_axis=2)``
     (dp1 x tp2) and ``dryrun_multichip(4, "cuda", model_axis=2)`` (dp2 x
@@ -424,11 +428,14 @@ PARTIAL_AT = 8
 # configuration and the rows asked of them (the default: pinned, routed to
 # 256, chunked as 2048 + 252), the launches one program call makes, the
 # batches timed
-EXPORT_CONFIGS = {"default": (8, 256, 2048), "conv23": (256,),
-                  "pool_impl=kernel": (256,), "unfused": (8,)}
-EXPORT_REQUESTS = {"default": (8, 200, 256, 2300), "conv23": (256,),
-                   "pool_impl=kernel": (256,), "unfused": (8,)}
-EXPORT_LAUNCHES = {"default": {"K1": 1, "K2": 2},
+EXPORT_CONFIGS = {"default": (8, 256, 2048), "pool_impl=torch": (256,),
+                  "conv23": (256,), "pool_impl=kernel": (256,),
+                  "unfused": (8,)}
+EXPORT_REQUESTS = {"default": (8, 200, 256, 2300), "pool_impl=torch": (256,),
+                   "conv23": (256,), "pool_impl=kernel": (256,),
+                   "unfused": (8,)}
+EXPORT_LAUNCHES = {"default": {"K1": 1, "K5": 1, "K2": 2},
+                   "pool_impl=torch": {"K1": 1, "K2": 2},
                    "conv23": {"K1": 1, "K5": 1, "K2": 2},
                    "pool_impl=kernel": {"K1": 1, "K6": 2, "K2": 2},
                    "unfused": {"K3": 1, "K2": 2}}
@@ -1181,7 +1188,7 @@ def train_end_to_end(tmp: str, dev) -> dict:
           f"classification_report.txt says {head!r}; evaluate_dataset "
           f"{ev['accuracy']:.4f}")
 
-    # the best model served (fused K1 + K2) vs its unfused eval forward
+    # the best model served (fused K1 + K5 + K2) vs its unfused eval forward
     pred = Predictor.from_checkpoint(best, label_map, device=dev)
     check(pred._conv1 is not None, "trained model served on the fused path")
     sbuf, sln = decode_split(csvs["test"], padded_samples(80000))
@@ -1198,9 +1205,9 @@ def train_end_to_end(tmp: str, dev) -> dict:
     logp_err = float(np.abs(np.log(np.maximum(probs, 1e-30)) - want).max())
     share = float((probs.argmax(-1) == want.argmax(-1)).mean())
     check(logp_err <= LOGP_BAR and share >= ARGMAX_SHARE_BAR,
-          f"best model served (fused K1 + K2) vs its unfused eval forward on "
-          f"{len(sln)} test WAVs: log-prob err {logp_err:.3e} <= {LOGP_BAR}, "
-          f"argmax equal on {share:.4f} >= {ARGMAX_SHARE_BAR}")
+          f"best model served (fused K1 + K5 + K2) vs its unfused eval "
+          f"forward on {len(sln)} test WAVs: log-prob err {logp_err:.3e} "
+          f"<= {LOGP_BAR}, argmax equal on {share:.4f} >= {ARGMAX_SHARE_BAR}")
     return {"k3_launches": k3_launches, "k2t_launches": k2t_launches,
             "precompute_utt_s": n_total / precompute_s,
             "epochs": result.epochs_run, "val_acc": result.best_val_acc,
@@ -2358,17 +2365,22 @@ def check_hop256(dev, model_path, label_path, rng) -> dict:
 
 def check_configurations(dev, tmp, model_path, label_path, wf_main, main_ln,
                          default_probs) -> tuple:
-    """Phase 8: the two opt-in serving configurations at B=256 against the
-    default path.  Returns the predictors and each path's launches."""
+    """Phase 8: the named serving configurations at B=256 against the
+    default path (K5 by its contract).  Returns the predictors and each
+    path's launches."""
     from speech_intent_recognizer_tpu_torch.cli.test_model import (
         main as cli_main)
 
-    c23 = Predictor.from_checkpoint(model_path, label_path, device=dev)
+    torch_ep = Predictor.from_checkpoint(model_path, label_path, device=dev,
+                                         pool_impl="torch")
+    c23 = Predictor.from_checkpoint(model_path, label_path, device=dev,
+                                    pool_impl="torch")
     c23.enable_conv23_kernel()
     pool = Predictor.from_checkpoint(model_path, label_path, device=dev,
                                      pool_impl="kernel")
     launches = {}
     for name, pred, want in (
+            ("pool_impl=torch", torch_ep, {"K1": 1, "K2": 2}),
             ("conv23", c23, {"K1": 1, "K5": 1, "K2": 2}),
             ("pool_impl=kernel", pool, {"K1": 1, "K6": 2, "K2": 2})):
         torch.cuda.synchronize()
@@ -2393,7 +2405,7 @@ def check_configurations(dev, tmp, model_path, label_path, wf_main, main_ln,
               f"CLI {' '.join(flags)} predicted {got['predicted_label']} "
               f"({got['confidence']:.4f}; default {want['confidence']:.4f}), "
               f"its kernel launched {counter.launches}x")
-    return c23, pool, launches
+    return torch_ep, c23, pool, launches
 
 
 def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
@@ -2495,7 +2507,7 @@ def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
 
 def time_configurations(preds: dict, e2e_wf, e2e_ln) -> dict:
     """Phase 9b: predict_waveform_batch with device-resident input on the
-    three configurations, A B C C B A, host clock around calls that end in
+    configurations, A B .. B A, host clock around calls that end in
     the copy of the probabilities to the host; ms per step, first and
     second pass of each."""
     out = {}
@@ -2570,7 +2582,7 @@ def dispatch_us(fn, calls: int = 200) -> float:
 
 def check_export(dev, tmp: str, run: dict, label: str) -> dict:
     """Phase 18: serving artifacts of the model phase 15 trained.  Exports
-    the production flavour of the four configurations, the portable
+    the production flavour of the five configurations, the portable
     flavour and the streaming artifact; loads each in its own process
     (which prints what it launched and imported); holds the results to the
     live path; times the artifacts beside the live ``Predictor`` and the
@@ -2582,11 +2594,14 @@ def check_export(dev, tmp: str, run: dict, label: str) -> dict:
 
     best, labels = run["best"], run["label_map"]
     preds = {"default": Predictor.from_checkpoint(best, labels, device=dev),
+             "pool_impl=torch": Predictor.from_checkpoint(
+                 best, labels, device=dev, pool_impl="torch"),
              "pool_impl=kernel": Predictor.from_checkpoint(
                  best, labels, device=dev, pool_impl="kernel"),
              "unfused": Predictor.from_checkpoint(best, labels, device=dev,
                                                   fold_bn=False)}
-    preds["conv23"] = Predictor.from_checkpoint(best, labels, device=dev)
+    preds["conv23"] = Predictor.from_checkpoint(best, labels, device=dev,
+                                                pool_impl="torch")
     preds["conv23"].enable_conv23_kernel()
     base = os.path.join(tmp, "artifacts")
     dirs, export_s = {}, {}
@@ -3221,7 +3236,8 @@ def synthetic_pipeline(dev, tmp: str) -> dict:
 
 def tts_holdout(dev, tmp: str, tts_dir: str, run: dict) -> dict:
     """Phase 20c: ``cli.test_tts_samples`` over the TTS WAVs with phase
-    20b's model on the card (one K1 and two K2 a file, nothing else) and
+    20b's model on the card (one K1, one K5 and two K2 a file, nothing
+    else) and
     with ``--device cpu``: equal predicted labels, confidences within
     phase 4's bar."""
     from speech_intent_recognizer_tpu_torch.cli.test_tts_samples import (
@@ -3239,7 +3255,7 @@ def tts_holdout(dev, tmp: str, tts_dir: str, run: dict) -> dict:
     launches = counters()
     n = len(card["rows"])
     check(n == len(sheet_rows()), f"the TTS holdout predicted {n} WAVs")
-    check_counts(launches, {"K1": n, "K2": 2 * n},
+    check_counts(launches, {"K1": n, "K5": n, "K2": 2 * n},
                  f"cli.test_tts_samples on the card over {n} WAVs")
     t0 = time.perf_counter()
     cpu = tts_main(args + ["--report_dir", os.path.join(tmp, "tts_cpu"),
@@ -3658,8 +3674,8 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
         check_counts(parts["waveform"]["launches"],
                      {"K3": 1, "K2": 2, "K2T": 2, "K2T_cluster": 2},
                      f"dryrun process {r['rank']}, waveform step")
-    check_counts(dry["parts"]["serving"]["launches"], {"K1": 2, "K2": 4},
-                 "dryrun serving mesh of 2")
+    check_counts(dry["parts"]["serving"]["launches"],
+                 {"K1": 2, "K5": 2, "K2": 4}, "dryrun serving mesh of 2")
     out["dryrun"] = {k: {f: v for f, v in p.items() if f != "launches"}
                      for k, p in dry["parts"].items()}
     out["launches"]["dryrun"] = {
@@ -3678,7 +3694,7 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
     reset_counters()
     got = pred.predict_waveform_batch(buf, ln)
     launches = counters()
-    check_counts(launches, {"K1": 2, "K2": 4},
+    check_counts(launches, {"K1": 2, "K5": 2, "K2": 4},
                  f"serving mesh [{dev}, {dev}], {DP_SERVE_ROWS} rows")
     out["launches"]["serving_mesh"] = launches
     want = plain.predict_waveform_batch(buf, ln)
@@ -3729,7 +3745,7 @@ def check_tensor_parallel(dev) -> dict:
                       f"Adam moments ({by}), the whole parameters equal on "
                       f"every process")
         check_counts(parts["serving"]["launches"],
-                     {"K1": data, "K2": 2 * data},
+                     {"K1": data, "K5": data, "K2": 2 * data},
                      f"{name} serving mesh of {n} entries")
         out["runs"][name] = {
             "seconds": seconds,
@@ -3848,7 +3864,7 @@ def main(argv=None) -> int:
         reset_counters()
         probs = pred.predict_waveform_batch(wf_main, main_ln)
         main_launches = counters()
-        check_counts(main_launches, {"K1": 1, "K2": 2},
+        check_counts(main_launches, {"K1": 1, "K5": 1, "K2": 2},
                      f"main path, B={MAIN_BATCH}")
         check(probs.shape == (MAIN_BATCH, 31)
               and bool(np.isfinite(probs).all())
@@ -3901,8 +3917,8 @@ def main(argv=None) -> int:
         # ---- 7. off the reference geometry: the front-end through K4 ----
         hop256_launches = check_hop256(dev, model_path, label_path, rng)
 
-        # ---- 8. the two opt-in serving configurations ----
-        c23_pred, pool_pred, cfg_launches = check_configurations(
+        # ---- 8. the named serving configurations ----
+        torch_pred, c23_pred, pool_pred, cfg_launches = check_configurations(
             dev, tmp, model_path, label_path, wf_main, main_ln, probs)
 
         # ---- 9. timing (CUDA events; card and power limit beside) ----
@@ -3965,10 +3981,11 @@ def main(argv=None) -> int:
                 with torch.inference_mode():
                     timed(timings, spreads, key, lambda: cudnn(x), 20)
 
-        time_new_kernels(dev, pred._conv1.model, timings, bounds, spreads)
-        preds = {"default": pred, "pool_impl=kernel": pool_pred,
-                 "conv23": c23_pred}
-        for name in ("pool_impl=kernel", "conv23"):
+        time_new_kernels(dev, torch_pred._conv1.model, timings, bounds,
+                         spreads)
+        preds = {"default": pred, "pool_impl=torch": torch_pred,
+                 "pool_impl=kernel": pool_pred, "conv23": c23_pred}
+        for name in ("pool_impl=torch", "pool_impl=kernel", "conv23"):
             check_against_default(
                 preds[name].predict_waveform_batch(e2e_wf, e2e_ln), e2e_probs,
                 f"{name} configuration, timed B={E2E_BATCH} batch")

@@ -53,7 +53,8 @@ def add_model_type_arg(parser: argparse.ArgumentParser) -> None:
 
 def make_predictor(model_path: str, label_map_path: str,
                    audio_cfg: AudioConfig, device: str = "cuda",
-                   pool_impl: str = "torch", model_type: str = "cnn_gru"):
+                   pool_impl: "str | None" = None,
+                   model_type: str = "cnn_gru"):
     """The predictor of ``model_type`` for a checkpoint (``pool_impl`` is
     read by the cnn_gru one only)."""
     from speech_intent_recognizer_tpu_torch.infer.predict import (

@@ -46,15 +46,17 @@ def main(argv=None):
                    help="pinned batch sizes for --flavor production")
     add_device_arg(p)
     p.add_argument("--pool-impl", choices=("torch", "kernel"),
-                   default="torch",
+                   default=None,
                    help="production: the conv epilogue of conv2/conv3, "
-                        "torch ops or the epilogue kernel")
+                        "torch ops or the epilogue kernel (default: both "
+                        "convs in the conv23 kernel where it serves, else "
+                        "torch ops)")
     p.add_argument("--conv23", action="store_true",
                    help="production: conv2+conv3 in the conv23 kernel "
                         "(reference geometry and channels only)")
     args = p.parse_args(argv)
     if args.model_type == "wav2vec" and (args.conv23
-                                         or args.pool_impl != "torch"):
+                                         or args.pool_impl is not None):
         p.error("--conv23 and --pool-impl configure the cnn_gru path")
     cfg = load_config_or_default(args.config)
     predictor = make_predictor(args.model, args.label_map, cfg.audio,

@@ -4,16 +4,20 @@ Counterpart of ``speech_intent_recognizer_tpu/infer/predict.py``
 (``Predictor``).  ``from_checkpoint`` folds BatchNorm and, for the reference
 geometry, serves the ``conv1_external`` bf16 variant behind the fused
 front-end + conv1 kernel: on a CUDA device ``predict_waveform_batch`` always
-launches K1 once and K2 once per GRU layer.  Two opt-in configurations of
-that path put the rest of the conv stack into kernels too:
-``pool_impl="kernel"`` (conv2 / conv3 as ``F.conv2d`` without bias plus the
-conv epilogue kernel K6, twice per batch) and
-:meth:`Predictor.enable_conv23_kernel` (conv2 + conv3 in the K5 kernel,
-once per batch, and a GRU + attention + ``fc`` head).  The unfused model
-(``fold_bn=False``) takes its features from ``log_mel_frontend``, the fused
-front-end kernel K3 on a CUDA device at the reference geometry and the
-dB-mel kernel K4 at any other.  There is no probe and no switch to
-another path at run time; CPU devices run the kernels' plain versions.
+launches K1 once and K2 once per GRU layer.  Where conv2 and conv3 meet the
+K5 kernel's contract (channels (32, 64, 128), ``mel_spec_length`` a
+multiple of 4) the variant runs them as one K5 launch in its conv stage
+(the ``conv23`` form); elsewhere as ``F.conv2d`` with torch's bias-add,
+ReLU and max-pool.  A caller that names ``pool_impl`` keeps that
+configuration: ``"torch"`` (torch's epilogues) or ``"kernel"`` (conv2 /
+conv3 as ``F.conv2d`` without bias plus the conv epilogue kernel K6, twice
+per batch); :meth:`Predictor.enable_conv23_kernel` then selects the K5
+variant.  The unfused model (``fold_bn=False``) takes its features from
+``log_mel_frontend``, the fused front-end kernel K3 on a CUDA device at the
+reference geometry and the dB-mel kernel K4 at any other.  The choice
+follows the checkpoint's shapes and the audio geometry: there is no probe
+and no switch to another path at run time; CPU devices run the kernels'
+plain versions.
 
 Each configuration is one :class:`ServingBody` (``Predictor._fused_body``),
 the module that ``predict_waveform_batch`` runs and that
@@ -42,7 +46,6 @@ from speech_intent_recognizer_tpu_torch.data.audio_io import load_audio
 from speech_intent_recognizer_tpu_torch.evaluation.metrics import (
     top_k_predictions)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
-from speech_intent_recognizer_tpu_torch.ops.conv23 import conv23
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     FrontendModule, FrontendParams, log_mel_conv1_frontend, log_mel_frontend,
     make_frontend_params, padded_samples)
@@ -75,31 +78,25 @@ class ServingBody(torch.nn.Module):
     waveforms, or their (B, L / hop, hop) rows, and (B,) int32 lengths ->
     (B, C) float32 probabilities.
 
-    * ``conv1`` and ``conv23`` given: K1 -> K5 -> ``model``, a
-      ``conv_external`` head;
-    * ``conv1`` alone: K1 -> ``model``, the ``conv1_external`` variant;
-    * neither: ``log_mel_frontend`` (K3, or K4 off the reference geometry)
+    * ``conv1`` given: K1 -> ``model``, the ``conv1_external`` variant
+      (K5 inside it in the ``conv23`` form);
+    * else: ``log_mel_frontend`` (K3, or K4 off the reference geometry)
       -> ``model``.
 
-    ``conv1`` is K1's (weight, bias) and ``conv23`` K5's operands
-    (``ops.conv23.conv23_operands``); both become buffers, so the state
-    dict is every weight the path reads.  The front-end's constants are
+    ``conv1`` is K1's (weight, bias); it becomes buffers, so the state dict
+    is every weight the path reads.  The front-end's constants are
     non-persistent buffers (:class:`.frontend.FrontendModule`).
     """
 
     _CONV1 = ("conv1_weight", "conv1_bias")
-    _CONV23 = ("conv2_packed", "conv2_bias", "conv3_packed", "conv3_bias")
 
     def __init__(self, params: FrontendParams, model: CNNAudioGRU,
-                 conv1: Optional[tuple] = None,
-                 conv23: Optional[tuple] = None):
+                 conv1: Optional[tuple] = None):
         super().__init__()
         self.frontend = FrontendModule(params)
         self.model = model
         self.with_conv1 = conv1 is not None
-        self.with_conv23 = conv23 is not None
-        for name, t in zip(self._CONV1 + self._CONV23,
-                           (conv1 or ()) + (conv23 or ())):
+        for name, t in zip(self._CONV1, conv1 or ()):
             self.register_buffer(name, t)
 
     def forward(self, waveforms: torch.Tensor,
@@ -114,9 +111,6 @@ class ServingBody(torch.nn.Module):
                 x = log_mel_conv1_frontend(waveforms, lengths, fe,
                                            self.conv1_weight,
                                            self.conv1_bias)
-        if self.with_conv23:
-            with span("sir.conv"):
-                x = conv23(x, *(getattr(self, n) for n in self._CONV23))
         return torch.softmax(self.model(x).float(), dim=-1)
 
 
@@ -134,9 +128,7 @@ class Predictor:
         # the fused front-end + conv1 path (K1 -> the conv1_external
         # variant) when it serves batch waveform inference
         self._conv1: Optional[ServingBody] = None
-        # K1 -> K5 -> head, once enable_conv23_kernel() has put conv2 /
-        # conv3 into the K5 kernel
-        self._conv23: Optional[ServingBody] = None
+        # the folded state where conv2 / conv3 meet K5's contract
         self._folded_for_conv23 = None
         self._unfused: Optional[ServingBody] = None  # built at first use
 
@@ -161,14 +153,15 @@ class Predictor:
                         num_classes: Optional[int] = None,
                         fold_bn: bool = True,
                         device: "str | torch.device" = "cuda",
-                        pool_impl: str = "torch",
+                        pool_impl: Optional[str] = None,
                         mesh=None) -> "Predictor":
         """``model_path``: a ``.pt`` / ``.pth`` state dict or a ``.msgpack``
         of the JAX trainer; the model takes the checkpoint's widths.
-        ``pool_impl``: the conv epilogue of the fused path's conv2 /
-        conv3, ``"torch"`` (bias-add, ReLU, max-pool) or ``"kernel"`` (K6);
-        it is read only where that path serves.  ``mesh``: the serving
-        mesh."""
+        ``pool_impl``: conv2 / conv3 of the fused path; None runs them in
+        K5 where its contract holds, else with torch's epilogues;
+        ``"torch"`` (bias-add, ReLU, max-pool) or ``"kernel"`` (K6) names
+        an epilogue.  It is read only where that path serves.  ``mesh``:
+        the serving mesh."""
         from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
             load_model_checkpoint)
         from speech_intent_recognizer_tpu_torch.data.labelmap import (
@@ -199,10 +192,12 @@ class Predictor:
                     gru_hidden=m.gru.hidden_size, gru_layers=m.gru.num_layers)
 
     def _maybe_enable_conv1_fusion(self, folded: Dict[str, torch.Tensor],
-                                   pool_impl: str = "torch") -> None:
+                                   pool_impl: Optional[str] = None) -> None:
         """Serve the fused front-end + conv1 path when the audio front-end
         and conv1 match the K1 kernel's contract (torchaudio mode,
-        n_fft=1024, hop=512, 64 mels, 200 frames, 32 conv1 channels)."""
+        n_fft=1024, hop=512, 64 mels, 200 frames, 32 conv1 channels); its
+        conv2 / conv3 in K5 when ``pool_impl`` is None and they match K5's
+        (channels 32 -> 64 -> 128, ``mel_spec_length`` a multiple of 4)."""
         from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
             conv1_external_params)
 
@@ -215,53 +210,50 @@ class Predictor:
                 and tuple(w.shape) == (32, 1, 3, 3)
                 and "conv1.bias" in folded):
             return
-        var_state, c1w, c1b = conv1_external_params(folded)
-        variant = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
-                              conv1_external=True, pool_impl=pool_impl,
-                              **self._widths())
-        variant.load_state_dict(var_state)
-        self._conv1 = ServingBody(
-            self.frontend_params, variant.to(self.device).eval(),
-            conv1=(c1w.to(self.device, torch.bfloat16).contiguous(),
-                   c1b.to(self.device, torch.bfloat16).contiguous()))
-        # conv2 / conv3 may move into the K5 kernel too (opt-in, see
-        # enable_conv23_kernel) when their channels are the kernel's
         if (tuple(folded["conv2.weight"].shape) == (64, 32, 3, 3)
                 and tuple(folded["conv3.weight"].shape) == (128, 64, 3, 3)
                 and cfg.mel_spec_length % 4 == 0):
             self._folded_for_conv23 = folded
+            if pool_impl is None:
+                self.enable_conv23_kernel()
+                return
+        self._serve_k1(*conv1_external_params(folded),
+                       pool_impl=pool_impl or "torch")
+
+    def _serve_k1(self, variant_state: Dict[str, torch.Tensor],
+                  conv1_weight: torch.Tensor, conv1_bias: torch.Tensor,
+                  **form) -> None:
+        """Serve K1 -> the bf16 ``conv1_external`` variant of ``form``
+        (``pool_impl``, or ``conv23``) loaded from ``variant_state``."""
+        variant = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
+                              conv1_external=True, **form, **self._widths())
+        variant.load_state_dict(variant_state)
+        self._conv1 = ServingBody(
+            self.frontend_params, variant.to(self.device).eval(),
+            conv1=(conv1_weight.to(self.device, torch.bfloat16).contiguous(),
+                   conv1_bias.to(self.device, torch.bfloat16).contiguous()))
 
     def enable_conv23_kernel(self) -> None:
-        """Switch the batch waveform path to the conv-stack-in-kernels
-        configuration: front-end + conv1 kernel (K1) -> conv2 + conv3
-        kernel (K5) -> GRU head."""
-        if self._folded_for_conv23 is None or self._conv1 is None:
+        """Serve conv2 + conv3 in the K5 kernel: front-end + conv1 kernel
+        (K1) -> the variant's conv stage in K5 -> GRU head.  The default
+        where K5's contract holds (nothing changes then); selects it after
+        a named ``pool_impl``."""
+        if self._folded_for_conv23 is None:
             raise ValueError("conv23 kernel requires the reference "
                              "geometry and channels (32, 64, 128)")
+        if self._conv1 is not None and self._conv1.model.conv23:
+            return
         from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-            conv_external_params)
-        from speech_intent_recognizer_tpu_torch.ops.conv23 import (
-            conv23_operands)
+            conv23_params)
 
-        head_state, _, (w2, b2), (w3, b3) = conv_external_params(
-            self._folded_for_conv23)
-        head = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
-                           conv_external=True, **self._widths())
-        head.load_state_dict(head_state)
-        self._conv23 = ServingBody(
-            self.frontend_params, head.to(self.device).eval(),
-            conv1=(self._conv1.conv1_weight, self._conv1.conv1_bias),
-            conv23=conv23_operands(w2.to(self.device), b2.to(self.device),
-                                   w3.to(self.device), b3.to(self.device)))
+        self._serve_k1(*conv23_params(self._folded_for_conv23), conv23=True)
 
     def _fused_body(self) -> ServingBody:
         """The module the batch path runs in the current configuration
-        (conv23, the fused conv1 path with either ``pool_impl``, or the
+        (the fused conv1 path with K5 or either ``pool_impl``, or the
         unfused model); its state dict is the weights it reads.  What
         ``infer.export.export_predictor`` traces for the production
         flavour."""
-        if self._conv23 is not None:
-            return self._conv23
         if self._conv1 is not None:
             return self._conv1
         if self._unfused is None:

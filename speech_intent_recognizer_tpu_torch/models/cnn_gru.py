@@ -8,7 +8,7 @@ names follow the reference ``state_dict`` (``conv{i}.weight``, ``bn{i}.*``,
 ``gru.weight_ih_l{k}[_reverse]``, ``attention.*``, ``fc.*``), so a reference
 ``best_model.pt`` loads with ``load_state_dict``.
 
-Four forms, as in the reference package:
+Three forms (the reference package has these and a fourth, noted below):
 
 * the train form with BatchNorm (``fold_bn=False``);
 * ``fold_bn=True``: BatchNorm folded into the convs (:func:`fold_batchnorm`);
@@ -19,10 +19,11 @@ Four forms, as in the reference package:
   stage as ``F.conv2d`` without bias plus the conv epilogue kernel K6
   (``ops/pool_epilogue.py``; inference only) instead of torch's bias-add,
   ReLU and max-pool; the parameters are the same;
-* ``conv_external=True`` (requires ``fold_bn``): the whole conv stack runs
-  in kernels (K1, then K5 of ``ops/conv23.py``); the input is K5's
-  (B, T'', M''*C3) sheet and the model is GRU + attention + ``fc`` only
-  (:func:`conv_external_params`).
+  With ``conv23=True`` there (bf16, channels (32, 64, 128)) conv2 and
+  conv3 with their epilogues are one launch of K5 (``ops/conv23.py``),
+  whose packed operands the model holds as buffers in place of the conv
+  modules (:func:`conv23_params`); the JAX package's ``conv_external``
+  head, which takes K5's output, is that form's tail.
 
 ``compute_dtype`` keeps the reference's cast points: convs, the GRU input
 projections and attention scores run in it (bf16 on the fast path);
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
 from speech_intent_recognizer_tpu_torch.ops.gru import gru_bidirectional
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     bias_relu_pool2)
@@ -48,6 +50,9 @@ from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
 from speech_intent_recognizer_tpu_torch.utils.profiling import span
 
 _DIRS = ("", "_reverse")
+# the conv23 form's buffers: K5's operands (ops.conv23.conv23_operands)
+CONV23_BUFFERS = ("conv2_packed", "conv2_bias", "conv3_packed",
+                  "conv3_bias")
 
 
 def _uniform_(t: torch.Tensor, bound: float,
@@ -276,8 +281,8 @@ class TorchGRU(nn.Module):
 
 class CNNAudioGRU(nn.Module):
     """Intent classifier: ``(B, n_mels, T)`` or ``(B, 1, n_mels, T)`` log-mel
-    in (or, with ``conv1_external``, K1's pooled output; with
-    ``conv_external``, K5's output) -> ``(B, C)`` logits."""
+    in (or, with ``conv1_external``, K1's pooled output) -> ``(B, C)``
+    logits."""
 
     def __init__(self, num_classes: int,
                  conv_channels: Sequence[int] = (32, 64, 128),
@@ -285,12 +290,15 @@ class CNNAudioGRU(nn.Module):
                  dropout: float = 0.5, n_mels: int = 64,
                  compute_dtype: torch.dtype = torch.float32,
                  fold_bn: bool = False, conv1_external: bool = False,
-                 conv_external: bool = False, pool_impl: str = "torch"):
+                 pool_impl: str = "torch", conv23: bool = False):
         super().__init__()
         if conv1_external and not fold_bn:
             raise ValueError("conv1_external requires fold_bn=True")
-        if conv_external and not fold_bn:
-            raise ValueError("conv_external requires fold_bn=True")
+        if conv23 and not (conv1_external
+                           and compute_dtype == torch.bfloat16
+                           and tuple(conv_channels) == (k5.C1, k5.C2, k5.C3)):
+            raise ValueError("conv23 serves the bf16 conv1_external form at "
+                             "channels (32, 64, 128)")
         if pool_impl not in ("torch", "kernel"):
             raise ValueError(f"pool_impl must be 'torch' or 'kernel', got "
                              f"{pool_impl!r}")
@@ -302,11 +310,17 @@ class CNNAudioGRU(nn.Module):
         self.compute_dtype = compute_dtype
         self.fold_bn = fold_bn
         self.conv1_external = conv1_external
-        self.conv_external = conv_external
         self.pool_impl = pool_impl
+        self.conv23 = conv23
         chans = (1,) + self.conv_channels
-        first = len(chans) if conv_external else 2 if conv1_external else 1
+        first = len(chans) if conv23 else 2 if conv1_external else 1
         self._stages = range(first, len(chans))
+        if conv23:  # K5's operands, filled by load_state_dict
+            for name, shape, dt in zip(
+                    CONV23_BUFFERS, (k5.W2_SHAPE, (k5.C2,), k5.W3_SHAPE,
+                                     (k5.C3,)),
+                    (torch.bfloat16, torch.float32) * 2):
+                self.register_buffer(name, torch.empty(shape, dtype=dt))
         for i in self._stages:
             self.add_module(f"conv{i}", nn.utils.skip_init(
                 nn.Conv2d, chans[i - 1], chans[i], 3, padding=1,
@@ -362,19 +376,21 @@ class CNNAudioGRU(nn.Module):
 
     def _conv_stack(self, x: torch.Tensor) -> torch.Tensor:
         """The model's conv stages; conv2 and conv3 in the span
-        ``sir.conv`` (conv1, where the model holds it, before it)."""
+        ``sir.conv`` (conv1, where the model holds it, before it), in the
+        ``conv23`` form one K5 call on K1's (B, T', M'*C1) sheet."""
         stages = list(self._stages)
         if stages[:1] == [1]:
             x = self._conv(stages.pop(0), x)
         with span("sir.conv"):
+            if self.conv23:
+                return k5.conv23(x, *(getattr(self, n)
+                                      for n in CONV23_BUFFERS))
             for i in stages:
                 x = self._conv(i, x)
         return x
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.conv_external:
-            return self._forward_conv_external(x, generator)
         if self.conv1_external:
             return self._forward_conv1_external(x, generator)
         if x.dim() == 3:
@@ -391,27 +407,21 @@ class CNNAudioGRU(nn.Module):
         """Tail of the conv stack for K1's output (B, T', M'*C1), lane =
         m * C1 + c, or already (B, T', M', C1).  Viewed as (B, C1, T', M')
         it is a channels-last NCHW tensor (no copy); conv2/conv3 run on
-        (T, M) with the spatially transposed kernels."""
-        c1 = self.conv_channels[0]
+        (T, M) with the spatially transposed kernels.  The ``conv23`` form
+        runs K5 on the sheet: (B, T'', M''*C3) out, lane = m * C3 + c,
+        flattened channel-major as the other forms."""
+        c1, c3 = self.conv_channels[0], self.conv_channels[-1]
+        if self.conv23:
+            x = self._conv_stack(x.flatten(2).to(self.compute_dtype))
+            b, t, mc = x.shape
+            x = x.view(b, t, mc // c3, c3).transpose(2, 3).reshape(b, t, mc)
+            return self._head(x, generator)
         if x.dim() == 3:
             b, t, mc = x.shape
             x = x.view(b, t, mc // c1, c1)
         x = self._conv_stack(x.permute(0, 3, 1, 2).to(self.compute_dtype))
         b, c, t, m = x.shape
         x = x.permute(0, 2, 1, 3).reshape(b, t, c * m)
-        return self._head(x, generator)
-
-    def _forward_conv_external(self, x: torch.Tensor,
-                               generator: Optional[torch.Generator]):
-        """GRU + attention + head for K5's output (B, T'', M''*C3), lane =
-        m * C3 + c, or already (B, T'', M'', C3): the channel-major flatten
-        of the other forms, then the head."""
-        c3 = self.conv_channels[-1]
-        if x.dim() == 3:
-            b, t, mc = x.shape
-            x = x.view(b, t, mc // c3, c3)
-        b, t, m, c = x.shape
-        x = x.to(self.compute_dtype).transpose(2, 3).reshape(b, t, c * m)
         return self._head(x, generator)
 
     def _head(self, x: torch.Tensor,
@@ -472,12 +482,25 @@ def conv1_external_params(folded: Dict[str, torch.Tensor]):
     return out, folded["conv1.weight"], folded["conv1.bias"]
 
 
+def conv23_params(folded: Dict[str, torch.Tensor]):
+    """Split a BN-folded state dict for the ``conv23`` form.
+
+    Returns ``(variant_state, conv1_weight, conv1_bias)`` as
+    :func:`conv1_external_params` does, the state holding K5's operands
+    (``CONV23_BUFFERS``, from the original-orientation conv2 / conv3) in
+    place of conv2 and conv3.
+    """
+    head, (w1, b1), (w2, b2), (w3, b3) = conv_external_params(folded)
+    head.update(zip(CONV23_BUFFERS, k5.conv23_operands(w2, b2, w3, b3)))
+    return head, w1, b1
+
+
 def conv_external_params(folded: Dict[str, torch.Tensor]):
     """Split a BN-folded state dict for the conv-stack-in-kernels variant.
 
-    Returns ``(head_state, (w1, b1), (w2, b2), (w3, b3))``: the
-    ``CNNAudioGRU(conv_external=True)`` state dict (GRU, attention and
-    ``fc`` only) and the three folded conv stages in their original
+    Returns ``(head_state, (w1, b1), (w2, b2), (w3, b3))``: the state
+    dict of GRU, attention and ``fc`` (the JAX package's ``conv_external``
+    head) and the three folded conv stages in their original
     orientation — conv1 for the K1 kernel, conv2 / conv3 for
     ``ops.conv23.conv23_operands``.
     """

@@ -171,7 +171,8 @@ def conv23(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
         Ignored on the CPU.
 
     Returns (B, T1 / 4, 1024) bf16, lane = m * 128 + c with m in 0..7, the
-    input of ``CNNAudioGRU(conv_external=True)``.  CPU tensors take the
+    sheet ``CNNAudioGRU(conv23=True)`` flattens for its GRU.  CPU tensors
+    take the
     plain version; CUDA tensors launch the kernel or raise.
     """
     _check(x, w2, b2, w3, b3)

@@ -2,8 +2,9 @@
 package's Pallas kernel (interpret mode off the TPU) at full width, B=5 —
 K5's geometry is fixed, so its small size is the batch — with the weights
 carried across by ``convert.jax_bridge``.  Bar ``0.02 * max|want|``
-(tests/test_conv23_pallas.py:73-74).  The ``conv_external`` head against the
-Flax one within atol / rtol 3e-2 and equal argmax (:100-101)."""
+(tests/test_conv23_pallas.py:73-74).  The ``conv23`` form's tail on K5's
+sheet against the Flax ``conv_external`` head within atol / rtol 3e-2 and
+equal argmax (:100-101)."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ from speech_intent_recognizer_tpu.ops.conv23_pallas import (
 from speech_intent_recognizer_tpu_torch.convert.jax_bridge import (
     conv_stages_from_jax, from_jax_variables)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-    CNNAudioGRU, conv_external_params, fold_batchnorm)
+    CNNAudioGRU, conv23_params, conv_external_params, fold_batchnorm)
 from speech_intent_recognizer_tpu_torch.ops.conv23 import (
     W2_SHAPE, W3_SHAPE, _conv23_plain, _unpack, conv23, conv23_operands)
 
@@ -126,10 +127,13 @@ def test_rejects_other_geometry(shape):
             np.zeros(128)))
 
 
-def test_conv_external_head_matches_flax(folded, rng):
-    """GRU + attention + fc on K5's sheet, bf16 compute, weights through
-    the bridge."""
-    _, _, f = folded
+def test_conv_external_head_matches_flax(folded, rng, monkeypatch):
+    """The ``conv23`` form after K5 (GRU + attention + fc on K5's sheet,
+    K5 standing in as the sheet itself), bf16 compute, weights through the
+    bridge, against the Flax ``conv_external`` head on that sheet."""
+    from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
+
+    params, stats, f = folded
     head_params, _, _, _ = ref.conv_external_params(f)
     head_params = jax.tree.map(np.asarray, head_params)
     x = np.abs(rng.standard_normal((3, 25, 1024))).astype(np.float32)
@@ -137,17 +141,23 @@ def test_conv_external_head_matches_flax(folded, rng):
         num_classes=31, compute_dtype=jnp.bfloat16, fold_bn=True,
         conv_external=True).apply(
         {"params": head_params}, jnp.asarray(x, jnp.bfloat16), train=False))
-    head = CNNAudioGRU(31, compute_dtype=torch.bfloat16, fold_bn=True,
-                       conv_external=True)
-    state = from_jax_variables(head_params)
-    assert not any(k.startswith("conv") for k in state)
-    head.load_state_dict(state)
+    form = CNNAudioGRU(31, compute_dtype=torch.bfloat16, fold_bn=True,
+                       conv1_external=True, conv23=True)
+    state, _, _ = conv23_params(fold_batchnorm(from_jax_variables(
+        params, stats)))
+    head_state = from_jax_variables(head_params)
+    assert not any(k.startswith("conv") for k in head_state)
+    for k, v in head_state.items():
+        torch.testing.assert_close(state[k], v, rtol=0, atol=0)
+    form.load_state_dict(state)
+    sheet = torch.from_numpy(x).to(torch.bfloat16)
+    k1 = torch.zeros((3, 100, 1024), dtype=torch.bfloat16)
+    monkeypatch.setattr(k5, "conv23", lambda *a, **kw: sheet)
     with torch.no_grad():
-        got = head.eval()(torch.from_numpy(x).to(torch.bfloat16)).numpy()
+        got = form.eval()(k1).numpy()
     assert (got.argmax(-1) == want.argmax(-1)).all()
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=3e-2)
-    # the 4-D form of the sheet is taken too
+    # the 4-D form of K1's sheet is taken too
     with torch.no_grad():
-        again = head(torch.from_numpy(x).to(torch.bfloat16)
-                     .view(3, 25, 8, 128)).numpy()
+        again = form(k1.view(3, 100, 32, 32)).numpy()
     np.testing.assert_array_equal(again, got)

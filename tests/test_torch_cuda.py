@@ -534,6 +534,8 @@ def test_predictor_launches_k1_once_k2_twice(dev, tmp_path):
 
 
 def _predictors(dev, tmp_path, **kw):
+    """The predictor of ``kw`` on the card and, beside it, the one with
+    torch's epilogues named."""
     from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
     from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
 
@@ -544,7 +546,7 @@ def _predictors(dev, tmp_path, **kw):
                                                   for i in range(31)}))
     args = (str(tmp_path / "m.pt"), str(tmp_path / "lm.json"))
     return (Predictor.from_checkpoint(*args, device=dev, **kw),
-            Predictor.from_checkpoint(*args, device=dev))
+            Predictor.from_checkpoint(*args, device=dev, pool_impl="torch"))
 
 
 def _counts():
@@ -765,9 +767,10 @@ def test_conv23_every_range_length_gives_the_same_bits(dev, batch, t1):
 
 
 def test_conv23_predictor_launches(dev, tmp_path):
-    """enable_conv23_kernel: K1 once, K5 once, K2 twice, K6 never; within
-    1e-2 of the default path on log-probabilities."""
-    pred, default = _predictors(dev, tmp_path)
+    """enable_conv23_kernel after torch's epilogues were named: K1 once, K5
+    once, K2 twice, K6 never; within 1e-2 of torch's epilogues on
+    log-probabilities."""
+    pred, default = _predictors(dev, tmp_path, pool_impl="torch")
     pred.enable_conv23_kernel()
     wf, ln = _waves([24000, 80000, 3000, 41000], seed=3)
     _reset()
@@ -775,6 +778,33 @@ def test_conv23_predictor_launches(dev, tmp_path):
     assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 1, "K6": 0}
     want = default.predict_waveform_batch(wf, ln)
     assert float(np.abs(np.log(probs) - np.log(want)).max()) <= 1e-2
+
+
+@pytest.mark.parametrize("batch", [1, 256, 2048])
+def test_default_predictor_serves_k5(dev, tmp_path, batch):
+    """The default predictor at the reference geometry: K1 once, K5 once,
+    K2 twice, K6 never; probabilities within 2e-2 of the fp32 CPU
+    predictor (the train-form model behind the plain front-end; every row
+    up to 256, 64 sampled rows at 2048); the same bits twice."""
+    from speech_intent_recognizer_tpu_torch.infer.predict import Predictor
+
+    pred, _ = _predictors(dev, tmp_path)
+    assert pred._fused_body().model.conv23
+    lengths = np.random.default_rng(batch).integers(1, 80001, batch)
+    wf, ln = _waves(lengths.tolist(), seed=batch)
+    wf = wf.to(dev)
+    _reset()
+    probs = pred.predict_waveform_batch(wf, ln)
+    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 1, "K6": 0}
+    assert probs.shape == (batch, 31) and np.isfinite(probs).all()
+    assert np.array_equal(pred.predict_waveform_batch(wf, ln), probs)
+    cpu = Predictor.from_checkpoint(str(tmp_path / "m.pt"),
+                                    str(tmp_path / "lm.json"), device="cpu",
+                                    fold_bn=False)
+    rows = (np.arange(batch) if batch <= 256 else np.sort(
+        np.random.default_rng(7).choice(batch, 64, replace=False)))
+    want = cpu.predict_waveform_batch(wf.cpu()[rows], ln[rows])
+    np.testing.assert_allclose(probs[rows], want, atol=2e-2)
 
 
 def test_pool_impl_kernel_predictor_launches(dev, tmp_path):
@@ -1116,9 +1146,10 @@ def test_op_equals_its_wrapper_on_card(dev, name):
 
 
 def test_production_artifact_equals_live_predictor(dev, tmp_path):
-    """A production artifact pinned at B=8, loaded from its directory:
-    K1 once and K2 twice per call, rows bit-equal to the live predictor's
-    at B=8 and, routed to that program, at B=3."""
+    """A production artifact of the default predictor pinned at B=8,
+    loaded from its directory: K1 and K5 once and K2 twice per call, rows
+    bit-equal to the live predictor's at B=8 and, routed to that program,
+    at B=3."""
     from speech_intent_recognizer_tpu_torch.infer.export import (
         ServingModel, export_predictor)
 
@@ -1130,7 +1161,7 @@ def test_production_artifact_equals_live_predictor(dev, tmp_path):
                     seed=6)
     _reset()
     got = srv.predict_waveform_batch(wf, ln)
-    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 0,
+    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 1,
                          "K6": 0}
     assert np.array_equal(got, pred.predict_waveform_batch(wf, ln))
     short_wf = torch.cat([wf[:3], torch.zeros((5, wf.shape[1]))])

@@ -407,7 +407,9 @@ def kernel_checkpoint(tmp_path_factory):
 
 
 @pytest.mark.parametrize("config,want", [
-    ("default", {"sir.frontend_conv1": 1, "sir.gru_layer": 2}),
+    ("default", {"sir.conv23": 1, "sir.frontend_conv1": 1,
+                 "sir.gru_layer": 2}),
+    ("pool_torch", {"sir.frontend_conv1": 1, "sir.gru_layer": 2}),
     ("conv23", {"sir.conv23": 1, "sir.frontend_conv1": 1,
                 "sir.gru_layer": 2}),
     ("pool_kernel", {"sir.bias_relu_pool2": 2, "sir.frontend_conv1": 1,
@@ -418,10 +420,13 @@ def test_production_graph_census(kernel_checkpoint, config, want):
     """Each configuration's batch path traced on fake CUDA tensors (what
     ``export_predictor(flavor="production")`` traces on the card): one
     node per kernel launch of the live path, and no convolution where a
-    kernel took it (conv1 inside K1; conv2 and conv3 inside K5)."""
+    kernel took it (conv1 inside K1; conv2 and conv3 inside K5, by default
+    at this geometry and after ``enable_conv23_kernel()``)."""
+    pool_impl = {"pool_kernel": "kernel", "pool_torch": "torch",
+                 "conv23": "torch"}.get(config)
     pred = Predictor.from_checkpoint(
         *kernel_checkpoint, device="cpu", fold_bn=config != "unfused",
-        pool_impl="kernel" if config == "pool_kernel" else "torch")
+        pool_impl=pool_impl)
     if config == "conv23":
         pred.enable_conv23_kernel()
     body = copy.deepcopy(pred._fused_body())
@@ -433,7 +438,7 @@ def test_production_graph_census(kernel_checkpoint, config, want):
     assert kernel_ops(ep) == want
     convs = sum(1 for n in ep.graph.nodes if n.op == "call_function"
                 and "conv2d" in str(n.target))
-    assert convs == {"conv23": 0, "unfused": 3}.get(config, 2)
+    assert convs == {"default": 0, "conv23": 0, "unfused": 3}.get(config, 2)
     assert all("cpu" not in str(n.kwargs.get("device", ""))
                for n in ep.graph.nodes)
 

@@ -16,7 +16,8 @@ from speech_intent_recognizer_tpu.models import cnn_gru as ref
 from speech_intent_recognizer_tpu_torch.convert.jax_bridge import (
     conv_stages_from_jax, from_jax_variables)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-    CNNAudioGRU, conv1_external_params, conv_external_params, fold_batchnorm)
+    CONV23_BUFFERS, CNNAudioGRU, conv1_external_params, conv23_params,
+    conv_external_params, fold_batchnorm)
 
 
 @pytest.fixture(scope="module")
@@ -128,6 +129,30 @@ def test_pool_impl_kernel_matches_torch(variables, dtype):
     np.testing.assert_allclose(got, flax, rtol=tol, atol=tol)
 
 
+def test_conv23_form_matches_torch_form(variables):
+    """The bf16 ``conv23`` form (K5's plain version in its conv stage, on
+    the operands :func:`conv23_params` packs) against the bf16 torch form
+    on the same K1 sheet, at this file's bf16 bar; its state dict is the
+    head's and K5's operands, no conv module."""
+    params, stats = variables
+    folded = fold_batchnorm(from_jax_variables(params, stats))
+    x = np.abs(np.random.default_rng(22).standard_normal(
+        (3, 100, 1024))).astype(np.float32)
+    kw = dict(num_classes=31, compute_dtype=torch.bfloat16, fold_bn=True,
+              conv1_external=True)
+    k5_state, w1, b1 = conv23_params(folded)
+    assert torch.equal(w1, folded["conv1.weight"])
+    assert torch.equal(b1, folded["conv1.bias"])
+    form = CNNAudioGRU(conv23=True, **kw)
+    assert set(form.state_dict()) == set(k5_state)
+    assert not any(k.startswith(("conv1.", "conv2.", "conv3."))
+                   for k in k5_state)
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    got = _logits(form, k5_state, x)
+    want = _logits(CNNAudioGRU(**kw), conv1_external_params(folded)[0], x)
+    np.testing.assert_allclose(got, want, atol=3e-2, rtol=0)
+
+
 def test_pool_impl_kernel_is_inference_only():
     model = CNNAudioGRU(31, fold_bn=True, conv1_external=True,
                         pool_impl="kernel")
@@ -140,9 +165,12 @@ def test_pool_impl_kernel_is_inference_only():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(conv_external=True), "conv_external requires fold_bn"),
     (dict(fold_bn=True, pool_impl="pallas"), "pool_impl must be"),
     (dict(fold_bn=True, pool_impl="kernel"), "conv1_external"),
+    (dict(fold_bn=True, conv23=True), "conv23 serves"),
+    (dict(fold_bn=True, conv1_external=True, conv23=True), "conv23 serves"),
+    (dict(fold_bn=True, conv1_external=True, compute_dtype=torch.bfloat16,
+          conv_channels=(32, 48, 128), conv23=True), "conv23 serves"),
 ])
 def test_form_validation(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -161,8 +189,9 @@ def test_conv_external_params_match_jax(variables):
     head, *got_stages = conv_external_params(
         fold_batchnorm(from_jax_variables(params, stats)))
     assert set(head) == set(want_head)
-    assert set(head) == set(CNNAudioGRU(31, fold_bn=True,
-                                        conv_external=True).state_dict())
+    assert set(head) | set(CONV23_BUFFERS) == set(CNNAudioGRU(
+        31, compute_dtype=torch.bfloat16, fold_bn=True, conv1_external=True,
+        conv23=True).state_dict())
     for k, v in want_head.items():
         np.testing.assert_array_equal(head[k].numpy(), v.numpy(), err_msg=k)
     flat = [t for pair in got_stages for t in pair]

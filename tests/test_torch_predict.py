@@ -1,9 +1,11 @@
 """The slice as a whole: the JAX ``Predictor.from_checkpoint`` (msgpack)
 against the port's (from the ``.pt`` that ``save_torch_checkpoint`` writes
 for the same variables) on padded buffers — probabilities within 2e-2 with
-equal argmax, the bar of tests/test_conv1_fusion.py:150-151 — the two
-opt-in configurations (``enable_conv23_kernel``, ``pool_impl="kernel"``)
-against the JAX predictor with ``enable_conv23_kernel()`` at the same bar,
+equal argmax, the bar of tests/test_conv1_fusion.py:150-151.  The port's
+default serves conv2 + conv3 in K5 where its contract holds, so it is held
+to the JAX predictor with ``enable_conv23_kernel()`` (the same structure),
+and the port's ``pool_impl="torch"`` to the JAX default; the rule that
+picks K5, the named configurations, and where K5 runs inside the model;
 plus the port's file API and CLI on the CPU."""
 
 import json
@@ -11,6 +13,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from speech_intent_recognizer_tpu.convert.torch_export import (
     save_torch_checkpoint)
@@ -56,19 +59,31 @@ def port(checkpoints):
                                      device="cpu")
 
 
-def test_fused_predictor_matches_jax(checkpoints, port):
+@pytest.fixture(scope="module")
+def torch_port(checkpoints):
+    """The port's fused path with torch's epilogues named."""
+    return Predictor.from_checkpoint(str(checkpoints / "model.pt"),
+                                     str(checkpoints / "label_map.json"),
+                                     device="cpu", pool_impl="torch")
+
+
+def test_fused_predictor_matches_jax(checkpoints, torch_port):
+    """``pool_impl="torch"`` named: conv2 / conv3 through ``F.conv2d`` and
+    torch's epilogues, the structure of the JAX default."""
     rng = np.random.default_rng(5)
     want_pred = JaxPredictor.from_checkpoint(
         str(checkpoints / "model.msgpack"),
         str(checkpoints / "label_map.json"))
-    assert want_pred._conv1 is not None and port._conv1 is not None
+    assert want_pred._conv1 is not None and torch_port._conv1 is not None
+    assert want_pred._conv23 is None
+    assert not torch_port._conv1.model.conv23
     lengths = [24000, 12000, 80000, 1537]
-    buf = np.zeros((len(lengths), port._buffer_width()), np.float32)
+    buf = np.zeros((len(lengths), torch_port._buffer_width()), np.float32)
     for i, n in enumerate(lengths):
         buf[i, :n] = _wave(rng, n)
     ln = np.asarray(lengths, np.int32)
     want = want_pred.predict_waveform_batch(buf, ln)
-    got = port.predict_waveform_batch(buf, ln)
+    got = torch_port.predict_waveform_batch(buf, ln)
     assert got.shape == (4, 31)
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
     assert (np.argmax(got, -1) == np.argmax(want, -1)).all()
@@ -82,50 +97,184 @@ def _buffers(port, rng, lengths):
     return buf, np.asarray(lengths, np.int32)
 
 
-def test_conv23_predictor_matches_jax(checkpoints, port):
+def test_conv23_predictor_matches_jax(checkpoints, port, torch_port):
     """K1 -> K5 -> head on both sides (the Pallas kernels in interpret
-    mode, the port's plain versions): equal argmax, probabilities within
-    2e-2; and within the same bar of the port's default path."""
+    mode, the port's plain versions): the port's default against the JAX
+    predictor with ``enable_conv23_kernel()``, equal argmax, probabilities
+    within 2e-2; and within the same bar of the port's torch epilogues."""
     args = (str(checkpoints / "label_map.json"),)
     want_pred = JaxPredictor.from_checkpoint(
         str(checkpoints / "model.msgpack"), *args)
     want_pred.enable_conv23_kernel()
-    got_pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
-                                         *args, device="cpu")
-    assert got_pred._conv23 is None  # opt-in, not the default
-    got_pred.enable_conv23_kernel()
-    assert got_pred._conv23 is not None and want_pred._conv23 is not None
+    assert want_pred._conv23 is not None
+    assert port._conv1.model.conv23  # the default, by K5's contract
     # rows whose top-two margin (>= 4e-4 here) is far above the paths'
     # difference (~2e-5): the seeded model's probabilities are near uniform
     buf, ln = _buffers(port, np.random.default_rng(15),
                        [24000, 9000, 40000, 16000])
     want = want_pred.predict_waveform_batch(buf, ln)
-    got = got_pred.predict_waveform_batch(buf, ln)
+    got = port.predict_waveform_batch(buf, ln)
     assert got.shape == (4, 31)
     assert (np.argmax(got, -1) == np.argmax(want, -1)).all()
     np.testing.assert_allclose(got, want, atol=2e-2)
-    default = port.predict_waveform_batch(buf, ln)
-    assert (np.argmax(got, -1) == np.argmax(default, -1)).all()
-    np.testing.assert_allclose(got, default, atol=2e-2)
+    torch_ep = torch_port.predict_waveform_batch(buf, ln)
+    assert (np.argmax(got, -1) == np.argmax(torch_ep, -1)).all()
+    np.testing.assert_allclose(got, torch_ep, atol=2e-2)
 
 
-def test_pool_impl_kernel_predictor_matches_default(checkpoints, port):
+def test_pool_impl_kernel_predictor_matches_default(checkpoints, torch_port):
+    """K6 after each raw conv against torch's epilogues, both named."""
     pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
                                      str(checkpoints / "label_map.json"),
                                      device="cpu", pool_impl="kernel")
     assert pred._conv1.model.pool_impl == "kernel"
-    assert port._conv1.model.pool_impl == "torch"  # the default
-    buf, ln = _buffers(port, np.random.default_rng(16), [30000, 5000])
+    assert torch_port._conv1.model.pool_impl == "torch"
+    buf, ln = _buffers(torch_port, np.random.default_rng(16), [30000, 5000])
     np.testing.assert_allclose(pred.predict_waveform_batch(buf, ln),
-                               port.predict_waveform_batch(buf, ln),
+                               torch_port.predict_waveform_batch(buf, ln),
                                atol=1e-5)
+
+
+def test_default_serves_k5_at_the_reference_geometry(port):
+    """``from_checkpoint`` at the reference geometry and channels: the
+    ``conv1_external`` variant in the ``conv23`` form, K5's operands its
+    buffers and no conv module left in it."""
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
+        CONV23_BUFFERS)
+    from speech_intent_recognizer_tpu_torch.ops.conv23 import (
+        W2_SHAPE, W3_SHAPE)
+
+    body = port._fused_body()
+    model = body.model
+    assert body is port._conv1 and body.with_conv1
+    assert model.conv1_external and model.conv23
+    assert model.compute_dtype == torch.bfloat16
+    assert list(model._stages) == []
+    assert not any(n.startswith("conv") for n, _ in model.named_children())
+    shapes = [tuple(getattr(model, n).shape) for n in CONV23_BUFFERS]
+    assert shapes == [W2_SHAPE, (64,), W3_SHAPE, (128,)]
+    state = body.state_dict()
+    assert all(f"model.{n}" in state for n in CONV23_BUFFERS)
+    assert not any(k.startswith(("model.conv2.", "model.conv3."))
+                   for k in state)
+
+
+@pytest.mark.parametrize("pool_impl", ["torch", "kernel"])
+def test_named_pool_impl_keeps_its_configuration(checkpoints, pool_impl):
+    """A named ``pool_impl`` serves conv2 / conv3 as ``F.conv2d`` with that
+    epilogue: no K5 operands, the conv modules in place."""
+    pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
+                                     str(checkpoints / "label_map.json"),
+                                     device="cpu", pool_impl=pool_impl)
+    model = pred._fused_body().model
+    assert model.conv1_external and not model.conv23
+    assert model.pool_impl == pool_impl
+    assert list(model._stages) == [2, 3]
+    assert not any("packed" in k for k in model.state_dict())
+
+
+@pytest.mark.parametrize("case", ["channels", "time"])
+def test_off_contract_keeps_torch_epilogues(tmp_path, monkeypatch, case):
+    """Off K5's contract the rule keeps torch's epilogues: conv2 of another
+    width under K1 (the torch form of the variant), or a
+    ``mel_spec_length`` that is no multiple of 4 (K1 does not serve
+    either: the unfused model's convs); K5 never runs."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+    from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
+
+    chans = (32, 48, 128) if case == "channels" else (32, 64, 128)
+    model = CNNAudioGRU(4, conv_channels=chans, gru_hidden=32)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "m.pt")
+    (tmp_path / "lm.json").write_text(json.dumps(
+        {f"i{i}": i for i in range(4)}))
+    cfg = AudioConfig(mel_spec_length=202) if case == "time" else None
+    pred = Predictor.from_checkpoint(str(tmp_path / "m.pt"),
+                                     str(tmp_path / "lm.json"),
+                                     audio_cfg=cfg, device="cpu")
+    body = pred._fused_body()
+    if case == "channels":
+        assert body.with_conv1 and not body.model.conv23
+        assert body.model.pool_impl == "torch"
+    else:
+        assert not body.with_conv1 and body.model is pred.model
+    assert not body.model.conv23 and list(body.model._stages)[-2:] == [2, 3]
+    calls = []
+    real = k5.conv23
+    monkeypatch.setattr(
+        k5, "conv23", lambda *a, **k: calls.append(1) or real(*a, **k))
+    buf, ln = _buffers(pred, np.random.default_rng(17), [20000, 7000])
+    probs = pred.predict_waveform_batch(buf, ln)
+    assert calls == [] and probs.shape == (2, 4)
+    assert np.isfinite(probs).all()
+    with pytest.raises(ValueError, match="reference geometry and channels"):
+        pred.enable_conv23_kernel()
+
+
+def test_enable_conv23_kernel_on_the_default_changes_nothing(checkpoints,
+                                                             port):
+    """Where K5 already serves, ``enable_conv23_kernel()`` keeps the same
+    serving body (same module, same outputs); after a named ``pool_impl``
+    it selects the K5 variant, the default's bits."""
+    pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
+                                     str(checkpoints / "label_map.json"),
+                                     device="cpu")
+    body = pred._fused_body()
+    buf, ln = _buffers(pred, np.random.default_rng(18), [26000, 4000])
+    before = pred.predict_waveform_batch(buf, ln)
+    pred.enable_conv23_kernel()
+    assert pred._fused_body() is body
+    np.testing.assert_array_equal(pred.predict_waveform_batch(buf, ln),
+                                  before)
+    named = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
+                                      str(checkpoints / "label_map.json"),
+                                      device="cpu", pool_impl="torch")
+    named.enable_conv23_kernel()
+    assert named._fused_body().model.conv23
+    np.testing.assert_array_equal(named.predict_waveform_batch(buf, ln),
+                                  before)
+
+
+def test_k5_launches_inside_the_model_before_its_gru(port, monkeypatch):
+    """Where a trace attributes K5: with forward pre-hooks on
+    ``CNNAudioGRU`` and ``TorchGRU`` and a wrapper on
+    ``ops.conv23.conv23``, the one ``conv23`` call of a batch comes after
+    the model's forward begins and before its GRU's, on CPU tensors (the
+    plain version), with K1's sheet in and K5's out."""
+    from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
+
+    events = []
+    real = k5.conv23
+
+    def spy(x, *ops, **kw):
+        events.append(("conv23", x.device.type, tuple(x.shape)))
+        out = real(x, *ops, **kw)
+        torch.testing.assert_close(out, k5._conv23_plain(x, *ops),
+                                   rtol=0, atol=0)
+        return out
+
+    monkeypatch.setattr(k5, "conv23", spy)
+    model = port._fused_body().model
+    hooks = [model.register_forward_pre_hook(
+                 lambda *_: events.append(("CNNAudioGRU",))),
+             model.gru.register_forward_pre_hook(
+                 lambda *_: events.append(("TorchGRU",))),
+             model.register_forward_hook(
+                 lambda *_: events.append(("CNNAudioGRU end",)))]
+    try:
+        buf, ln = _buffers(port, np.random.default_rng(19), [30000, 12000])
+        port.predict_waveform_batch(buf, ln)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert events == [("CNNAudioGRU",), ("conv23", "cpu", (2, 100, 1024)),
+                      ("TorchGRU",), ("CNNAudioGRU end",)]
 
 
 @pytest.mark.parametrize("case", ["geometry", "unfolded", "channels"])
 def test_enable_conv23_kernel_refuses(checkpoints, case):
     """The JAX method's conditions and error (predict.py:167-174)."""
-    import torch
-
     from speech_intent_recognizer_tpu_torch.config import AudioConfig
     from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
 
