@@ -1,4 +1,5 @@
-"""wav2vec2 checkpoints -> the port's ``Wav2VecIntent`` state dict.
+"""wav2vec2 and WavLM checkpoints -> the port's ``Wav2VecIntent`` state
+dict.
 
 Counterpart of ``speech_intent_recognizer_tpu/convert/wav2vec_import.py``,
 written for torch.  The port's modules keep the transformers names
@@ -10,7 +11,11 @@ written for torch.  The port's modules keep the transformers names
   ||v||`` with the norm over (out, in) at each kernel position (torch
   ``weight_norm(..., dim=2)``), in float64;
 * a reference ``Wav2VecIntent`` state dict has its backbone under
-  ``wav2vec.`` or ``wav2vec2.``; the port's is ``wav2vec.``;
+  ``wav2vec.``, ``wav2vec2.`` or ``wavlm.``; the port's is ``wav2vec.``;
+* a ``transformers.WavLMModel`` state dict is a wav2vec2 one with layer
+  0's ``attention.rel_attn_embed.weight`` and every layer's
+  ``attention.gru_rel_pos_linear.*`` and ``attention.gru_rel_pos_const``,
+  which pass through under the same names;
 * the JAX package's Flax ``params`` tree (numpy) maps back by the inverse
   of its layout: conv ``kernel`` (K, I/g, O) -> ``weight`` (O, I/g, K),
   dense ``kernel`` -> ``weight`` transposed, norm ``scale`` -> ``weight``,
@@ -38,7 +43,8 @@ _POS = "encoder.pos_conv_embed.conv"
 _NORM_PAIRS = (("weight_g", "weight_v"),
                ("parametrizations.weight.original0",
                 "parametrizations.weight.original1"))
-_BACKBONE_PREFIXES = ("wav2vec.", "wav2vec2.")
+_BACKBONE_PREFIXES = ("wav2vec.", "wav2vec2.", "wavlm.")
+_REL_EMBED = "encoder.layers.0.attention.rel_attn_embed.weight"
 
 
 def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,8 +56,8 @@ def fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def convert_wav2vec_state_dict(state: Mapping) -> Dict[str, torch.Tensor]:
-    """A ``transformers.Wav2Vec2Model`` state dict -> the port's backbone
-    state dict (no prefix), weight norm folded."""
+    """A ``transformers.Wav2Vec2Model`` or ``WavLMModel`` state dict ->
+    the port's backbone state dict (no prefix), weight norm folded."""
     out = dict(state)
     for g_key, v_key in _NORM_PAIRS:
         if f"{_POS}.{g_key}" in out:
@@ -68,15 +74,15 @@ def _backbone(state: Mapping) -> Dict:
                if k.startswith(prefix)}
         if sub:
             return sub
-    raise KeyError("no wav2vec backbone keys (wav2vec.* / wav2vec2.*) in "
-                   "state dict")
+    raise KeyError("no wav2vec backbone keys (wav2vec.* / wav2vec2.* / "
+                   "wavlm.*) in state dict")
 
 
 def convert_wav2vec_intent_state_dict(
         state: Mapping) -> Tuple[Dict[str, torch.Tensor], int]:
-    """A reference ``Wav2VecIntent`` state dict (``wav2vec.*`` or
-    ``wav2vec2.*`` backbone, ``attention.*`` and ``fc.*`` head) -> (the
-    port's state dict, num_classes)."""
+    """A reference ``Wav2VecIntent`` state dict (``wav2vec.*``,
+    ``wav2vec2.*`` or ``wavlm.*`` backbone, ``attention.*`` and ``fc.*``
+    head) -> (the port's state dict, num_classes)."""
     out = {f"wav2vec.{k}": v for k, v in
            convert_wav2vec_state_dict(_backbone(state)).items()}
     for head in ("attention", "fc"):
@@ -98,8 +104,16 @@ def infer_wav2vec_config(state: Mapping) -> Wav2Vec2Config:
     """The config of a backbone state dict (no prefix), from its weight
     shapes, by the JAX function's rules: strides are not in the weights, so
     the canonical ``(5, 2, 2, ...)`` is assumed; heads = hidden // 64; the
-    encoder is pre-LN exactly when the feature norm is per layer."""
+    encoder is pre-LN exactly when the feature norm is per layer.  A state
+    with layer 0's ``rel_attn_embed`` is WavLM: ``num_buckets`` and the
+    head count are that table's shape; ``max_bucket_distance`` is not in
+    the weights and stays at the published 800."""
     hidden = int(state["feature_projection.projection.weight"].shape[0])
+    wavlm = {}
+    if _REL_EMBED in state:
+        buckets, heads = state[_REL_EMBED].shape
+        wavlm = dict(model_type="wavlm", num_buckets=int(buckets),
+                     num_attention_heads=int(heads))
     n_conv = _layer_count(state, r"feature_extractor\.conv_layers\.(\d+)\.")
     conv_ws = [state[f"feature_extractor.conv_layers.{i}.conv.weight"]
                for i in range(n_conv)]
@@ -125,7 +139,7 @@ def infer_wav2vec_config(state: Mapping) -> Wav2Vec2Config:
         conv_bias="feature_extractor.conv_layers.0.conv.bias" in state,
         feat_extract_norm=feat_norm,
         do_stable_layer_norm=(feat_norm == "layer"),
-    )
+    ).replace(**wavlm)
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -156,11 +170,11 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def load_pretrained_dir(path: str) -> Tuple[Wav2Vec2Config,
                                             Dict[str, torch.Tensor]]:
-    """A local ``save_pretrained`` directory -> (config, the port's backbone
-    state dict).  A checkpoint of a model with a head
-    (``Wav2Vec2ForPreTraining``, ``...ForCTC``) keeps its backbone under
-    ``wav2vec2.``; the rest of it (quantizer, projections, head) is left
-    out."""
+    """A local ``save_pretrained`` directory of a wav2vec2 or WavLM model
+    -> (config, the port's backbone state dict).  A checkpoint of a model
+    with a head (``Wav2Vec2ForPreTraining``, ``...ForCTC``,
+    ``WavLMFor...``) keeps its backbone under ``wav2vec2.`` or ``wavlm.``;
+    the rest of it (quantizer, projections, head) is left out."""
     from speech_intent_recognizer_tpu_torch.convert.safetensors import (
         load_file)
 
@@ -172,8 +186,9 @@ def load_pretrained_dir(path: str) -> Tuple[Wav2Vec2Config,
     else:
         state = torch.load(os.path.join(path, "pytorch_model.bin"),
                            map_location="cpu", weights_only=True)
-    if any(k.startswith("wav2vec2.") for k in state):
-        state = {k[len("wav2vec2."):]: v for k, v in state.items()
-                 if k.startswith("wav2vec2.")}
+    for prefix in ("wav2vec2.", "wavlm."):
+        if any(k.startswith(prefix) for k in state):
+            state = {k[len(prefix):]: v for k, v in state.items()
+                     if k.startswith(prefix)}
     return config, {k: v.float() for k, v in
                     convert_wav2vec_state_dict(state).items()}

@@ -11,9 +11,12 @@ reference ``Wav2VecIntent`` layout that ``convert/wav2vec_import.py`` reads
 
 The configuration is this package's own :class:`Wav2Vec2Config`, with the
 fields the model reads and the defaults of ``facebook/wav2vec2-base``; it
-reads ``transformers.Wav2Vec2Config.to_dict()`` output (``from_dict``
-ignores the keys it does not keep), so neither ``transformers`` nor a
-network is needed.
+reads ``transformers.Wav2Vec2Config.to_dict()`` and
+``transformers.WavLMConfig.to_dict()`` output (``from_dict`` ignores the
+keys it does not keep), so neither ``transformers`` nor a network is
+needed.  ``model_type="wavlm"`` is WavLM (Chen et al. 2021, arXiv
+2110.13900): the same backbone with a gated relative position bias in
+every attention layer (``models/wav2vec_backbone.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
     split_attention_pool)
 
 logger = logging.getLogger(__name__)
+
+MODEL_TYPES = ("wav2vec2", "wavlm")
 
 
 @dataclass
@@ -58,10 +63,18 @@ class Wav2Vec2Config:
     activation_dropout: float = 0.1
     feat_proj_dropout: float = 0.0
     layerdrop: float = 0.1
+    # "wavlm": the gated relative position bias over ``num_buckets``
+    # buckets, log-spaced out to ``max_bucket_distance`` frames
+    model_type: str = "wav2vec2"
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
 
     def __post_init__(self) -> None:
         for name in ("conv_dim", "conv_kernel", "conv_stride"):
             setattr(self, name, tuple(int(v) for v in getattr(self, name)))
+        if self.model_type not in MODEL_TYPES:
+            raise ValueError(f"model_type {self.model_type!r}: one of "
+                             f"{MODEL_TYPES}")
 
     @classmethod
     def from_dict(cls, raw: dict) -> "Wav2Vec2Config":
@@ -70,9 +83,13 @@ class Wav2Vec2Config:
         return cls(**{k: v for k, v in raw.items() if k in names})
 
     def to_dict(self) -> dict:
+        """The fields under transformers' names; a wav2vec2 config leaves
+        out the bucket fields, which ``Wav2Vec2Config`` does not have."""
         out = dataclasses.asdict(self)
         for name in ("conv_dim", "conv_kernel", "conv_stride"):
             out[name] = list(out[name])
+        if self.model_type != "wavlm":
+            del out["num_buckets"], out["max_bucket_distance"]
         return out
 
     def replace(self, **changes) -> "Wav2Vec2Config":
@@ -142,9 +159,10 @@ class Wav2VecIntent(nn.Module):
     def set_model_group(self, group) -> None:
         """The model group over which this process holds parts of the
         encoder's and the head's split leaves (``parallel.sharding.
-        place_params`` cuts them and calls this), or None."""
-        self.model_group = group
+        place_params`` cuts them and calls this), or None.  A WavLM
+        backbone takes none (ValueError)."""
         set_model_group(self.wav2vec, group)
+        self.model_group = group
 
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,

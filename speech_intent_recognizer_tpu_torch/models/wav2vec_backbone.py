@@ -10,6 +10,18 @@ Counterpart of ``speech_intent_recognizer_tpu/models/wav2vec_flax.py``
 * **stable** (pre-LN): layer norm after every conv layer; encoder layers
   ``x = x + attn(LN(x)); x = x + ff(LN2(x))``; a final LN after all layers.
 
+``model_type="wavlm"`` (WavLM, Chen et al. 2021, arXiv 2110.13900 section
+2; ``transformers.WavLMModel``) is either variant with a gated relative
+position bias in every attention layer.  Once a call the encoder gathers
+``P[h, i, j] = E[bucket(j - i), h]`` from layer 0's ``rel_attn_embed``
+``E`` (:func:`relative_position_buckets`, the table cached per length and
+device); each layer gates it per (row, head, query) from its own attention
+input ``y``: ``(a, b) = sigmoid(sum over 4 of gru_rel_pos_linear(y_h))``,
+``gate = a * (b * gru_rel_pos_const[h] - 1) + 2``, and adds ``gate * P``
+to the float32 scores with the padding bias.  LayerDrop may skip layer 0
+here (transformers never does, as it builds P there); P is built before
+the layers, so nothing is lost.
+
 Parameter names are the transformers ones, so a module's ``state_dict`` is
 the ``Wav2Vec2Model`` layout, except that the positional convolution holds
 one folded ``weight`` (``convert/wav2vec_import.py`` folds a checkpoint's
@@ -26,7 +38,8 @@ E[x^2] - E[x]^2: a difference within 1e-4 of the JAX package's output
 (``tests/test_torch_wav2vec.py``).  Conv activations are (B, C, T), the
 transformer's (B, T, H).
 
-Tensor parallelism (a model group set by ``set_model_group``, the leaves
+Tensor parallelism (a model group set by ``set_model_group``; none for a
+WavLM backbone, whose bias and gates are not cut; the leaves
 cut by ``parallel.sharding.place_params``), Megatron style: ``q_proj``,
 ``k_proj``, ``v_proj`` and ``intermediate_dense`` hold this process's
 output columns, ``out_proj`` and ``output_dense`` its input columns.  The
@@ -54,7 +67,7 @@ from speech_intent_recognizer_tpu_torch.ops.global_batch import (
     base_generator, rand_part, rand_rows)
 from speech_intent_recognizer_tpu_torch.ops.model_parallel import (
     copy_to_model, gather_on_use, model_part, part_slice, row_parallel)
-from speech_intent_recognizer_tpu_torch.utils.profiling import span
+from speech_intent_recognizer_tpu_torch.utils.profiling import record, span
 
 
 def feat_extract_output_lengths(config, input_lengths: torch.Tensor
@@ -77,6 +90,28 @@ def feature_space_attention_mask(config, attention_mask: torch.Tensor,
         config, attention_mask.to(torch.int64).sum(-1))
     return (torch.arange(t_out, device=attention_mask.device)[None, :]
             < lengths[:, None])
+
+
+def relative_position_buckets(t: int, num_buckets: int, max_distance: int
+                              ) -> torch.Tensor:
+    """(T, T) int64 buckets of key j relative to query i, ``r = j - i``, on
+    the host (transformers' ``WavLMAttention._relative_positions_bucket``,
+    op for op, so the float32 log rounds as there): half the buckets hold
+    ``r > 0``, half ``r <= 0``; in each half ``|r|`` below a quarter of
+    ``num_buckets`` is its own bucket, farther ones are log-spaced out to
+    ``max_distance`` and the half's last bucket holds the rest."""
+    half = num_buckets // 2
+    exact = half // 2
+    pos = torch.arange(t, dtype=torch.long)
+    r = pos[None, :] - pos[:, None]
+    buckets = (r > 0).to(torch.long) * half
+    r = torch.abs(r)
+    far = torch.log(r.float() / exact)
+    far = far / math.log(max_distance / exact)
+    far = far * (half - exact)
+    far = (exact + far).to(torch.long)
+    far = torch.min(far, torch.full_like(far, half - 1))
+    return buckets + torch.where(r < exact, r, far)
 
 
 def _dropout(x: torch.Tensor, p: float, training: bool,
@@ -202,11 +237,14 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with the torch wav2vec2 scaling layout."""
+    """Multi-head self-attention with the torch wav2vec2 scaling layout;
+    in a WavLM layer (``relative``) with the gate of the relative position
+    bias, and in layer 0 with the bucket embedding ``rel_attn_embed``."""
 
     model_group = None
 
-    def __init__(self, config, dtype=torch.float32):
+    def __init__(self, config, dtype=torch.float32,
+                 bucket_embedding: bool = False):
         super().__init__()
         h = config.hidden_size
         self.dtype = dtype
@@ -216,12 +254,45 @@ class Attention(nn.Module):
         self.k_proj = nn.Linear(h, h)
         self.v_proj = nn.Linear(h, h)
         self.out_proj = nn.Linear(h, h)
+        self.relative = config.model_type == "wavlm"
+        if self.relative:
+            self.gru_rel_pos_const = nn.Parameter(
+                torch.ones(1, self.n_heads, 1, 1))
+            self.gru_rel_pos_linear = nn.Linear(h // self.n_heads, 8)
+            if bucket_embedding:
+                self.rel_attn_embed = nn.Embedding(config.num_buckets,
+                                                   self.n_heads)
+
+    def relpos_gate(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, T, H) attention input -> (B, heads, T, 1) float32 gate of
+        the relative position bias, from each head's slice of ``y``."""
+        b, t, _ = y.shape
+        g = _dense(self.gru_rel_pos_linear,
+                   y.reshape(b, t, self.n_heads, -1), self.dtype).float()
+        g = torch.sigmoid(g.view(b, t, self.n_heads, 2, 4).sum(-1))
+        gate = g[..., :1] * (g[..., 1:] * self.gru_rel_pos_const.view(
+            1, 1, -1, 1) - 1.0) + 2.0
+        return gate.transpose(1, 2)
+
+    def gated_bias(self, y: torch.Tensor, position_bias: torch.Tensor,
+                   attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The scores' float32 bias of a WavLM layer: the (heads, T, T)
+        ``position_bias`` gated per (row, head, query) from ``y``, plus
+        the padding bias; (B, heads, T, T)."""
+        gate = self.relpos_gate(y)
+        if attn_bias is None:
+            return gate * position_bias
+        return torch.addcmul(attn_bias, gate, position_bias)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
-                generator=None) -> torch.Tensor:
+                generator=None,
+                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, h = x.shape
         dt, nh, group = self.dtype, self.n_heads, self.model_group
         hd = h // nh
+        if position_bias is not None:
+            with span("sir.w2v.relpos"):
+                attn_bias = self.gated_bias(x, position_bias, attn_bias)
         cols = self.q_proj.weight.shape[0]  # this process's columns
         split = cols != h
         if split:
@@ -241,15 +312,16 @@ class Attention(nn.Module):
         def split_heads(p):  # (B, T, heads * hd) -> (B, heads, T, hd)
             return p.reshape(b, t, heads, hd).transpose(1, 2)
 
-        q = split_heads(q) * (hd ** -0.5)
-        k, v = split_heads(k), split_heads(v)
-        scores = torch.matmul(q, k.transpose(-1, -2)).float()
-        if attn_bias is not None:
-            scores = scores + attn_bias
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        probs = _dropout(probs, self.p, self.training, generator, part)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(
-            b, t, heads * hd)
+        with span("sir.w2v.attention"):
+            q = split_heads(q) * (hd ** -0.5)
+            k, v = split_heads(k), split_heads(v)
+            scores = torch.matmul(q, k.transpose(-1, -2)).float()
+            if attn_bias is not None:
+                scores = scores + attn_bias
+            probs = torch.softmax(scores, dim=-1).to(dt)
+            probs = _dropout(probs, self.p, self.training, generator, part)
+            out = torch.matmul(probs, v).transpose(1, 2).reshape(
+                b, t, heads * hd)
         if cut:
             out = copy_to_model(out, group)[..., part_slice(h, group)]
         if split:
@@ -292,11 +364,12 @@ class FeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-LN (base) or pre-LN (stable) transformer layer."""
 
-    def __init__(self, config, dtype=torch.float32):
+    def __init__(self, config, dtype=torch.float32,
+                 bucket_embedding: bool = False):
         super().__init__()
         self.stable = bool(config.do_stable_layer_norm)
         self.p = config.hidden_dropout
-        self.attention = Attention(config, dtype)
+        self.attention = Attention(config, dtype, bucket_embedding)
         self.layer_norm = nn.LayerNorm(config.hidden_size,
                                        eps=config.layer_norm_eps)
         self.feed_forward = FeedForward(config, dtype)
@@ -304,10 +377,11 @@ class EncoderLayer(nn.Module):
                                              eps=config.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, attn_bias=None,
-                generator=None) -> torch.Tensor:
+                generator=None, position_bias=None) -> torch.Tensor:
         def attn(y):
-            return _dropout(self.attention(y, attn_bias, generator), self.p,
-                            self.training, generator)
+            return _dropout(self.attention(y, attn_bias, generator,
+                                           position_bias),
+                            self.p, self.training, generator)
 
         if self.stable:
             x = x + attn(_layer_norm(self.layer_norm, x))
@@ -327,14 +401,43 @@ class Encoder(nn.Module):
         self.pos_conv_embed = PositionalConvEmbedding(config, dtype)
         self.layer_norm = nn.LayerNorm(config.hidden_size,
                                        eps=config.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderLayer(config, dtype)
-                                    for _ in range(config.num_hidden_layers))
+        self.layers = nn.ModuleList(EncoderLayer(config, dtype, i == 0)
+                                    for i in range(config.num_hidden_layers))
+        self.relative = config.model_type == "wavlm"
+        self.num_buckets = config.num_buckets
+        self.max_bucket_distance = config.max_bucket_distance
+        self._bucket_tables = {}  # (T, device) -> (T, T) int64 buckets
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None,
                 generator=None) -> torch.Tensor:
         with span("sir.w2v.transformer"):
             return self._layers(x, keep, generator)
+
+    def bucket_table(self, t: int, device) -> torch.Tensor:
+        """The (T, T) bucket table on ``device``, built on the host once
+        per (T, device) and kept (a ``relpos_table`` record of (T,
+        device) each time one is built); a table built while a program is
+        traced for export is not kept."""
+        key = (t, torch.device(device))
+        table = self._bucket_tables.get(key)
+        if table is None:
+            # a normal tensor even inside inference mode: a later training
+            # step's embedding backward keeps it
+            with torch.inference_mode(False):
+                table = relative_position_buckets(
+                    t, self.num_buckets, self.max_bucket_distance).to(device)
+            if not torch.compiler.is_compiling():
+                self._bucket_tables[key] = table
+                record("relpos_table", t, str(key[1]))
+        return table
+
+    def position_bias(self, t: int, device) -> torch.Tensor:
+        """(heads, T, T) float32 ungated relative position bias
+        ``E[bucket(i, j), h]`` from layer 0's ``rel_attn_embed``."""
+        embed = self.layers[0].attention.rel_attn_embed.weight
+        return F.embedding(self.bucket_table(t, device),
+                           embed.float()).permute(2, 0, 1).contiguous()
 
     def _layers(self, x: torch.Tensor, keep: Optional[torch.Tensor],
                 generator) -> torch.Tensor:
@@ -348,8 +451,12 @@ class Encoder(nn.Module):
         if not self.stable:
             x = _layer_norm(self.layer_norm, x)
         x = _dropout(x, self.p, self.training, generator)
+        position_bias = None
+        if self.relative:
+            with span("sir.w2v.relpos"):
+                position_bias = self.position_bias(x.shape[1], x.device)
         for layer in self.layers:
-            y = layer(x, attn_bias, generator)
+            y = layer(x, attn_bias, generator, position_bias)
             if self.training and self.layerdrop > 0.0:
                 # LayerDrop as the JAX package runs it: the layer is
                 # computed, then skipped w.p. layerdrop (no rescale)
@@ -364,7 +471,15 @@ class Encoder(nn.Module):
 
 def set_model_group(module: nn.Module, group) -> None:
     """Hand every attention and feed-forward block of ``module`` the model
-    group over which it holds parts of its leaves, or None."""
+    group over which it holds parts of its leaves, or None.  A WavLM
+    backbone takes none: its relative position bias and gates are not cut
+    across a tensor-parallel group (ValueError)."""
+    if group is not None and any(isinstance(m, Attention) and m.relative
+                                 for m in module.modules()):
+        raise ValueError("a WavLM backbone (model_type 'wavlm') cannot run "
+                         "over a model group: its relative position bias "
+                         "and gates are not split across tensor-parallel "
+                         "processes; use a data axis only")
     for m in module.modules():
         if isinstance(m, (Attention, FeedForward)):
             m.model_group = group
@@ -406,7 +521,9 @@ def init_backbone_(module: nn.Module,
                    generator: Optional[torch.Generator] = None) -> None:
     """Seeded initialisation: weights of conv and dense layers N(0,
     1/fan_in) (Flax's lecun-normal scale), their biases 0, norms unit-scale,
-    ``masked_spec_embed`` U(0, 1) (the JAX package's initializer)."""
+    ``masked_spec_embed`` U(0, 1) (the JAX package's initializer); WavLM's
+    ``rel_attn_embed`` N(0, 1) and ``gru_rel_pos_const`` 1 (transformers'
+    initializers)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv1d, nn.Linear)):
@@ -419,3 +536,7 @@ def init_backbone_(module: nn.Module,
                 m.bias.zero_()
             elif isinstance(m, Wav2Vec2Backbone):
                 m.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(m, Attention) and m.relative:
+                m.gru_rel_pos_const.fill_(1.0)

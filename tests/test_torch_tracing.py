@@ -204,7 +204,8 @@ def test_program_span_names_are_not_the_harness_s():
                 with open(os.path.join(root, f)) as fh:
                     names |= set(re.findall(r'span\("([^"]+)"\)', fh.read()))
     assert {"sir.predict", "sir.server.tick", "sir.train.optimizer",
-            "sir.w2v.encoder", "sir.w2v.transformer"} <= names
+            "sir.w2v.encoder", "sir.w2v.transformer", "sir.w2v.relpos",
+            "sir.w2v.attention"} <= names
     assert all(n.startswith("sir.") for n in names), names
     assert not names & HARNESS_SPANS
 
