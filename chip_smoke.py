@@ -62,7 +62,12 @@ Phases:
    it serves (32 to 4096) with a window shorter than n_fft and 40, 64 and
    80 mels; K5 at B = 1, 5, 131, 133, 256, 2048 and T1 = 4, 8, 100, 200,
    each at every range length its plan can pick, the plan's launch twice
-   for the same bits;
+   for the same bits; K7 (the training conv epilogue, forward and
+   backward) at the train step's three conv outputs for B = 1024 and 1030
+   and on forced ties, twice for the same bits, the wrapper
+   ``bn_relu_pool2_train`` under autograd at B = 1024 (the launchers'
+   bits, the running statistics, the counters), its resources, and its
+   passes timed beside the torch chain they replace;
 7. the front-end and the predictor at hop 256 / 400 frames through K4,
    against the plain front-end and the fp64 golden (K4 once per batch, K3
    never), and silent utterances in raw dB (exactly the floor);
@@ -133,7 +138,8 @@ Phases:
     waveform caches, training with K3 in every step, evaluate), the
     counters reset just before and read just after (K3 once a train step,
     eval batch and precompute batch; K2T twice a step; K2 twice a step, an
-    eval batch and an evaluate-stage batch; nothing else), train loss
+    eval batch and an evaluate-stage batch; K7 3 times a step forward and
+    3 backward; nothing else), train loss
     falling, val accuracy >= 0.9, the report's accuracy that of
     ``evaluate_dataset``; K3 against its plain version on a training batch
     augmented on the card; a fp32 waveform train step card vs CPU (phase
@@ -169,7 +175,8 @@ Phases:
     --profile harder --variants 8`` (304 WAVs + golden features) and
     ``examples.synthetic_e2e``'s ``cli.run_pipeline`` on a 60 / 20 / 20
     split (a full-width bf16 model; K3 once a precompute batch, K2T 2 a
-    step, K2 2 a step, eval batch and evaluate-stage batch); c.
+    step, K2 2 a step, eval batch and evaluate-stage batch, K7 3 a step
+    forward and 3 backward); c.
     ``cli.test_tts_samples`` with that model over the 38 TTS WAVs on the
     card (K1 38, K5 38, K2 76, nothing else) and with ``--device cpu``: equal
     labels, confidences within phase 4's bar, the accuracy printed; d. a
@@ -195,7 +202,8 @@ Phases:
     under Adam); the bf16 feature
     step at B=256 and the waveform step at B=512 / 1024 with the DP
     machinery at world 1 against the one-process step (three blocks of A
-    B B A), and the augmentation's draws at B=512 / 1024; b.
+    B B A, both sides' conv epilogues the torch chain, K7 counted 0), and
+    the augmentation's draws at B=512 / 1024; b.
     ``parallel.dryrun.dryrun_multichip(2, "cuda")``: two processes on the
     one card over gloo, every part's line printed, each step held to the
     one-process step at B=2x64 by the dry run's bars, each process's
@@ -298,6 +306,7 @@ from speech_intent_recognizer_tpu_torch.ops.gru import (
     TILE_ROWS, Plan,
     _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
     gru_layer_backward, picked_plan, tile_rows)
+from speech_intent_recognizer_tpu_torch.ops import bn_pool
 from speech_intent_recognizer_tpu_torch.ops import pool_epilogue as pool_ops
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
@@ -322,6 +331,14 @@ K5_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/conv23.cu"
 K5_REPLACES = "speech_intent_recognizer_tpu/ops/conv23_pallas.py:72"
 K6_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/pool_epilogue.cu"
 K6_REPLACES = "speech_intent_recognizer_tpu/ops/pool_epilogue_pallas.py:66"
+K7_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/bn_relu_pool.cu"
+# K7 replaces no Pallas kernel: the JAX package leaves its training
+# epilogue (BatchNorm, ReLU, max-pool) to XLA
+K7_REPLACES = None
+# K7: the train step's three conv outputs (C, H, W), at the train cell's
+# batch and an odd one
+K7_STAGES = ((32, 64, 200), (64, 32, 100), (128, 16, 50))
+K7_BATCHES = (1024, 1030)
 # published peaks of one H100 SXM: HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores, dense bf16 FLOP/s on them
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -500,7 +517,8 @@ FIXTURE_LABELS = os.path.join(ROOT, "tests", "data", "narrow_label_map.json")
 # fp32 noise of zero changes sign between two right runs; a wrong
 # gradient turns a large share.  The DP machinery's cost at world 1 on
 # the bf16 steps: DP_ABBA blocks of A B B A (one process, world 1, world
-# 1, one process), each window DP_TIMED's iterations; 21c: the serving
+# 1, one process), each window DP_TIMED's iterations, both sides' conv
+# epilogues through the torch chain; 21c: the serving
 # mesh [cuda:0, cuda:0] on DP_SERVE_ROWS rows
 DP_TRAIN, DP_VAL, DP_EPOCHS, DP_LR = TRAIN_BATCH, 64, 2, 1e-3
 DP_FLIP_SHARE = 1e-4
@@ -1356,7 +1374,8 @@ def check_pipeline(dev, tmp: str, run: dict, timings, spreads,
     precompute = -(-n["test"] // PRECOMPUTE_BATCH)
     check_counts(launches, {
         "K3": steps + eval_batches + precompute, "K2T": 2 * steps,
-        "K2": 2 * (steps + eval_batches + test_batches)},
+        "K2": 2 * (steps + eval_batches + test_batches),
+        "K7": 3 * steps, "K7T": 3 * steps},
         f"run_pipeline, {steps} waveform train steps, {eval_batches} eval "
         f"batches, {test_batches} evaluate-stage batches, {precompute} "
         f"precompute batches,")
@@ -2136,10 +2155,132 @@ def check_k5(dev) -> float:
     return worst
 
 
+def k7_case(y, weight, bias, dout, what: str) -> dict:
+    """K7 forward and backward, launched twice, against their plain
+    versions by ``bn_pool.compare_with_plain``'s bars."""
+    got = bn_pool.compare_with_plain(y, weight, bias, dout)
+    check(got["ok"],
+          f"K7 vs plain, {what}: the same bits twice {got['same']}; mean "
+          f"{got['mean_err']:.2e} of the deviation, variance "
+          f"{got['var_err']:.2e} relative (<= 1e-6); on K7's statistics the "
+          f"plain's bits {got['out_bits']}, on the plain's "
+          f"{got['out_bar']:.2f} of one bf16 step + what the statistics' "
+          f"difference carries (<= 1); dy {got['dy_bar']:.2f} of one bf16 "
+          f"step + what the sums' order carries (<= 1; "
+          f"{got['dy_steps']:.1f} bf16 steps), weight / bias gradients "
+          f"{got['dw_err']:.2e} / {got['db_err']:.2e} of their largest "
+          f"(<= 1e-5); outside the bars: {got['failed']}")
+    return got
+
+
+def k7_wrapper_case(y, weight, bias, dout, what: str) -> dict:
+    """``bn_relu_pool2_train`` under autograd against the launchers, by
+    ``bn_pool.compare_wrapper``: output and gradients the launchers' bits,
+    the running statistics K7's, the counters up by one and one."""
+    got = bn_pool.compare_wrapper(y, weight, bias, dout)
+    check(got["ok"],
+          f"bn_relu_pool2_train under autograd, {what}: counters up by one "
+          f"forward and one backward {got['counted']}; the launchers' "
+          f"output {got['out_bits']} and gradients of y, weight and bias "
+          f"{got['grad_bits']}; running statistics from K7's "
+          f"{got['running_bits']}")
+    return got
+
+
+def torch_chain(y, weight, bias):
+    """The epilogue K7 replaces: ``BatchNorm2d`` in training mode (an fp32
+    channels-last copy, ``var_mean``, ``native_batch_norm``), ReLU, the
+    cast to bf16, 2x2 max-pool; -> (module, forward callable)."""
+    import torch.nn.functional as F
+
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import BatchNorm2d
+
+    bn = BatchNorm2d(y.shape[1]).to(y.device).train()
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+    return bn, lambda t: F.max_pool2d(F.relu(bn(t)).to(t.dtype), 2)
+
+
+def check_k7(dev) -> dict:
+    """Phase 6d: K7 (the training conv epilogue) against its plain version
+    at the train step's three conv outputs for B = 1024 and 1030, and on
+    forced ties (windows of one value, a BatchNorm scale that rounds most
+    windows' values to one bf16 value, windows all zero after ReLU);
+    what its streaming kernels take on the card; at B = 1024 the forward
+    and backward timed beside the torch chain they replace (library_ms) and
+    the plain versions; and at B = 1024 the wrapper
+    ``bn_relu_pool2_train`` under autograd against the launchers (its
+    output, gradients, running statistics and counters)."""
+    out = {"cases": {}, "wrapper": {}, "resources": {}, "timings": {},
+           "bounds": {}}
+    for c, h, w in K7_STAGES:
+        out["resources"][f"c{c}"] = bn_pool.kernel_resources(dev, c)
+        for b in K7_BATCHES:
+            ops = bn_pool.card_operands(dev, b, c, h, w, seed=70 + c + b)
+            what = f"B={b} (C, H, W)={(c, h, w)}"
+            out["cases"][f"b{b}_c{c}"] = k7_case(*ops, what)
+            if b == K7_BATCHES[0]:
+                out["wrapper"][f"b{b}_c{c}"] = k7_wrapper_case(*ops, what)
+            del ops
+    out["cases"]["ties"] = k7_case(*bn_pool.tie_operands(dev),
+                                   "forced ties, B=64 (32, 64, 200)")
+    iters = 10
+    for c, h, w in K7_STAGES:
+        b = K7_BATCHES[0]
+        y, weight, bias, dout = bn_pool.card_operands(dev, b, c, h, w,
+                                                      seed=80 + c)
+        n = b * c * h * w
+        fwd = bn_pool._launch_forward(y, weight, bias, 1e-5)
+        key = f"k7_c{c}_b{b}"
+        timed(out["timings"], {}, f"{key}_forward",
+              lambda: bn_pool._launch_forward(y, weight, bias, 1e-5), iters)
+        timed(out["timings"], {}, f"{key}_backward",
+              lambda: bn_pool._launch_backward(y, fwd[1], dout, weight, bias,
+                                               fwd[2], fwd[4]), iters)
+        # forward: y twice, the pooled output and the argmax values;
+        # backward: dout and the argmax values, then y and dout, dy
+        out["bounds"][f"{key}_forward"] = bound(n * (2 + 2 + 0.5 + 0.5))
+        out["bounds"][f"{key}_backward"] = bound(n * (0.5 + 0.5 + 2 + 0.5
+                                                      + 2))
+        out["timings"][f"{key}_forward_plain"] = cuda_ms(
+            lambda: bn_pool._forward_plain(y, weight, bias, 1e-5), 3)
+        out["timings"][f"{key}_backward_plain"] = cuda_ms(
+            lambda: bn_pool._backward_plain(y, fwd[1], dout, weight, bias,
+                                            fwd[2], fwd[4]), 3)
+        _bn, chain = torch_chain(y, weight, bias)
+        yt = y.detach().requires_grad_()
+        timed(out["timings"], {}, f"{key}_forward_library",
+              lambda: chain(yt), iters)
+        pooled = chain(yt)
+        timed(out["timings"], {}, f"{key}_backward_library",
+              lambda: torch.autograd.grad(pooled, yt, dout,
+                                          retain_graph=True), iters)
+        del pooled
+        t = out["timings"]
+        log(f"  K7 at B={b} (C, H, W)={(c, h, w)}: forward "
+            f"{t[f'{key}_forward']:.4f} ms (bound "
+            f"{out['bounds'][f'{key}_forward'][0]:.4f}, the torch chain "
+            f"{t[f'{key}_forward_library']:.4f}, plain "
+            f"{t[f'{key}_forward_plain']:.4f}), backward "
+            f"{t[f'{key}_backward']:.4f} ms (bound "
+            f"{out['bounds'][f'{key}_backward'][0]:.4f}, the torch chain "
+            f"{t[f'{key}_backward_library']:.4f}, plain "
+            f"{t[f'{key}_backward_plain']:.4f})")
+        del y, dout, fwd, yt
+    # the plain versions at B=1030 leave ~15 GB in torch's cache: hand it
+    # back, so that the later phases run with the memory they had before
+    torch.cuda.empty_cache()
+    log(f"  K7 resources: {out['resources']}")
+    return out
+
+
 def reset_counters() -> None:
     for fn in (fk.frontend_conv1, fk.frontend, fk.mel_db, gru_layer,
-               gru_layer_backward, conv23, bias_relu_pool2):
+               gru_layer_backward, conv23, bias_relu_pool2,
+               bn_pool.bn_relu_pool2_train):
         fn.launches = 0
+    bn_pool.bn_relu_pool2_train.backward_launches = 0
     for fn in (gru_layer, gru_layer_backward):
         fn.kernel_launches.update(dict.fromkeys(fn.kernel_launches, 0))
 
@@ -2283,6 +2424,8 @@ def counters() -> dict:
             "K3": fk.frontend.launches, "K2T": gru_layer_backward.launches,
             "K4": fk.mel_db.launches, "K5": conv23.launches,
             "K6": bias_relu_pool2.launches,
+            "K7": bn_pool.bn_relu_pool2_train.launches,
+            "K7T": bn_pool.bn_relu_pool2_train.backward_launches,
             # of K2T's, the launches of the fp32 cluster backward
             "K2T_cluster": gru_layer_backward.kernel_launches["cluster"]}
 
@@ -3210,7 +3353,8 @@ def synthetic_pipeline(dev, tmp: str) -> dict:
                      for v in n.values())
     check_counts(launches, {
         "K3": precompute, "K2T": 2 * steps,
-        "K2": 2 * (steps + eval_batches + test_batches)},
+        "K2": 2 * (steps + eval_batches + test_batches),
+        "K7": 3 * steps, "K7T": 3 * steps},
         f"synthetic_e2e's run_pipeline ({n}; {precompute} precompute "
         f"batches, {steps} train steps, {eval_batches} eval batches, "
         f"{test_batches} evaluate-stage batches)")
@@ -3546,6 +3690,20 @@ def dp_cli_run(dev, tmp: str, csvs: dict, label_map: str, name: str,
     return result, launches, states
 
 
+def torch_epilogue(fn):
+    """``fn`` with K7's rule held off while it runs: every conv stage's
+    epilogue through the torch chain, as a step with a sync group runs
+    it."""
+    def run():
+        engages = bn_pool.engages
+        bn_pool.engages = lambda bn, x: False
+        try:
+            return fn()
+        finally:
+            bn_pool.engages = engages
+    return run
+
+
 def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
     """Phase 21: data-parallel training, evaluation and serving.  a.
     ``cli.train`` with a coordinator (world 1, NCCL) against the same run
@@ -3629,7 +3787,9 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
         out[f"cli_{mode}"] = {"loss_err": loss_err, "steps": steps_out}
         if not waveform:
             dist.destroy_process_group()
-    # the DP machinery at world 1 against the one-process step, A B B A
+    # the DP machinery at world 1 against the one-process step, A B B A;
+    # both sides' conv epilogues through the torch chain (K7 does not
+    # engage with a sync group), so that the gap is the DP machinery's
     mesh = create_mesh()
     for mode, b, iters in DP_TIMED:
         if mode == "feature":
@@ -3638,6 +3798,16 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
         else:
             one, par = (wave_step_timer(dev, b)[0],
                         wave_step_timer(dev, b, mesh)[0])
+        one = torch_epilogue(one)
+        for side, fn in (("one process", one), ("world 1", par)):
+            torch.cuda.synchronize()
+            reset_counters()
+            fn()
+            got = counters()
+            check(got["K7"] == got["K7T"] == 0,
+                  f"DP at world 1, bf16 {mode} step B={b}, {side}: the conv "
+                  f"epilogues through the torch chain (K7 {got['K7']}, "
+                  f"backward {got['K7T']}; want 0)")
         blocks = [[cuda_ms(fn, iters) for fn in (one, par, par, one)]
                   for _ in range(DP_ABBA)]
         # each block's cost of world 1: its B windows over its A windows
@@ -3648,7 +3818,8 @@ def check_distributed(dev, tmp: str, run: dict, timings: dict) -> dict:
             [(t[1] + t[2]) / 2 for t in blocks]))
         out[f"{mode}_b{b}_abba"] = blocks
         out[f"{mode}_b{b}_dp1_cost"] = costs
-        log(f"  DP at world 1, bf16 {mode} step B={b}, {DP_ABBA} blocks of "
+        log(f"  DP at world 1, bf16 {mode} step B={b}, both sides' conv "
+            f"epilogues the torch chain, {DP_ABBA} blocks of "
             f"A B B A x {iters}: {blocks} ms; cost a block "
             f"{[f'{c:+.2%}' for c in costs]}")
         del one, par
@@ -3913,6 +4084,7 @@ def main(argv=None) -> int:
         k4_err = check_k4(dev, make_frontend_params(AudioConfig(**HOP256),
                                                     dev), rng)
         k5_err = check_k5(dev)
+        k7 = check_k7(dev)
 
         # ---- 7. off the reference geometry: the front-end through K4 ----
         hop256_launches = check_hop256(dev, model_path, label_path, rng)
@@ -4242,7 +4414,8 @@ def main(argv=None) -> int:
         f"vs its plain version, ms per call; library_ms: cuDNN nn.GRU layer "
         f"(K2), its backward with a one-wide input (K2T), torch.fft.rfft + "
         f"matmul on the frames (K3, K4), the model's conv stages 2 and 3 "
-        f"(K5), bias-add + ReLU + max-pool at conv2 (K6)")
+        f"(K5), bias-add + ReLU + max-pool at conv2 (K6); K7 at B=1024: "
+        f"train-mode BatchNorm + ReLU + cast + max-pool and its backward")
     # launches on the streaming path: over the test split in each featurizer
     # mode, in the batched finalize of 16 and in the file replay of 16
     stream_launches = {
@@ -4346,6 +4519,20 @@ def main(argv=None) -> int:
         entry_["artifact_launches"] = {
             name: got[key] for name, got in exported["launches"].items()
             if key in got}
+    # K7 at the train step's three conv outputs (B=1024): each pass beside
+    # the torch chain it replaces (library_ms) and the plain version
+    kt, kb = k7["timings"], k7["bounds"]
+    kernels.append({
+        "name": "bn_relu_pool2_train", "route": "cuda", "source": K7_SOURCE,
+        "replaces": K7_REPLACES, "cases": k7["cases"],
+        "resources": k7["resources"],
+        **{f"{key[3:]}_{part}": {
+            "ms": kt[f"{key}_{part}"], "plain_ms": kt[f"{key}_{part}_plain"],
+            "bound_ms": kb[f"{key}_{part}"][0],
+            "bound_by": kb[f"{key}_{part}"][1],
+            "library_ms": kt[f"{key}_{part}_library"]}
+           for key in (f"k7_c{c}_b{K7_BATCHES[0]}" for c, _h, _w in K7_STAGES)
+           for part in ("forward", "backward")}})
     log(f"  wav2vec (phase 19 took {wav2vec['seconds']:.1f} s) on {label}, "
         f"TF32 off; ms: CUDA events, median of five blocks (least / most), "
         f"host clock median, idle share = 1 - profiler kernel time / host "
@@ -4384,7 +4571,8 @@ def main(argv=None) -> int:
         one = timings[f"{mode}_step_bf16_b{b}_one"]
         dp1 = timings[f"{mode}_step_bf16_b{b}_dp1"]
         costs = distributed[f"{mode}_b{b}_dp1_cost"]
-        log(f"    bf16 {mode} step B={b}, CUDA events, {DP_ABBA} blocks of "
+        log(f"    bf16 {mode} step B={b} (both sides' conv epilogues the "
+            f"torch chain), CUDA events, {DP_ABBA} blocks of "
             f"A B B A x {iters} steps: one process {one:.4f} ms, "
             f"data-parallel at world 1 (NCCL) {dp1:.4f} ms "
             f"({100 * (dp1 / one - 1):+.2f} %); a block's cost "

@@ -64,6 +64,13 @@ _SIGNATURES = {
     "sir_conv23_info": [_P],
     "sir_pool_epilogue_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "sir_pool_epilogue_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # K7, the training conv epilogue: forward, backward, resources
+    "sir_bn_pool_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, ctypes.c_float, _P],
+    "sir_bn_pool_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _P],
+    "sir_bn_pool_info": [_I, _I, _P],
+    "sir_bn_pool_scratch": [_I, _P],
 }
 
 _lock = threading.Lock()

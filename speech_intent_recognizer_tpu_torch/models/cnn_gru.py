@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_intent_recognizer_tpu_torch.ops import bn_pool
 from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
 from speech_intent_recognizer_tpu_torch.ops.gru import gru_bidirectional
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
@@ -369,10 +370,18 @@ class CNNAudioGRU(nn.Module):
             return bias_relu_pool2(
                 F.conv2d(x, conv.weight.to(dt), None, padding=1), conv.bias)
         bias = None if conv.bias is None else conv.bias.to(dt)
+        bn = None if self.fold_bn else getattr(self, f"bn{i}")
+        k7 = bn is not None and bn_pool.engages(bn, x)
+        if k7:  # the conv then writes its output channels-last for K7
+            x = bn_pool.channels_last(x)
         x = F.conv2d(x, conv.weight.to(dt), bias, padding=1)
-        if not self.fold_bn:  # BatchNorm in fp32 under bf16 compute
-            x = getattr(self, f"bn{i}")(x)
-        return F.max_pool2d(F.relu(x).to(dt), 2)
+        if bn is None:
+            return F.max_pool2d(F.relu(x).to(dt), 2)
+        with span("sir.conv.bn_pool"):
+            if k7:
+                return bn_pool.bn_relu_pool2_train(x, bn)
+            x = bn(x)  # BatchNorm in fp32 under bf16 compute
+            return F.max_pool2d(F.relu(x).to(dt), 2)
 
     def _conv_stack(self, x: torch.Tensor) -> torch.Tensor:
         """The model's conv stages; conv2 and conv3 in the span

@@ -27,6 +27,7 @@ from speech_intent_recognizer_tpu_torch.ops.gru import (
 
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
+from speech_intent_recognizer_tpu_torch.ops import bn_pool
 
 pytestmark = pytest.mark.cuda
 
@@ -607,6 +608,93 @@ def test_pool_epilogue_negative_zero_and_nan(dev):
     assert torch.isnan(out[0, 0, 0, 1])
     rest = out.flatten()[~torch.isnan(out.flatten())]
     assert bool((rest == 0).all()) and not bool(torch.signbit(rest).any())
+
+
+# K7: the train step's three conv outputs (C, H, W)
+K7_STAGES = [(32, 64, 200), (64, 32, 100), (128, 16, 50)]
+
+
+def _k7_against_plain(y, weight, bias, dout):
+    """K7 forward and backward, twice, against the plain versions, by
+    ``bn_pool.compare_with_plain``'s bars."""
+    got = bn_pool.compare_with_plain(y, weight, bias, dout)
+    assert got["ok"], got
+
+
+@pytest.mark.parametrize("batch", [1024, 1030])
+@pytest.mark.parametrize("stage", K7_STAGES)
+def test_bn_relu_pool2_train_matches_plain(dev, stage, batch):
+    """K7 against its plain version at each stage's shape, at the train
+    cell's batch and an odd one."""
+    c, h, w = stage
+    _k7_against_plain(*bn_pool.card_operands(dev, batch, c, h, w,
+                                             seed=c + batch))
+
+
+def test_bn_relu_pool2_train_forced_ties(dev):
+    """Windows of one value, a BatchNorm scale that rounds most windows'
+    values to one bf16 value, windows all zero after ReLU: K7 routes each
+    gradient where torch's max_pool2d sends it (the plain backward's
+    routing) and pools the plain's bits."""
+    _k7_against_plain(*bn_pool.tie_operands(dev))
+
+
+@pytest.mark.parametrize("stage", K7_STAGES)
+def test_bn_relu_pool2_train_wrapper(dev, stage):
+    """The wrapper under autograd on an NCHW input: the launchers' output
+    and gradients bit for bit, the running statistics updated with K7's
+    statistics, the counters up by one forward and one backward."""
+    c, h, w = stage
+    got = bn_pool.compare_wrapper(*bn_pool.card_operands(dev, 64, c, h, w,
+                                                         seed=c))
+    assert got["ok"], got
+
+
+def test_bn_relu_pool2_train_refuses_other_layouts(dev):
+    y, weight, bias, _ = bn_pool.card_operands(dev, 2, 32, 8, 10, seed=1)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_pool._launch_forward(y.contiguous(), weight, bias, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bn_pool._launch_forward(y[:, :28], weight[:28], bias[:28], 1e-5)
+
+
+def test_bf16_train_step_launches_k7(dev, monkeypatch):
+    """A bf16 train step of the full-width model launches K7 once a stage
+    forward and once backward, no ``batch_norm`` or ``max_pool`` kernel,
+    and stays within bf16 rounding of the same step through the torch
+    chain: loss, logits, the running statistics."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+
+    model = CNNAudioGRU(num_classes=31, dropout=0.0,
+                        compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(11))
+    model = model.to(dev).train()
+    ref = copy.deepcopy(model)
+    x = torch.randn((64, 64, 200), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    bn_pool.bn_relu_pool2_train.launches = 0
+    bn_pool.bn_relu_pool2_train.backward_launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits = model(x)
+        logits.float().logsumexp(-1).sum().backward()
+        torch.cuda.synchronize()
+    assert (bn_pool.bn_relu_pool2_train.launches,
+            bn_pool.bn_relu_pool2_train.backward_launches) == (3, 3)
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [n for n in names if "batch_norm" in n or "max_pool" in n]
+    monkeypatch.setattr(bn_pool, "engages", lambda bn, x: False)
+    want = ref(x)
+    want.float().logsumexp(-1).sum().backward()
+    assert float((logits - want).float().abs().max()) <= \
+        1e-2 * float(want.float().abs().max())
+    for (n, a), (_, b) in zip(model.named_buffers(), ref.named_buffers()):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
+                                   atol=1e-5, msg=n)
 
 
 @pytest.mark.parametrize("kw", [
