@@ -7,14 +7,11 @@ hand-written CUDA kernels, and checks everything it measures:
 
 * serving: ``Predictor.from_checkpoint`` -> ``predict_waveform_batch``,
   batch inference from waveform to intent probabilities (K1, K5, K2:
-  conv2 + conv3 in one kernel by default where K5's contract holds);
+  conv2 + conv3 in one kernel where K5's contract holds), held to the
+  fp64 golden front-end and to the same predictor on the CPU;
 * training from precomputed features: the precompute, train and evaluate
   CLIs on a seeded synthetic tone corpus (K3 in the precompute, K2 and its
   backward K2T in training), then the trained model served;
-* the named configurations of serving: torch's epilogues
-  (``pool_impl="torch"``: K1, K2), conv2 + conv3 in one kernel after that
-  (``enable_conv23_kernel``: K1, K5, K2) and the conv epilogue kernel
-  (``pool_impl="kernel"``: K1, K6 twice, K2);
 * serving off the reference geometry (hop 256, 400 frames): the unfused
   predictor, whose front-end frames the signal and runs K4;
 * the pipeline orchestrator ``cli.run_pipeline`` with waveform-resident
@@ -26,9 +23,20 @@ hand-written CUDA kernels, and checks everything it measures:
   ``BatchFinalizer`` and ``IntentServer``, on the model that training
   produced; and a ``.msgpack`` checkpoint read without flax or msgpack;
 * serving artifacts of that model (``infer/export.py``): the production
-  programs of the four serving configurations (each kernel a ``sir`` op
-  node), the portable program and the streaming finalize, each loaded in
-  a process of its own.
+  programs of the default and the unfused predictor (each kernel a ``sir``
+  op node), the portable program and the streaming finalize, each loaded
+  in a process of its own;
+* the wav2vec family, the TTS corpus, data and tensor parallelism;
+* the kernels' resources as built and their times alone, beside their
+  plain versions, the library calls they replace and their bounds.
+
+Each kernel is held against its plain version once here, at the shape
+its main path gives it; the sweeps over builds, batches and lengths, and
+the launches of each form of the serving path, are
+``tests/test_torch_cuda.py``'s checks on the card (``python -m pytest
+--noconftest tests/test_torch_cuda.py``); the end-to-end rates are the
+benchmark's cells (``perfbench/``, whose signals, peaks and operation
+counts this script imports).
 
 Phases:
 
@@ -40,61 +48,31 @@ Phases:
    registers, spilled bytes, shared memory, threads and resident blocks per
    SM, for the cluster kernels also the cluster size and resident clusters
    per card;
-2. K1 (front-end + conv1) against its plain PyTorch version: the check
-   lengths with 1 and 0, rows that mix silence and full-scale signal,
-   batches of 1, 3 and 257, the main path's B=256;
-3. K2 (GRU recurrence) against its plain version, bf16 and fp32: every
-   kernel build a call can launch (tensor-core at each tile height in bf16,
-   the fp32 cluster kernel at each in fp32, CUDA-core at each, and the one
-   the card picks) at B = 1 to 2048 and T = 1, 25, 40,
-   each launched twice for the same bits, then with the seeded checkpoint's
-   recurrent weights;
-4. serving end to end: the main path once at B=256 with the launch
-   counters reset just before and read just after (K1 and K5 must launch
-   once, K2 twice), then the parity gates of the reference ``bench.py``: plain
-   front-end vs the fp64 golden (< 0.05), fused probabilities vs golden
-   features through the plain unfused folded model (< 0.02, equal argmax),
-   and the main run's rows vs the same predictor on the CPU;
+2. each kernel once against its plain version at the shape its main path
+   gives it, at the bars of its card tests: K1 -> K5 on the B=256 batch
+   with the seeded checkpoint's folded weights, K2 at B=256 and K2T at
+   B=1024 (bf16, T=25), K3 on B=256 precompute rows, K4 on B=256 rows of
+   hop-256 frames, K6 at conv2's output (B=256); K7 in phase 6;
+4. serving end to end: the main path once at B=256 (K1 once, K5 once, K2
+   twice, nothing else; probabilities finite, rows summing to 1), then the parity gates of the reference
+   ``bench.py``: plain front-end vs the fp64 golden (< 0.05), fused
+   probabilities vs golden features through the plain unfused folded
+   model (< 0.02, equal argmax), and the main run's rows vs the same
+   predictor on the CPU;
 5. the ``test_model`` CLI on a WAV file;
-6. K6 (conv epilogue), K4 (frames -> dB-mel) and K5 (conv2 + conv3) against
-   their plain versions; K4 at frame counts around its tiles (0 to 80,128:
-   persistent blocks with a ragged last round), an unaligned buffer, silent rows between loud ones (exactly -100 dB), and every n_fft
-   it serves (32 to 4096) with a window shorter than n_fft and 40, 64 and
-   80 mels; K5 at B = 1, 5, 131, 133, 256, 2048 and T1 = 4, 8, 100, 200,
-   each at every range length its plan can pick, the plan's launch twice
-   for the same bits; K7 (the training conv epilogue, forward and
-   backward) at the train step's three conv outputs for B = 1024 and 1030
-   and on forced ties, twice for the same bits, the wrapper
-   ``bn_relu_pool2_train`` under autograd at B = 1024 (the launchers'
-   bits, the running statistics, the counters), its resources, and its
-   passes timed beside the torch chain they replace;
-7. the front-end and the predictor at hop 256 / 400 frames through K4,
-   against the plain front-end and the fp64 golden (K4 once per batch, K3
-   never), and silent utterances in raw dB (exactly the floor);
-8. the ``pool_impl="torch"``, conv23 (``enable_conv23_kernel`` after
-   ``pool_impl="torch"``) and ``pool_impl="kernel"`` configurations at
-   B=256 against the default path, with every counter reset before and
-   read after each (K1 1, K2 2; K1 1, K5 1, K2 2; K1 1, K6 2, K2 2), and
-   ``test_model --conv23`` / ``--pool-impl kernel`` on a WAV file;
+6. K7 (the training conv epilogue, forward and backward) at the train
+   step's three conv outputs (B = 1024): what its four kernels take on the
+   card, both passes against their plain versions, and its passes timed beside the torch chain they replace and the
+   plain versions;
+7. off the reference geometry (hop 256 / 400 frames): the front-end
+   through K4 against the fp64 golden, and the unfused predictor at B=256
+   (K4 once, K2 twice, nothing else) against the CPU predictor;
 9. timings with CUDA events, each next to the card's name and power limit:
    K1 and K2 (every build); K4 (also at 512 and 2048 points), K5, K6, their
-   plain versions and the library calls they stand beside; K1, K2, K2T, K3,
-   K4, K5, cuDNN's GRU layer (bf16 and fp16), cuDNN's conv2 + conv3 pair
-   and that pair with K6 after each conv as the median of five timed
-   blocks with the least and the most; the four serving
-   configurations in the order A B C D D C B A;
-10. with ``--profile`` only: step-time percentiles and the per-kernel
-    breakdown of device time (``utils/profiling.py``) of the four serving
-    configurations at B=256 and 2048, of one bf16 train step at B=256, and
-    (in phase 16) of the streaming finalize of 1 and of 16 queued sessions;
-11. K3 (front-end) against its plain version, f32 and bf16 out, normalized
-    and raw, with lengths 1 and 0, batches of 1, 3 and 257, and silent and
-    padded frames in raw dB (exactly -100 and 0);
-12. K2T (GRU backward) against its plain version and against autograd
-    through the plain forward: every build (tensor-core at each tile
-    height in bf16, the fp32 cluster backward at each in fp32, CUDA-core
-    at each, and the one the card picks), the batches and T of phase 3,
-    twice for the same bits, and the checkpoint's weights;
+   plain versions and the library calls they stand beside; K1, K2, K4, K5,
+   cuDNN's GRU layer (bf16 and fp16), cuDNN's conv2 + conv3 pair and that
+   pair with K6 after each conv as the median of five timed blocks with the
+   least and the most;
 13. one fp32 training step (two batches) on the card against the CPU;
 14. timings of K3, K2T and the bf16 train step with CUDA events; cuDNN's
     bf16 GRU backward beside K2T (a one-wide input, the backward alone on
@@ -123,13 +101,11 @@ Phases:
     Unix socket with 16 concurrent client sessions, each asking for a
     partial hypothesis mid-utterance, partials and results equal to the
     direct recognizer's; the committed narrow ``.msgpack`` fixture served
-    like its ``.pt`` twin; K4 at 4 / 16 / 64 frames (the streamed tails and
-    full-scale noise) and the fp32 K2 (the build the card picks and the
-    CUDA-core kernel at B = 1 / 16 / 256 / 2048, every cluster-kernel
-    height at B = 1 / 16) against their plain versions; and timings: end of speech -> result p50 / p90, the feed of
-    one chunk per mode, the finalize of 1 and of 16 queued sessions (host
-    clock), K4 at those sizes and the fp32 K2 at those batches beside the
-    CUDA-core kernel and cuDNN's fp32 layer with TF32 off and on (CUDA
+    like its ``.pt`` twin; and timings: end of speech -> result p50 / p90,
+    the feed of one chunk per mode, the finalize of 1 and of 16 queued
+    sessions (host clock), K4 at 4 / 16 / 64 frames (the tails of 1, 4
+    and 16 sessions) and the fp32 K2 at B = 1 / 16 / 256 / 2048 beside
+    the CUDA-core kernel and cuDNN's fp32 layer with TF32 off and on (CUDA
     events); then end of speech in each mode and the finalize of 1 and of
     16 again, with the fp32 cluster K2 and with the CUDA-core K2 forced, in
     turns (every run's two K2 launches counted by kernel);
@@ -141,34 +117,35 @@ Phases:
     eval batch and an evaluate-stage batch; K7 3 times a step forward and
     3 backward; nothing else), train loss
     falling, val accuracy >= 0.9, the report's accuracy that of
-    ``evaluate_dataset``; K3 against its plain version on a training batch
-    augmented on the card; a fp32 waveform train step card vs CPU (phase
+    ``evaluate_dataset``; a fp32 waveform train step card vs CPU (phase
     13's bars); and the bf16 waveform step at B = 256 / 1024 (CUDA events
     and host clock, medians of five blocks) beside the feature-cache step,
-    with its augmentation and its K3 timed alone (``--profile``: the
-    step's per-kernel breakdown at B=256);
+    with its augmentation and its K3 timed alone;
 18. serving artifacts of phase 15's model (``infer.export``): the
     production flavour of the default configuration pinned at B = 8, 256
-    and 2048, of ``pool_impl="torch"``, conv23 and ``pool_impl="kernel"``
-    at 256 and of the unfused fp32 predictor at 8, the portable flavour and
-    the streaming artifact, each loaded by its own process (all at once)
-    that counts what a program call launches (default K1 1, K5 1, K2 2;
-    torch K1 1, K2 2; conv23 K1 1, K5 1, K2 2; pool kernel K1 1, K6 2,
-    K2 2; unfused K3 1, K2 2; the streaming
-    finalize K4 1, K2 2; the portable nothing) and lists the port's modules
-    it imported (none of models, predictor, training, data; the portable
-    no kernel op either); production rows bit-equal to the live predictor
-    on the same program batches at B = 8, 200 (routed to 256), 256 and
-    2300 (chunked); the portable within 1e-2 of the live bf16 path's
-    log-probabilities with equal argmax on the gate rows; the streaming
-    artifact's labels equal to the live recognizer's over the test split;
-    the production and portable artifacts at B = 256 / 2048 beside the live
-    ``Predictor`` (medians of five blocks, CUDA events and host clock, A B
-    C C B A); the live B=256 step and the B=1 end of speech through the
-    ops and with each op swapped for its kernel's launch body (the route
-    before the ops), in alternating rounds; the host cost of a wrapper's
-    call, its op's and the kernel's launch body alone (K4 on 4 frames, the
-    fp32 K2 at B=1, K1 at B=8).
+    and 2048 and of the unfused fp32 predictor at 8, the portable flavour
+    and the streaming artifact, each loaded by its own process (all at
+    once) that counts what a program call launches (default K1 1, K5 1,
+    K2 2; unfused K3 1, K2 2; the streaming finalize K4 1, K2 2; the
+    portable nothing) and lists the port's modules it imported (none of
+    models, predictor, training, data; the portable no kernel op either);
+    production rows bit-equal to the live predictor on the same program
+    batches at B = 8, 200 (routed to 256), 256 and 2300 (chunked); the
+    portable within 1e-2 of the live bf16 path's log-probabilities with
+    equal argmax on the gate rows; the streaming artifact's labels equal to
+    the live recognizer's over the test split; the production and portable
+    artifacts at B = 256 / 2048 beside the live ``Predictor`` (medians of
+    five blocks, CUDA events and host clock, A B C C B A); the live B=256
+    step and the B=1 end of speech through the ops and with each op swapped
+    for its kernel's launch body (the route before the ops), in alternating
+    rounds; the host cost of a wrapper's call, its op's and the kernel's
+    launch body alone (K4 on 4 frames, the fp32 K2 at B=1, K1 at B=8).
+19. the wav2vec family at wav2vec2-base width: card vs CPU (forward and
+    one fine-tune step, fp32), bf16 vs fp32 on the card,
+    ``cli.train_wav2vec --small`` -> ``test_model`` -> ``evaluate`` on the
+    tone corpus, its artifacts in their own processes, and the timings of
+    inference and of the fine-tune step (CUDA events and host clock)
+    beside their bounds;
 20. the hermetic TTS corpus and what runs on it: a.
     ``cli.generate_tts_samples --engine synthetic`` on the 38-row sheet,
     every WAV decoded by ``load_audio``; b. ``examples.make_ab_corpus
@@ -225,32 +202,34 @@ Phases:
     and of their Adam moments, half the whole model's.  A correctness run
     on a shared card, not a multi-GPU rate.
 
-The ``kernels`` line gives each kernel's launches on its path (K2 and K4
-also ``stream_launches``: over the test split in each featurizer mode, in
+The ``kernels`` line gives each kernel's largest error against its
+plain version (``max_abs_err``: phase 2's; K7's dy, phase 6's) and its
+launches on its path (``launches``: K1, K2, K5 and K6 on phase 4's main
+path, K3 and K2T in phase 15's training, K4 in phase 7's; K2 and K4
+``stream_launches``: over the test split in each featurizer mode, in
 the batched finalize of 16 and in the file replay of 16, and K2
 ``stream_launches_cluster``, how many of those were the fp32 cluster
-kernel; K2, K3 and K2T
-also ``waveform_launches``, phase 17's; every kernel
+kernel; K2, K3 and K2T ``waveform_launches``, phase 17's; every kernel
 ``artifact_launches``, phase 18's per program call; K2, K3 and K2T
 ``synthetic_launches``, phase 20b's; K1 and K2 ``tts_launches``, phase
 20c's; K1, K2, K3 and K2T ``distributed_launches``, phase 21's; K1, K2,
 K3 and K2T ``tensor_parallel_launches``, phase 22's, each process's; K2T
 ``control_a_launches``, phase 20h's, and ``fp32``: the fp32 cluster
-backward's launches on phases 20h, 21 and 22, its error, times, bounds
-and library call at B = 16 / 64 / 256 / 1024 and the fp32 train step
-with it and with the CUDA-core K2T), its
-error
-against its plain version, its time, the plain version's, the least time
-the card could take for the same work (``bound_ms``: bytes over 3.35 TB/s
-or operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
-bf16, whichever is larger) and, where one library call computes the same
-function, that call's time (K3, K4: ``torch.fft.rfft`` + matmul on the
-frames).
+backward's launches on phases 20h, 21 and 22, times, bounds and library
+call at B = 16 / 64 / 256 / 1024 and the fp32 train step with it and with
+the CUDA-core K2T), its time, the plain version's, the least time the
+card could take for the same work (``bound_ms``:
+``perfbench/core/peaks.least_seconds``, bytes over 3.35 TB/s or
+operations over the peak of their type, 67 TFLOP/s fp32 and 989 TFLOP/s
+bf16, whichever is larger; the front-end's operations
+``perfbench/work/cnn_gru_fsc.frontend_flops_per_frame`` a frame) and,
+where one library call computes the same function, that call's time (K3,
+K4: ``torch.fft.rfft`` + matmul on the frames).
 
 Every failed check raises.  Needs one card; exits non-zero without CUDA.
 The last line of standard output is the JSON device record.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py
 """
 
 from __future__ import annotations
@@ -287,7 +266,8 @@ from speech_intent_recognizer_tpu_torch.infer.server import (
 from speech_intent_recognizer_tpu_torch.infer.streaming import (
     BatchFinalizer, PendingResult, StreamingRecognizer, fused_finalize)
 from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-    CNNAudioGRU, fold_batchnorm)
+    CONV23_BUFFERS, CNNAudioGRU, conv1_external_params, conv23_params,
+    fold_batchnorm)
 from speech_intent_recognizer_tpu_torch.models.wav2vec import (
     Wav2Vec2Config, Wav2VecIntent, feature_extractor_params)
 from speech_intent_recognizer_tpu_torch.models.wav2vec_backbone import (
@@ -296,7 +276,7 @@ from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
 from speech_intent_recognizer_tpu_torch.ops import frontend_numpy as golden
 from speech_intent_recognizer_tpu_torch.ops import conv23 as conv23_ops
 from speech_intent_recognizer_tpu_torch.ops.conv23 import (
-    _conv23_plain, conv23, conv23_operands, conv23_plan, range_lengths)
+    _conv23_plain, conv23, conv23_operands)
 from speech_intent_recognizer_tpu_torch.ops.frontend import (
     _frames, log_mel_frontend, log_mel_frontend_plain, make_frontend_params,
     padded_samples)
@@ -314,6 +294,9 @@ from speech_intent_recognizer_tpu_torch.train.wav2vec_trainer import (
     Wav2VecTrainer, create_wav2vec_optimizer)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
+from perfbench.core import peaks
+from perfbench.core.traffic import room_noise, speech_like
+from perfbench.work.cnn_gru_fsc import frontend_flops_per_frame
 
 CHECK_LENGTHS = [8000, 16000, 39999, 40000, 52117, 79999, 80000, 1025, 512, 2]
 GATE_LENGTHS = [8000, 16000, 39999, 40000, 52117, 79999, 80000, 1025]
@@ -336,49 +319,29 @@ K7_SOURCE = "speech_intent_recognizer_tpu_torch/csrc/bn_relu_pool.cu"
 # epilogue (BatchNorm, ReLU, max-pool) to XLA
 K7_REPLACES = None
 # K7: the train step's three conv outputs (C, H, W), at the train cell's
-# batch and an odd one
+# batch
 K7_STAGES = ((32, 64, 200), (64, 32, 100), (128, 16, 50))
-K7_BATCHES = (1024, 1030)
-# published peaks of one H100 SXM: HBM bytes/s, fp32 FLOP/s outside the
-# tensor cores, dense bf16 FLOP/s on them
-HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
-# K4 vs its plain version (tests/test_pallas_frontend.py:35)
-K4_RTOL, K4_ATOL = 1e-4, 1e-4
-K4_FRAMES = (0, 1, 255, 256, 257, 300)
-# every n_fft K4 serves, each with a window of 3/4 n_fft, and the mel counts
-K4_FFT_SIZES = (32, 64, 128, 256, 512, 1024, 2048, 4096)
-K4_MELS = (40, 64, 80)
-ODD_BATCHES = (1, 3, 257)
-# K2 and K2T vs their plain versions: (batch, steps); ragged and full tiles
-# of every height, T = 1 and a T past the model's 25
-GRU_CASES = tuple((b, 25) for b in (1, 3, 64, 256, 257, 1030, 2048)) + (
-    (3, 1), (257, 1), (3, 40), (257, 40))
-DB_FLOOR = -100.0
+K7_BATCH = 1024
+# fp32 operations of one frame of the log-mel front-end at the reference's
+# n_fft and mels (hop 256 frames the same way): windowed real FFT, powers,
+# mel sums, dB
+FRONTEND_FRAME_FLOPS = frontend_flops_per_frame(
+    {"n_fft": 1024, "n_mels": 64, "sample_rate": 16000})
 # the off-reference geometry served through K4: hop 256, 400 frames
 HOP256 = dict(hop_length=256, mel_spec_length=400)
-# K5 vs its plain version (tests/test_conv23_pallas.py:73-74), at every
-# batch and T1 below, each at every range length the plan can pick
-K5_BAR = 0.02
-K5_BATCHES = (1, 5, 131, 133, 256, 2048)
-K5_T1 = (4, 8, 100, 200)
-# K6: the shapes of tests/test_pool_epilogue.py:37-42 and the two real
-# geometries (conv2's and conv3's raw outputs at B=256), as (B, T, W, C)
-K6_SHAPES = ((3, 100, 32, 64), (2, 50, 16, 128), (9, 8, 4, 64), (1, 2, 4, 32),
-             (256, 100, 32, 64), (256, 50, 16, 128))
-# a configuration vs the default path: argmax held on rows whose top-two
-# margin exceeds this
-MARGIN = 0.02
 # precompute's buffers are max_samples wide, not padded_samples
 PRECOMPUTE_WIDTH = 80000
-# K3 f32 vs its plain version: the bar JAX holds K3 to against XLA
-# (tests/test_pallas_frontend.py:62)
+# cached features (K3, int16 fetch) vs the plain front-end: the bar JAX
+# holds K3 to against XLA (tests/test_pallas_frontend.py:62)
 K3_BAR = 2e-3
-# fp32 gradients: the bar of tests/test_gru_pallas.py:92-94 (rtol 2e-4,
-# atol 2e-5), per element for dgx; for dW and db_hn per tensor as
-# max|err| <= atol + rtol * max|want|: they sum T*B = 51,200 terms at
-# B=2048, whose fp32 summation order differs between the kernel path (one
-# GEMM) and the plain loop (25 GEMMs)
+# the bars of tests/test_torch_cuda.py: K1's share of outputs more than one
+# bf16 step from the plain version's; K4's rtol / atol; K5's of the plain's
+# largest output; K2T's gradients (bf16: plus one bf16 step)
+K1_FAR_SHARE = 1e-4
+K4_RTOL, K4_ATOL = 1e-4, 1e-4
+K5_BAR = 2e-2
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+K2T_BATCH = 1024  # the train cell's batch
 # train step, card vs CPU (fp32, TF32 off): loss relative, gradients per
 # tensor as above, BatchNorm running statistics absolute
 STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL, STEP_BN_ATOL = (
@@ -397,10 +360,6 @@ WAVE_STEP_BATCHES = (256, 1024)
 ARGMAX_SHARE_BAR = 0.99
 MAIN_BATCH = 256
 TIMING_BATCHES = (256, 2048)
-E2E_BATCH = TIMING_BATCHES[-1]
-# K1 and its plain version round the same fp32 values to bf16: outputs more
-# than one bf16 step apart come only from summation-order ties
-K1_FAR_SHARE = 1e-4
 # bench.py's gate on probabilities, and a tighter bar on log-probabilities
 # (logits up to a per-row constant): the seeded model's probabilities are
 # near uniform, so a probability bar alone barely sees a wrong logit
@@ -416,23 +375,19 @@ STREAM_MODES = ("host", "native", "device")
 STREAM_ACC_BAR = 0.9
 STREAM_CPU_BAR = 1e-5
 STREAM_ROW_BAR = 1e-5
-# phase 3's bar for the fp32 K2 against its plain version
-K2_FP32_TOL = 1e-5
 STREAM_SESSIONS = 16
 STREAM_CHUNK = 1024
 # what follows each streamed utterance: 1.5 s of a microphone's silence,
-# room noise at -60 dBFS (Gaussian, std 0.001: mean |x| 0.0008, under the
-# VAD's 0.01 threshold).  Digital zeros would make -100 dB frames, which the
-# tone model never saw in training and which pull the per-utterance
-# normalization far off (PERF.md §6, streaming)
-ROOM_NOISE = 0.001
+# room noise at -60 dBFS (perfbench's ``room_noise``: Gaussian, std 0.001,
+# mean |x| 0.0008, under the VAD's 0.01 threshold).  Digital zeros would
+# make -100 dB frames, which the tone model never saw in training and which
+# pull the per-utterance normalization far off (PERF.md §6, streaming)
 TRAILING_S = 1.5
 LATENCY_UTTERANCES = 30
 # K4 and the fp32 K2 at the streaming path's sizes: tail frames of 1, 4 and
 # 16 utterances; one session and a batched flush of 16; the fp32 K2 also at
 # the evaluation's batches, beside the CUDA-core kernel and cuDNN
 STREAM_K4_FRAMES = (4, 16, 64)
-STREAM_K2_BATCHES = (1, 16)
 FP32_K2_BATCHES = (1, 16, 256, 2048)
 # the fp32 K2T timed at these batches (T = 25): control (a)'s B=16, the dry
 # runs' 64 a process, and two larger; the fp32 train step with either K2T
@@ -445,16 +400,9 @@ PARTIAL_AT = 8
 # configuration and the rows asked of them (the default: pinned, routed to
 # 256, chunked as 2048 + 252), the launches one program call makes, the
 # batches timed
-EXPORT_CONFIGS = {"default": (8, 256, 2048), "pool_impl=torch": (256,),
-                  "conv23": (256,), "pool_impl=kernel": (256,),
-                  "unfused": (8,)}
-EXPORT_REQUESTS = {"default": (8, 200, 256, 2300), "pool_impl=torch": (256,),
-                   "conv23": (256,), "pool_impl=kernel": (256,),
-                   "unfused": (8,)}
+EXPORT_CONFIGS = {"default": (8, 256, 2048), "unfused": (8,)}
+EXPORT_REQUESTS = {"default": (8, 200, 256, 2300), "unfused": (8,)}
 EXPORT_LAUNCHES = {"default": {"K1": 1, "K5": 1, "K2": 2},
-                   "pool_impl=torch": {"K1": 1, "K2": 2},
-                   "conv23": {"K1": 1, "K5": 1, "K2": 2},
-                   "pool_impl=kernel": {"K1": 1, "K6": 2, "K2": 2},
                    "unfused": {"K3": 1, "K2": 2}}
 EXPORT_TIMED = (256, 2048)
 DISPATCH_ROUNDS = 6
@@ -606,52 +554,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def speech_like(rng, n):
-    """bench.py's test signal: a 220 Hz tone plus noise."""
-    t = np.arange(n) / 16000.0
-    return (0.25 * np.sin(2 * np.pi * 220.0 * t)
-            + 0.05 * rng.standard_normal(n)).astype(np.float32)
-
-
 def batch(lengths, width, seed):
     buf = np.zeros((len(lengths), width), np.float32)
     for i, n in enumerate(lengths):
         buf[i, :n] = speech_like(np.random.default_rng(seed + i), n)
     return buf, np.asarray(lengths, np.int32)
-
-
-def mixed_batch(width: int, n_fft: int = 1024):
-    """Rows that mix silence and full-scale signal: (buffer, lengths,
-    signal_end), the signal (peak amplitude 1: uniform noise, or a 1 kHz
-    tone of 0.9 over noise of 0.1, so that every band stays above float32
-    rounding noise) lying in [0, signal_end) of each row and exact zeros
-    after it."""
-    rows = ((40000, 0), (80000, 80000), (80000, 30000), (52117, 52117),
-            (1025, 0), (0, 0), (79999, 41000))
-    rng = np.random.default_rng(77)
-    buf = np.zeros((len(rows), width), np.float32)
-    for i, (_, end) in enumerate(rows):
-        t = np.arange(end) / 16000.0
-        noise = rng.uniform(-1.0, 1.0, end)
-        buf[i, :end] = (0.9 * np.sin(2 * np.pi * 1000.0 * t) + 0.1 * noise
-                        if i % 2 else noise).astype(np.float32)
-    return (buf, np.asarray([r[0] for r in rows], np.int32),
-            [r[1] for r in rows])
-
-
-def check_floor(feats: torch.Tensor, lengths, signal_end, hop: int,
-                n_fft: int, what: str) -> None:
-    """Raw-dB features (B, M, T): every valid frame that holds only silence
-    is exactly DB_FLOOR, every frame past the valid count exactly 0."""
-    ok, silent = True, 0
-    for i, (n, end) in enumerate(zip(lengths, signal_end)):
-        t_valid = min(1 + int(n) // hop, feats.shape[2])
-        first = min(-(-(end + n_fft // 2) // hop) if end else 0, t_valid)
-        ok = ok and bool((feats[i, :, first:t_valid] == DB_FLOOR).all()) \
-            and bool((feats[i, :, t_valid:] == 0).all())
-        silent += t_valid - first
-    check(ok and silent > 0, f"{what}: the {silent} silent valid frames are "
-          f"exactly {DB_FLOOR} dB, the frames past each valid count exactly 0")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -701,10 +608,9 @@ def check_probs(got: np.ndarray, want: np.ndarray, what: str) -> None:
           f"log-prob err {logp_err:.3e} <= {LOGP_BAR}")
 
 
-def k2_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
-    """Seeded K2 operands.  With ``state`` (a CNNAudioGRU state dict) the
-    recurrent weights and n-gate bias are those of its first GRU layer, as
-    ``gru_bidirectional`` lays them out, instead of 0.05 N(0, 1)."""
+def k2_inputs(b: int, dtype, dev, seed: int, steps: int = 25):
+    """Seeded K2 operands: inputs N(0, 1), recurrent weights 0.05 N(0, 1),
+    n-gate bias 0.1 N(0, 1)."""
     r = np.random.default_rng(seed)
     gx = torch.from_numpy(r.standard_normal((2, steps, b, 768))
                           .astype(np.float32)).to(dev, dtype)
@@ -712,12 +618,6 @@ def k2_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
                          .astype(np.float32)).to(dev, dtype)
     bn = torch.from_numpy((r.standard_normal((2, 1, 256)) * 0.1)
                           .astype(np.float32)).to(dev)
-    if state is not None:
-        names = ("gru.weight_hh_l0", "gru.weight_hh_l0_reverse")
-        w = torch.stack([state[n].t() for n in names]).contiguous().to(
-            dev, dtype)
-        bn = torch.stack([state[n.replace("weight", "bias")][512:]
-                          for n in names])[:, None, :].float().to(dev)
     return gx, w, bn
 
 
@@ -746,46 +646,6 @@ def plan_key(rows) -> str:
     """The timing key of a forced build: ``mma_rows64``, ``simt_rows4``."""
     p = rows if isinstance(rows, Plan) else Plan("simt", rows)
     return f"{p.kernel}_rows{p.rows}"
-
-
-def check_k2(dev, state) -> float:
-    """Phase 3: K2 vs its plain version, bf16 and fp32, every kernel build a
-    call can launch (tensor-core and CUDA-core, every tile height, and the
-    one the card picks) on full and ragged tiles, T = 1, 25 and 40; two
-    launches on the same inputs give the same bits; then the same with the
-    seeded checkpoint's recurrent weights.  Returns the bf16 error of the
-    picked kernel at the main path's batch."""
-    k2_err = 0.0
-    cases = [(b, steps, None) for b, steps in GRU_CASES]
-    cases += [(b, 25, state) for b in (3, MAIN_BATCH, 1030)]
-    for b, steps, st in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            tol = K2_FP32_TOL if dtype == torch.float32 else 1e-2
-            gx, w, bn = k2_inputs(b, dtype, dev, seed=b, steps=steps, state=st)
-            want = _gru_layer_plain(gx, w, bn).float()
-            worst, same = 0.0, True
-            for rows in gru_variants(dtype):
-                got = gru_layer(gx, w, bn, rows=rows)
-                again = gru_layer(gx, w, bn, rows=rows)
-                torch.cuda.synchronize()
-                err = float((got.float() - want).abs().max())
-                if not (bool(torch.isfinite(got.float()).all())
-                        and err <= tol):
-                    raise AssertionError(
-                        f"K2 vs plain, B={b} T={steps} {dtype} "
-                        f"{plan_name(rows, b, dtype, dev)}: max |err| "
-                        f"{err:.3e} > {tol}")
-                same = same and bool(torch.equal(got, again))
-                worst = max(worst, err)
-                if (dtype == torch.bfloat16 and (b, steps) == (MAIN_BATCH, 25)
-                        and rows is None and st is None):
-                    k2_err = err
-            check(same, f"K2 vs plain, B={b} T={steps} {dtype}"
-                  f"{', checkpoint weights' if st is not None else ''}: "
-                  f"{len(gru_variants(dtype))} builds (picked: "
-                  f"{plan_name(None, b, dtype, dev)}) within {tol} (worst "
-                  f"{worst:.3e}), each the same bits twice")
-    return k2_err
 
 
 def seeded_checkpoint(directory: str) -> tuple:
@@ -820,136 +680,12 @@ def within_scaled(got, want, rtol, atol) -> bool:
     return max_err(got, want) <= atol + rtol * float(want.float().abs().max())
 
 
-def within_each(got, want, rtol, atol) -> bool:
-    """|got - want| <= atol + rtol * |want| at every element
-    (np.testing.assert_allclose's rule)."""
-    got, want = got.float(), want.float()
-    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
-
-
-def k3_case(wf, lt, fe, name: str) -> float:
-    """K3 vs its plain version on one batch: f32 within K3_BAR, bf16
-    within one bf16 rounding (2**-8 relative) of the plain f32 value plus
-    K3_BAR; normalized and raw.  Returns the normalized f32 error."""
-    k3_err = 0.0
-    for normalize in (True, False):
-        want = log_mel_frontend_plain(wf, lt, fe, normalize)
-        got = fk.frontend(wf, lt, fe, normalize)
-        got16 = fk.frontend(wf, lt, fe, normalize, torch.bfloat16).float()
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        check(got.shape == (len(lt), 64, 200)
-              and bool(torch.isfinite(got).all()) and err <= K3_BAR,
-              f"K3 vs plain, {name} normalize={normalize} f32: max "
-              f"|err| {err:.3e} <= {K3_BAR}")
-        bound = 2.0 ** -8 * want.abs() + K3_BAR
-        err16 = max_err(got16, want)
-        check(bool(((got16 - want).abs() <= bound).all()),
-              f"K3 vs plain, {name} normalize={normalize} bf16 out: within "
-              f"one bf16 rounding + {K3_BAR} (max |err| {err16:.3e}, scale "
-              f"{float(want.abs().max()):.2f})")
-        if normalize:
-            k3_err = err
-    return k3_err
-
-
-def check_k3(dev, fe, rng) -> float:
-    """Phase 11: K3 vs its plain version in precompute-wide buffers: B=256
-    with the check lengths, 1 and 0; batches of 1, 3 and 257; rows that mix
-    silence and full-scale signal, whose silent and padded frames must read
-    exactly the floor and 0 in raw dB."""
-    lengths = CHECK_LENGTHS + [1, 0] + list(rng.integers(
-        1, PRECOMPUTE_WIDTH + 1, MAIN_BATCH - len(CHECK_LENGTHS) - 2))
-    buf, ln = batch(lengths, PRECOMPUTE_WIDTH, seed=300)
-    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
-    k3_err = k3_case(wf, lt, fe, f"B={MAIN_BATCH}")
-    for b in ODD_BATCHES:
-        buf, ln = batch(list(rng.integers(1, PRECOMPUTE_WIDTH + 1, b)),
-                        PRECOMPUTE_WIDTH, seed=310 + b)
-        k3_err = max(k3_err, k3_case(torch.from_numpy(buf).to(dev),
-                                     torch.from_numpy(ln).to(dev), fe,
-                                     f"B={b}"))
-    buf, ln, ends = mixed_batch(PRECOMPUTE_WIDTH)
-    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
-    k3_err = max(k3_err, k3_case(wf, lt, fe, "silence and full scale"))
-    raw = fk.frontend(wf, lt, fe, normalize=False)
-    torch.cuda.synchronize()
-    check_floor(raw, ln, ends, 512, 1024, "K3 raw dB, silence and full scale")
-    return k3_err
-
-
-def k2t_inputs(b: int, dtype, dev, seed: int, steps: int = 25, state=None):
-    gx, w, bn = k2_inputs(b, dtype, dev, seed, steps, state)
+def k2t_inputs(b: int, dtype, dev, seed: int, steps: int = 25):
+    gx, w, bn = k2_inputs(b, dtype, dev, seed, steps)
     r = np.random.default_rng(seed + 1)
     dys = torch.from_numpy(r.standard_normal((2, steps, b, 256))
                            .astype(np.float32)).to(dev, dtype)
     return gx, w, bn, _gru_layer_plain(gx, w, bn), dys
-
-
-def k2t_within(dtype, name: str, g, x) -> bool:
-    """The bars of K2T against a reference: fp32 dgx per element, fp32 dW
-    and db_hn (always fp32) relative to the tensor's largest value, bf16 dgx
-    and dW within one bf16 step plus the fp32 bar."""
-    if not bool(torch.isfinite(g.float()).all()):
-        return False
-    if dtype == torch.float32 and name == "dgx":
-        return within_each(g, x, GRAD_RTOL, GRAD_ATOL)
-    if dtype == torch.float32 or name == "db_hn":
-        return within_scaled(g, x, GRAD_RTOL, GRAD_ATOL)
-    bound = (2.0 ** -7 * x.float().abs() + GRAD_ATOL
-             + GRAD_RTOL * float(x.float().abs().max()))
-    return bool(((g.float() - x.float()).abs() <= bound).all())
-
-
-def check_k2t(dev, state) -> float:
-    """Phase 12: K2T vs its plain version, every kernel build a call can
-    launch (tensor-core and CUDA-core, every tile height, and the picked
-    one) on full and ragged tiles, T = 1, 25 and 40, twice with the same
-    bits; fp32 also vs autograd through the plain forward; then with the
-    seeded checkpoint's recurrent weights.  Returns the largest fp32
-    error."""
-    worst = 0.0
-    names = ("dgx", "dW", "db_hn")
-    cases = [(b, steps, None) for b, steps in GRU_CASES]
-    cases += [(b, 25, state) for b in (3, MAIN_BATCH, 1030)]
-    for b, steps, st in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            gx, w, bn, ys, dys = k2t_inputs(b, dtype, dev, seed=b,
-                                            steps=steps, state=st)
-            refs = [("plain", _gru_layer_backward_plain(gx, w, bn, ys, dys))]
-            if (dtype == torch.float32 and steps == 25 and st is None
-                    and b in (64, 1030, 2048)):
-                leaves = [t.clone().requires_grad_() for t in (gx, w, bn)]
-                refs.append(("autograd", torch.autograd.grad(
-                    _gru_layer_plain(*leaves), leaves, dys)))
-            same, errs = True, dict.fromkeys(names, 0.0)
-            for rows in gru_variants(dtype, backward=True):
-                got = gru_layer_backward(gx, w, bn, ys, dys, rows=rows)
-                again = gru_layer_backward(gx, w, bn, ys, dys, rows=rows)
-                torch.cuda.synchronize()
-                same = same and all(torch.equal(a, c)
-                                    for a, c in zip(got, again))
-                for ref_name, ref in refs:
-                    for name, g, x in zip(names, got, ref):
-                        err = max_err(g, x)
-                        if not k2t_within(dtype, name, g, x):
-                            raise AssertionError(
-                                f"K2T vs {ref_name}, B={b} T={steps} {dtype} "
-                                f"{plan_name(rows, b, dtype, dev, True)} "
-                                f"{name}: max |err| {err:.3e} (scale "
-                                f"{float(x.float().abs().max()):.3g})")
-                        errs[name] = max(errs[name], err)
-                        if dtype == torch.float32:
-                            worst = max(worst, err)
-            check(same, f"K2T vs {' and '.join(r[0] for r in refs)}, B={b} "
-                  f"T={steps} {dtype}"
-                  f"{', checkpoint weights' if st is not None else ''}: "
-                  f"{len(gru_variants(dtype, True))} builds (picked: "
-                  f"{plan_name(None, b, dtype, dev, True)}) within the bars "
-                  f"(max |err| " + ", ".join(
-                      f"{n} {e:.3e}" for n, e in errs.items())
-                  + "), each the same bits twice")
-    return worst
 
 
 def check_train_step(dev, waves=None) -> None:
@@ -1119,7 +855,7 @@ def decode_split(csv_path: str, width: int):
 
 
 def train_end_to_end(tmp: str, dev) -> dict:
-    """Phase 8: precompute -> train -> evaluate through the CLIs at full
+    """Phase 15: precompute -> train -> evaluate through the CLIs at full
     width with bf16 compute, then serve the best model.  Returns the
     launches of each path and the precompute rate."""
     from speech_intent_recognizer_tpu_torch.cli import evaluate as cli_eval
@@ -1327,14 +1063,13 @@ def pipeline_config(tmp: str, csvs: dict) -> tuple:
     return path, out
 
 
-def check_pipeline(dev, tmp: str, run: dict, timings, spreads,
-                   profile: bool, label: str) -> dict:
+def check_pipeline(dev, tmp: str, run: dict, timings, spreads) -> dict:
     """Phase 17: ``cli.run_pipeline`` on phase 15's tone corpus in waveform
     mode with waveform augmentation (preprocess validating every WAV ->
     int16 waveform caches + the test split's features -> training with K3
     in every step -> evaluate), the counters reset just before and read
-    just after; then K3 at the step's batch on augmented rows, a fp32
-    waveform train step card vs CPU, and the step's timings."""
+    just after; then a fp32 waveform train step card vs CPU on the cache's
+    rows, and the step's timings."""
     from speech_intent_recognizer_tpu_torch.cli import run_pipeline
     from speech_intent_recognizer_tpu_torch.config import load_config
     from speech_intent_recognizer_tpu_torch.data import cache as cache_mod
@@ -1405,25 +1140,8 @@ def check_pipeline(dev, tmp: str, run: dict, timings, spreads,
           f"run_pipeline's report says {head!r}; evaluate_dataset "
           f"{ev['accuracy']:.4f}")
 
-    # K3 inside the step: a training batch of the waveform cache,
-    # augmented on the card, against the plain front-end on those tensors
     waves, lengths, _, _ = cache_mod.load_waveform_cache(
         f"{out}/cache/train_data_waveforms.npz")
-    w16 = torch.from_numpy(waves[:TRAIN_BATCH]).to(dev)
-    ln = torch.from_numpy(lengths[:TRAIN_BATCH]).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(17)
-    xa, la = augment_waveforms(w16.float() * (1.0 / 32768.0), ln, gen,
-                               augment_prob=1.0)
-    fe = make_frontend_params(device=dev)
-    got = fk.frontend(xa, la.clamp(min=1), fe)
-    want = log_mel_frontend_plain(xa, la.clamp(min=1), fe)
-    torch.cuda.synchronize()
-    k3_err = max_err(got, want)
-    shorter = int((la < ln).sum())
-    check(la.dtype == torch.int32 and shorter > 0 and k3_err <= K3_BAR,
-          f"K3 vs plain at the step's batch ({TRAIN_BATCH} augmented rows, "
-          f"{shorter} shortened by the speed change): max |err| "
-          f"{k3_err:.3e} <= {K3_BAR}")
     check_train_step(dev, (torch.from_numpy(waves[:32]),
                            torch.from_numpy(lengths[:32])))
 
@@ -1451,12 +1169,9 @@ def check_pipeline(dev, tmp: str, run: dict, timings, spreads,
             if "_step_bf16" in key:
                 spreads[f"{key}_host"] = host_ms_blocks(fn, iters)
                 timings[f"{key}_host"] = spreads[f"{key}_host"][1]
-        if profile and b == WAVE_STEP_BATCHES[0]:
-            log_profile(f"bf16 waveform train step B={b} (augmentation on)",
-                        step, label)
         del step, trainer, w, lt, xb, lb
     return {"launches": launches, "seconds": seconds, "stages": stages,
-            "k3_err": k3_err, "epochs": epochs,
+            "epochs": epochs,
             "val_acc": history["best_val_acc"], "test_acc": ev["accuracy"]}
 
 
@@ -1473,10 +1188,6 @@ def stacked(operands: list) -> tuple:
     """Finalize operands of several sessions as fused_finalize's batch."""
     mel, count, tail, n_tail = zip(*operands)
     return np.stack(mel), np.asarray(count), np.stack(tail), np.asarray(n_tail)
-
-
-def room_noise(rng, n: int) -> np.ndarray:
-    return (ROOM_NOISE * rng.standard_normal(n)).astype(np.float32)
 
 
 def utterance_chunks(path: str, seed: int) -> np.ndarray:
@@ -1522,27 +1233,6 @@ def stream_file(pred, path: str, mode: str, seed: int) -> dict:
         if recording:
             out["feed_s"].append(dt)
     raise AssertionError(f"{path}: no end of speech in {mode} mode")
-
-
-def log_profile(what: str, step, label: str, top: int = 40,
-                per_s: int = 0) -> None:
-    """Step-time percentiles (host clock, 30 steps) and the per-kernel
-    device time (``torch.profiler``, 5 steps) of ``step``, which must end in
-    a copy to the host; ``per_s`` items a step give a rate at the median."""
-    from speech_intent_recognizer_tpu_torch.utils.profiling import (
-        kernel_breakdown, step_times)
-
-    q = step_times(step, steps=30)
-    wall, kernels = kernel_breakdown(step, steps=5)
-    busy = sum(k[1] for k in kernels)
-    rate = f"; {per_s / q['median'] * 1e3:.0f} utt/s at the median" \
-        if per_s else ""
-    log(f"profile {what} on {label}: step ms median {q['median']:.3f} (p25 "
-        f"{q['p25']:.3f} / p75 {q['p75']:.3f} / p90 {q['p90']:.3f}), 30 "
-        f"steps{rate}; kernel time {busy:.3f} ms, idle share "
-        f"{1 - busy / q['median']:.3f} (profiled step {wall:.3f} ms)")
-    for name, ms, count in kernels[:top]:
-        log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
 
 
 def percentile_ms(samples, q) -> float:
@@ -1605,7 +1295,7 @@ def stream_split(pred, cpu_pred, paths, labels, offline, mode) -> dict:
           f"{STREAM_ROW_BAR} of the card's rows at B={len(paths)}")
     return {"results": results, "launches": totals, "acc": acc,
             "cpu_err": err, "latency_s": latency[:LATENCY_UTTERANCES],
-            "feed_s": feeds, "tails": ops[2]}
+            "feed_s": feeds}
 
 
 def check_file_replay(pred, cpu_pred, paths, offline) -> dict:
@@ -1650,13 +1340,12 @@ def check_file_replay(pred, cpu_pred, paths, offline) -> dict:
     return {"launches": totals, "cpu_err": worst, "agree": agree}
 
 
-def check_batched_flush(pred, paths, profile: bool = False) -> dict:
+def check_batched_flush(pred, paths) -> dict:
     """Phase 16c: STREAM_SESSIONS sessions, each fed its utterance (whole
     chunks), then room noise in turns, so that all reach end of speech in
     the same round: one flush (K4 once, K2 twice in all) and every row within
     STREAM_ROW_BAR of its own single finalize.  Then the batched finalize
-    of 16 and the single one timed (host clock, to the result dicts) and,
-    with ``profile``, broken down by kernel."""
+    of 16 and the single one timed (host clock, to the result dicts)."""
     batcher = BatchFinalizer(pred, max_batch=STREAM_SESSIONS)
     recs = [RecordingRecognizer(pred, featurizer_mode="host",
                                 async_results=True, batch_finalizer=batcher)
@@ -1718,15 +1407,6 @@ def check_batched_flush(pred, paths, profile: bool = False) -> dict:
             PendingResult.get_all(queued)
             samples.append(time.perf_counter() - t0)
         times[n] = samples[2:]
-        if profile:
-            def step():
-                queued = [timer.submit(*rec.operands, inv)
-                          for rec in recs[:n]]
-                timer.flush()
-                PendingResult.get_all(queued)
-
-            log_profile(f"finalize of {n} queued session(s)", step,
-                        gpu_label())
     return {"launches": got, "row_err": worst, "times_s": times,
             "operands": [rec.operands for rec in recs]}
 
@@ -1798,43 +1478,27 @@ def check_fixture(dev) -> None:
           f"CPU; flax / msgpack / jax modules loaded: {loaded}")
 
 
-def time_streaming_kernels(dev, tails, timings, bounds, spreads) -> None:
+def time_streaming_kernels(dev, timings, bounds, spreads) -> None:
     """Phase 16f: K4 at the finalize's frame counts (one session's tail, 4
-    and 16 sessions': the streamed utterances' own tail frames, then
-    full-scale noise) and the fp32 K2 at the streaming batches (T = 25),
-    each against its plain version at its bar, then timed as medians of
-    five blocks with the plain versions.  These sizes leave most of the
-    card idle: the times are launch-bound, far above the bounds."""
+    and 16 sessions', full-scale noise) and the fp32 K2 at the streaming
+    batches (T = 25), timed as medians of five blocks with the plain
+    versions.  These sizes leave most of the card idle: the times are
+    launch-bound, far above the bounds."""
     fe = make_frontend_params(device=dev)
     dft = fk.dft_matrices(fe)
-    streamed = torch.from_numpy(tails.reshape(-1, fe.n_fft)).to(dev)
     for n in STREAM_K4_FRAMES:
-        k4_case(streamed[:n].contiguous(), fe,
-                f"N={n} tail frames of the streamed utterances", dft)
         frames = torch.randn((n, fe.n_fft), device=dev)
-        k4_case(frames, fe, f"N={n} full-scale frames", dft)
         timed(timings, spreads, f"k4_stream_n{n}",
               lambda: fk.mel_db(frames, fe), 200)
         timings[f"k4_stream_plain_n{n}"] = cuda_ms(
             lambda: fk._mel_db_plain(frames, fe, dft), 50)
-        bounds[f"k4_stream_n{n}"] = bound(nbytes(frames) + n * 64 * 4,
-                                          (frontend_flops(fe, n), FP32_FLOPS))
+        bounds[f"k4_stream_n{n}"] = least_ms(
+            {"fp32": n * FRONTEND_FRAME_FLOPS}, nbytes(frames) + n * 64 * 4)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b in FP32_K2_BATCHES:
         gx, w, bn = k2_inputs(b, torch.float32, dev, seed=b)
         old = Plan("simt", tile_rows(b, sms))
         want = _gru_layer_plain(gx, w, bn)
-        # at the streaming batches every forced build of the cluster kernel
-        forced = ([Plan("cluster", r) for r in CLUSTER_ROWS]
-                  if b in STREAM_K2_BATCHES else [])
-        for rows in (None, old, *forced):
-            got = gru_layer(gx, w, bn, rows=rows)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            check(bool(torch.isfinite(got).all()) and err <= K2_FP32_TOL,
-                  f"K2 fp32 vs plain at B={b} T=25, "
-                  f"{plan_name(rows, b, torch.float32, dev)}: max |err| "
-                  f"{err:.3e} <= {K2_FP32_TOL}")
         iters = 100 if b <= 16 else 20 if b <= 256 else 5
         timed(timings, spreads, f"k2_fp32_b{b}", lambda: gru_layer(gx, w, bn),
               iters)
@@ -1856,8 +1520,9 @@ def time_streaming_kernels(dev, tails, timings, bounds, spreads) -> None:
                       ys.data_ptr(), 25, b, 256, rows, stream), key), iters)
         timings[f"k2_fp32_plain_b{b}"] = cuda_ms(
             lambda: _gru_layer_plain(gx, w, bn), 10 if b <= 256 else 2)
-        bounds[f"k2_fp32_b{b}"] = bound(nbytes(gx, w, bn) + gx.numel() // 3 * 4,
-                                        (2.0 * gx.numel() * 256, FP32_FLOPS))
+        bounds[f"k2_fp32_b{b}"] = least_ms(
+            {"fp32": 2.0 * gx.numel() * 256},
+            nbytes(gx, w, bn) + gx.numel() // 3 * 4)
         # the yardstick: one cuDNN fp32 layer (input product included), as
         # phase 9's bf16 one, with TF32 off (the fp32-equal number) and on;
         # and with a one-wide input, so that its time is the recurrence's
@@ -1930,8 +1595,8 @@ def compare_fp32_plans(pred, paths, operands) -> dict:
     return {"eos": eos, "finalize": finalize}
 
 
-def check_streaming(dev, tmp: str, run: dict, timings, bounds, spreads,
-                    profile: bool = False) -> dict:
+def check_streaming(dev, tmp: str, run: dict, timings, bounds,
+                    spreads) -> dict:
     """Phase 16: the streaming and serving path at full width on the model
     that phase 15 trained, over the tone corpus's test split."""
     from speech_intent_recognizer_tpu_torch.data.manifest import (
@@ -1950,7 +1615,7 @@ def check_streaming(dev, tmp: str, run: dict, timings, bounds, spreads,
                                           offline, mode)
     sessions = paths[:STREAM_SESSIONS]
     out["replay"] = check_file_replay(pred, cpu_pred, sessions, offline)
-    out["batched"] = check_batched_flush(pred, sessions, profile)
+    out["batched"] = check_batched_flush(pred, sessions)
 
     direct = out["modes"]["native"]["results"][:STREAM_SESSIONS]
     partial = []
@@ -1978,122 +1643,22 @@ def check_streaming(dev, tmp: str, run: dict, timings, bounds, spreads,
           f"recognizer's labels, confidences within {worst:.3e} <= "
           f"{STREAM_ROW_BAR}")
     check_fixture(dev)
-    time_streaming_kernels(dev, out["modes"]["native"]["tails"], timings,
-                           bounds, spreads)
+    time_streaming_kernels(dev, timings, bounds, spreads)
     out["plans"] = compare_fp32_plans(pred, paths, out["batched"]["operands"])
     return out
 
 
-def bound(nbytes: float, *ops) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and the
-    operations, given as (count, peak) pairs, over their peaks."""
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = sum(n / peak for n, peak in ops) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def least_ms(flops: dict, n_bytes: float) -> tuple:
+    """(bound_ms, bound_by): the least time of ``flops`` (operations by
+    operand type) and ``n_bytes`` on the card (``peaks.least_seconds``),
+    and which of the two sets it."""
+    by = ("bytes" if n_bytes / peaks.HBM_BYTES_PER_S
+          >= peaks.compute_seconds(flops) else "operations")
+    return peaks.least_seconds(flops, n_bytes) * 1e3, by
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def frontend_flops(fe, n_frames: int) -> float:
-    """fp32 operations of n_frames windowed FFTs, powers, sparse mel sums."""
-    n = fe.n_fft
-    return n_frames * (n + 5.0 * n * np.log2(n) + 3 * (n // 2 + 1)
-                       + 2 * fe.fb_packed.numel())
-
-
-def check_k6(dev, rng) -> float:
-    """Phase 6a: K6 vs its plain version; f32 exact, bf16 within one
-    rounding; a tensor that is not channels-last raises."""
-    worst = 0.0
-    for shape in K6_SHAPES:
-        b, t, w, c = shape
-        y32 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-        bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32))
-        for dtype in (torch.float32, torch.bfloat16):
-            y = y32.to(dev, dtype).permute(0, 3, 1, 2)  # (B, C, T, W) view
-            got = bias_relu_pool2(y, bias.to(dev))
-            want = _bias_relu_pool2_plain(y, bias.to(dev))
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            if dtype == torch.float32:
-                ok = torch.equal(got, want)
-                bar = "equal"
-            else:
-                lim = float(want.float().abs().max()) * 2.0 ** -8
-                ok = err <= lim
-                bar = f"max |err| {err:.3e} <= max|want| * 2^-8 = {lim:.3e}"
-                worst = max(worst, err)
-            check(ok and got.shape == (b, c, t // 2, w // 2)
-                  and got.is_contiguous(memory_format=torch.channels_last),
-                  f"K6 vs plain, (B, T, W, C)={shape} {dtype}: {bar}")
-    y = torch.zeros((2, 64, 8, 16), device=dev)  # NCHW memory
-    try:
-        bias_relu_pool2(y, torch.zeros(64, device=dev))
-    except ValueError as e:
-        log(f"ok: K6 refuses a tensor that is not channels-last ({e})")
-    else:
-        raise AssertionError("K6 took a tensor that is not channels-last")
-    return worst
-
-
-def k4_case(frames, fe, what: str, dft=None) -> float:
-    """K4 vs its plain version on one batch of frames, at K4's bar."""
-    got = fk.mel_db(frames, fe)
-    want = fk._mel_db_plain(frames, fe, dft)
-    torch.cuda.synchronize()
-    err = max_err(got, want) if len(frames) else 0.0
-    check(got.shape == (len(frames), fe.n_mels)
-          and bool(torch.isfinite(got).all())
-          and within_each(got, want, K4_RTOL, K4_ATOL),
-          f"K4 vs plain, {what}: max |err| {err:.3e} dB, within rtol "
-          f"{K4_RTOL} / atol {K4_ATOL}")
-    return err
-
-
-def check_k4(dev, fe, rng) -> float:
-    """Phase 6b: K4 vs its plain version at the frame counts around its
-    tiles and at a full batch of hop-256 frames (B=256 x 313 frames: more
-    than the card holds warps for, so persistent blocks walk over them and
-    the last round is ragged); on a buffer that is only 4-byte aligned;
-    on silent rows between full-scale ones; and at every n_fft it serves
-    with a window shorter than n_fft and 40, 64 and 80 mels.  Returns the
-    largest error at the main geometry."""
-    worst = 0.0
-    dft = fk.dft_matrices(fe)
-
-    def randn(n, n_fft):
-        return torch.from_numpy(rng.standard_normal((n, n_fft))
-                                .astype(np.float32)).to(dev)
-
-    for n in K4_FRAMES + (MAIN_BATCH * 313,):
-        worst = max(worst, k4_case(randn(n, fe.n_fft), fe,
-                                   f"N={n} frames of {fe.n_fft}", dft))
-    frames = randn(3001, fe.n_fft)
-    flat = torch.empty(3001 * fe.n_fft + 1, device=dev)
-    flat[1:] = frames.reshape(-1)
-    shifted = flat[1:].view(3001, fe.n_fft)
-    check(shifted.data_ptr() % 8 == 4 and shifted.is_contiguous(),
-          "a contiguous frame buffer that is only 4-byte aligned")
-    worst = max(worst, k4_case(shifted, fe, "N=3001, 4-byte aligned buffer",
-                               dft))
-    for n_fft in K4_FFT_SIZES:
-        for n_mels in K4_MELS:
-            fe_n = make_frontend_params(AudioConfig(
-                n_fft=n_fft, win_length=3 * n_fft // 4, hop_length=n_fft // 4,
-                n_mels=n_mels), dev)
-            frames = torch.from_numpy(rng.uniform(-1.0, 1.0, (1031, n_fft))
-                                      .astype(np.float32)).to(dev)
-            frames[1::2] = 0.0  # silent rows between the full-scale ones
-            k4_case(frames, fe_n, f"N=1031 frames of {n_fft}, window "
-                    f"{3 * n_fft // 4}, {n_mels} mels, every other row silent")
-            got = fk.mel_db(frames, fe_n)
-            torch.cuda.synchronize()
-            check(bool((got[1::2] == DB_FLOOR).all()),
-                  f"K4, n_fft={n_fft} {n_mels} mels: silent rows between "
-                  f"full-scale ones are exactly {DB_FLOOR} dB")
-    return worst
 
 
 def k5_inputs(dev, b: int, seed: int, t1: int = 100):
@@ -2107,84 +1672,6 @@ def k5_inputs(dev, b: int, seed: int, t1: int = 100):
     b2 = (torch.rand(64, generator=g) * 2 - 1) * 0.1
     b3 = (torch.rand(128, generator=g) * 2 - 1) * 0.1
     return x, tuple(o.to(dev) for o in conv23_operands(w2, b2, w3, b3))
-
-
-def check_k5(dev) -> float:
-    """Phase 6c: K5 vs its plain version at every batch of K5_BATCHES and
-    T1 of K5_T1, at the range length the plan picks and at every other one
-    it can pick (whole utterances, every even length below T1 / 4); the
-    plan's launch twice for the same bits.  Returns the largest error at
-    T1 = 100."""
-    worst = 0.0
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for t1 in K5_T1:
-        for b in K5_BATCHES:
-            x, ops = k5_inputs(dev, b, seed=50 + b + t1, t1=t1)
-            want = _conv23_plain(x, *ops)
-            scale = float(want.float().abs().max())
-            live = float((want > 0).float().mean())
-            picked = conv23_plan(b, t1, sms).rows
-            first = conv23(x, *ops)
-            again = conv23(x, *ops)
-            torch.cuda.synchronize()
-            check(torch.equal(first, again), f"K5, B={b} T1={t1}: two calls "
-                  f"({picked}-row ranges, the plan's) give the same bits")
-            errs = []
-            for rows in range_lengths(t1):
-                got = conv23(x, *ops, rows=rows)
-                torch.cuda.synchronize()
-                err = max_err(got, want)
-                ok = (got.shape == (b, t1 // 4, 1024)
-                      and bool(torch.isfinite(got.float()).all())
-                      and err < K5_BAR * scale)
-                if not ok:
-                    raise AssertionError(
-                        f"K5 vs plain, B={b} T1={t1}, {rows}-row ranges: "
-                        f"max |err| {err:.3e}, bar {K5_BAR} * max|want| "
-                        f"{scale:.3f}")
-                errs.append(err)
-            check(live > 0.2, f"K5 vs plain, B={b} T1={t1}, at each of "
-                  f"{len(errs)} range lengths {range_lengths(t1)} (the plan "
-                  f"picks {picked}): max |err| {max(errs):.3e} < {K5_BAR} * "
-                  f"max|want| {scale:.3f} (one bf16 step there: "
-                  f"{2.0 ** (np.floor(np.log2(scale)) - 7):.3e}); "
-                  f"{live:.2f} of the outputs positive")
-            if t1 == 100:
-                worst = max(worst, max(errs))
-            del x, want, first, again
-    return worst
-
-
-def k7_case(y, weight, bias, dout, what: str) -> dict:
-    """K7 forward and backward, launched twice, against their plain
-    versions by ``bn_pool.compare_with_plain``'s bars."""
-    got = bn_pool.compare_with_plain(y, weight, bias, dout)
-    check(got["ok"],
-          f"K7 vs plain, {what}: the same bits twice {got['same']}; mean "
-          f"{got['mean_err']:.2e} of the deviation, variance "
-          f"{got['var_err']:.2e} relative (<= 1e-6); on K7's statistics the "
-          f"plain's bits {got['out_bits']}, on the plain's "
-          f"{got['out_bar']:.2f} of one bf16 step + what the statistics' "
-          f"difference carries (<= 1); dy {got['dy_bar']:.2f} of one bf16 "
-          f"step + what the sums' order carries (<= 1; "
-          f"{got['dy_steps']:.1f} bf16 steps), weight / bias gradients "
-          f"{got['dw_err']:.2e} / {got['db_err']:.2e} of their largest "
-          f"(<= 1e-5); outside the bars: {got['failed']}")
-    return got
-
-
-def k7_wrapper_case(y, weight, bias, dout, what: str) -> dict:
-    """``bn_relu_pool2_train`` under autograd against the launchers, by
-    ``bn_pool.compare_wrapper``: output and gradients the launchers' bits,
-    the running statistics K7's, the counters up by one and one."""
-    got = bn_pool.compare_wrapper(y, weight, bias, dout)
-    check(got["ok"],
-          f"bn_relu_pool2_train under autograd, {what}: counters up by one "
-          f"forward and one backward {got['counted']}; the launchers' "
-          f"output {got['out_bits']} and gradients of y, weight and bias "
-          f"{got['grad_bits']}; running statistics from K7's "
-          f"{got['running_bits']}")
-    return got
 
 
 def torch_chain(y, weight, bias):
@@ -2202,36 +1689,64 @@ def torch_chain(y, weight, bias):
     return bn, lambda t: F.max_pool2d(F.relu(bn(t)).to(t.dtype), 2)
 
 
-def check_k7(dev) -> dict:
-    """Phase 6d: K7 (the training conv epilogue) against its plain version
-    at the train step's three conv outputs for B = 1024 and 1030, and on
-    forced ties (windows of one value, a BatchNorm scale that rounds most
-    windows' values to one bf16 value, windows all zero after ReLU);
-    what its streaming kernels take on the card; at B = 1024 the forward
-    and backward timed beside the torch chain they replace (library_ms) and
-    the plain versions; and at B = 1024 the wrapper
-    ``bn_relu_pool2_train`` under autograd against the launchers (its
-    output, gradients, running statistics and counters)."""
-    out = {"cases": {}, "wrapper": {}, "resources": {}, "timings": {},
-           "bounds": {}}
+def check_k7(y, weight, bias, dout, fwd, what: str) -> float:
+    """K7's forward ``fwd`` (``_launch_forward``'s) and its backward,
+    launched on it, against their plain versions at its card tests' bars:
+    on K7's statistics the plain apply
+    pass's bits; the mean within 1e-6 of the channel's deviation, the
+    variance within 1e-6 relative; dy within one bf16 step of the plain
+    backward on K7's statistics plus twice what the sums' order carries
+    into it; the weight and bias gradients within 1e-5 of their largest.
+    -> dy's max |err|."""
+    out, yarg, mean, var, invstd = fwd
+    dy, dw, db = bn_pool._launch_backward(y, yarg, dout, weight, bias, mean,
+                                          invstd)
+    p_mean, p_var, _ = bn_pool._stats_plain(y, 1e-5)
+    k_out, k_yarg = bn_pool._apply_plain(y, weight, bias, mean, invstd)
+    p_dy, p_dw, p_db = bn_pool._backward_plain(y, yarg, dout, weight, bias,
+                                               mean, invstd)
+    col, n = bn_pool._col, y.numel() // y.shape[1]
+    carried = 2.0 * col((weight * invstd).abs()) * (
+        col((db - p_db).abs()) + (y.float() - col(mean)).abs()
+        * col(invstd * (dw - p_dw).abs())) / n
+    step = torch.ldexp(torch.ones_like(p_dy, dtype=torch.float32),
+                       torch.frexp(p_dy.float().abs())[1] - 8)
+    got = {"mean": float(((mean - p_mean).abs() / p_var.sqrt()).max()),
+           "var": float(((var - p_var).abs() / p_var).max()),
+           "dy_bar": float(((dy.float() - p_dy.float()).abs()
+                            / (step + carried)).max()),
+           "dw": float((dw - p_dw).abs().max() / p_dw.abs().max()),
+           "db": float((db - p_db).abs().max() / p_db.abs().max())}
+    bits = torch.equal(out, k_out) and torch.equal(yarg, k_yarg)
+    check(bits and got["dy_bar"] <= 1.0 and max(
+        got["mean"], got["var"]) <= 1e-6 and max(got["dw"], got["db"]) <= 1e-5,
+        f"K7 vs plain, {what}: the plain apply's bits {bits}, readings "
+        f"{got} (bars: mean / var 1e-6, dy_bar 1, dw / db 1e-5)")
+    return max_err(dy, p_dy)
+
+
+def time_k7(dev) -> dict:
+    """Phase 6: K7 (the training conv epilogue) at the train step's three
+    conv outputs: what its four kernels take on the card, and at B = 1024
+    the forward and backward timed beside the torch chain they replace
+    (library_ms) and the plain versions, on a bf16 channels-last conv
+    output N(0.3, 2), a BatchNorm weight U(0.5, 1.5) and bias U(-0.5,
+    0.5)."""
+    out = {"resources": {}, "timings": {}, "bounds": {}, "errs": {}}
+    iters, b = 10, K7_BATCH
     for c, h, w in K7_STAGES:
         out["resources"][f"c{c}"] = bn_pool.kernel_resources(dev, c)
-        for b in K7_BATCHES:
-            ops = bn_pool.card_operands(dev, b, c, h, w, seed=70 + c + b)
-            what = f"B={b} (C, H, W)={(c, h, w)}"
-            out["cases"][f"b{b}_c{c}"] = k7_case(*ops, what)
-            if b == K7_BATCHES[0]:
-                out["wrapper"][f"b{b}_c{c}"] = k7_wrapper_case(*ops, what)
-            del ops
-    out["cases"]["ties"] = k7_case(*bn_pool.tie_operands(dev),
-                                   "forced ties, B=64 (32, 64, 200)")
-    iters = 10
-    for c, h, w in K7_STAGES:
-        b = K7_BATCHES[0]
-        y, weight, bias, dout = bn_pool.card_operands(dev, b, c, h, w,
-                                                      seed=80 + c)
+        g = torch.Generator(device=dev).manual_seed(80 + c)
+        y = (2.0 * torch.randn((b, h, w, c), generator=g, device=dev)
+             + 0.3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        weight = 0.5 + torch.rand(c, generator=g, device=dev)
+        bias = torch.rand(c, generator=g, device=dev) - 0.5
+        dout = torch.randn((b, h // 2, w // 2, c), generator=g,
+                           device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
         n = b * c * h * w
         fwd = bn_pool._launch_forward(y, weight, bias, 1e-5)
+        out["errs"][f"c{c}"] = check_k7(y, weight, bias, dout, fwd,
+                                        f"B={b} (C, H, W)={(c, h, w)}")
         key = f"k7_c{c}_b{b}"
         timed(out["timings"], {}, f"{key}_forward",
               lambda: bn_pool._launch_forward(y, weight, bias, 1e-5), iters)
@@ -2240,9 +1755,10 @@ def check_k7(dev) -> dict:
                                                fwd[2], fwd[4]), iters)
         # forward: y twice, the pooled output and the argmax values;
         # backward: dout and the argmax values, then y and dout, dy
-        out["bounds"][f"{key}_forward"] = bound(n * (2 + 2 + 0.5 + 0.5))
-        out["bounds"][f"{key}_backward"] = bound(n * (0.5 + 0.5 + 2 + 0.5
-                                                      + 2))
+        out["bounds"][f"{key}_forward"] = least_ms({}, n * (2 + 2 + 0.5
+                                                           + 0.5))
+        out["bounds"][f"{key}_backward"] = least_ms({}, n * (0.5 + 0.5 + 2
+                                                            + 0.5 + 2))
         out["timings"][f"{key}_forward_plain"] = cuda_ms(
             lambda: bn_pool._forward_plain(y, weight, bias, 1e-5), 3)
         out["timings"][f"{key}_backward_plain"] = cuda_ms(
@@ -2268,8 +1784,8 @@ def check_k7(dev) -> dict:
             f"{t[f'{key}_backward_library']:.4f}, plain "
             f"{t[f'{key}_backward_plain']:.4f})")
         del y, dout, fwd, yt
-    # the plain versions at B=1030 leave ~15 GB in torch's cache: hand it
-    # back, so that the later phases run with the memory they had before
+    # the plain versions leave gigabytes in torch's cache: hand them back,
+    # so that the later phases run with the memory they had before
     torch.cuda.empty_cache()
     log(f"  K7 resources: {out['resources']}")
     return out
@@ -2323,8 +1839,6 @@ def time_fp32_k2t(dev, timings, bounds, spreads) -> None:
               iters)
         wt = w.transpose(1, 2).contiguous()
         dgx, dgh = torch.empty_like(gx), torch.empty_like(gx)
-        check(picked.kernel == "cluster", f"fp32 K2T at B={b}: the plan "
-              f"picks the cluster backward ({picked})")
         timed(timings, spreads, f"k2t_fp32_kernel_b{b}",
               lambda: _build.check(lib.sir_gru_layer_bwd_cluster(
                   gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
@@ -2341,11 +1855,11 @@ def time_fp32_k2t(dev, timings, bounds, spreads) -> None:
         timings[f"k2t_fp32_plain_b{b}"] = cuda_ms(
             lambda: _gru_layer_backward_plain(gx, w, bn, ys, dys), 3)
         product = 2.0 * gx.numel() * 256
-        bounds[f"k2t_fp32_kernel_b{b}"] = bound(
-            nbytes(gx, gx, gx, w, bn, ys, dys), (2 * product, FP32_FLOPS))
-        bounds[f"k2t_fp32_b{b}"] = bound(
-            nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4,
-            (3 * product, FP32_FLOPS))
+        bounds[f"k2t_fp32_kernel_b{b}"] = least_ms(
+            {"fp32": 2 * product}, nbytes(gx, gx, gx, w, bn, ys, dys))
+        bounds[f"k2t_fp32_b{b}"] = least_ms(
+            {"fp32": 3 * product},
+            nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4)
         del gx, w, bn, ys, dys, wt, dgx, dgh
 
 
@@ -2435,57 +1949,85 @@ def check_counts(got: dict, want: dict, what: str) -> None:
     check(got == want, f"{what} launched {got} (want {want})")
 
 
-def check_against_default(got: np.ndarray, want: np.ndarray,
-                          what: str) -> None:
-    """A serving configuration against the default path on the same batch:
-    log-probabilities within LOGP_BAR, argmax equal on every row whose
-    top-two margin in the default path exceeds MARGIN."""
-    logp_err = float(np.abs(np.log(np.maximum(got, 1e-30))
-                            - np.log(np.maximum(want, 1e-30))).max())
-    top2 = np.sort(want, axis=-1)[:, -2:]
-    clear = (top2[:, 1] - top2[:, 0]) > MARGIN
-    same = got.argmax(-1) == want.argmax(-1)
-    check(got.shape == want.shape and bool(np.isfinite(got).all())
-          and logp_err <= LOGP_BAR and bool(same[clear].all()),
-          f"{what} vs the default path: log-prob err {logp_err:.3e} <= "
-          f"{LOGP_BAR}; argmax equal on all {int(clear.sum())} rows with "
-          f"margin > {MARGIN} ({int(same.sum())} of {len(same)} rows)")
+def check_kernels(dev, fe, main_buf, main_ln, folded, rng) -> dict:
+    """Phase 2: each kernel once against its plain version at the shape its
+    main path gives it, at its card tests' bar.  -> max |err| by kernel."""
+    err = {}
+
+    def held(key, got, want, ok, what):
+        err[key] = max_err(got, want)
+        check(got.shape == want.shape and bool(torch.isfinite(
+            got.float()).all()) and ok, f"{key} vs plain, {what}: max |err| "
+              f"{err[key]:.3e} (scale {float(want.float().abs().max()):.3g})")
+
+    wf, lt = torch.from_numpy(main_buf).to(dev), torch.from_numpy(main_ln).to(dev)
+    state, w1, b1 = conv23_params(folded)
+    w1, b1 = w1.to(dev, torch.bfloat16), b1.to(dev, torch.bfloat16)
+    x = fk.frontend_conv1(wf, lt, fe, w1, b1)
+    want = fk._frontend_conv1_plain(wf, lt, fe, w1, b1).float()
+    gap = (x.float() - want).abs()
+    far = float((gap > 2.0 ** -7 * want.abs().clamp(min=1.0)).float().mean())
+    held("K1", x, want, float(gap.max()) <= 0.05 * float(want.abs().max())
+         and far < K1_FAR_SHARE, f"B={len(main_ln)}, checkpoint's conv1 "
+         f"(share beyond one bf16 step {far:.2e} < {K1_FAR_SHARE})")
+    ops = tuple(state[k].to(dev) for k in CONV23_BUFFERS)
+    want = _conv23_plain(x, *ops)
+    got = conv23(x, *ops)
+    held("K5", got, want, max_err(got, want) <= K5_BAR * float(
+        want.float().abs().max()), f"on K1's output, checkpoint's conv2 / conv3")
+    gx, w, bn = k2_inputs(MAIN_BATCH, torch.bfloat16, dev, seed=MAIN_BATCH)
+    got, want = gru_layer(gx, w, bn), _gru_layer_plain(gx, w, bn)
+    held("K2", got, want, max_err(got, want) <= 1e-2, f"B={MAIN_BATCH} bf16")
+    gx, w, bn, ys, dys = k2t_inputs(K2T_BATCH, torch.bfloat16, dev,
+                                    seed=K2T_BATCH)
+    got = gru_layer_backward(gx, w, bn, ys, dys)
+    for name, g, p in zip(("dgx", "dW", "db_hn"), got,
+                          _gru_layer_backward_plain(gx, w, bn, ys, dys)):
+        g, p = g.float(), p.float()
+        bar = GRAD_ATOL + GRAD_RTOL * float(p.abs().max())
+        held(f"K2T {name}", g, p, bool(((g - p).abs() <= bar + (
+            2.0 ** -7 * p.abs() if name != "db_hn" else 0.0)).all()),
+            f"B={K2T_BATCH} bf16")
+    del gx, w, bn, ys, dys, got
+    buf, ln = batch(list(rng.integers(1, PRECOMPUTE_WIDTH + 1, MAIN_BATCH)),
+                    PRECOMPUTE_WIDTH, seed=300)
+    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
+    got, want = fk.frontend(wf, lt, fe), log_mel_frontend_plain(wf, lt, fe)
+    held("K3", got, want, max_err(got, want) <= K3_BAR,
+         f"B={MAIN_BATCH} precompute rows, f32")
+    fe_hop = make_frontend_params(AudioConfig(**HOP256), dev)
+    frames = torch.from_numpy(rng.standard_normal((MAIN_BATCH * 313, 1024))
+                              .astype(np.float32)).to(dev)
+    got, want = fk.mel_db(frames, fe_hop), fk._mel_db_plain(frames, fe_hop)
+    held("K4", got, want, bool(((got - want).abs() <= K4_ATOL + K4_RTOL
+                                * want.abs()).all()),
+         f"B={MAIN_BATCH} x 313 hop-256 frames")
+    y = torch.from_numpy(rng.standard_normal((MAIN_BATCH, 100, 32, 64)).astype(
+        np.float32)).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+    bias = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(dev)
+    got, want = bias_relu_pool2(y, bias), _bias_relu_pool2_plain(y, bias)
+    held("K6", got, want, max_err(got, want) <= 2.0 ** -8 * float(
+        want.float().abs().max()), f"B={MAIN_BATCH} conv2's output, bf16")
+    torch.cuda.empty_cache()
+    return err
 
 
 def check_hop256(dev, model_path, label_path, rng) -> dict:
     """Phase 7: off the reference geometry (hop 256, 400 frames) the
-    front-end runs K4.  ``log_mel_frontend`` on the card against the plain
-    front-end and the fp64 golden, then the predictor at B=256."""
+    front-end runs K4.  ``log_mel_frontend`` on the card against the fp64
+    golden, then the predictor at B=256."""
     cfg = AudioConfig(**HOP256)
     fe = make_frontend_params(cfg, dev)
     width = padded_samples(cfg.max_samples, cfg.hop_length)
     buf, ln = batch(GATE_LENGTHS, width, seed=1)
-    wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
-    reset_counters()
-    got = log_mel_frontend(wf, lt, fe)
-    torch.cuda.synchronize()
-    check_counts(counters(), {"K4": 1}, "log_mel_frontend at hop 256")
-    want = log_mel_frontend_plain(wf, lt, fe)
-    err = max_err(got, want)
-    check(got.shape == (len(GATE_LENGTHS), 64, 400) and err <= K3_BAR,
-          f"front-end through K4 vs the plain front-end, hop 256: max |err| "
-          f"{err:.3e} <= {K3_BAR}")
+    got = log_mel_frontend(torch.from_numpy(buf).to(dev),
+                           torch.from_numpy(ln).to(dev), fe)
     gold = np.stack([golden.pad_or_trim_np(golden.log_mel_spectrogram_np(
         buf[i, :n], hop_length=256), 400).astype(np.float32)
         for i, n in enumerate(GATE_LENGTHS)])
     gerr = float(np.abs(got.cpu().numpy() - gold).max())
     check(gerr < 0.05, f"front-end through K4 vs the fp64 golden, hop 256: "
           f"feature err {gerr:.3e} < 0.05")
-    mbuf, mln, ends = mixed_batch(width)
-    mwf, mlt = torch.from_numpy(mbuf).to(dev), torch.from_numpy(mln).to(dev)
-    raw = log_mel_frontend(mwf, mlt, fe, normalize=False)
-    torch.cuda.synchronize()
-    check_floor(raw, mln, ends, cfg.hop_length, cfg.n_fft,
-                "front-end through K4 in raw dB, hop 256, silence and full "
-                "scale")
-    rerr = max_err(raw, log_mel_frontend_plain(mwf, mlt, fe, normalize=False))
-    check(rerr <= 5e-3, f"front-end through K4 vs the plain front-end, raw "
-          f"dB, silence and full scale: max |err| {rerr:.3e} <= 5e-3")
 
     pred = Predictor.from_checkpoint(model_path, label_path, audio_cfg=cfg,
                                      device=dev)
@@ -2506,53 +2048,8 @@ def check_hop256(dev, model_path, label_path, rng) -> dict:
     return launches
 
 
-def check_configurations(dev, tmp, model_path, label_path, wf_main, main_ln,
-                         default_probs) -> tuple:
-    """Phase 8: the named serving configurations at B=256 against the
-    default path (K5 by its contract).  Returns the predictors and each
-    path's launches."""
-    from speech_intent_recognizer_tpu_torch.cli.test_model import (
-        main as cli_main)
-
-    torch_ep = Predictor.from_checkpoint(model_path, label_path, device=dev,
-                                         pool_impl="torch")
-    c23 = Predictor.from_checkpoint(model_path, label_path, device=dev,
-                                    pool_impl="torch")
-    c23.enable_conv23_kernel()
-    pool = Predictor.from_checkpoint(model_path, label_path, device=dev,
-                                     pool_impl="kernel")
-    launches = {}
-    for name, pred, want in (
-            ("pool_impl=torch", torch_ep, {"K1": 1, "K2": 2}),
-            ("conv23", c23, {"K1": 1, "K5": 1, "K2": 2}),
-            ("pool_impl=kernel", pool, {"K1": 1, "K6": 2, "K2": 2})):
-        torch.cuda.synchronize()
-        reset_counters()
-        probs = pred.predict_waveform_batch(wf_main, main_ln)
-        launches[name] = counters()
-        check_counts(launches[name], want,
-                     f"{name} configuration, B={MAIN_BATCH}")
-        check_against_default(probs, default_probs, f"{name} configuration")
-    wav = os.path.join(tmp, "utterance2.wav")
-    save_wav(wav, speech_like(np.random.default_rng(10), 30000), 16000)
-    base = ["--model", model_path, "--label_map", label_path, "--audio", wav,
-            "--device", str(dev)]
-    want = cli_main(base)
-    for flags, counter in ((["--conv23"], conv23),
-                           (["--pool-impl", "kernel"], bias_relu_pool2)):
-        reset_counters()
-        got = cli_main(base + flags)
-        check(got is not None and counter.launches >= 1
-              and got["predicted_label"] == want["predicted_label"]
-              and abs(got["confidence"] - want["confidence"]) < PROB_GATE,
-              f"CLI {' '.join(flags)} predicted {got['predicted_label']} "
-              f"({got['confidence']:.4f}; default {want['confidence']:.4f}), "
-              f"its kernel launched {counter.launches}x")
-    return torch_ep, c23, pool, launches
-
-
 def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
-    """Phase 9a: K4, K5, K6 at B=256 and B=2048 beside their plain
+    """Phase 9: K4, K5, K6 at B=256 and B=2048 beside their plain
     versions and the library calls: for K5 the model's own two conv stages
     on the same input (cuDNN with torch's epilogue passes) and the
     configuration K5 has to beat (raw cuDNN convs, each followed by K6),
@@ -2580,8 +2077,8 @@ def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
 
         timings[f"k4_library_b{b}"] = cuda_ms(rfft_matmul, iters)
         out = fk.mel_db(frames, fe)
-        bounds[f"k4_b{b}"] = bound(nbytes(frames, out),
-                                   (frontend_flops(fe, n), FP32_FLOPS))
+        bounds[f"k4_b{b}"] = least_ms({"fp32": n * FRONTEND_FRAME_FLOPS},
+                                      nbytes(frames, out))
         del frames, out
         for n_fft in (512, 2048):
             fe_n = make_frontend_params(AudioConfig(
@@ -2615,8 +2112,8 @@ def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
             timed(timings, spreads, f"k5_cudnn_k6_b{b}", conv_pair_k6,
                   2 * iters)
         flops = b * 2.0 * (100 * 32 * 64 * 288 + 50 * 16 * 128 * 576)
-        bounds[f"k5_b{b}"] = bound(nbytes(x, *ops) + b * 25 * 1024 * 2,
-                                   (flops, BF16_FLOPS))
+        bounds[f"k5_b{b}"] = least_ms({"bf16": flops},
+                                      nbytes(x, *ops) + b * 25 * 1024 * 2)
 
         # K6 at conv2's raw output (the larger of its two launches), then
         # both launches of a batch together
@@ -2643,32 +2140,9 @@ def time_new_kernels(dev, variant, timings, bounds, spreads) -> None:
                 lambda: [F.max_pool2d(F.relu(
                     r + bb.to(torch.bfloat16)[None, :, None, None]), 2)
                     for r, bb in raws], iters)
-        bounds[f"k6_b{b}"] = bound(raw2.numel() * 2 * 1.25 + 128,
-                                   (raw2.numel() * 3.0, FP32_FLOPS))
+        bounds[f"k6_b{b}"] = least_ms({"fp32": raw2.numel() * 3.0},
+                                      raw2.numel() * 2 * 1.25 + 128)
         del x, x4, raws, raw2, y
-
-
-def time_configurations(preds: dict, e2e_wf, e2e_ln) -> dict:
-    """Phase 9b: predict_waveform_batch with device-resident input on the
-    configurations, A B .. B A, host clock around calls that end in
-    the copy of the probabilities to the host; ms per step, first and
-    second pass of each."""
-    out = {}
-    names = list(preds)
-    for b in TIMING_BATCHES:
-        wf, ln = e2e_wf[:b].contiguous(), e2e_ln[:b]
-        iters = 20 if b <= 256 else 10
-        for name in names + names[::-1]:
-            pred = preds[name]
-            for _ in range(2):
-                pred.predict_waveform_batch(wf, ln)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                pred.predict_waveform_batch(wf, ln)
-            ms = (time.perf_counter() - t0) * 1e3 / iters
-            out.setdefault(f"{name}_b{b}", []).append(ms)
-    return out
 
 
 def served_as_chunks(pred, rows, lengths, n: int, sizes) -> tuple:
@@ -2725,8 +2199,8 @@ def dispatch_us(fn, calls: int = 200) -> float:
 
 def check_export(dev, tmp: str, run: dict, label: str) -> dict:
     """Phase 18: serving artifacts of the model phase 15 trained.  Exports
-    the production flavour of the five configurations, the portable
-    flavour and the streaming artifact; loads each in its own process
+    the production flavour of the default and the unfused predictor, the
+    portable flavour and the streaming artifact; loads each in its own process
     (which prints what it launched and imported); holds the results to the
     live path; times the artifacts beside the live ``Predictor`` and the
     kernels' op dispatch.  -> the launches each artifact made."""
@@ -2737,15 +2211,8 @@ def check_export(dev, tmp: str, run: dict, label: str) -> dict:
 
     best, labels = run["best"], run["label_map"]
     preds = {"default": Predictor.from_checkpoint(best, labels, device=dev),
-             "pool_impl=torch": Predictor.from_checkpoint(
-                 best, labels, device=dev, pool_impl="torch"),
-             "pool_impl=kernel": Predictor.from_checkpoint(
-                 best, labels, device=dev, pool_impl="kernel"),
              "unfused": Predictor.from_checkpoint(best, labels, device=dev,
                                                   fold_bn=False)}
-    preds["conv23"] = Predictor.from_checkpoint(best, labels, device=dev,
-                                                pool_impl="torch")
-    preds["conv23"].enable_conv23_kernel()
     base = os.path.join(tmp, "artifacts")
     dirs, export_s = {}, {}
     for name, sizes in EXPORT_CONFIGS.items():
@@ -3220,34 +2687,23 @@ def wav2vec_cli(dev, tmp: str, run: dict) -> dict:
     return out
 
 
-def wav2vec_timings(dev, state: dict, label: str, profile: bool) -> dict:
+def wav2vec_timings(dev, state: dict) -> dict:
     """Phase 19c: inference at W2V_INFER in bf16 and fp32 and the fine-tune
     step at W2V_STEPS (fp32, extractor frozen, AdamW + plateau), CUDA
-    events (least / median / most of five blocks) and host clock, the idle
-    share from the profiler's kernel time, beside the FLOP bound."""
-    from speech_intent_recognizer_tpu_torch.utils.profiling import (
-        kernel_breakdown, step_times)
-
+    events and host clock (least / median / most of five blocks), beside
+    the FLOP bound."""
     cfg = Wav2Vec2Config()
     lm = {f"intent_{i}": i for i in range(W2V_CLASSES)}
     cells = {}
 
-    def measure(key, fn, iters, flops, peak, n_bytes, prof_label):
+    def measure(key, fn, iters, flops, precision, n_bytes):
         lo, med, hi = cuda_ms_blocks(fn, iters, warmup=3)
-        q = step_times(fn, steps=10)
-        _wall, kernels = kernel_breakdown(fn, steps=3)
-        busy = sum(k[1] for k in kernels)
-        ms_bound, by = bound(n_bytes, (flops, peak))
+        _lo, host, host_most = host_ms_blocks(fn, 2, warmup=1)
+        ms_bound, by = least_ms({precision: flops}, n_bytes)
         cells[key] = {"ms": med, "ms_least": lo, "ms_most": hi,
-                      "host_ms": q["median"], "host_p90": q["p90"],
-                      "kernel_ms": busy, "idle": 1 - busy / q["median"],
+                      "host_ms": host, "host_ms_most": host_most,
                       "bound_ms": ms_bound, "bound_by": by,
                       "gflop": flops / 1e9}
-        if profile and prof_label:
-            log(f"profile wav2vec {prof_label} on {label}: kernel time "
-                f"{busy:.3f} ms of a {q['median']:.3f} ms step")
-            for name, ms, count in kernels[:40]:
-                log(f"  {ms:8.4f} ms  x{count:<3d} {name[:110]}")
 
     b, n = W2V_INFER
     rng = np.random.default_rng(1910)
@@ -3255,15 +2711,13 @@ def wav2vec_timings(dev, state: dict, label: str, profile: bool) -> dict:
     wf, lt = torch.from_numpy(buf).to(dev), torch.from_numpy(ln).to(dev)
     conv, rest = wav2vec_flops(cfg, n, W2V_CLASSES)
     weights = sum(t.numel() * 4 for t in state.values())
-    for name, dtype, peak in (("bf16", torch.bfloat16, BF16_FLOPS),
-                              ("fp32", torch.float32, FP32_FLOPS)):
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         model = Wav2VecIntent(cfg, W2V_CLASSES, dtype)
         model.load_state_dict(state)
         pred = Wav2VecPredictor(model, lm, AudioConfig(max_duration=3.0), dev)
         measure(f"infer_{name}_b{b}_{n}",
                 lambda: pred.predict_waveform_batch(wf, lt), 5,
-                b * (conv + rest), peak, weights + nbytes(wf, lt),
-                f"inference {name} B={b} x {n}" if name == "bf16" else None)
+                b * (conv + rest), name, weights + nbytes(wf, lt))
         del pred, model
     for b, n in W2V_STEPS:
         model = Wav2VecIntent(cfg, W2V_CLASSES)
@@ -3288,8 +2742,7 @@ def wav2vec_timings(dev, state: dict, label: str, profile: bool) -> dict:
         # the frozen extractor runs forward only; the rest forward and
         # backward (gradients of activations and of weights)
         measure(f"step_fp32_b{b}_{n}", step, 3, b * (conv + 3 * rest),
-                FP32_FLOPS, 3 * weights + nbytes(wf, mask),
-                f"fine-tune step fp32 B={b} x {n}" if b == 8 else None)
+                "fp32", 3 * weights + nbytes(wf, mask))
         del trainer, model
     torch.cuda.empty_cache()
     return cells
@@ -3638,8 +3091,7 @@ def control_a_smoke(dev, tmp: str) -> dict:
     return {"launches": launches, "acc": acc, "seconds": seconds}
 
 
-def check_wav2vec(dev, tmp: str, run: dict, label: str,
-                  profile: bool) -> dict:
+def check_wav2vec(dev, tmp: str, run: dict) -> dict:
     """Phase 19: the wav2vec family at full width, with every kernel
     counter reset before and read after (the path launches none)."""
     t0 = time.perf_counter()
@@ -3647,7 +3099,7 @@ def check_wav2vec(dev, tmp: str, run: dict, label: str,
     case = wav2vec_case(dev, tmp)
     state = case.pop("state")
     cli = wav2vec_cli(dev, tmp, run)
-    cells = wav2vec_timings(dev, state, label, profile)
+    cells = wav2vec_timings(dev, state)
     check_counts(counters(), {}, "the wav2vec phase (model, step, CLIs, "
                  "artifacts, timings)")
     return {"card_vs_cpu": case, "cli": cli, "cells": cells,
@@ -3935,10 +3387,7 @@ def check_tensor_parallel(dev) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also print step-time percentiles and the "
-                         "per-kernel device-time breakdown")
-    args = ap.parse_args(argv)
+    ap.parse_args(argv)
     dev = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3984,50 +3433,19 @@ def main(argv=None) -> int:
         f"blocks per SM; for the cluster kernels also blocks per cluster and "
         f"resident clusters per card): " + json.dumps(resources))
 
-    # ---- 2. K1 vs plain (check lengths, then the main path's B=256) ----
     rng = np.random.default_rng(0)
     main_lengths = CHECK_LENGTHS + list(
         rng.integers(1, cfg.max_samples + 1, MAIN_BATCH - len(CHECK_LENGTHS)))
     main_buf, main_ln = batch(main_lengths, width, seed=100)
-    c1w = torch.from_numpy((rng.standard_normal((32, 1, 3, 3)) / 3.0)
-                           .astype(np.float32)).to(dev)
-    c1b = torch.from_numpy((0.1 * rng.standard_normal(32))
-                           .astype(np.float32)).to(dev)
-    k1_cases = [("check lengths, 1 and 0",
-                 batch(CHECK_LENGTHS + [1, 0], width, 1)),
-                ("silence and full scale", mixed_batch(width)[:2])]
-    k1_cases += [(f"B={b}", batch(list(rng.integers(1, cfg.max_samples + 1,
-                                                    b)), width, 200 + b))
-                 for b in ODD_BATCHES]
-    k1_cases.append((f"B={MAIN_BATCH}", (main_buf, main_ln)))
-    k1_err = 0.0
-    for name, (buf, ln) in k1_cases:
-        wf = torch.from_numpy(buf).to(dev)
-        lt = torch.from_numpy(ln).to(dev)
-        got = fk.frontend_conv1(wf, lt, fe, c1w, c1b).float()
-        want = fk._frontend_conv1_plain(wf, lt, fe, c1w, c1b).float()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        frac = float(((got - want).abs() > 2.0 ** -7 * want.abs()
-                      .clamp(min=1.0)).float().mean())
-        check(got.shape == (len(ln), 100, 1024)
-              and bool(torch.isfinite(got).all()) and err <= 0.05 * scale
-              and frac < K1_FAR_SHARE,
-              f"K1 vs plain, {name}: max |err| {err:.3e} <= 0.05 * scale "
-              f"{scale:.3f}; share beyond one bf16 step {frac:.2e} < "
-              f"{K1_FAR_SHARE}")
-        k1_err = max(k1_err, err)
-
-    # ---- 3. K2 vs plain: every build, full and ragged tiles ----
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with tempfile.TemporaryDirectory() as tmp:
-        gru_state = seeded_checkpoint(tmp)[2]
-    k2_err = check_k2(dev, gru_state)
-
-    # ---- 4. end to end ----
-    with tempfile.TemporaryDirectory() as tmp:
         model_path, label_path, state = seeded_checkpoint(tmp)
+        # ---- 2. each kernel vs its plain version at its main path's shape
+        kernel_errs = check_kernels(dev, fe, main_buf, main_ln,
+                                    fold_batchnorm(state),
+                                    np.random.default_rng(2))
+
+        # ---- 4. end to end: the main path, the fp64 golden gates ----
         pred = Predictor.from_checkpoint(model_path, label_path, device=dev)
         check(pred._conv1 is not None, "fused conv1 path enabled")
         wf_main = torch.from_numpy(main_buf).to(dev)
@@ -4079,34 +3497,17 @@ def main(argv=None) -> int:
         check(result is not None and result["predicted_label"]
               in pred.label_map, f"CLI predicted {result['predicted_label']}")
 
-        # ---- 6. K6, K4, K5 vs their plain versions ----
-        k6_err = check_k6(dev, rng)
-        k4_err = check_k4(dev, make_frontend_params(AudioConfig(**HOP256),
-                                                    dev), rng)
-        k5_err = check_k5(dev)
-        k7 = check_k7(dev)
+        # ---- 6. K7 as built: resources and times ----
+        k7 = time_k7(dev)
 
         # ---- 7. off the reference geometry: the front-end through K4 ----
         hop256_launches = check_hop256(dev, model_path, label_path, rng)
 
-        # ---- 8. the named serving configurations ----
-        torch_pred, c23_pred, pool_pred, cfg_launches = check_configurations(
-            dev, tmp, model_path, label_path, wf_main, main_ln, probs)
-
         # ---- 9. timing (CUDA events; card and power limit beside) ----
-        # the timed batch is checked first: 32 rows sampled across its tiles
-        e2e_buf, e2e_ln = batch(list(rng.integers(
-            1, cfg.max_samples + 1, E2E_BATCH)), width, seed=2000)
-        e2e_wf = torch.from_numpy(e2e_buf).to(dev)
-        e2e_probs = pred.predict_waveform_batch(e2e_wf, e2e_ln)
-        sample = np.sort(rng.choice(E2E_BATCH, 32, replace=False))
-        check(e2e_probs.shape == (E2E_BATCH, 31)
-              and bool(np.isfinite(e2e_probs).all()),
-              f"B={E2E_BATCH} probabilities finite, (B, 31)")
-        check_probs(e2e_probs[sample], cpu_pred.predict_waveform_batch(
-            e2e_buf[sample], e2e_ln[sample]),
-            f"timed B={E2E_BATCH} run vs the CPU predictor, 32 sampled rows")
-
+        c1w = torch.from_numpy((rng.standard_normal((32, 1, 3, 3)) / 3.0)
+                               .astype(np.float32)).to(dev)
+        c1b = torch.from_numpy((0.1 * rng.standard_normal(32))
+                               .astype(np.float32)).to(dev)
         timings, bounds, spreads = {}, {}, {}
         for b in TIMING_BATCHES:
             buf, ln = batch(list(rng.integers(1, cfg.max_samples + 1, b)),
@@ -4119,17 +3520,17 @@ def main(argv=None) -> int:
             timings[f"k1_plain_b{b}"] = cuda_ms(
                 lambda: fk._frontend_conv1_plain(wf, lt, fe, c1w, c1b), iters)
             n_frames = int((1 + lt.long() // cfg.hop_length).sum())
-            bounds[f"k1_b{b}"] = bound(
-                nbytes(wf, lt) + b * 100 * 1024 * 2,
-                (frontend_flops(fe, n_frames), FP32_FLOPS),
-                (b * 2.0 * 9 * 32 * 64 * 200, BF16_FLOPS))
+            bounds[f"k1_b{b}"] = least_ms(
+                {"fp32": n_frames * FRONTEND_FRAME_FLOPS,
+                 "bf16": b * 2.0 * 9 * 32 * 64 * 200},
+                nbytes(wf, lt) + b * 100 * 1024 * 2)
             del wf, buf
             gx, w, bn = k2_inputs(b, torch.bfloat16, dev, seed=b)
             timed(timings, spreads, f"k2_b{b}",
                   lambda: gru_layer(gx, w, bn), 20)
-            bounds[f"k2_b{b}"] = bound(
-                nbytes(gx, w, bn) + gx.numel() // 3 * 2,
-                (2.0 * gx.numel() * 256, BF16_FLOPS))
+            bounds[f"k2_b{b}"] = least_ms(
+                {"bf16": 2.0 * gx.numel() * 256},
+                nbytes(gx, w, bn) + gx.numel() // 3 * 2)
             log(f"K2 at B={b} launches "
                 f"{plan_name(None, b, torch.bfloat16, dev)} ({sms} SMs)")
             for rows in gru_variants(torch.bfloat16)[1:]:
@@ -4153,40 +3554,16 @@ def main(argv=None) -> int:
                 with torch.inference_mode():
                     timed(timings, spreads, key, lambda: cudnn(x), 20)
 
-        time_new_kernels(dev, torch_pred._conv1.model, timings, bounds,
+        # the model's own conv2 / conv3 with torch's epilogues, the library
+        # route K5 stands beside
+        variant = CNNAudioGRU(num_classes=31, compute_dtype=torch.bfloat16,
+                              fold_bn=True, conv1_external=True)
+        variant.load_state_dict(conv1_external_params(
+            fold_batchnorm(state))[0])
+        time_new_kernels(dev, variant.to(dev).eval(), timings, bounds,
                          spreads)
-        preds = {"default": pred, "pool_impl=torch": torch_pred,
-                 "pool_impl=kernel": pool_pred, "conv23": c23_pred}
-        for name in ("pool_impl=torch", "pool_impl=kernel", "conv23"):
-            check_against_default(
-                preds[name].predict_waveform_batch(e2e_wf, e2e_ln), e2e_probs,
-                f"{name} configuration, timed B={E2E_BATCH} batch")
-        config_ms = time_configurations(preds, e2e_wf, e2e_ln)
 
-        iters = 10
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            pred.predict_waveform_batch(e2e_wf, e2e_ln)
-        e2e_dev = E2E_BATCH * iters / (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for _ in range(3):
-            pred.predict_waveform_batch(e2e_buf, e2e_ln)
-        e2e_host = E2E_BATCH * 3 / (time.perf_counter() - t0)
-
-        # ---- 10. profile (--profile only) ----
-        if args.profile:
-            for b, (name, p) in ((b, item) for b in TIMING_BATCHES
-                                 for item in preds.items()):
-                wf = e2e_wf[:b].contiguous()
-                ln = e2e_ln[:b]
-                log_profile(f"{name} B={b}",
-                            lambda: p.predict_waveform_batch(wf, ln), label,
-                            top=1000, per_s=b)
-
-    # ---- 11-13. K3, K2T, a train step card vs CPU ----
-    k3_err = check_k3(dev, make_frontend_params(device=dev), rng)
-    k2t_err = check_k2t(dev, gru_state)
+    # ---- 13. a train step card vs CPU ----
     check_train_step(dev)
 
     # ---- 14. timings of the training path's kernels and step ----
@@ -4215,9 +3592,9 @@ def main(argv=None) -> int:
         timings[f"k3_library_b{b}"] = cuda_ms(rfft_matmul, iters)
         del frames
         n_frames = int((1 + lt.long() // 512).sum())
-        bounds[f"k3_b{b}"] = bound(nbytes(wf, lt) + b * 64 * 200 * 4,
-                                   (frontend_flops(fe_dev, n_frames),
-                                    FP32_FLOPS))
+        bounds[f"k3_b{b}"] = least_ms(
+            {"fp32": n_frames * FRONTEND_FRAME_FLOPS},
+            nbytes(wf, lt) + b * 64 * 200 * 4)
         del wf, buf
     for b in (256, 1024):
         gx, w, bn, ys, dys = k2t_inputs(b, torch.bfloat16, dev, seed=b)
@@ -4227,9 +3604,9 @@ def main(argv=None) -> int:
               lambda: gru_layer_backward(gx, w, bn, ys, dys), 10)
         # reads gx, W, ys, dys; writes dgx, fp32 dW and db; recomputes the
         # forward's product and takes two more (dh and dW)
-        bounds[f"k2t_b{b}"] = bound(
-            nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4,
-            (3 * 2.0 * gx.numel() * 256, BF16_FLOPS))
+        bounds[f"k2t_b{b}"] = least_ms(
+            {"bf16": 3 * 2.0 * gx.numel() * 256},
+            nbytes(gx, gx, w, bn, ys, dys) + w.numel() * 4)
         for rows in gru_variants(torch.bfloat16, backward=True)[1:]:
             timed(timings, spreads, f"k2t_b{b}_{plan_key(rows)}",
                   lambda: gru_layer_backward(gx, w, bn, ys, dys, rows=rows),
@@ -4249,8 +3626,6 @@ def main(argv=None) -> int:
     for b in (16, 256, 1024):
         step = train_step_timer(dev, b)
         timings[f"train_step_bf16_b{b}"] = cuda_ms(step, 10)
-        if args.profile and b == 256:
-            log_profile(f"bf16 train step B={b}", step, label)
         del step
     fp32_steps = compare_fp32_k2t_steps(dev)
 
@@ -4261,18 +3636,17 @@ def main(argv=None) -> int:
         e2e_train = train_end_to_end(tmp, dev)
         t0 = time.perf_counter()
         stream = check_streaming(dev, tmp, e2e_train, timings, bounds,
-                                 spreads, args.profile)
+                                 spreads)
         stream_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        pipeline = check_pipeline(dev, tmp, e2e_train, timings, spreads,
-                                  args.profile, label)
+        pipeline = check_pipeline(dev, tmp, e2e_train, timings, spreads)
         pipeline_s = time.perf_counter() - t0
         # ---- 18. serving artifacts of the trained model ----
         t0 = time.perf_counter()
         exported = check_export(dev, tmp, e2e_train, label)
         export_phase_s = time.perf_counter() - t0
         # ---- 19. the wav2vec family at full width ----
-        wav2vec = check_wav2vec(dev, tmp, e2e_train, label, args.profile)
+        wav2vec = check_wav2vec(dev, tmp, e2e_train)
         # ---- 20. the TTS corpus, the synthetic A/B corpus, the librosa
         # mode, device prefetch, tracing, the diagnostics ----
         with tempfile.TemporaryDirectory() as tmp20:
@@ -4294,14 +3668,6 @@ def main(argv=None) -> int:
         "calls (the median is the time above):")
     for k, (lo, med, hi) in spreads.items():
         log(f"    {k}: {lo:.4f} / {med:.4f} / {hi:.4f}")
-    log("  predict_waveform_batch, device-resident input, host clock, ms per "
-        "step; configurations timed in the order A B C C B A, first / "
-        "second pass:")
-    for k, v in config_ms.items():
-        log(f"    {k}: {v[0]:.4f} / {v[1]:.4f}")
-    log(f"  e2e predict_waveform_batch B={E2E_BATCH}, device-resident input: "
-        f"{e2e_dev:.1f} utt/s; from a host NumPy buffer: {e2e_host:.1f} "
-        f"utt/s")
     log(f"  precompute CLI, {sum(CORPUS.values())} WAVs of 1-5 s (decode "
         f"included): {e2e_train['precompute_utt_s']:.1f} utt/s; tone task "
         f"val acc {e2e_train['val_acc']:.4f} after {e2e_train['epochs']} "
@@ -4401,17 +3767,18 @@ def main(argv=None) -> int:
         f"{exported['launches']}")
     b = MAIN_BATCH
 
-    def entry(name, key, source, replaces, launches, err, library=None):
+    def entry(name, key, source, replaces, err, library=None, **launches):
         ms_bound, by = bounds[f"{key}_b{b}"]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": timings[f"{key}_b{b}"],
+                "replaces": replaces, **launches, "max_abs_err": err,
+                "ms": timings[f"{key}_b{b}"],
                 "plain_ms": timings[f"{key}_plain_b{b}"],
                 "bound_ms": ms_bound, "bound_by": by,
                 "library_ms": None if library is None else timings[library]}
 
     log(f"kernels at B={b} on {label}: launches on each kernel's path, error "
-        f"vs its plain version, ms per call; library_ms: cuDNN nn.GRU layer "
+        f"vs its plain version (phase 2; K7's dy, phase 6), ms per call; "
+        f"library_ms: cuDNN nn.GRU layer "
         f"(K2), its backward with a one-wide input (K2T), torch.fft.rfft + "
         f"matmul on the frames (K3, K4), the model's conv stages 2 and 3 "
         f"(K5), bias-add + ReLU + max-pool at conv2 (K6); K7 at B=1024: "
@@ -4425,23 +3792,24 @@ def main(argv=None) -> int:
                      stream["batched"]["launches"][kernel],
                  f"replay_{STREAM_SESSIONS}": stream["replay"]["launches"][kernel]}
         for kernel in ("K2", "K4", "K2_cluster")}
+    ke, ml = kernel_errs, main_launches
     kernels = [
-        entry("frontend_conv1", "k1", K1_SOURCE, K1_REPLACES,
-              main_launches["K1"], k1_err),
-        entry("gru_layer", "k2", K2_SOURCE, K2_REPLACES, main_launches["K2"],
-              k2_err, f"cudnn_gru_layer_b{b}"),
-        entry("frontend", "k3", K3_SOURCE, K3_REPLACES,
-              e2e_train["k3_launches"], max(k3_err, pipeline["k3_err"]),
-              f"k3_library_b{b}"),
+        entry("frontend_conv1", "k1", K1_SOURCE, K1_REPLACES, ke["K1"],
+              launches=ml["K1"]),
+        entry("gru_layer", "k2", K2_SOURCE, K2_REPLACES, ke["K2"],
+              f"cudnn_gru_layer_b{b}", launches=ml["K2"]),
+        entry("frontend", "k3", K3_SOURCE, K3_REPLACES, ke["K3"],
+              f"k3_library_b{b}", launches=e2e_train["k3_launches"]),
         entry("gru_layer_backward", "k2t", K2T_SOURCE, K2T_REPLACES,
-              e2e_train["k2t_launches"], k2t_err, f"cudnn_gru_backward_b{b}"),
-        entry("mel_db", "k4", K4_SOURCE, K4_REPLACES, hop256_launches["K4"],
-              k4_err, f"k4_library_b{b}"),
-        entry("conv23", "k5", K5_SOURCE, K5_REPLACES,
-              cfg_launches["conv23"]["K5"], k5_err, f"k5_library_b{b}"),
-        entry("bias_relu_pool2", "k6", K6_SOURCE, K6_REPLACES,
-              cfg_launches["pool_impl=kernel"]["K6"], k6_err,
-              f"k6_library_b{b}"),
+              max(v for k, v in ke.items() if k.startswith("K2T")),
+              f"cudnn_gru_backward_b{b}",
+              launches=e2e_train["k2t_launches"]),
+        entry("mel_db", "k4", K4_SOURCE, K4_REPLACES, ke["K4"],
+              f"k4_library_b{b}", launches=hop256_launches["K4"]),
+        entry("conv23", "k5", K5_SOURCE, K5_REPLACES, ke["K5"],
+              f"k5_library_b{b}", launches=ml["K5"]),
+        entry("bias_relu_pool2", "k6", K6_SOURCE, K6_REPLACES, ke["K6"],
+              f"k6_library_b{b}", launches=ml["K6"]),
     ]
     kernels[1]["stream_launches"] = stream_launches["K2"]
     # of those, launches of the fp32 cluster kernel (K2's fp32 build at
@@ -4482,13 +3850,12 @@ def main(argv=None) -> int:
             for part, got in parts.items()}
     # the fp32 cluster backward (K2T's fp32 build at hidden 256): its
     # launches on the fp32 training paths (phase 20h; the fp32 steps of
-    # phases 21 and 22), its error (phase 12), its times against the
-    # CUDA-core K2T, cuDNN's fp32 backward and the plain version, bounds
+    # phases 21 and 22), its times against the CUDA-core K2T, cuDNN's fp32
+    # backward and the plain version, bounds
     kernels[3]["control_a_launches"] = synthetic["control_a"]["launches"][
         "K2T"]
     kernels[3]["fp32"] = {
         "route": "cuda", "source": K2T_SOURCE, "replaces": K2T_REPLACES,
-        "max_abs_err": k2t_err,
         "launches_cluster": {
             "control_a": synthetic["control_a"]["launches"]["K2T_cluster"],
             **{f"cli_train_{m}_world1": dl[f"cli_train_{m}"]["K2T_cluster"]
@@ -4524,24 +3891,23 @@ def main(argv=None) -> int:
     kt, kb = k7["timings"], k7["bounds"]
     kernels.append({
         "name": "bn_relu_pool2_train", "route": "cuda", "source": K7_SOURCE,
-        "replaces": K7_REPLACES, "cases": k7["cases"],
-        "resources": k7["resources"],
+        "replaces": K7_REPLACES, "resources": k7["resources"],
+        "max_abs_err": k7["errs"],
         **{f"{key[3:]}_{part}": {
             "ms": kt[f"{key}_{part}"], "plain_ms": kt[f"{key}_{part}_plain"],
             "bound_ms": kb[f"{key}_{part}"][0],
             "bound_by": kb[f"{key}_{part}"][1],
             "library_ms": kt[f"{key}_{part}_library"]}
-           for key in (f"k7_c{c}_b{K7_BATCHES[0]}" for c, _h, _w in K7_STAGES)
+           for key in (f"k7_c{c}_b{K7_BATCH}" for c, _h, _w in K7_STAGES)
            for part in ("forward", "backward")}})
     log(f"  wav2vec (phase 19 took {wav2vec['seconds']:.1f} s) on {label}, "
         f"TF32 off; ms: CUDA events, median of five blocks (least / most), "
-        f"host clock median, idle share = 1 - profiler kernel time / host "
-        f"step; bound: the operations over the peak of their type:")
+        f"host clock median of five blocks (most); bound: the operations "
+        f"over the peak of their type:")
     for key, c in wav2vec["cells"].items():
         log(f"    {key}: {c['ms']:.3f} ms ({c['ms_least']:.3f} / "
-            f"{c['ms_most']:.3f}), host {c['host_ms']:.3f} (p90 "
-            f"{c['host_p90']:.3f}), kernel {c['kernel_ms']:.3f}, idle "
-            f"{c['idle']:.3f}; {c['gflop']:.1f} GFLOP, bound "
+            f"{c['ms_most']:.3f}), host {c['host_ms']:.3f} ("
+            f"{c['host_ms_most']:.3f}); {c['gflop']:.1f} GFLOP, bound "
             f"{c['bound_ms']:.3f} ms ({c['bound_by']})")
     log(f"  phase 20 on {label} took {synthetic['seconds']:.1f} s: "
         f"make_ab_corpus (304 WAVs + golden features) {syn['corpus_s']:.1f} "

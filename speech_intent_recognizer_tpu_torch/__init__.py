@@ -15,10 +15,11 @@ Ported so far:
   (:class:`.infer.predict.Predictor`), through the fused front-end + conv1
   kernel (K1, ``ops/frontend_kernels.py``) and the bidirectional GRU
   recurrence kernel (K2, ``ops/gru.py``), with conv2 + conv3 in one
-  kernel (K5, ``ops/conv23.py``) where its shape contract holds; named,
-  torch's epilogues or the conv epilogue kernel after each raw
-  convolution (K6, ``ops/pool_epilogue.py``); off the reference geometry
-  the front-end runs the dB-mel kernel (K4);
+  kernel (K5, ``ops/conv23.py``) where its shape contract holds, else
+  cuDNN with torch's epilogues; off the reference geometry the front-end
+  runs the dB-mel kernel (K4); the model's ``pool_impl="kernel"`` form
+  runs the conv epilogue kernel after each raw convolution (K6,
+  ``ops/pool_epilogue.py``);
 * training from precomputed features: the precompute (``data/cache.py``,
   through the fused front-end kernel K3), the ``train.loop.Trainer`` (K2
   and its backward kernel under autograd), checkpoints, evaluation and the

@@ -53,10 +53,8 @@ def add_model_type_arg(parser: argparse.ArgumentParser) -> None:
 
 def make_predictor(model_path: str, label_map_path: str,
                    audio_cfg: AudioConfig, device: str = "cuda",
-                   pool_impl: "str | None" = None,
                    model_type: str = "cnn_gru"):
-    """The predictor of ``model_type`` for a checkpoint (``pool_impl`` is
-    read by the cnn_gru one only)."""
+    """The predictor of ``model_type`` for a checkpoint."""
     from speech_intent_recognizer_tpu_torch.infer.predict import (
         Predictor, Wav2VecPredictor)
 
@@ -64,5 +62,4 @@ def make_predictor(model_path: str, label_map_path: str,
         return Wav2VecPredictor.from_checkpoint(
             model_path, label_map_path, audio_cfg=audio_cfg, device=device)
     return Predictor.from_checkpoint(model_path, label_map_path,
-                                     audio_cfg=audio_cfg, device=device,
-                                     pool_impl=pool_impl)
+                                     audio_cfg=audio_cfg, device=device)

@@ -45,25 +45,10 @@ def main(argv=None):
                    default=[8, 256, 2048],
                    help="pinned batch sizes for --flavor production")
     add_device_arg(p)
-    p.add_argument("--pool-impl", choices=("torch", "kernel"),
-                   default=None,
-                   help="production: the conv epilogue of conv2/conv3, "
-                        "torch ops or the epilogue kernel (default: both "
-                        "convs in the conv23 kernel where it serves, else "
-                        "torch ops)")
-    p.add_argument("--conv23", action="store_true",
-                   help="production: conv2+conv3 in the conv23 kernel "
-                        "(reference geometry and channels only)")
     args = p.parse_args(argv)
-    if args.model_type == "wav2vec" and (args.conv23
-                                         or args.pool_impl is not None):
-        p.error("--conv23 and --pool-impl configure the cnn_gru path")
     cfg = load_config_or_default(args.config)
     predictor = make_predictor(args.model, args.label_map, cfg.audio,
-                               args.device, pool_impl=args.pool_impl,
-                               model_type=args.model_type)
-    if args.conv23:
-        predictor.enable_conv23_kernel()
+                               args.device, model_type=args.model_type)
     out = export_predictor(predictor, args.out, platforms=args.platforms,
                            flavor=args.flavor,
                            batch_sizes=tuple(args.batch_sizes))

@@ -5,12 +5,7 @@ Mirrors ``python -m scripts.test_model`` (reference
 ``cli/test_model.py``: ``--model --label_map --audio [--interactive]`` with
 the same top-3 console report, plus ``--device`` (default ``cuda``),
 ``--model_type wav2vec`` (a ``Wav2VecIntent`` checkpoint: the port's
-``.pt``, a reference-layout ``.pt`` or the JAX trainer's ``.msgpack``) and
-the named configurations of the cnn_gru fused path, whose conv2 + conv3
-run in one kernel (K5) by default where its shape contract holds:
-``--pool-impl torch`` (torch's bias-add, ReLU and max-pool after each
-conv), ``--pool-impl kernel`` (the conv epilogue kernel after each) and
-``--conv23`` (K5 after a named ``--pool-impl``)::
+``.pt``, a reference-layout ``.pt`` or the JAX trainer's ``.msgpack``)::
 
     python -m speech_intent_recognizer_tpu_torch.cli.test_model \\
         --model best_model.pt --label_map label_map.json --audio x.wav
@@ -70,26 +65,11 @@ def main(argv=None):
     p.add_argument("--interactive", action="store_true")
     add_model_type_arg(p)
     add_device_arg(p)
-    p.add_argument("--pool-impl", choices=("torch", "kernel"),
-                   default=None,
-                   help="conv epilogue of the fused path's conv2/conv3: "
-                        "torch ops or the epilogue kernel (default: both "
-                        "convs in the conv23 kernel where it serves, else "
-                        "torch ops)")
-    p.add_argument("--conv23", action="store_true",
-                   help="run conv2+conv3 in the conv23 kernel (reference "
-                        "geometry and channels only)")
     args = p.parse_args(argv)
-    if args.model_type == "wav2vec" and (args.conv23
-                                         or args.pool_impl is not None):
-        p.error("--conv23 and --pool-impl configure the cnn_gru path")
 
     cfg = load_config_or_default(args.config)
     predictor = make_predictor(args.model, args.label_map, cfg.audio,
-                               args.device, pool_impl=args.pool_impl,
-                               model_type=args.model_type)
-    if args.conv23:
-        predictor.enable_conv23_kernel()
+                               args.device, model_type=args.model_type)
 
     if args.interactive or not args.audio:
         interactive_loop(predictor)

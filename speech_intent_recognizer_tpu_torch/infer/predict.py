@@ -3,21 +3,18 @@
 Counterpart of ``speech_intent_recognizer_tpu/infer/predict.py``
 (``Predictor``).  ``from_checkpoint`` folds BatchNorm and, for the reference
 geometry, serves the ``conv1_external`` bf16 variant behind the fused
-front-end + conv1 kernel: on a CUDA device ``predict_waveform_batch`` always
-launches K1 once and K2 once per GRU layer.  Where conv2 and conv3 meet the
-K5 kernel's contract (channels (32, 64, 128), ``mel_spec_length`` a
-multiple of 4) the variant runs them as one K5 launch in its conv stage
-(the ``conv23`` form); elsewhere as ``F.conv2d`` with torch's bias-add,
-ReLU and max-pool.  A caller that names ``pool_impl`` keeps that
-configuration: ``"torch"`` (torch's epilogues) or ``"kernel"`` (conv2 /
-conv3 as ``F.conv2d`` without bias plus the conv epilogue kernel K6, twice
-per batch); :meth:`Predictor.enable_conv23_kernel` then selects the K5
-variant.  The unfused model (``fold_bn=False``) takes its features from
-``log_mel_frontend``, the fused front-end kernel K3 on a CUDA device at the
-reference geometry and the dB-mel kernel K4 at any other.  The choice
-follows the checkpoint's shapes and the audio geometry: there is no probe
-and no switch to another path at run time; CPU devices run the kernels'
-plain versions.
+front-end + conv1 kernel where K1 serves (``ops.frontend_kernels.
+conv1_engages``): on a CUDA device ``predict_waveform_batch`` then launches
+K1 once and K2 once per GRU layer.  Where conv2 and conv3 meet the K5
+kernel's contract (``ops.conv23.engages``: channels (32, 64, 128)) the
+variant runs them as one K5 launch in its conv stage (the ``conv23``
+form); elsewhere as ``F.conv2d`` with torch's bias-add, ReLU and max-pool.
+The unfused model (``fold_bn=False``, or where K1 does not serve) takes
+its features from ``log_mel_frontend``, the fused front-end kernel K3 on a
+CUDA device at the reference geometry and the dB-mel kernel K4 at any
+other.  The choice follows the checkpoint's shapes and the audio geometry:
+there is no probe, no caller's switch and no switch to another path at
+run time; CPU devices run the kernels' plain versions.
 
 Each configuration is one :class:`ServingBody` (``Predictor._fused_body``),
 the module that ``predict_waveform_batch`` runs and that
@@ -28,7 +25,7 @@ A serving mesh (``mesh=``, a mesh of devices in this process from
 ``parallel.create_mesh``) runs the batch data-parallel, as the JAX
 predictor's ``shard_map`` over ``data``: the batch padded to a multiple of
 the data axis, each data shard through a replica of the serving body on
-its device (its own K1, K2 and K5 / K6 launches), the pad rows stripped; a
+its device (its own K1, K2 and K5 launches), the pad rows stripped; a
 ``model`` axis is replicated (shard ``d`` runs on ``devices[d * model]``).
 """
 
@@ -128,8 +125,6 @@ class Predictor:
         # the fused front-end + conv1 path (K1 -> the conv1_external
         # variant) when it serves batch waveform inference
         self._conv1: Optional[ServingBody] = None
-        # the folded state where conv2 / conv3 meet K5's contract
-        self._folded_for_conv23 = None
         self._unfused: Optional[ServingBody] = None  # built at first use
 
     def _setup(self, model: torch.nn.Module, label_map: Dict[str, int],
@@ -153,15 +148,10 @@ class Predictor:
                         num_classes: Optional[int] = None,
                         fold_bn: bool = True,
                         device: "str | torch.device" = "cuda",
-                        pool_impl: Optional[str] = None,
                         mesh=None) -> "Predictor":
         """``model_path``: a ``.pt`` / ``.pth`` state dict or a ``.msgpack``
         of the JAX trainer; the model takes the checkpoint's widths.
-        ``pool_impl``: conv2 / conv3 of the fused path; None runs them in
-        K5 where its contract holds, else with torch's epilogues;
-        ``"torch"`` (bias-add, ReLU, max-pool) or ``"kernel"`` (K6) names
-        an epilogue.  It is read only where that path serves.  ``mesh``:
-        the serving mesh."""
+        ``mesh``: the serving mesh."""
         from speech_intent_recognizer_tpu_torch.convert.checkpoint import (
             load_model_checkpoint)
         from speech_intent_recognizer_tpu_torch.data.labelmap import (
@@ -179,7 +169,7 @@ class Predictor:
             model = CNNAudioGRU(fold_bn=True, **widths)
             model.load_state_dict(folded)
             pred = cls(model, label_map, audio_cfg, device, mesh)
-            pred._maybe_enable_conv1_fusion(folded, pool_impl)
+            pred._maybe_enable_conv1_fusion(folded)
             return pred
         model = CNNAudioGRU(**widths)
         model.load_state_dict(state)
@@ -191,40 +181,33 @@ class Predictor:
         return dict(num_classes=m.num_classes, conv_channels=m.conv_channels,
                     gru_hidden=m.gru.hidden_size, gru_layers=m.gru.num_layers)
 
-    def _maybe_enable_conv1_fusion(self, folded: Dict[str, torch.Tensor],
-                                   pool_impl: Optional[str] = None) -> None:
-        """Serve the fused front-end + conv1 path when the audio front-end
-        and conv1 match the K1 kernel's contract (torchaudio mode,
-        n_fft=1024, hop=512, 64 mels, 200 frames, 32 conv1 channels); its
-        conv2 / conv3 in K5 when ``pool_impl`` is None and they match K5's
-        (channels 32 -> 64 -> 128, ``mel_spec_length`` a multiple of 4)."""
+    def _maybe_enable_conv1_fusion(self, folded: Dict[str, torch.Tensor]
+                                   ) -> None:
+        """Serve K1 -> the bf16 ``conv1_external`` variant where K1 serves
+        the front-end and the folded conv1 (``fk.conv1_engages``): in the
+        ``conv23`` form where K5 serves conv2 / conv3 (``k5.engages``),
+        else with torch's epilogues.  Elsewhere the unfused model serves."""
         from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-            conv1_external_params)
+            conv1_external_params, conv23_params)
+        from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
+        from speech_intent_recognizer_tpu_torch.ops import (
+            frontend_kernels as fk)
 
-        cfg = self.audio_cfg
-        w = folded.get("conv1.weight")
-        if not (cfg.frontend == "torchaudio" and cfg.n_fft == 1024
-                and cfg.hop_length == 512
-                and cfg.n_mels == 64
-                and cfg.mel_spec_length == 200 and w is not None
-                and tuple(w.shape) == (32, 1, 3, 3)
-                and "conv1.bias" in folded):
+        if not fk.conv1_engages(self.frontend_params,
+                                folded.get("conv1.weight"),
+                                folded.get("conv1.bias")):
             return
-        if (tuple(folded["conv2.weight"].shape) == (64, 32, 3, 3)
-                and tuple(folded["conv3.weight"].shape) == (128, 64, 3, 3)
-                and cfg.mel_spec_length % 4 == 0):
-            self._folded_for_conv23 = folded
-            if pool_impl is None:
-                self.enable_conv23_kernel()
-                return
-        self._serve_k1(*conv1_external_params(folded),
-                       pool_impl=pool_impl or "torch")
+        if k5.engages(self.model.conv_channels):
+            self._serve_k1(*conv23_params(folded), conv23=True)
+        else:
+            self._serve_k1(*conv1_external_params(folded))
 
     def _serve_k1(self, variant_state: Dict[str, torch.Tensor],
                   conv1_weight: torch.Tensor, conv1_bias: torch.Tensor,
                   **form) -> None:
-        """Serve K1 -> the bf16 ``conv1_external`` variant of ``form``
-        (``pool_impl``, or ``conv23``) loaded from ``variant_state``."""
+        """Serve K1 -> the bf16 ``conv1_external`` variant loaded from
+        ``variant_state``, in ``form``: ``CNNAudioGRU``'s keywords of the
+        variant's conv stage (none: torch's epilogues)."""
         variant = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
                               conv1_external=True, **form, **self._widths())
         variant.load_state_dict(variant_state)
@@ -234,26 +217,18 @@ class Predictor:
                    conv1_bias.to(self.device, torch.bfloat16).contiguous()))
 
     def enable_conv23_kernel(self) -> None:
-        """Serve conv2 + conv3 in the K5 kernel: front-end + conv1 kernel
-        (K1) -> the variant's conv stage in K5 -> GRU head.  The default
-        where K5's contract holds (nothing changes then); selects it after
-        a named ``pool_impl``."""
-        if self._folded_for_conv23 is None:
+        """The JAX predictor's switch to K1 -> K5 -> GRU head.  Where K5
+        serves, the predictor already runs it and nothing changes; elsewhere
+        this raises."""
+        if self._conv1 is None or not self._conv1.model.conv23:
             raise ValueError("conv23 kernel requires the reference "
                              "geometry and channels (32, 64, 128)")
-        if self._conv1 is not None and self._conv1.model.conv23:
-            return
-        from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
-            conv23_params)
-
-        self._serve_k1(*conv23_params(self._folded_for_conv23), conv23=True)
 
     def _fused_body(self) -> ServingBody:
         """The module the batch path runs in the current configuration
-        (the fused conv1 path with K5 or either ``pool_impl``, or the
-        unfused model); its state dict is the weights it reads.  What
-        ``infer.export.export_predictor`` traces for the production
-        flavour."""
+        (the fused conv1 path, or the unfused model); its state dict is
+        the weights it reads.  What ``infer.export.export_predictor``
+        traces for the production flavour."""
         if self._conv1 is not None:
             return self._conv1
         if self._unfused is None:

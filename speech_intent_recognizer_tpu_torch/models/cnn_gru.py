@@ -297,7 +297,7 @@ class CNNAudioGRU(nn.Module):
             raise ValueError("conv1_external requires fold_bn=True")
         if conv23 and not (conv1_external
                            and compute_dtype == torch.bfloat16
-                           and tuple(conv_channels) == (k5.C1, k5.C2, k5.C3)):
+                           and k5.engages(conv_channels)):
             raise ValueError("conv23 serves the bf16 conv1_external form at "
                              "channels (32, 64, 128)")
         if pool_impl not in ("torch", "kernel"):

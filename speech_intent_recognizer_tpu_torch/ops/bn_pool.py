@@ -278,161 +278,3 @@ def kernel_resources(dev: "str | torch.device", c: int) -> dict:
                          "bn_pool kernel_resources")
             found[name] = dict(zip(keys, out))
     return found
-
-
-# ------------------------------------------------------- checks on the card
-# The bars that tests/test_torch_cuda.py and chip_smoke.py hold K7 to.
-
-def card_operands(dev, b: int, c: int, h: int, w: int, seed: int,
-                  scale=(0.5, 1.5)):
-    """A bf16 channels-last conv output (N(0.3, 2)), BatchNorm weight
-    (uniform in ``scale``) and bias, and a bf16 channels-last gradient of
-    the pooled output, on ``dev`` from ``seed``."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    y = (2.0 * torch.randn((b, h, w, c), generator=g, device=dev) + 0.3).to(
-        torch.bfloat16).permute(0, 3, 1, 2)
-    weight = scale[0] + (scale[1] - scale[0]) * torch.rand(
-        c, generator=g, device=dev)
-    bias = torch.rand(c, generator=g, device=dev) - 0.5
-    dout = torch.randn((b, h // 2, w // 2, c), generator=g, device=dev).to(
-        torch.bfloat16).permute(0, 3, 1, 2)
-    return y, weight, bias, dout
-
-
-def tie_operands(dev):
-    """:func:`card_operands` at B=64, (C, H, W) = (32, 64, 200), with
-    forced ties: windows of one value, a BatchNorm scale that rounds most
-    windows' values to one bf16 value, windows all zero after ReLU."""
-    y, weight, bias, dout = card_operands(dev, 64, 32, 64, 200, seed=7,
-                                          scale=(1e-3, 2e-3))
-    y[:, :, :8, :8] = 0.75
-    y[:, :8, 8:16, 8:16] = -6.0
-    bias[:8] = -1.0
-    bias[8:] = 1.0
-    return y, weight, bias, dout
-
-
-def _bf16_step(v: torch.Tensor) -> torch.Tensor:
-    """The bf16 spacing at each |v|, fp32."""
-    _m, e = torch.frexp(v.float().abs())
-    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
-
-
-def _out_within(out, own, y, weight, mean, invstd, p_mean, p_invstd
-                ) -> float:
-    """|out - own| (pooled outputs on K7's and on the plain's statistics)
-    over what may part them: one bf16 step, and twice what the statistics'
-    difference carries into z = (y - mean) * invstd * w + b, the most of a
-    window: |d mean| * |invstd * w| + |y - mean| * |d invstd * w|."""
-    carried = (_col((mean - p_mean).abs() * (invstd * weight).abs())
-               + (y.float() - _col(mean)).abs()
-               * _col(((invstd - p_invstd) * weight).abs()))
-    carried = 2.0 * F.max_pool2d(carried, 2)
-    bar = _bf16_step(torch.maximum(out.float().abs(), own.float().abs())) \
-        + carried
-    return float(((out.float() - own.float()).abs() / bar).max())
-
-
-def _dy_within(dy, p_dy, y, weight, mean, invstd, dw, db, p_dw, p_db
-               ) -> float:
-    """|dy - p_dy| over what may part them: one bf16 step, and what the
-    two backwards' sums (summed in another order) carry into dy, twice:
-    k3 * (|d sum_dy| + |y - mean| * invstd * |d dweight|) / n."""
-    n = y.numel() // y.shape[1]
-    carried = 2.0 * _col((weight * invstd).abs()) * (
-        _col((db - p_db).abs()) + (y.float() - _col(mean)).abs()
-        * _col(invstd * (dw - p_dw).abs())) / n
-    bar = _bf16_step(p_dy) + carried
-    return float(((dy.float() - p_dy.float()).abs() / bar).max())
-
-
-# each reading of compare_with_plain and its largest value
-CARD_BARS = {"mean_err": 1e-6, "var_err": 1e-6, "out_bar": 1.0,
-             "dy_bar": 1.0, "dw_err": 1e-5, "db_err": 1e-5}
-
-
-def compare_with_plain(y, weight, bias, dout, eps: float = 1e-5) -> dict:
-    """K7's forward and backward, launched twice on the card, against
-    their plain versions.  Readings: ``same``, every output the same bits
-    twice; the statistics' ``mean_err`` (of the channel's deviation) and
-    ``var_err`` (relative); ``out_bits``, on K7's statistics the plain
-    apply pass's pooled output and argmax values bit for bit, the output
-    channels-last; ``out_bar``, on the plain's own statistics, the gap over
-    one bf16 step plus what the statistics' difference carries; ``dy_bar``,
-    dy against the plain backward on K7's statistics over one bf16 step
-    plus what the sums' order carries (``dy_steps``: the bare gap in bf16
-    steps); ``dw_err`` and ``db_err``, of their largest.  ``failed``: the
-    readings outside their bars (:data:`CARD_BARS`); ``ok``: none."""
-    runs = []
-    for _ in range(2):
-        fwd = _launch_forward(y, weight, bias, eps)
-        runs.append(fwd + _launch_backward(y, fwd[1], dout, weight, bias,
-                                           fwd[2], fwd[4]))
-    torch.cuda.synchronize()
-    out, yarg, mean, var, invstd, dy, dw, db = runs[0]
-    p_mean, p_var, p_invstd = _stats_plain(y, eps)
-    k_out, k_yarg = _apply_plain(y, weight, bias, mean, invstd)
-    own_out, _ = _apply_plain(y, weight, bias, p_mean, p_invstd)
-    p_dy, p_dw, p_db = _backward_plain(y, yarg, dout, weight, bias, mean,
-                                       invstd)
-    got = {
-        "same": all(torch.equal(a, b) for a, b in zip(*runs)),
-        "out_bits": (torch.equal(out, k_out) and torch.equal(yarg, k_yarg)
-                     and out.is_contiguous(
-                         memory_format=torch.channels_last)),
-        "mean_err": float(((mean - p_mean).abs() / p_var.sqrt()).max()),
-        "var_err": float(((var - p_var).abs() / p_var).max()),
-        "out_bar": _out_within(out, own_out, y, weight, mean, invstd, p_mean,
-                               p_invstd),
-        "dy_bar": _dy_within(dy, p_dy, y, weight, mean, invstd, dw, db, p_dw,
-                             p_db),
-        "dy_steps": float(((dy.float() - p_dy.float()).abs() / _bf16_step(
-            torch.maximum(dy.float().abs(), p_dy.float().abs()))).max()),
-        "dw_err": float((dw - p_dw).abs().max() / p_dw.abs().max()),
-        "db_err": float((db - p_db).abs().max() / p_db.abs().max()),
-    }
-    got["failed"] = [k for k in ("same", "out_bits") if not got[k]] + [
-        k for k, bar in CARD_BARS.items() if not got[k] <= bar]
-    got["ok"] = not got["failed"]
-    return got
-
-
-def compare_wrapper(y, weight, bias, dout, eps: float = 1e-5) -> dict:
-    """:func:`bn_relu_pool2_train` under autograd, on an NCHW copy of
-    ``y`` and a training-mode ``BatchNorm2d`` with ``weight`` and
-    ``bias``, against K7's launchers on ``y``.  Readings: ``counted``, the
-    counters up by one forward and one backward; ``out_bits``, the pooled
-    output the launcher's bits, channels-last; ``grad_bits``, the
-    gradients of y, weight and bias the launcher's; ``running_bits``, after
-    one batch the running statistics ``update_running_stats`` of the
-    launcher's statistics, bit for bit.  ``failed`` and ``ok`` as in
-    :func:`compare_with_plain`."""
-    from speech_intent_recognizer_tpu_torch.models.cnn_gru import BatchNorm2d
-
-    bn, want_bn = (BatchNorm2d(y.shape[1], eps=eps).to(y.device).train()
-                   for _ in range(2))
-    with torch.no_grad():
-        bn.weight.copy_(weight)
-        bn.bias.copy_(bias)
-    fn = bn_relu_pool2_train
-    before = (fn.launches, fn.backward_launches)
-    x = y.contiguous().requires_grad_()
-    out = fn(x, bn)
-    grads = torch.autograd.grad(out, (x, bn.weight, bn.bias), dout)
-    moved = (fn.launches - before[0], fn.backward_launches - before[1])
-    k_out, yarg, mean, var, invstd = _launch_forward(y, weight, bias, eps)
-    k_grads = _launch_backward(y, yarg, dout, weight, bias, mean, invstd)
-    want_bn.update_running_stats(mean, var)
-    torch.cuda.synchronize()
-    got = {
-        "counted": moved == (1, 1),
-        "out_bits": torch.equal(out, k_out) and out.is_contiguous(
-            memory_format=torch.channels_last),
-        "grad_bits": all(torch.equal(a, b) for a, b in zip(grads, k_grads)),
-        "running_bits": int(bn.num_batches_tracked) == 1 and all(
-            torch.equal(a, b) for a, b in zip(bn.buffers(),
-                                               want_bn.buffers())),
-    }
-    got["failed"] = [k for k, v in got.items() if not v]
-    got["ok"] = not got["failed"]
-    return got

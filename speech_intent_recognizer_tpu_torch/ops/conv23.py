@@ -102,6 +102,12 @@ def _unpack(wp: torch.Tensor) -> torch.Tensor:
     return taps.reshape(3, 3, i, o).permute(3, 2, 1, 0)
 
 
+def engages(channels) -> bool:
+    """Whether K5 serves the 3x3 conv2 and conv3 of a model whose conv
+    stages have these output channels: (32, 64, 128)."""
+    return tuple(channels) == (C1, C2, C3)
+
+
 def conv23_operands(conv2_weight: torch.Tensor, conv2_bias: torch.Tensor,
                     conv3_weight: torch.Tensor, conv3_bias: torch.Tensor
                     ) -> Tuple[torch.Tensor, ...]:
@@ -113,10 +119,11 @@ def conv23_operands(conv2_weight: torch.Tensor, conv2_bias: torch.Tensor,
     weights' device: w2 ``W2_SHAPE`` and w3 ``W3_SHAPE`` bf16 in the
     kernel's B layout (:func:`_pack`); b2 (64,), b3 (128,) float32.
     """
-    if tuple(conv2_weight.shape) != (C2, C1, 3, 3) or \
-            tuple(conv3_weight.shape) != (C3, C2, 3, 3) or \
-            tuple(conv2_bias.shape) != (C2,) or \
-            tuple(conv3_bias.shape) != (C3,):
+    c2, c1 = conv2_weight.shape[:2]
+    c3 = conv3_weight.shape[0]
+    if not engages((c1, c2, c3)) or [tuple(t.shape) for t in (
+            conv2_weight, conv2_bias, conv3_weight, conv3_bias)] != [
+                (c2, c1, 3, 3), (c2,), (c3, c2, 3, 3), (c3,)]:
         raise ValueError("conv23 kernel requires channels (32, 64, 128)")
     return (_pack(conv2_weight),
             conv2_bias.detach().float().contiguous(),

@@ -61,6 +61,21 @@ def is_reference_geometry(params: FrontendParams) -> bool:
         params.target_length) == (N_FFT, HOP, N_MELS, T_OUT)
 
 
+def conv1_fits(conv1_weight, conv1_bias) -> bool:
+    """Whether K1 takes this conv1: a (32, 1, 3, 3) weight and a (32,)
+    bias."""
+    return (conv1_weight is not None and conv1_bias is not None
+            and tuple(conv1_weight.shape) == (C1, 1, 3, 3)
+            and tuple(conv1_bias.shape) == (C1,))
+
+
+def conv1_engages(params: FrontendParams, conv1_weight, conv1_bias) -> bool:
+    """Whether K1 serves this front-end and conv1: the reference geometry
+    and a conv1 that :func:`conv1_fits`."""
+    return is_reference_geometry(params) and conv1_fits(conv1_weight,
+                                                        conv1_bias)
+
+
 def _check_geometry(waveforms, lengths, params: FrontendParams, what: str):
     if waveforms.dim() != 2 or lengths.shape != waveforms.shape[:1]:
         raise ValueError(f"expected (B, L) waveforms and (B,) lengths, got "
@@ -127,8 +142,7 @@ def frontend_conv1(waveforms: torch.Tensor, lengths: torch.Tensor,
     the reference requires.
     """
     _check_geometry(waveforms, lengths, params, "K1")
-    if tuple(conv1_weight.shape) != (C1, 1, 3, 3) or \
-            tuple(conv1_bias.shape) != (C1,):
+    if not conv1_fits(conv1_weight, conv1_bias):
         raise ValueError("K1 expects a (32, 1, 3, 3) conv1 weight and a "
                          "(32,) bias")
     if waveforms.device.type == "cpu":

@@ -12,8 +12,7 @@ through its wgmma descriptors from the packed weights, accumulators laid
 out as wgmma leaves them, and the epilogue pools across the lane pairs the
 kernel exchanges.  Shared memory starts as NaN, so a read of a byte nobody
 wrote shows.  The model is held against ``_conv23_plain``; the kernel
-itself is held against it on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``)."""
+itself is held against it on the card (``tests/test_torch_cuda.py``)."""
 
 import os
 import re

@@ -421,12 +421,16 @@ def test_production_graph_census(kernel_checkpoint, config, want):
     ``export_predictor(flavor="production")`` traces on the card): one
     node per kernel launch of the live path, and no convolution where a
     kernel took it (conv1 inside K1; conv2 and conv3 inside K5, by default
-    at this geometry and after ``enable_conv23_kernel()``)."""
-    pool_impl = {"pool_kernel": "kernel", "pool_torch": "torch",
-                 "conv23": "torch"}.get(config)
+    at this geometry and after ``enable_conv23_kernel()``).  The epilogue
+    forms go through the predictor's K1 seam (``_serve_k1``)."""
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
+        conv1_external_params)
+
     pred = Predictor.from_checkpoint(
-        *kernel_checkpoint, device="cpu", fold_bn=config != "unfused",
-        pool_impl=pool_impl)
+        *kernel_checkpoint, device="cpu", fold_bn=config != "unfused")
+    if config in ("pool_torch", "pool_kernel"):
+        pred._serve_k1(*conv1_external_params(pred.model.state_dict()),
+                       pool_impl=config.removeprefix("pool_"))
     if config == "conv23":
         pred.enable_conv23_kernel()
     body = copy.deepcopy(pred._fused_body())
@@ -521,8 +525,6 @@ def test_cli_export_model(tmp_path):
     np.testing.assert_allclose(
         ServingModel.load(w2v_out, device="cpu").predict_waveform_batch(
             wf, ln), live.predict_waveform_batch(wf, ln), rtol=0, atol=SAME)
-    with pytest.raises(SystemExit):  # the cnn_gru path's options
-        main(w2v_args + ["--out", w2v_out, "--conv23"])
 
 
 def test_export_module_imports_nothing_else():

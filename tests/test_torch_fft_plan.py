@@ -12,7 +12,7 @@ read of an address nobody wrote shows); the partner exchange of the untangle
 by lane; bins 0 and n_fft / 2.  It is held against ``numpy.fft.rfft`` in
 float64 (1e-10) and in float32 at K4's bar on dB-mel (rtol / atol 1e-4).
 The kernel itself is held against its plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+(``tests/test_torch_cuda.py``)."""
 
 import glob
 import os

@@ -20,8 +20,7 @@ memory, the dgh tile, the partial sums of dh_prev and their inbox over
 eight ranks (and, for the bench's other option, the shuffle
 transpose-reduction over the register slice).  The models are held
 against ``_gru_layer_plain`` / ``_gru_layer_backward_plain``; the kernels
-themselves are held against them on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``)."""
+themselves are held against them on the card (``tests/test_torch_cuda.py``)."""
 
 import os
 import re
@@ -45,7 +44,7 @@ H, H3 = 256, 768
 K_TILES = H // 16
 LANES = np.arange(32)
 LG, LQ = LANES >> 2, LANES & 3            # g and q of gru_mma.cuh::mma_bf16
-# chip_smoke.py's bars for an fp32 gradient (rtol, atol)
+# the card tests' bars for an fp32 gradient (rtol, atol)
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
 CSRC = os.path.join(os.path.dirname(_build.__file__), "csrc")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

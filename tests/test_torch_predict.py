@@ -4,8 +4,9 @@ for the same variables) on padded buffers — probabilities within 2e-2 with
 equal argmax, the bar of tests/test_conv1_fusion.py:150-151.  The port's
 default serves conv2 + conv3 in K5 where its contract holds, so it is held
 to the JAX predictor with ``enable_conv23_kernel()`` (the same structure),
-and the port's ``pool_impl="torch"`` to the JAX default; the rule that
-picks K5, the named configurations, and where K5 runs inside the model;
+and the port's torch epilogues (the form the rule serves off K5's
+contract, given through ``Predictor._serve_k1``) to the JAX default; the
+rule that picks K1's and K5's forms, and where K5 runs inside the model;
 plus the port's file API and CLI on the CPU."""
 
 import json
@@ -61,15 +62,21 @@ def port(checkpoints):
 
 @pytest.fixture(scope="module")
 def torch_port(checkpoints):
-    """The port's fused path with torch's epilogues named."""
-    return Predictor.from_checkpoint(str(checkpoints / "model.pt"),
+    """The port's fused path with torch's epilogues after conv2 / conv3:
+    the default predictor's K1 seam given that form."""
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
+        conv1_external_params)
+
+    pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
                                      str(checkpoints / "label_map.json"),
-                                     device="cpu", pool_impl="torch")
+                                     device="cpu")
+    pred._serve_k1(*conv1_external_params(pred.model.state_dict()))
+    return pred
 
 
 def test_fused_predictor_matches_jax(checkpoints, torch_port):
-    """``pool_impl="torch"`` named: conv2 / conv3 through ``F.conv2d`` and
-    torch's epilogues, the structure of the JAX default."""
+    """conv2 / conv3 through ``F.conv2d`` and torch's epilogues, the
+    structure of the JAX default."""
     rng = np.random.default_rng(5)
     want_pred = JaxPredictor.from_checkpoint(
         str(checkpoints / "model.msgpack"),
@@ -122,19 +129,6 @@ def test_conv23_predictor_matches_jax(checkpoints, port, torch_port):
     np.testing.assert_allclose(got, torch_ep, atol=2e-2)
 
 
-def test_pool_impl_kernel_predictor_matches_default(checkpoints, torch_port):
-    """K6 after each raw conv against torch's epilogues, both named."""
-    pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
-                                     str(checkpoints / "label_map.json"),
-                                     device="cpu", pool_impl="kernel")
-    assert pred._conv1.model.pool_impl == "kernel"
-    assert torch_port._conv1.model.pool_impl == "torch"
-    buf, ln = _buffers(torch_port, np.random.default_rng(16), [30000, 5000])
-    np.testing.assert_allclose(pred.predict_waveform_batch(buf, ln),
-                               torch_port.predict_waveform_batch(buf, ln),
-                               atol=1e-5)
-
-
 def test_default_serves_k5_at_the_reference_geometry(port):
     """``from_checkpoint`` at the reference geometry and channels: the
     ``conv1_external`` variant in the ``conv23`` form, K5's operands its
@@ -159,26 +153,56 @@ def test_default_serves_k5_at_the_reference_geometry(port):
                    for k in state)
 
 
-@pytest.mark.parametrize("pool_impl", ["torch", "kernel"])
-def test_named_pool_impl_keeps_its_configuration(checkpoints, pool_impl):
-    """A named ``pool_impl`` serves conv2 / conv3 as ``F.conv2d`` with that
-    epilogue: no K5 operands, the conv modules in place."""
-    pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
-                                     str(checkpoints / "label_map.json"),
-                                     device="cpu", pool_impl=pool_impl)
-    model = pred._fused_body().model
-    assert model.conv1_external and not model.conv23
-    assert model.pool_impl == pool_impl
-    assert list(model._stages) == [2, 3]
-    assert not any("packed" in k for k in model.state_dict())
+# the rule's table: the audio geometry (AudioConfig's fields) and the
+# conv stack's channels -> the form that serves
+RULE_CASES = {
+    "reference": ({}, (32, 64, 128), "conv23"),
+    "librosa": ({"frontend": "librosa"}, (32, 64, 128), "unfused"),
+    "n_fft_512": ({"n_fft": 512}, (32, 64, 128), "unfused"),
+    "hop_256": ({"hop_length": 256}, (32, 64, 128), "unfused"),
+    "n_mels_40": ({"n_mels": 40}, (32, 64, 128), "unfused"),
+    "frames_202": ({"mel_spec_length": 202}, (32, 64, 128), "unfused"),
+    "conv1_16": ({}, (16, 64, 128), "unfused"),
+    "conv2_48": ({}, (32, 48, 128), "torch"),
+    "conv3_96": ({}, (32, 64, 96), "torch"),
+}
+
+
+@pytest.mark.parametrize("case", list(RULE_CASES))
+def test_rule_picks_the_serving_form(case):
+    """The one rule of the conv stage (``fk.conv1_engages`` for K1,
+    ``k5.engages`` for K5) on a folded model's state: K1 with K5 at the
+    reference geometry and channels; K1 with torch's epilogues where only
+    K5's channels differ; the unfused model wherever K1 does not serve.
+    The form is built, not run."""
+    from speech_intent_recognizer_tpu_torch.config import AudioConfig
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
+
+    audio, chans, want = RULE_CASES[case]
+    model = CNNAudioGRU(4, conv_channels=chans, gru_hidden=8, fold_bn=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    pred = Predictor(model, {f"i{i}": i for i in range(4)},
+                     AudioConfig(**audio), device="cpu")
+    pred._maybe_enable_conv1_fusion(model.state_dict())
+    body = pred._fused_body()
+    if want == "unfused":
+        assert pred._conv1 is None and body.model is model
+        assert not body.with_conv1
+        return
+    variant = body.model
+    assert body is pred._conv1 and body.with_conv1
+    assert variant.conv1_external and variant.pool_impl == "torch"
+    assert variant.compute_dtype == torch.bfloat16
+    assert variant.conv23 == (want == "conv23")
+    assert list(variant._stages) == ([] if want == "conv23" else [2, 3])
 
 
 @pytest.mark.parametrize("case", ["channels", "time"])
 def test_off_contract_keeps_torch_epilogues(tmp_path, monkeypatch, case):
     """Off K5's contract the rule keeps torch's epilogues: conv2 of another
     width under K1 (the torch form of the variant), or a
-    ``mel_spec_length`` that is no multiple of 4 (K1 does not serve
-    either: the unfused model's convs); K5 never runs."""
+    ``mel_spec_length`` off K1's 200 frames (K1 does not serve: the
+    unfused model's convs); K5 never runs."""
     from speech_intent_recognizer_tpu_torch.config import AudioConfig
     from speech_intent_recognizer_tpu_torch.models.cnn_gru import CNNAudioGRU
     from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
@@ -215,8 +239,7 @@ def test_off_contract_keeps_torch_epilogues(tmp_path, monkeypatch, case):
 def test_enable_conv23_kernel_on_the_default_changes_nothing(checkpoints,
                                                              port):
     """Where K5 already serves, ``enable_conv23_kernel()`` keeps the same
-    serving body (same module, same outputs); after a named ``pool_impl``
-    it selects the K5 variant, the default's bits."""
+    serving body (same module, same outputs)."""
     pred = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
                                      str(checkpoints / "label_map.json"),
                                      device="cpu")
@@ -226,13 +249,6 @@ def test_enable_conv23_kernel_on_the_default_changes_nothing(checkpoints,
     pred.enable_conv23_kernel()
     assert pred._fused_body() is body
     np.testing.assert_array_equal(pred.predict_waveform_batch(buf, ln),
-                                  before)
-    named = Predictor.from_checkpoint(str(checkpoints / "model.pt"),
-                                      str(checkpoints / "label_map.json"),
-                                      device="cpu", pool_impl="torch")
-    named.enable_conv23_kernel()
-    assert named._fused_body().model.conv23
-    np.testing.assert_array_equal(named.predict_waveform_batch(buf, ln),
                                   before)
 
 
@@ -343,17 +359,3 @@ def test_cli_test_model_on_cpu(checkpoints, tmp_path, capsys):
                    "--audio", str(tmp_path / "x.wav"), "--device", "cpu"])
     assert result["predicted_label"].startswith("intent_")
     assert "PREDICTION RESULTS" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("flags", [["--conv23"], ["--pool-impl", "kernel"]])
-def test_cli_reaches_the_opt_in_configurations(checkpoints, tmp_path, flags):
-    from speech_intent_recognizer_tpu_torch.cli.test_model import main
-
-    save_wav(str(tmp_path / "x.wav"), _wave(np.random.default_rng(9), 16000),
-             16000)
-    base = ["--model", str(checkpoints / "model.pt"),
-            "--label_map", str(checkpoints / "label_map.json"),
-            "--audio", str(tmp_path / "x.wav"), "--device", "cpu"]
-    want, got = main(base), main(base + flags)
-    assert got["predicted_label"] == want["predicted_label"]
-    assert abs(got["confidence"] - want["confidence"]) < 2e-2
