@@ -33,13 +33,21 @@ cut out computes wrong values; only its time is read:
   partial sums stored into the rank's own inbox); with the gh product
   after the wait for the partial sums; without the products;
 * the CUDA-core kernels of both sources at their tile heights, for scale
-  (the fp32 K2's and K2T's in fp32 operands, as the plan weighs them).
+  (the fp32 K2's and K2T's in fp32 operands, as the plan weighs them);
+* the served GRU at the b2048 cell's shape (B = 2048, T = 25, bf16, the
+  first layer's 1,024 inputs; :func:`time_layouts`, the package's own
+  build): a layer on K2's entry on the input GEMM's layout with its one
+  GEMM (``gru_layer_btc``, operands built once) against the contract
+  entry with its glue (two GEMMs, the leaves' casts, the ``b_hh`` add,
+  ``flip``, ``stack`` and ``cat``), both layers of each, and K2 alone
+  (the C entry point) on either layout's strides.
 
 Prints the card's name and power limit, each cluster kernel's
 registers and spills as ptxas reports them, and least / median / most of
 five timed blocks in ms.  Needs one card and nvcc; imports nothing of JAX.
 
-    python3 bench_torch_gru_variants.py
+    python3 bench_torch_gru_variants.py             # everything, ~4 min
+    python3 bench_torch_gru_variants.py --layouts   # the served layer alone
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from bench_torch_fft_variants import CSRC, blocks_ms, replace_once
 from speech_intent_recognizer_tpu_torch import _build
 from speech_intent_recognizer_tpu_torch.ops.gru import (
     CLUSTER_ROWS, CLUSTER_ROWS_BACKWARD, MMA_ROWS, MMA_ROWS_BACKWARD,
-    SMEM_LIMIT, TILE_ROWS)
+    SMEM_LIMIT, TILE_ROWS, btc_view, gru_layer_btc, k2_strides, picked_plan)
 from speech_intent_recognizer_tpu_torch.utils.device import (
     gpu_label, require_cuda)
 
@@ -292,7 +300,74 @@ def build_all(root: str) -> dict:
     return libs
 
 
-def main() -> int:
+def time_layouts(dev, stream, checked) -> None:
+    """The served GRU at B = 2048, T = 25 (bf16, layer 0 takes 1,024
+    inputs): each path's layer 0 and both layers, and K2 alone on each
+    layout, through the package's build."""
+    import torch.nn.functional as F
+
+    from speech_intent_recognizer_tpu_torch.models.cnn_gru import TorchGRU
+
+    batch, steps, feat, hidden = 2048, 25, 1024, 256
+    gru = TorchGRU(feat, hidden, 2, compute_dtype=torch.bfloat16)
+    gru.reset_parameters(torch.Generator().manual_seed(0))
+    gru = gru.to(dev).eval()
+    x = torch.randn((batch, steps, feat), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).bfloat16()
+    with torch.inference_mode():
+        ops = gru.inference_operands()[0]
+        old = gru._recorded_layer(x, 0)
+        new = gru_layer_btc(F.linear(x, ops[0], ops[1]), ops[2], ops[3])
+        print(f"served layer 0, max |new - contract| "
+              f"{float((new.float() - old.float()).abs().max()):.3e}",
+              flush=True)
+
+        def contract_gru():
+            y = x
+            for layer in range(2):
+                y = gru._recorded_layer(y, layer)
+            return y
+
+        for name, fn in (
+                ("layer 0, contract entry with its glue",
+                 lambda: gru._recorded_layer(x, 0)),
+                ("layer 0, GEMM-layout entry with its GEMM",
+                 lambda: gru_layer_btc(F.linear(x, ops[0], ops[1]), ops[2],
+                                       ops[3])),
+                ("both layers, contract entry with its glue", contract_gru),
+                ("both layers, GEMM-layout entry (TorchGRU, operands kept)",
+                 lambda: gru(x))):
+            print(f"served GRU, B={batch}, {name}: {blocks_ms(fn, 10)} ms",
+                  flush=True)
+    lib = _build.load()
+    rows = picked_plan(batch, hidden, torch.bfloat16, dev).rows
+    g = torch.Generator(device=dev).manual_seed(batch)
+    gx = torch.randn((2, steps, batch, 3 * hidden), device=dev,
+                     generator=g).bfloat16()
+    w = (0.05 * torch.randn((2, hidden, 3 * hidden), device=dev,
+                            generator=g)).bfloat16()
+    bn = 0.1 * torch.randn((2, 1, hidden), device=dev, generator=g)
+    ys = torch.empty((2, steps, batch, hidden), device=dev,
+                     dtype=torch.bfloat16)
+    gx6 = torch.cat([gx[0], gx[1].flip(0)], -1).transpose(0, 1).contiguous()
+    ys6 = torch.empty((batch, steps, 2 * hidden), device=dev,
+                      dtype=torch.bfloat16)
+    for name, a, b, strides in (
+            ("(2, T, B, 3H) -> (2, T, B, H)", gx, ys, k2_strides(gx, ys)),
+            ("(B, T, 6H) -> (B, T, 2H)", gx6, ys6,
+             k2_strides(btc_view(gx6), btc_view(ys6), True))):
+        print(f"K2 alone, B={batch}, {rows}-row tiles, {name}: " + blocks_ms(
+            lambda: checked("K2", lib.sir_gru_layer_mma(
+                a.data_ptr(), w.data_ptr(), bn.data_ptr(), b.data_ptr(),
+                steps, batch, hidden, rows, *strides, stream)), 10) + " ms",
+            flush=True)
+    assert torch.equal(ys6, torch.cat([ys[0], ys[1].flip(0)], -1)
+                       .transpose(0, 1))
+
+
+def main(argv=None) -> int:
+    layouts_only = "--layouts" in (sys.argv[1:] if argv is None else argv)
     dev = require_cuda()
     print(gpu_label(), flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -303,6 +378,9 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"{name}: CUDA error {rc}")
 
+    time_layouts(dev, stream, checked)
+    if layouts_only:
+        return 0
     with tempfile.TemporaryDirectory() as root:
         libs = build_all(root)
         for name, (_, used) in libs.items():
@@ -321,9 +399,10 @@ def main() -> int:
                               generator=g).to(bf16)
             dgx = torch.empty_like(gx)
             dgh = torch.empty(gx.shape, device=dev)
+            strides = k2_strides(gx, ys)
             checked("K2", libs["K2 as committed"][0].sir_gru_layer_mma(
                 gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
-                steps, batch, hidden, 32, stream))
+                steps, batch, hidden, 32, *strides, stream))
             for name, (lib, _) in libs.items():
                 if name.startswith("fp32 "):
                     continue
@@ -334,7 +413,7 @@ def main() -> int:
                             lambda: checked(name, lib.sir_gru_layer_mma(
                                 gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
                                 ys.data_ptr(), steps, batch, hidden, rows,
-                                stream)), 10) + " ms", flush=True)
+                                *strides, stream)), 10) + " ms", flush=True)
                 elif not forward and batch != 2048:
                     for rows in MMA_ROWS_BACKWARD:
                         print(f"{name}, B={batch}, {rows}-row tiles: " + blocks_ms(
@@ -351,7 +430,7 @@ def main() -> int:
                               "K2", lib.sir_gru_layer_bf16(
                                   gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
                                   ys.data_ptr(), steps, batch, hidden, rows,
-                                  stream)), 10) + " ms", flush=True)
+                                  *strides, stream)), 10) + " ms", flush=True)
                 if batch != 2048:
                     lib = libs["K2T as committed"][0]
                     print(f"K2T CUDA-core kernel, B={batch}, {rows}-row tiles: "
@@ -370,6 +449,7 @@ def main() -> int:
                                    generator=g)
             bn = 0.1 * torch.randn((2, 1, hidden), device=dev, generator=g)
             ys = torch.empty((2, steps, batch, hidden), device=dev)
+            strides = k2_strides(gx, ys)
             iters = 50 if batch <= 16 else 20 if batch <= 256 else 5
             fp32 = [("fp32 K2 as committed", libs["K2 as committed"][0])] + [
                 (name, lib) for name, (lib, _) in libs.items()
@@ -382,14 +462,14 @@ def main() -> int:
                         lambda: checked(name, lib.sir_gru_layer_cluster(
                             gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
                             ys.data_ptr(), steps, batch, hidden, rows,
-                            stream)), iters) + " ms", flush=True)
+                            *strides, stream)), iters) + " ms", flush=True)
             lib = libs["K2 as committed"][0]
             for rows in TILE_ROWS:
                 print(f"fp32 K2 CUDA-core kernel, B={batch}, {rows}-row tiles: "
                       + blocks_ms(lambda: checked("K2", lib.sir_gru_layer_f32(
                           gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
                           ys.data_ptr(), steps, batch, hidden, rows,
-                          stream)), iters) + " ms", flush=True)
+                          *strides, stream)), iters) + " ms", flush=True)
         time_fp32_backward(libs, dev, stream, steps, hidden, checked)
     return 0
 

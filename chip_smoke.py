@@ -50,9 +50,11 @@ Phases:
    per card;
 2. each kernel once against its plain version at the shape its main path
    gives it, at the bars of its card tests: K1 -> K5 on the B=256 batch
-   with the seeded checkpoint's folded weights, K2 at B=256 and K2T at
-   B=1024 (bf16, T=25), K3 on B=256 precompute rows, K4 on B=256 rows of
-   hop-256 frames, K6 at conv2's output (B=256); K7 in phase 6;
+   with the seeded checkpoint's folded weights, K2 at B=256 (bf16, T=25)
+   through the main path's entry on the GEMM's (B, T, 6H) and through the
+   training path's contract entry, K2T at B=1024 (bf16, T=25), K3 on
+   B=256 precompute rows, K4 on B=256 rows of hop-256 frames, K6 at
+   conv2's output (B=256); K7 in phase 6;
 4. serving end to end: the main path once at B=256 (K1 once, K5 once, K2
    twice, nothing else; probabilities finite, rows summing to 1), then the parity gates of the reference
    ``bench.py``: plain front-end vs the fp64 golden (< 0.05), fused
@@ -203,10 +205,12 @@ Phases:
     on a shared card, not a multi-GPU rate.
 
 The ``kernels`` line gives each kernel's largest error against its
-plain version (``max_abs_err``: phase 2's; K7's dy, phase 6's) and its
-launches on its path (``launches``: K1, K2, K5 and K6 on phase 4's main
-path, K3 and K2T in phase 15's training, K4 in phase 7's; K2 and K4
-``stream_launches``: over the test split in each featurizer mode, in
+plain version (``max_abs_err``: phase 2's, K2's through the main path's
+``gru_layer_btc`` and ``contract_max_abs_err`` through the training
+path's ``gru_layer``; K7's dy, phase 6's) and its launches on its path
+(``launches``: K1, K2, K5 and K6 on phase 4's main path, K3 and K2T
+in phase 15's training, K4 in phase 7's; K2 and K4 ``stream_launches``:
+over the test split in each featurizer mode, in
 the batched finalize of 16 and in the file replay of 16, and K2
 ``stream_launches_cluster``, how many of those were the fp32 cluster
 kernel; K2, K3 and K2T ``waveform_launches``, phase 17's; every kernel
@@ -284,8 +288,9 @@ from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
     CLUSTER_ROWS, CLUSTER_ROWS_BACKWARD, MMA_ROWS, MMA_ROWS_BACKWARD,
     TILE_ROWS, Plan,
-    _gru_layer_backward_plain, _gru_layer_plain, gru_layer,
-    gru_layer_backward, picked_plan, tile_rows)
+    _gru_layer_backward_plain, _gru_layer_btc_plain, _gru_layer_plain,
+    gru_layer,
+    gru_layer_backward, gru_layer_btc, k2_strides, picked_plan, tile_rows)
 from speech_intent_recognizer_tpu_torch.ops import bn_pool
 from speech_intent_recognizer_tpu_torch.ops import pool_epilogue as pool_ops
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
@@ -490,7 +495,7 @@ from speech_intent_recognizer_tpu_torch.infer import export
 art, kind, data, out = sys.argv[1:5]
 pkg = "speech_intent_recognizer_tpu_torch"
 WRAPPERS = {"K1": ("ops.frontend_kernels", "frontend_conv1"),
-            "K2": ("ops.gru", "gru_layer"),
+            "K2": ("ops.gru", "gru_layer_btc"),  # no grad: the GEMM's layout
             "K3": ("ops.frontend_kernels", "frontend"),
             "K4": ("ops.frontend_kernels", "mel_db"),
             "K5": ("ops.conv23", "conv23"),
@@ -909,12 +914,11 @@ def train_end_to_end(tmp: str, dev) -> dict:
     # training: 2 K2 and 2 K2T launches per train step; K2 twice per eval
     # batch besides
     torch.cuda.synchronize()
-    gru_layer.launches = 0
-    gru_layer_backward.launches = 0
+    reset_counters()
     result = cli_train.main(["--config", cfg_path, "--train_csv",
                              csvs["train"], "--val_csv", csvs["valid"],
                              "--label_map", label_map, "--device", str(dev)])
-    k2_launches, k2t_launches = gru_layer.launches, gru_layer_backward.launches
+    k2_launches, k2t_launches = counters()["K2"], gru_layer_backward.launches
     steps = result.epochs_run * -(-CORPUS["train"] // TRAIN_BATCH)
     eval_batches = result.epochs_run * -(-CORPUS["valid"] // (2 * TRAIN_BATCH))
     check(k2t_launches == 2 * steps and k2_launches == 2 * steps
@@ -1517,7 +1521,8 @@ def time_streaming_kernels(dev, timings, bounds, spreads) -> None:
             timed(timings, spreads, f"{key}_b{b}",
                   lambda: _build.check(fn(
                       gx.data_ptr(), w.data_ptr(), bn.data_ptr(),
-                      ys.data_ptr(), 25, b, 256, rows, stream), key), iters)
+                      ys.data_ptr(), 25, b, 256, rows, *k2_strides(gx, ys),
+                      stream), key), iters)
         timings[f"k2_fp32_plain_b{b}"] = cuda_ms(
             lambda: _gru_layer_plain(gx, w, bn), 10 if b <= 256 else 2)
         bounds[f"k2_fp32_b{b}"] = least_ms(
@@ -1555,10 +1560,12 @@ def compare_fp32_plans(pred, paths, operands) -> dict:
     launches K2 twice, both the kernel asked for."""
 
     def counted(kernel, what):
-        got = gru_layer.kernel_launches[kernel]
-        if gru_layer.launches != 2 or got != 2:
+        launched = counters()["K2"]
+        got = sum(e.kernel_launches[kernel] for e in (gru_layer,
+                                                      gru_layer_btc))
+        if launched != 2 or got != 2:
             raise AssertionError(f"{what} with the {kernel} K2: launched "
-                                 f"{gru_layer.launches} K2, {got} of them "
+                                 f"{launched} K2, {got} of them "
                                  f"{kernel}, want 2 and 2")
 
     eos = {}
@@ -1793,11 +1800,11 @@ def time_k7(dev) -> dict:
 
 def reset_counters() -> None:
     for fn in (fk.frontend_conv1, fk.frontend, fk.mel_db, gru_layer,
-               gru_layer_backward, conv23, bias_relu_pool2,
+               gru_layer_btc, gru_layer_backward, conv23, bias_relu_pool2,
                bn_pool.bn_relu_pool2_train):
         fn.launches = 0
     bn_pool.bn_relu_pool2_train.backward_launches = 0
-    for fn in (gru_layer, gru_layer_backward):
+    for fn in (gru_layer, gru_layer_btc, gru_layer_backward):
         fn.kernel_launches.update(dict.fromkeys(fn.kernel_launches, 0))
 
 
@@ -1906,8 +1913,10 @@ def compare_fp32_k2t_steps(dev) -> dict:
 
 
 def cluster_launches() -> int:
-    """K2 launches of the fp32 cluster kernel since the last reset."""
-    return gru_layer.kernel_launches["cluster"]
+    """K2 launches of the fp32 cluster kernel since the last reset, through
+    either entry."""
+    return (gru_layer.kernel_launches["cluster"]
+            + gru_layer_btc.kernel_launches["cluster"])
 
 
 @contextlib.contextmanager
@@ -1934,7 +1943,10 @@ def fp32_plan(kernel: str, backward: bool = False):
 
 
 def counters() -> dict:
-    return {"K1": fk.frontend_conv1.launches, "K2": gru_layer.launches,
+    # K2 through either entry: the contract's under autograd, the GEMM's
+    # layout elsewhere
+    return {"K1": fk.frontend_conv1.launches,
+            "K2": gru_layer.launches + gru_layer_btc.launches,
             "K3": fk.frontend.launches, "K2T": gru_layer_backward.launches,
             "K4": fk.mel_db.launches, "K5": conv23.launches,
             "K6": bias_relu_pool2.launches,
@@ -1975,9 +1987,18 @@ def check_kernels(dev, fe, main_buf, main_ln, folded, rng) -> dict:
     got = conv23(x, *ops)
     held("K5", got, want, max_err(got, want) <= K5_BAR * float(
         want.float().abs().max()), f"on K1's output, checkpoint's conv2 / conv3")
+    # K2 as the main path runs it: the GEMM's (B, T, 6H), direction 1 in
+    # reversed time, written to (B, T, 2H); then the training path's
+    # contract entry on the same values
     gx, w, bn = k2_inputs(MAIN_BATCH, torch.bfloat16, dev, seed=MAIN_BATCH)
+    gx6 = torch.cat([gx[0], gx[1].flip(0)], -1).transpose(0, 1).contiguous()
+    got, want = gru_layer_btc(gx6, w, bn), _gru_layer_btc_plain(gx6, w, bn)
+    held("K2", got, want, max_err(got, want) <= 1e-2,
+         f"B={MAIN_BATCH} bf16, gru_layer_btc (B, T, 6H) -> (B, T, 2H)")
     got, want = gru_layer(gx, w, bn), _gru_layer_plain(gx, w, bn)
-    held("K2", got, want, max_err(got, want) <= 1e-2, f"B={MAIN_BATCH} bf16")
+    held("K2 contract", got, want, max_err(got, want) <= 1e-2,
+         f"B={MAIN_BATCH} bf16, gru_layer (2, T, B, 3H) -> (2, T, B, H)")
+    del gx6
     gx, w, bn, ys, dys = k2t_inputs(K2T_BATCH, torch.bfloat16, dev,
                                     seed=K2T_BATCH)
     got = gru_layer_backward(gx, w, bn, ys, dys)
@@ -2389,6 +2410,7 @@ def check_export(dev, tmp: str, run: dict, label: str) -> dict:
     launch_bodies = {"frontend_conv1": fk._frontend_conv1_cuda,
                      "frontend": fk._frontend_cuda, "mel_db": fk._mel_db_cuda,
                      "gru_layer": gru_ops._gru_layer_cuda,
+                     "gru_layer_btc": gru_ops._gru_layer_btc_cuda,
                      "conv23": conv23_ops._conv23_cuda,
                      "bias_relu_pool2": pool_ops._bias_relu_pool2_cuda}
     swaps = {"op": {k: getattr(torch.ops.sir, k) for k in launch_bodies},
@@ -3811,6 +3833,8 @@ def main(argv=None) -> int:
         entry("bias_relu_pool2", "k6", K6_SOURCE, K6_REPLACES, ke["K6"],
               f"k6_library_b{b}", launches=ml["K6"]),
     ]
+    # the training path's entry to K2 against its plain version (phase 2)
+    kernels[1]["contract_max_abs_err"] = ke["K2 contract"]
     kernels[1]["stream_launches"] = stream_launches["K2"]
     # of those, launches of the fp32 cluster kernel (K2's fp32 build at
     # hidden 256, which the streaming path runs)

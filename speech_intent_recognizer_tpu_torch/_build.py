@@ -28,12 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# the forward GRU kernels' addressing after their shape (gru_mma.cuh's
+# Strides): gx's and ys's direction, step and row strides, and `reverse`
+_K2 = [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P]
 # entry point -> argtypes; every pointer and the stream as c_void_p
 _SIGNATURES = {
     "sir_frontend_conv1": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                            ctypes.c_float, _P],
-    "sir_gru_layer_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "sir_gru_layer_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_gru_layer_bf16": _K2,
+    "sir_gru_layer_f32": _K2,
     "sir_frontend_f32": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
                          ctypes.c_float, _P],
     "sir_frontend_bf16": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
@@ -43,10 +47,10 @@ _SIGNATURES = {
     "sir_gru_layer_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P],
     # tensor-core GRU kernels (bf16, hidden 256); no transposed W
-    "sir_gru_layer_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_gru_layer_mma": _K2,
     "sir_gru_layer_bwd_mma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the fp32 cluster kernels (hidden 256), forward and backward
-    "sir_gru_layer_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sir_gru_layer_cluster": _K2,
     "sir_gru_layer_bwd_cluster": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P],
     # their resources per tile height: out = int[7] on the host

@@ -9,6 +9,14 @@
 // recurrent product runs on operands rounded to the operand type with fp32
 // sums; h is carried in fp32 across steps and the gate math is fp32.
 //
+// Each kernel reads gx and writes ys through gru_mma.cuh's Strides, so one
+// body serves that contract and the served layout (ops/gru.py::
+// gru_layer_btc): gx as the input GEMM leaves it, (B, T, 6H) with both
+// directions in forward time, and ys straight into the (B, T, 2H) that the
+// next layer's GEMM and the head read.  No flip, stack or concatenation
+// runs around the kernel there; a row still reads its r, z and n segments
+// contiguously.
+//
 // Three kernels; ops/gru.py::gru_plan says which one a call takes.
 //
 // 1. gru_layer_mma_kernel: bf16, H = 256, the kernel that serves and
@@ -71,6 +79,8 @@
 
 namespace {
 
+using gru_mma::Strides;
+
 template <typename T>
 struct Operand;
 
@@ -101,7 +111,7 @@ __global__ void gru_layer_kernel(const T* __restrict__ gx,
                                  const T* __restrict__ w,
                                  const float* __restrict__ bn,
                                  T* __restrict__ out, int steps, int batch,
-                                 int hidden) {
+                                 int hidden, const Strides layout) {
   extern __shared__ __align__(16) float hs[];  // [BT][hidden] h as operand
   using Op = Operand<T>;
   const int j = threadIdx.x;
@@ -142,19 +152,18 @@ __global__ void gru_layer_kernel(const T* __restrict__ gx,
     }
     __syncthreads();  // every thread has read this step's h
 
-    const size_t base = (static_cast<size_t>(dir) * steps + t) * batch;
-    const T* g = gx + base * h3;
-    T* o = out + base * hidden;
+    const T* g = gx + layout.gx_at(dir, t, steps);
+    T* o = out + layout.ys_at(dir, t, steps);
 #pragma unroll
     for (int r = 0; r < BT; ++r) {
       const int row = row0 + r;
       if (row < batch) {
-        const T* gr = g + static_cast<size_t>(row) * h3;
+        const T* gr = g + row * layout.gx_row;
         const float rg = sigmoid(Op::load(gr + j) + ar[r]);
         const float zg = sigmoid(Op::load(gr + hidden + j) + az[r]);
         const float ng = tanhf(Op::load(gr + 2 * hidden + j) + rg * (an[r] + bnj));
         h[r] = (1.f - zg) * ng + zg * h[r];
-        o[static_cast<size_t>(row) * hidden + j] = Op::store(h[r]);
+        o[row * layout.out_row + j] = Op::store(h[r]);
       }
       hs[r * hidden + j] = Op::round(h[r]);
     }
@@ -165,7 +174,7 @@ __global__ void gru_layer_kernel(const T* __restrict__ gx,
 template <typename T, int BT>
 cudaError_t launch_tile(const void* gx, const void* w, const float* bn,
                         void* out, int steps, int batch, int hidden,
-                        cudaStream_t stream) {
+                        const Strides& layout, cudaStream_t stream) {
   const int smem = BT * hidden * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       gru_layer_kernel<T, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -174,13 +183,14 @@ cudaError_t launch_tile(const void* gx, const void* w, const float* bn,
   const dim3 grid((batch + BT - 1) / BT, 2);
   gru_layer_kernel<T, BT><<<grid, hidden, smem, stream>>>(
       static_cast<const T*>(gx), static_cast<const T*>(w), bn,
-      static_cast<T*>(out), steps, batch, hidden);
+      static_cast<T*>(out), steps, batch, hidden, layout);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* gx, const void* w, const float* bn, void* out,
-           int steps, int batch, int hidden, int rows, void* stream) {
+           int steps, int batch, int hidden, int rows, const Strides& layout,
+           void* stream) {
   if (steps < 0 || batch < 0 || hidden <= 0 || hidden % 32 || hidden > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   if (steps == 0 || batch == 0) return 0;
@@ -188,10 +198,10 @@ int launch(const void* gx, const void* w, const float* bn, void* out,
   switch (rows) {
     case 4:
       return static_cast<int>(
-          launch_tile<T, 4>(gx, w, bn, out, steps, batch, hidden, st));
+          launch_tile<T, 4>(gx, w, bn, out, steps, batch, hidden, layout, st));
     case 16:
       return static_cast<int>(
-          launch_tile<T, 16>(gx, w, bn, out, steps, batch, hidden, st));
+          launch_tile<T, 16>(gx, w, bn, out, steps, batch, hidden, layout, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -211,7 +221,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 gru_layer_mma_kernel(const __nv_bfloat16* __restrict__ gx,
                      const __nv_bfloat16* __restrict__ w,
                      const float* __restrict__ bn,
-                     __nv_bfloat16* __restrict__ out, int steps, int batch) {
+                     __nv_bfloat16* __restrict__ out, int steps, int batch,
+                     const Strides layout) {
   constexpr int M = 16 * MT;            // rows of the cluster's tile
   constexpr int G = MT < 2 ? MT : 2;    // 16-row tiles multiplied together
                                         // (an odd MT ends on a single one)
@@ -243,9 +254,8 @@ gru_layer_mma_kernel(const __nv_bfloat16* __restrict__ gx,
   for (int mt = 0; mt < MT; ++mt)
     h[mt][0] = h[mt][1] = h[mt][2] = h[mt][3] = 0.f;
 
-  const __nv_bfloat16* gxd = gx + static_cast<size_t>(dir) * steps * batch * kGates;
-  __nv_bfloat16* outd = out + static_cast<size_t>(dir) * steps * batch * kHidden;
-  load_gx_slice(gx_tiles, gxd, M, row0, batch, rank, tid);
+  load_gx_slice(gx_tiles, gx + layout.gx_at(dir, 0, steps), M, row0, batch,
+                rank, tid, layout.gx_row);
   cp_async_commit();
   __syncthreads();
   // no rank writes another's shared memory before every rank runs
@@ -256,8 +266,8 @@ gru_layer_mma_kernel(const __nv_bfloat16* __restrict__ gx,
     const int cur = t & 1, nxt = cur ^ 1;
     if (t + 1 < steps)
       load_gx_slice(gx_tiles + nxt * M * 384,
-                    gxd + static_cast<size_t>(t + 1) * batch * kGates, M, row0,
-                    batch, rank, tid);
+                    gx + layout.gx_at(dir, t + 1, steps), M, row0, batch, rank,
+                    tid, layout.gx_row);
     cp_async_commit();
     // every rank's slab of h_{t-1} has arrived in tile `cur`
     if (t > 0) cluster_wait();
@@ -325,14 +335,13 @@ gru_layer_mma_kernel(const __nv_bfloat16* __restrict__ gx,
     // ... and, as ys[t], to device memory.  The slab is not rewritten before
     // two more block barriers, so the stores may follow the arrive.
     auto store_ys = [&]() {
-      __nv_bfloat16* o = outd + static_cast<size_t>(t) * batch * kHidden +
-                         rank * kUnits;
+      __nv_bfloat16* o = out + layout.ys_at(dir, t, steps) + rank * kUnits;
       for (int i = tid; i < M * 8; i += kThreads) {
         // i counts the slab's chunks as they lie; chunk is the logical one
         const int row = i >> 3, chunk = (i & 7) ^ (row & 7);
         if (row0 + row < batch)
           *reinterpret_cast<uint4*>(
-              o + static_cast<size_t>(row0 + row) * kHidden + chunk * 8) =
+              o + (row0 + row) * layout.out_row + chunk * 8) =
               *reinterpret_cast<const uint4*>(h_nxt + rank * M * 128 + i * 16);
       }
     };
@@ -346,7 +355,8 @@ gru_layer_mma_kernel(const __nv_bfloat16* __restrict__ gx,
 
 template <int MT>
 int launch_mma(const void* gx, const void* w, const float* bn, void* out,
-               int steps, int batch, cudaStream_t stream, int* out_info) {
+               int steps, int batch, const Strides& layout,
+               cudaStream_t stream, int* out_info) {
   auto kernel = gru_layer_mma_kernel<MT>;
   const int smem = mma_smem_bytes(MT);
   if (out_info) return cluster_info(kernel, smem, out_info);
@@ -356,32 +366,40 @@ int launch_mma(const void* gx, const void* w, const float* bn, void* out,
       kernel, ready, dim3(kCluster * tiles, 2), smem, stream,
       static_cast<const __nv_bfloat16*>(gx),
       static_cast<const __nv_bfloat16*>(w), bn,
-      static_cast<__nv_bfloat16*>(out), steps, batch));
+      static_cast<__nv_bfloat16*>(out), steps, batch, layout));
 }
 
 int dispatch_mma(const void* gx, const void* w, const float* bn, void* out,
                  int steps, int batch, int hidden, int rows,
-                 cudaStream_t stream, int* out_info) {
+                 const Strides& layout, cudaStream_t stream, int* out_info) {
   if (steps < 0 || batch < 0 || hidden != kHidden)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!out_info && (steps == 0 || batch == 0)) return 0;
   switch (rows) {
     case 16:
-      return launch_mma<1>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<1>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 32:
-      return launch_mma<2>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<2>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 48:
-      return launch_mma<3>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<3>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 64:
-      return launch_mma<4>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<4>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 80:
-      return launch_mma<5>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<5>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 96:
-      return launch_mma<6>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<6>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 112:
-      return launch_mma<7>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<7>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     case 128:
-      return launch_mma<8>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_mma<8>(gx, w, bn, out, steps, batch, layout, stream,
+                           out_info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -389,20 +407,18 @@ int dispatch_mma(const void* gx, const void* w, const float* bn, void* out,
 
 // ---- the fp32 cluster kernel ----
 
-// gx of step t for the (row, unit) pairs tid + 256 j of a tile of M rows
-// and U units a rank (rows past the tile or the batch read as 0).
+// gx of one step (`g_step`: gx[dir, t, 0, 0]; batch row b `row_stride`
+// elements after row b - 1) for the (row, unit) pairs tid + 256 j of a tile
+// of M rows and U units a rank (rows past the tile or the batch read as 0).
 template <int M, int U, int P>
-__device__ __forceinline__ void load_gx_pairs(float (&g)[P][3],
-                                              const float* __restrict__ gxd,
-                                              int t, int batch, int row0,
-                                              int unit0, int unit) {
+__device__ __forceinline__ void load_gx_pairs(
+    float (&g)[P][3], const float* __restrict__ g_step, long long row_stride,
+    int batch, int row0, int unit0, int unit) {
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     const int row = (static_cast<int>(threadIdx.x) + kThreads * j) / U;
     if (row < M && row0 + row < batch) {
-      const float* src = gxd +
-          (static_cast<size_t>(t) * batch + row0 + row) * kGates + unit0 +
-          unit;
+      const float* src = g_step + (row0 + row) * row_stride + unit0 + unit;
       g[j][0] = __ldg(src);
       g[j][1] = __ldg(src + kHidden);
       g[j][2] = __ldg(src + 2 * kHidden);
@@ -417,7 +433,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 gru_layer_cluster_kernel(const float* __restrict__ gx,
                          const float* __restrict__ w,
                          const float* __restrict__ bn,
-                         float* __restrict__ out, int steps, int batch) {
+                         float* __restrict__ out, int steps, int batch,
+                         const Strides layout) {
   constexpr int U = kF32Units;            // units a rank
   constexpr int UPL = U / 32;             // units a lane
   constexpr int KQ = kF32SliceK / 4;      // float4s of a k-slice
@@ -431,8 +448,6 @@ gru_layer_cluster_kernel(const float* __restrict__ gx,
   const int row0 = static_cast<int>(blockIdx.x / kF32Cluster) * M;
   const int unit0 = rank * U;
   const float* wd = w + static_cast<size_t>(dir) * kHidden * kGates;
-  const float* gxd = gx + static_cast<size_t>(dir) * steps * batch * kGates;
-  float* outd = out + static_cast<size_t>(dir) * steps * batch * kHidden;
 
   // the rank's slice of W^T, read from device memory once into registers
   float4 wr[KQ][3][UPL];
@@ -458,7 +473,9 @@ gru_layer_cluster_kernel(const float* __restrict__ gx,
   for (int j = 0; j < P; ++j) h[j] = 0.f;
   // h_{-1} = 0 in tile 0; the other tile is written before it is read
   for (int i = tid; i < M * kHidden; i += kThreads) f32_mem[i] = 0.f;
-  if (steps > 0) load_gx_pairs<M, U>(g, gxd, 0, batch, row0, unit0, unit);
+  if (steps > 0)
+    load_gx_pairs<M, U>(g, gx + layout.gx_at(dir, 0, steps), layout.gx_row,
+                        batch, row0, unit0, unit);
   __syncthreads();
   // no rank writes another's shared memory before every rank runs
   cluster_arrive();
@@ -524,8 +541,8 @@ gru_layer_cluster_kernel(const float* __restrict__ gx,
         const float ng = tanhf(g[j][2] + rg * (s[2] + bnj));
         h[j] = (1.f - zg) * ng + zg * h[j];
         if (row0 + row < batch)
-          outd[(static_cast<size_t>(t) * batch + row0 + row) * kHidden +
-               unit0 + unit] = h[j];
+          out[layout.ys_at(dir, t, steps) + (row0 + row) * layout.out_row +
+              unit0 + unit] = h[j];
         // the exchange: the four units of a quad of lanes as one float4,
         // which lane 4 q + e stores into ranks e, e + 4 (its own among
         // them) at the same place of their tile `nxt`
@@ -545,7 +562,8 @@ gru_layer_cluster_kernel(const float* __restrict__ gx,
     }
     cluster_arrive();  // h_t is on its way to every rank
     if (t + 1 < steps)
-      load_gx_pairs<M, U>(g, gxd, t + 1, batch, row0, unit0, unit);
+      load_gx_pairs<M, U>(g, gx + layout.gx_at(dir, t + 1, steps),
+                          layout.gx_row, batch, row0, unit0, unit);
   }
   // no rank leaves while another may still write into it
   if (steps > 0) cluster_wait();  // the last step's arrive
@@ -553,7 +571,8 @@ gru_layer_cluster_kernel(const float* __restrict__ gx,
 
 template <int M>
 int launch_cluster(const void* gx, const void* w, const float* bn, void* out,
-                   int steps, int batch, cudaStream_t stream, int* out_info) {
+                   int steps, int batch, const Strides& layout,
+                   cudaStream_t stream, int* out_info) {
   auto kernel = gru_layer_cluster_kernel<M>;
   const int smem = f32_smem_bytes(M);
   if (out_info) return cluster_info<kF32Cluster>(kernel, smem, out_info);
@@ -562,29 +581,34 @@ int launch_cluster(const void* gx, const void* w, const float* bn, void* out,
   return static_cast<int>(launch_clusters<kF32Cluster>(
       kernel, ready, dim3(kF32Cluster * tiles, 2), smem, stream,
       static_cast<const float*>(gx), static_cast<const float*>(w), bn,
-      static_cast<float*>(out), steps, batch));
+      static_cast<float*>(out), steps, batch, layout));
 }
 
 int dispatch_cluster(const void* gx, const void* w, const float* bn,
                      void* out, int steps, int batch, int hidden, int rows,
-                     cudaStream_t stream, int* out_info) {
+                     const Strides& layout, cudaStream_t stream,
+                     int* out_info) {
   if (steps < 0 || batch < 0 || hidden != kHidden)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!out_info && (steps == 0 || batch == 0)) return 0;
   switch (rows) {
     case 1:
-      return launch_cluster<1>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_cluster<1>(gx, w, bn, out, steps, batch, layout, stream,
+                               out_info);
     case 2:
-      return launch_cluster<2>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_cluster<2>(gx, w, bn, out, steps, batch, layout, stream,
+                               out_info);
     case 4:
-      return launch_cluster<4>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_cluster<4>(gx, w, bn, out, steps, batch, layout, stream,
+                               out_info);
     case 8:
-      return launch_cluster<8>(gx, w, bn, out, steps, batch, stream, out_info);
+      return launch_cluster<8>(gx, w, bn, out, steps, batch, layout, stream,
+                               out_info);
     case 16:
-      return launch_cluster<16>(gx, w, bn, out, steps, batch, stream,
+      return launch_cluster<16>(gx, w, bn, out, steps, batch, layout, stream,
                                 out_info);
     case 32:
-      return launch_cluster<32>(gx, w, bn, out, steps, batch, stream,
+      return launch_cluster<32>(gx, w, bn, out, steps, batch, layout, stream,
                                 out_info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -593,27 +617,47 @@ int dispatch_cluster(const void* gx, const void* w, const float* bn,
 
 }  // namespace
 
+// The forward kernels' entry points take K2's addressing (gru_mma.cuh's
+// Strides, in elements) after the launch's shape.
+
 extern "C" int sir_gru_layer_bf16(const void* gx, const void* w,
                                   const float* bn, void* out, int steps,
                                   int batch, int hidden, int rows,
-                                  void* stream) {
+                                  long long gx_dir, long long gx_step,
+                                  long long gx_row, long long out_dir,
+                                  long long out_step, long long out_row,
+                                  int reverse, void* stream) {
+  const Strides layout{gx_dir, gx_step, gx_row, out_dir, out_step, out_row,
+                       reverse};
   return launch<__nv_bfloat16>(gx, w, bn, out, steps, batch, hidden, rows,
-                               stream);
+                               layout, stream);
 }
 
 extern "C" int sir_gru_layer_f32(const void* gx, const void* w,
                                  const float* bn, void* out, int steps,
                                  int batch, int hidden, int rows,
-                                 void* stream) {
-  return launch<float>(gx, w, bn, out, steps, batch, hidden, rows, stream);
+                                 long long gx_dir, long long gx_step,
+                                 long long gx_row, long long out_dir,
+                                 long long out_step, long long out_row,
+                                 int reverse, void* stream) {
+  const Strides layout{gx_dir, gx_step, gx_row, out_dir, out_step, out_row,
+                       reverse};
+  return launch<float>(gx, w, bn, out, steps, batch, hidden, rows, layout,
+                       stream);
 }
 
-// The tensor-core kernel: bf16, hidden = 256, rows in {16, 32, ..., 128}.
+// The tensor-core kernel: bf16, hidden = 256, rows in {16, 32, ..., 128};
+// gx, ys and their direction and row strides 16-byte aligned.
 extern "C" int sir_gru_layer_mma(const void* gx, const void* w,
                                  const float* bn, void* out, int steps,
                                  int batch, int hidden, int rows,
-                                 void* stream) {
-  return dispatch_mma(gx, w, bn, out, steps, batch, hidden, rows,
+                                 long long gx_dir, long long gx_step,
+                                 long long gx_row, long long out_dir,
+                                 long long out_step, long long out_row,
+                                 int reverse, void* stream) {
+  const Strides layout{gx_dir, gx_step, gx_row, out_dir, out_step, out_row,
+                       reverse};
+  return dispatch_mma(gx, w, bn, out, steps, batch, hidden, rows, layout,
                       static_cast<cudaStream_t>(stream), nullptr);
 }
 
@@ -622,20 +666,25 @@ extern "C" int sir_gru_layer_mma(const void* gx, const void* w,
 // with `rows`-row tiles as built (gru_mma.cuh::cluster_info).
 extern "C" int sir_gru_layer_mma_info(int rows, int* out) {
   return dispatch_mma(nullptr, nullptr, nullptr, nullptr, 0, 0, kHidden, rows,
-                      nullptr, out);
+                      Strides{}, nullptr, out);
 }
 
 // The fp32 cluster kernel: fp32, hidden = 256, rows in {1, 2, 4, 8, 16, 32}.
 extern "C" int sir_gru_layer_cluster(const void* gx, const void* w,
                                      const float* bn, void* out, int steps,
                                      int batch, int hidden, int rows,
-                                     void* stream) {
-  return dispatch_cluster(gx, w, bn, out, steps, batch, hidden, rows,
+                                     long long gx_dir, long long gx_step,
+                                     long long gx_row, long long out_dir,
+                                     long long out_step, long long out_row,
+                                     int reverse, void* stream) {
+  const Strides layout{gx_dir, gx_step, gx_row, out_dir, out_step, out_row,
+                       reverse};
+  return dispatch_cluster(gx, w, bn, out, steps, batch, hidden, rows, layout,
                           static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // out[0..6] as sir_gru_layer_mma_info's, for the fp32 cluster kernel.
 extern "C" int sir_gru_layer_cluster_info(int rows, int* out) {
   return dispatch_cluster(nullptr, nullptr, nullptr, nullptr, 0, 0, kHidden,
-                          rows, nullptr, out);
+                          rows, Strides{}, nullptr, out);
 }

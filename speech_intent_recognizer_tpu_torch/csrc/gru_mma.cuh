@@ -36,6 +36,32 @@ constexpr int kUnits = kHidden / kCluster;    // hidden units per rank
 constexpr int kThreads = 256;                 // 8 warps, 8 units each
 constexpr int kKTiles = kHidden / 16;         // k16 steps of h @ W
 
+// Where the forward kernels (gru_layer.cu, every H) read gx and write ys,
+// in elements: step t of direction d reads gx at d gx_dir + s gx_step +
+// b gx_row + column and writes ys at d out_dir + s out_step + b out_row +
+// unit, where s = time(d, t).  The JAX contract (ops/gru.py::gru_layer):
+// contiguous (2, T, B, 3H) and (2, T, B, H), direction 1 already stored in
+// reversed time, `reverse` 0.  The served layout (gru_layer_btc): the
+// input GEMM's (B, T, 6H) with direction d at column 3H d, ys into
+// (B, T, 2H) at column H d, both in forward time, so direction 1 runs from
+// s = T - 1 down to 0 (`reverse` 1).  ops/gru.py::k2_strides makes them.
+struct Strides {
+  long long gx_dir, gx_step, gx_row;
+  long long out_dir, out_step, out_row;
+  int reverse;
+
+  __device__ __forceinline__ int time(int dir, int t, int steps) const {
+    return reverse && dir ? steps - 1 - t : t;
+  }
+  // where step t of direction `dir` starts in gx and in ys
+  __device__ __forceinline__ long long gx_at(int dir, int t, int steps) const {
+    return dir * gx_dir + time(dir, t, steps) * gx_step;
+  }
+  __device__ __forceinline__ long long ys_at(int dir, int t, int steps) const {
+    return dir * out_dir + time(dir, t, steps) * out_step;
+  }
+};
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -222,16 +248,17 @@ __device__ __forceinline__ void recurrent_product(
 
 // Start the copy of rank `rank`'s gx slice of one step (rows x 3 gates x 64
 // units) into a rows x 384-byte tile; rows past the batch are zero-filled.
-// `g_step` points at gx[dir, t, 0, 0].
+// `g_step` points at gx[dir, t, 0, 0]; batch row b starts `row_stride`
+// elements after row b - 1.
 __device__ __forceinline__ void load_gx_slice(
     uint32_t tile, const __nv_bfloat16* __restrict__ g_step, int rows,
-    int row0, int batch, int rank, int tid) {
+    int row0, int batch, int rank, int tid, long long row_stride = kGates) {
   for (int i = tid; i < rows * 24; i += kThreads) {
     const int row = i / 24, c = i % 24, gate = c >> 3, chunk = c & 7;
     const bool valid = row0 + row < batch;
     const __nv_bfloat16* src =
-        g_step + (valid ? static_cast<size_t>(row0 + row) * kGates +
-                              gate * kHidden + rank * kUnits + chunk * 8
+        g_step + (valid ? (row0 + row) * row_stride + gate * kHidden +
+                              rank * kUnits + chunk * 8
                         : 0);
     cp_async_16(tile + chunk_offset(row, gate * 8 + chunk, 24), src, valid);
   }

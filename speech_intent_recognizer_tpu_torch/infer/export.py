@@ -74,7 +74,7 @@ _AUDIO_KEYS = ("sample_rate", "n_fft", "hop_length", "win_length", "n_mels",
 
 def kernel_ops(program) -> Dict[str, int]:
     """How many nodes of each ``sir`` op (a kernel) a program's graph
-    holds: ``{"sir.gru_layer": 2, ...}``.  ``program``: an
+    holds: ``{"sir.gru_layer_btc": 2, ...}``.  ``program``: an
     ``ExportedProgram`` or a ``torch.fx.GraphModule``."""
     found = Counter(str(node.target).rsplit(".", 1)[0]  # "sir.<op>.default"
                     for node in program.graph.nodes

@@ -120,6 +120,7 @@ class Predictor:
                  audio_cfg: Optional[AudioConfig] = None,
                  device: "str | torch.device" = "cuda", mesh=None):
         self._setup(model, label_map, audio_cfg, device, mesh)
+        self.model.gru.inference_operands()  # kept until a leaf changes
         self.frontend_params = make_frontend_params(self.audio_cfg,
                                                     self.device)
         # the fused front-end + conv1 path (K1 -> the conv1_external
@@ -207,12 +208,15 @@ class Predictor:
                   **form) -> None:
         """Serve K1 -> the bf16 ``conv1_external`` variant loaded from
         ``variant_state``, in ``form``: ``CNNAudioGRU``'s keywords of the
-        variant's conv stage (none: torch's epilogues)."""
+        variant's conv stage (none: torch's epilogues).  The variant's GRU
+        keeps its inference operands (``TorchGRU.inference_operands``), as
+        the ``conv23`` form holds K5's."""
         variant = CNNAudioGRU(compute_dtype=torch.bfloat16, fold_bn=True,
                               conv1_external=True, **form, **self._widths())
         variant.load_state_dict(variant_state)
+        variant.to(self.device).eval().gru.inference_operands()
         self._conv1 = ServingBody(
-            self.frontend_params, variant.to(self.device).eval(),
+            self.frontend_params, variant,
             conv1=(conv1_weight.to(self.device, torch.bfloat16).contiguous(),
                    conv1_bias.to(self.device, torch.bfloat16).contiguous()))
 

@@ -42,7 +42,8 @@ from torch import nn
 
 from speech_intent_recognizer_tpu_torch.ops import bn_pool
 from speech_intent_recognizer_tpu_torch.ops import conv23 as k5
-from speech_intent_recognizer_tpu_torch.ops.gru import gru_bidirectional
+from speech_intent_recognizer_tpu_torch.ops.gru import (
+    btc_operands, gru_bidirectional, gru_layer_btc)
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     bias_relu_pool2)
 from speech_intent_recognizer_tpu_torch.ops.global_batch import rand_rows
@@ -210,8 +211,15 @@ class TorchGRU(nn.Module):
 
     Parameters are named and laid out like ``torch.nn.GRU``
     (``weight_ih_l{k}[_reverse]`` etc., rows in [r; z; n] order).  The
-    recurrence runs in :func:`..ops.gru.gru_bidirectional` (the K2 kernel
-    on CUDA); the input projections are one GEMM per direction and layer.
+    recurrence is the K2 kernel on CUDA, by one rule: where autograd
+    records nothing (grad mode off, or no leaf and no input requiring
+    grad) a layer is one input GEMM over both directions with b_hh[r, z]
+    in its bias, then :func:`..ops.gru.gru_layer_btc` on its (B, T, 6H)
+    output, which writes the (B, T, 2H) the next layer reads; elsewhere
+    (training) one GEMM per direction and
+    :func:`..ops.gru.gru_bidirectional`, which has the backward.  The
+    first path's operands are built once and kept until a leaf changes
+    (:meth:`inference_operands`).
 
     With a model group (``model_group``, ``CNNAudioGRU.set_model_group``)
     a leaf that holds this process's rows of the gate-stacked 3H (one that
@@ -240,6 +248,9 @@ class TorchGRU(nn.Module):
                                     ("bias_ih", (h3,)), ("bias_hh", (h3,))):
                     self.register_parameter(f"{name}_l{layer}{sfx}",
                                             nn.Parameter(torch.empty(shape)))
+        # (the leaves' storage and versions, the operands built from them):
+        # what inference_operands() keeps
+        self._kept = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """U(-1/sqrt(H), 1/sqrt(H)) — the torch.nn.GRU default."""
@@ -257,27 +268,74 @@ class TorchGRU(nn.Module):
         with span("sir.gru"):
             return self._layers(x, generator)
 
+    def inference_operands(self) -> list:
+        """Each layer's operands of the path autograd does not record:
+        :func:`..ops.gru.btc_operands`' (W_ih (6H, F), its bias with
+        b_hh[r, z], W_hh^T, b_hn).
+
+        Built from the whole leaves on the first call and kept, outside the
+        state dict, until a leaf changes: in place (``load_state_dict``, an
+        optimizer step: its version) or for another tensor (``.to()``,
+        ``.data =``: its storage).  A predictor calls this where it fixes
+        its model.  A traced export (``torch.export``) keeps none: its
+        program builds them from the weights it loads."""
+        if torch.compiler.is_exporting():
+            return [self._operands(k) for k in range(self.num_layers)]
+        try:
+            key = (self.compute_dtype, *[(p.data_ptr(), p._version)
+                                         for p in self._parameters.values()])
+        except RuntimeError:  # an inference tensor keeps no version
+            key = None
+        if key is not None and self._kept is not None and self._kept[0] == key:
+            return self._kept[1]
+        # outside inference mode, so that kept tensors are plain ones
+        with torch.inference_mode(False), torch.no_grad():
+            built = [self._operands(k) for k in range(self.num_layers)]
+        if key is not None:
+            self._kept = (key, built)
+        return built
+
+    def _operands(self, layer: int) -> tuple:
+        """``layer``'s :meth:`inference_operands` built from its whole
+        leaves."""
+        return btc_operands(*(
+            [self._whole(getattr(self, f"{n}_l{layer}{sfx}")) for sfx in _DIRS]
+            for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")),
+            self.compute_dtype)
+
     def _layers(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
         dt = self.compute_dtype
+        recorded = torch.is_grad_enabled() and (
+            x.requires_grad
+            or any(p.requires_grad for p in self._parameters.values()))
+        served = None if recorded else self.inference_operands()
         for layer in range(self.num_layers):
-            xc = x.to(dt)
-            gx, w_hh, b_hh = [], [], []
-            for sfx in _DIRS:
-                p = {n: self._whole(getattr(self, f"{n}_l{layer}{sfx}"))
-                     .to(dt)
-                     for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
-                gx.append(F.linear(xc, p["weight_ih"], p["bias_ih"])
-                          .transpose(0, 1))  # (T, B, 3H)
-                w_hh.append(p["weight_hh"])
-                b_hh.append(p["bias_hh"])
-            ys_f, ys_b = gru_bidirectional(gx[0], gx[1], w_hh[0], w_hh[1],
-                                           b_hh[0], b_hh[1])
-            x = torch.cat([ys_f.transpose(0, 1), ys_b.transpose(0, 1)], dim=-1)
+            if recorded:
+                x = self._recorded_layer(x.to(dt), layer)
+            else:
+                w_ih, bias, w_hh, b_hn = served[layer]
+                x = gru_layer_btc(F.linear(x.to(dt), w_ih, bias), w_hh, b_hn)
             if (self.training and layer < self.num_layers - 1
                     and self.dropout > 0.0):
                 x = _dropout(x, self.dropout, generator)
         return x
+
+    def _recorded_layer(self, xc: torch.Tensor, layer: int) -> torch.Tensor:
+        """One layer under autograd: a GEMM per direction, then
+        :func:`..ops.gru.gru_bidirectional`."""
+        dt = self.compute_dtype
+        gx, w_hh, b_hh = [], [], []
+        for sfx in _DIRS:
+            p = {n: self._whole(getattr(self, f"{n}_l{layer}{sfx}")).to(dt)
+                 for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")}
+            gx.append(F.linear(xc, p["weight_ih"], p["bias_ih"])
+                      .transpose(0, 1))  # (T, B, 3H)
+            w_hh.append(p["weight_hh"])
+            b_hh.append(p["bias_hh"])
+        ys_f, ys_b = gru_bidirectional(gx[0], gx[1], w_hh[0], w_hh[1],
+                                       b_hh[0], b_hh[1])
+        return torch.cat([ys_f.transpose(0, 1), ys_b.transpose(0, 1)], dim=-1)
 
 
 class CNNAudioGRU(nn.Module):

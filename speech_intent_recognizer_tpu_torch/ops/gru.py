@@ -6,6 +6,13 @@ wrappers, plain versions, counters, and the autograd function joining them.
   wrappers ``_gru_layer_call`` and ``gru_bidirectional_pallas``).  CUDA
   source ``csrc/gru_layer.cu``: one launch runs one layer, both directions,
   all T steps; h stays on chip in fp32.
+* K2 on the input GEMM's layout, :func:`gru_layer_btc` (op
+  ``sir::gru_layer_btc``), for calls autograd does not record: the same
+  kernels read the (B, T, 6H) output of one GEMM over both directions and
+  write the (B, T, 2H) the next layer reads, through strides
+  (:func:`k2_strides`); :func:`btc_operands` builds that GEMM's weight and
+  its bias with b_hh[r, z] folded in.  ``models/cnn_gru.TorchGRU`` takes
+  it wherever autograd records nothing; counted on its own.
 * K2 backward, :func:`gru_layer_backward`, replaces the custom-VJP backward
   ``_gru_layer_diff_bwd``: the exact adjoint recurrence in reversed time.
   CUDA source ``csrc/gru_layer_bwd.cu`` produces dgx and the fp32 gate
@@ -216,6 +223,20 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
     (bfloat16 or float32) launch the kernel or raise.  Differentiable:
     under autograd the backward is :func:`gru_layer_backward`.
     """
+    _check_operands(gx, w, bn)
+    if _records_autograd(gx, w, bn):
+        return _GRULayer.apply(gx, w, bn, rows)
+    return _gru_layer_forward(gx, w, bn, rows)
+
+
+gru_layer.launches = 0
+# the same launches by kernel (a Plan's ``kernel``)
+gru_layer.kernel_launches = {"simt": 0, "mma": 0, "cluster": 0}
+
+
+def _check_operands(gx, w, bn) -> None:
+    """K2's operands: gx (2, T, B, 3H) (or such a view), w, bn; their
+    shapes, types and device."""
     two, steps, batch, three_h = gx.shape
     hidden = three_h // 3
     if (two != 2 or three_h != 3 * hidden
@@ -232,15 +253,100 @@ def gru_layer(gx: torch.Tensor, w: torch.Tensor, bn: torch.Tensor,
             raise ValueError("bn must be float32")
     elif gx.device.type != "cpu":
         raise ValueError(f"unsupported device {gx.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (gx, w, bn)):
-        return _GRULayer.apply(gx, w, bn, rows)
-    return _gru_layer_forward(gx, w, bn, rows)
 
 
-gru_layer.launches = 0
+def _records_autograd(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def btc_view(t: torch.Tensor) -> torch.Tensor:
+    """A (B, T, 2C) tensor that holds direction d in columns [C d, C d + C),
+    both directions in forward time, as the (2, T, B, C) view K2
+    addresses (no copy)."""
+    return t.unflatten(-1, (2, -1)).permute(2, 1, 0, 3)
+
+
+def k2_strides(gx: torch.Tensor, ys: torch.Tensor,
+               reverse: bool = False) -> tuple:
+    """K2's addressing (``csrc/gru_mma.cuh`` ``Strides``) of (2, T, B, .)
+    views ``gx`` and ``ys``: the direction, step and row strides of each in
+    elements, then whether direction 1 runs from step T - 1 down to 0."""
+    return (*gx.stride()[:3], *ys.stride()[:3], int(reverse))
+
+
+def gru_layer_btc(gx: torch.Tensor, w: torch.Tensor,
+                  bn: torch.Tensor) -> torch.Tensor:
+    """One bidirectional GRU layer on the input GEMM's own layout, for
+    calls that autograd does not record (serving, evaluation).
+
+    K2 reads gx and writes ys through strides (:func:`k2_strides`), so no
+    flip, stack or concatenation runs around it.
+
+    Args:
+      gx: (B, T, 6H) ``x @ W_ih^T + b_ih + [b_hh[r, z]; 0]`` of direction d
+        in columns [3H d, 3H d + 3H), both directions in forward time: one
+        GEMM over :func:`btc_operands`' stacked W_ih and fused bias.
+      w, bn: as :func:`gru_layer`'s.
+
+    Returns (B, T, 2H) in ``gx.dtype``: h of direction d at time t in
+    columns [H d, H d + H), ``torch.nn.GRU``'s bidirectional output and the
+    next layer's GEMM input.  CPU tensors take the plain version
+    (:func:`gru_layer`'s on the same values); CUDA tensors launch the
+    kernel :func:`gru_plan` picks for B, or raise.  Operands that autograd
+    would record are refused: :func:`gru_layer` has the backward.
+    """
+    if gx.dim() != 3 or gx.shape[-1] % 6:
+        raise ValueError(f"gx must be (B, T, 6H), got {tuple(gx.shape)}")
+    g = btc_view(gx)
+    _check_operands(g, w, bn)
+    if _records_autograd(gx, w, bn):
+        raise ValueError("gru_layer_btc has no backward: under autograd "
+                         "call gru_layer")
+    if gx.device.type == "cpu":
+        return _gru_layer_btc_plain(gx, w, bn)
+    _check_cuda(g, (gx, w, bn), None)
+    return torch.ops.sir.gru_layer_btc(gx, w, bn)
+
+
+gru_layer_btc.launches = 0
 # the same launches by kernel (a Plan's ``kernel``)
-gru_layer.kernel_launches = {"simt": 0, "mma": 0, "cluster": 0}
+gru_layer_btc.kernel_launches = {"simt": 0, "mma": 0, "cluster": 0}
+
+
+def _gru_layer_btc_plain(gx, w, bn):
+    """Plain :func:`gru_layer_btc`: :func:`_gru_layer_plain` on gx laid out
+    as :func:`gru_layer` takes it, its output laid out back; the same
+    bits."""
+    g = btc_view(gx)
+    ys = _gru_layer_plain(torch.stack([g[0], g[1].flip(0)]), w, bn)
+    return torch.cat([ys[0], ys[1].flip(0)], dim=-1).transpose(0, 1) \
+        .contiguous()
+
+
+def btc_operands(w_ih, w_hh, b_ih, b_hh, dtype: torch.dtype) -> tuple:
+    """One layer's operands of :func:`gru_layer_btc` and its GEMM, from the
+    leaves in ``torch.nn.GRU``'s layout; each argument is the pair
+    (forward, reverse).
+
+    Returns W_ih of both directions as one (6H, F) matrix in ``dtype``; its
+    bias (6H,), ``b_ih + [b_hh[r, z]; 0]`` of each direction summed in the
+    leaves' type and rounded to ``dtype`` once, so the GEMM's epilogue adds
+    b_hh[r, z]; W_hh^T (2, H, 3H) in ``dtype``; and b_hn (2, 1, H) float32
+    from b_hh in ``dtype``, as :func:`gru_bidirectional` takes it (it stays
+    inside K2's ``r * (h W_hn + b_hn)``).
+    """
+    hidden = w_hh[0].shape[1]
+    # split, not indexing: a graph traced on fake CUDA tensors in a
+    # CPU-only build cannot index them (tests/test_torch_export.py)
+    rz, n = zip(*(bh.split([2 * hidden, hidden]) for bh in b_hh))
+    bias = [bi + torch.cat([r, m.new_zeros(hidden)])
+            for bi, r, m in zip(b_ih, rz, n)]
+    w = torch.stack([m.to(dtype).t() for m in w_hh]).contiguous()
+    bn = torch.stack([m.to(dtype) for m in n]).unsqueeze(1).float() \
+        .contiguous()
+    return (torch.cat(list(w_ih)).to(dtype).contiguous(),
+            torch.cat(bias).to(dtype), w, bn)
 
 
 def _check_cuda(gx, tensors, rows, backward=False) -> "Plan | None":
@@ -338,6 +444,29 @@ def _gru_layer_forward(gx, w, bn, rows):
     return torch.ops.sir.gru_layer(gx, w, bn, plan.kernel, plan.rows)
 
 
+def _launch(entry, gx, w, bn, ys, plan: Plan, reverse: bool) -> None:
+    """Launch the forward kernel ``plan`` on the (2, T, B, .) views ``gx``
+    and ``ys`` (their strides, :func:`k2_strides`) and count it on
+    ``entry`` (:func:`gru_layer` or :func:`gru_layer_btc`)."""
+    _, steps, batch, three_h = gx.shape
+    lib = _build.load()
+    if plan.kernel == "mma":
+        fn = lib.sir_gru_layer_mma
+    elif plan.kernel == "cluster":
+        fn = lib.sir_gru_layer_cluster
+    else:
+        fn = (lib.sir_gru_layer_bf16 if gx.dtype == torch.bfloat16
+              else lib.sir_gru_layer_f32)
+    with torch.cuda.device(gx.device):
+        rc = fn(gx.data_ptr(), w.data_ptr(), bn.data_ptr(), ys.data_ptr(),
+                steps, batch, three_h // 3, plan.rows,
+                *k2_strides(gx, ys, reverse),
+                torch.cuda.current_stream(gx.device).cuda_stream)
+    _build.check(rc, entry.__name__)
+    entry.launches += 1
+    entry.kernel_launches[plan.kernel] += 1
+
+
 def _gru_layer_cuda(gx, w, bn, kernel, rows):
     two, steps, batch, three_h = gx.shape
     hidden = three_h // 3
@@ -345,22 +474,9 @@ def _gru_layer_cuda(gx, w, bn, kernel, rows):
             else picked_plan(batch, hidden, gx.dtype, gx.device))
     out = torch.empty((2, steps, batch, hidden), dtype=gx.dtype,
                       device=gx.device)
-    lib = _build.load()
     if plan.kernel == "mma":
-        fn = lib.sir_gru_layer_mma
         gx, w = _aligned(gx), _aligned(w)
-    elif plan.kernel == "cluster":
-        fn = lib.sir_gru_layer_cluster
-    else:
-        fn = (lib.sir_gru_layer_bf16 if gx.dtype == torch.bfloat16
-              else lib.sir_gru_layer_f32)
-    with torch.cuda.device(gx.device):
-        rc = fn(gx.data_ptr(), w.data_ptr(), bn.data_ptr(), out.data_ptr(),
-                steps, batch, hidden, plan.rows,
-                torch.cuda.current_stream(gx.device).cuda_stream)
-    _build.check(rc, "gru_layer")
-    gru_layer.launches += 1
-    gru_layer.kernel_launches[plan.kernel] += 1
+    _launch(gru_layer, gx, w, bn, out, plan, reverse=False)
     return out
 
 
@@ -369,6 +485,26 @@ def _gru_layer_cpu(gx, w, bn, kernel, rows):
 
 
 library.implement("gru_layer", _gru_layer_cuda, _gru_layer_cpu)
+
+
+def _gru_layer_btc_cuda(gx, w, bn):
+    batch, steps, six_h = gx.shape
+    hidden = six_h // 6
+    plan = picked_plan(batch, hidden, gx.dtype, gx.device)
+    out = torch.empty((batch, steps, 2 * hidden), dtype=gx.dtype,
+                      device=gx.device)
+    if plan.kernel == "mma":
+        gx, w = _aligned(gx), _aligned(w)
+    _launch(gru_layer_btc, btc_view(gx), w, bn, btc_view(out), plan,
+            reverse=True)
+    return out
+
+
+def _gru_layer_btc_cpu(gx, w, bn):
+    return _gru_layer_btc_plain(gx, w, bn)
+
+
+library.implement("gru_layer_btc", _gru_layer_btc_cuda, _gru_layer_btc_cpu)
 
 
 def _gru_layer_backward_plain(gx: torch.Tensor, w: torch.Tensor,

@@ -13,6 +13,7 @@ op                      kernel  wrapper
 ``sir::frontend``        K3     ``ops/frontend_kernels.frontend``
 ``sir::mel_db``          K4     ``ops/frontend_kernels.mel_db``
 ``sir::gru_layer``       K2     ``ops/gru.gru_layer`` (forward)
+``sir::gru_layer_btc``   K2     ``ops/gru.gru_layer_btc`` (served layout)
 ``sir::conv23``          K5     ``ops/conv23.conv23``
 ``sir::bias_relu_pool2`` K6     ``ops/pool_epilogue.bias_relu_pool2``
 ======================  ======  ==========================================
@@ -23,7 +24,7 @@ card (``torch.export``, ``infer/export.py``) holds each kernel as one node.
 A front-end op takes a :class:`.frontend.FrontendParams` flattened in its
 field order (:data:`PARAMS`).  ``gru_layer``'s ``kernel`` / ``rows`` and
 ``conv23``'s ``rows`` are what a caller forces; ``""`` and ``0`` let the
-plan pick on the card that runs the call.
+plan pick on the card that runs the call, as ``gru_layer_btc`` always does.
 
 The ops are defined with :class:`torch.library.Library` and registered
 with ``Library.impl``: ``torch.library.custom_op`` adds host work to every
@@ -54,6 +55,7 @@ LIB.define("frontend(Tensor waveforms, Tensor lengths, bool normalize, "
 LIB.define(f"mel_db(Tensor frames, {PARAMS}) -> Tensor")
 LIB.define("gru_layer(Tensor gx, Tensor w, Tensor bn, str kernel, int rows) "
            "-> Tensor")
+LIB.define("gru_layer_btc(Tensor gx, Tensor w, Tensor bn) -> Tensor")
 LIB.define("conv23(Tensor x, Tensor w2, Tensor b2, Tensor w3, Tensor b3, "
            "int rows) -> Tensor")
 LIB.define("bias_relu_pool2(Tensor y, Tensor bias) -> Tensor")
@@ -102,6 +104,11 @@ def _mel_db_fake(frames, window, mel_fb, twiddle, fb_packed, fb_off, fb_lo,
 @torch.library.register_fake("sir::gru_layer", lib=LIB)
 def _gru_layer_fake(gx, w, bn, kernel, rows):
     return gx.new_empty(gx.shape[:3] + (gx.shape[3] // 3,))
+
+
+@torch.library.register_fake("sir::gru_layer_btc", lib=LIB)
+def _gru_layer_btc_fake(gx, w, bn):
+    return gx.new_empty(gx.shape[:2] + (gx.shape[2] // 3,))
 
 
 @torch.library.register_fake("sir::conv23", lib=LIB)

@@ -107,22 +107,25 @@ SIZES = {
 
 
 def _counters() -> dict:
+    """Each kernel's wrappers (K2's two entries: the contract's under
+    autograd, the input GEMM's layout elsewhere)."""
     from speech_intent_recognizer_tpu_torch.ops import frontend_kernels as fk
     from speech_intent_recognizer_tpu_torch.ops.conv23 import conv23
     from speech_intent_recognizer_tpu_torch.ops.gru import (
-        gru_layer, gru_layer_backward)
+        gru_layer, gru_layer_backward, gru_layer_btc)
     from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
         bias_relu_pool2)
 
-    return {"K1": fk.frontend_conv1, "K2": gru_layer, "K3": fk.frontend,
-            "K2T": gru_layer_backward, "K4": fk.mel_db, "K5": conv23,
-            "K6": bias_relu_pool2}
+    return {"K1": (fk.frontend_conv1,), "K2": (gru_layer, gru_layer_btc),
+            "K3": (fk.frontend,), "K2T": (gru_layer_backward,),
+            "K4": (fk.mel_db,), "K5": (conv23,), "K6": (bias_relu_pool2,)}
 
 
 def reset_launches() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
-    backward = _counters()["K2T"]
+    for fns in _counters().values():
+        for fn in fns:
+            fn.launches = 0
+    (backward,) = _counters()["K2T"]
     backward.kernel_launches.update(dict.fromkeys(backward.kernel_launches, 0))
 
 
@@ -132,8 +135,9 @@ def launches(device) -> dict:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     counters = _counters()
-    return {**{k: fn.launches for k, fn in counters.items()},
-            "K2T_cluster": counters["K2T"].kernel_launches["cluster"]}
+    return {**{k: sum(fn.launches for fn in fns)
+               for k, fns in counters.items()},
+            "K2T_cluster": counters["K2T"][0].kernel_launches["cluster"]}
 
 
 def _err(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -24,7 +24,7 @@ from speech_intent_recognizer_tpu_torch.ops import gru as gru_ops
 from speech_intent_recognizer_tpu_torch.ops.gru import (
     CLUSTER_ROWS, CLUSTER_SIZE, MMA_ROWS, MMA_ROWS_BACKWARD, TILE_ROWS, Plan,
     _gru_layer_backward_plain, _gru_layer_plain, gru_bidirectional,
-    gru_layer, gru_layer_backward, picked_plan)
+    gru_layer, gru_layer_backward, gru_layer_btc, picked_plan)
 
 from speech_intent_recognizer_tpu_torch.ops.pool_epilogue import (
     _bias_relu_pool2_plain, bias_relu_pool2)
@@ -388,6 +388,86 @@ def test_gru_tensor_core_kernel_takes_an_offset_view(dev):
     assert torch.equal(got, want)
 
 
+def _btc(gx):
+    """The contract's gx (2, T, B, 3H) as the input GEMM lays it out, (B,
+    T, 6H): direction d at columns [3H d, 3H d + 3H), both in forward
+    time."""
+    return torch.cat([gx[0], gx[1].flip(0)], -1).transpose(0, 1).contiguous()
+
+
+@pytest.mark.parametrize("kernel,batch,steps,hidden,dtype", [
+    ("mma", 2048, 25, 256, torch.bfloat16),
+    ("mma", 257, 40, 256, torch.bfloat16),
+    ("mma", 3, 1, 256, torch.bfloat16),
+    ("cluster", 1, 25, 256, torch.float32),
+    ("cluster", 16, 25, 256, torch.float32),
+    ("cluster", 17, 40, 256, torch.float32),
+    ("simt", 5, 25, 128, torch.bfloat16),
+    ("simt", 33, 7, 128, torch.float32)])
+def test_gru_layer_btc_is_the_contract_entry_bit_for_bit(dev, kernel, batch,
+                                                          steps, hidden,
+                                                          dtype):
+    """Given the same gx, the entry on the GEMM's layout (the strides of
+    (B, T, 6H) -> (B, T, 2H), direction 1 stepping from T - 1 down) gives
+    the contract entry's bits, laid out as ``torch.nn.GRU``'s output, in
+    each forward kernel the card picks for the shape (the tensor-core
+    kernel at the b2048 cell's B = 2048, T = 25; the fp32 cluster kernel at
+    the streaming finalize's B = 1 and 16; the CUDA-core kernel at H =
+    128), on full and ragged tiles; counted under its own entry."""
+    gx, w, bn, _ = _gru_operands(dev, batch, steps, hidden=hidden,
+                                 dtype=dtype)
+    gru_layer.launches = gru_layer_btc.launches = 0
+    gru_layer_btc.kernel_launches.update(simt=0, mma=0, cluster=0)
+    want = gru_layer(gx, w, bn)
+    got = gru_layer_btc(_btc(gx), w, bn)
+    torch.cuda.synchronize()
+    assert (gru_layer.launches, gru_layer_btc.launches) == (1, 1)
+    assert gru_layer_btc.kernel_launches[kernel] == 1
+    assert got.shape == (batch, steps, 2 * hidden) and got.is_contiguous()
+    assert torch.equal(got, torch.cat([want[0], want[1].flip(0)], -1)
+                       .transpose(0, 1))
+
+
+def test_served_b2048_call_runs_the_gru_without_glue(dev, tmp_path):
+    """The default predictor at the b2048 cell's batch: K2 twice through
+    the entry on the GEMM's layout (the tensor-core kernel) and never
+    through the contract entry; inside the ``sir.gru`` span two input
+    GEMMs and the two K2 launches, and no flip, stack, concatenation, add
+    or cast of the GRU's operands (kept since the predictor was built, and
+    read in place on every call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pred, _ = _predictors(dev, tmp_path)
+    gru = pred._fused_body().model.gru
+    kept = [t.data_ptr() for layer in gru.inference_operands() for t in layer]
+    lengths = np.random.default_rng(2048).integers(1, 80001, 2048)
+    wf, ln = _waves(lengths.tolist(), seed=2048)
+    wf = wf.to(dev)
+    pred.predict_waveform_batch(wf, ln)
+    _reset()
+    gru_layer_btc.kernel_launches.update(simt=0, mma=0, cluster=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pred.predict_waveform_batch(wf, ln)
+        torch.cuda.synchronize()
+    assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 1, "K6": 0}
+    assert gru_layer.launches == 0
+    assert gru_layer_btc.kernel_launches == {"simt": 0, "mma": 2,
+                                             "cluster": 0}
+    assert kept == [t.data_ptr() for layer in gru.inference_operands()
+                    for t in layer]
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    (gru,) = [e for e in cpu if e.name == "sir.gru"]
+    inside = {e.name for e in cpu if e.name.startswith("aten::")
+              and gru.time_range.start <= e.time_range.start
+              and e.time_range.end <= gru.time_range.end}
+    assert inside & {"aten::linear", "aten::addmm"}, inside
+    glue = {"aten::flip", "aten::stack", "aten::cat", "aten::add",
+            "aten::copy_", "aten::_to_copy", "aten::contiguous"}
+    assert not inside & glue, inside & glue
+
+
 def test_gru_kernel_resources(dev):
     """The cluster kernels as built: every tile height fits an SM (one
     block of 256 threads), spills nothing, stays inside 227 KB of shared
@@ -577,9 +657,11 @@ def test_predictor_launches_k1_once_k2_twice(dev, tmp_path):
                                     str(tmp_path / "lm.json"), device="cpu")
     wf, ln = _waves([24000, 80000, 3000], seed=3)
     fk.frontend_conv1.launches = 0
-    gru_layer.launches = 0
+    gru_layer.launches = gru_layer_btc.launches = 0
     probs = pred.predict_waveform_batch(wf, ln)
-    assert (fk.frontend_conv1.launches, gru_layer.launches) == (1, 2)
+    # K2 twice, through the entry on the GEMM's layout (no grad)
+    assert (fk.frontend_conv1.launches, gru_layer_btc.launches,
+            gru_layer.launches) == (1, 2, 0)
     want = cpu.predict_waveform_batch(wf, ln)
     assert (probs.argmax(-1) == want.argmax(-1)).all()
     np.testing.assert_allclose(probs, want, atol=2e-2)
@@ -611,14 +693,16 @@ def _predictors(dev, tmp_path, **form):
 
 
 def _counts():
-    return {"K1": fk.frontend_conv1.launches, "K2": gru_layer.launches,
+    """Each kernel's launches; K2's through either entry."""
+    return {"K1": fk.frontend_conv1.launches,
+            "K2": gru_layer.launches + gru_layer_btc.launches,
             "K3": fk.frontend.launches, "K4": fk.mel_db.launches,
             "K5": conv23.launches, "K6": bias_relu_pool2.launches}
 
 
 def _reset():
-    for fn in (fk.frontend_conv1, gru_layer, fk.frontend, fk.mel_db, conv23,
-               bias_relu_pool2):
+    for fn in (fk.frontend_conv1, gru_layer, gru_layer_btc, fk.frontend,
+               fk.mel_db, conv23, bias_relu_pool2):
         fn.launches = 0
 
 
@@ -888,12 +972,17 @@ def test_bf16_train_step_launches_k7(dev, monkeypatch):
         device=dev).manual_seed(3), device=dev)
     bn_pool.bn_relu_pool2_train.launches = 0
     bn_pool.bn_relu_pool2_train.backward_launches = 0
+    gru_layer.launches = gru_layer_btc.launches = 0
+    gru_layer_backward.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         logits = model(x)
         logits.float().logsumexp(-1).sum().backward()
         torch.cuda.synchronize()
     assert (bn_pool.bn_relu_pool2_train.launches,
             bn_pool.bn_relu_pool2_train.backward_launches) == (3, 3)
+    # the GRU under autograd: the contract entry and K2T, as before
+    assert (gru_layer.launches, gru_layer_btc.launches,
+            gru_layer_backward.launches) == (2, 0, 2)
     names = [e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert not [n for n in names if "batch_norm" in n or "max_pool" in n]
@@ -1206,9 +1295,11 @@ def test_fused_finalize_card_matches_cpu(dev, count, n_tail):
     tail[0, :n_tail] = _tone(count, n_tail * 1024).reshape(n_tail, 1024)
     args = (mel, np.asarray([count]), tail, np.asarray([n_tail]))
     card, cpu = _stream_predictor(dev), _stream_predictor("cpu")
-    gru_layer.launches = fk.mel_db.launches = 0
+    _reset()
     got = fused_finalize(card.model, card.frontend_params, *args).cpu()
-    assert (fk.mel_db.launches, gru_layer.launches) == (1, 2)
+    # K2 twice, through the entry on the GEMM's layout (inference mode)
+    assert (fk.mel_db.launches, gru_layer_btc.launches,
+            gru_layer.launches) == (1, 2, 0)
     want = fused_finalize(cpu.model, cpu.frontend_params, *args)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
 
@@ -1230,9 +1321,10 @@ def test_batched_finalize_rows_match_single_on_card(dev):
                 rec.feed(x[j : j + 1024])
         singles.append(recs[0].flush())
         deferred.append(recs[1].flush())
-    gru_layer.launches = fk.mel_db.launches = 0
+    _reset()
     assert batcher.flush() == 5
-    assert (fk.mel_db.launches, gru_layer.launches) == (1, 2)
+    assert (fk.mel_db.launches, gru_layer_btc.launches,
+            gru_layer.launches) == (1, 2, 0)
     for want, have in zip(singles, PendingResult.get_all(deferred)):
         assert have["predicted_label"] == want["predicted_label"]
         for a, b in zip(want["top_predictions"], have["top_predictions"]):
@@ -1414,6 +1506,7 @@ def _op_calls(dev):
     frames = t(37, 1024)
     gx, w, bn = t(2, 25, 40, 768, dtype=torch.bfloat16), \
         t(2, 256, 768, dtype=torch.bfloat16) * 0.05, t(2, 1, 256)
+    gx6 = t(40, 25, 1536, dtype=torch.bfloat16)
     x = t(5, 100, 1024, dtype=torch.bfloat16)
     ops = conv23_operands(t(64, 32, 3, 3) * 0.1, t(64), t(128, 64, 3, 3) * 0.1,
                           t(128))
@@ -1429,6 +1522,8 @@ def _op_calls(dev):
                    lambda: sir.mel_db(frames, *fe)),
         "gru_layer": (lambda: gru_layer(gx, w, bn),
                       lambda: sir.gru_layer(gx, w, bn, "", 0)),
+        "gru_layer_btc": (lambda: gru_layer_btc(gx6, w, bn),
+                          lambda: sir.gru_layer_btc(gx6, w, bn)),
         "conv23": (lambda: conv23(x, *ops), lambda: sir.conv23(x, *ops, 0)),
         "bias_relu_pool2": (lambda: bias_relu_pool2(y, bias),
                             lambda: sir.bias_relu_pool2(y, bias)),
@@ -1436,7 +1531,8 @@ def _op_calls(dev):
 
 
 @pytest.mark.parametrize("name", ["frontend_conv1", "frontend", "mel_db",
-                                  "gru_layer", "conv23", "bias_relu_pool2"])
+                                  "gru_layer", "gru_layer_btc", "conv23",
+                                  "bias_relu_pool2"])
 def test_op_equals_its_wrapper_on_card(dev, name):
     """Each ``sir`` op called directly on CUDA tensors launches its kernel
     once and gives its wrapper's bits."""
@@ -1467,6 +1563,7 @@ def test_production_artifact_equals_live_predictor(dev, tmp_path):
     got = srv.predict_waveform_batch(wf, ln)
     assert _counts() == {"K1": 1, "K2": 2, "K3": 0, "K4": 0, "K5": 1,
                          "K6": 0}
+    assert (gru_layer_btc.launches, gru_layer.launches) == (2, 0)
     assert np.array_equal(got, pred.predict_waveform_batch(wf, ln))
     short_wf = torch.cat([wf[:3], torch.zeros((5, wf.shape[1]))])
     short_ln = torch.cat([ln[:3], torch.ones(5, dtype=torch.int32)])

@@ -147,6 +147,7 @@ def _op_cases():
         "frontend": (wf, ln, True, True, *fe),
         "mel_db": (t(3, 1024), *fe),
         "gru_layer": (t(2, 3, 4, 96), t(2, 32, 96), t(2, 1, 32), "", 0),
+        "gru_layer_btc": (t(4, 3, 192), t(2, 32, 96), t(2, 1, 32)),
         "conv23": (t(2, 8, 1024).to(torch.bfloat16), *conv23_operands(
             t(64, 32, 3, 3), t(64), t(128, 64, 3, 3), t(128)), 0),
         "bias_relu_pool2": (t(2, 32, 4, 4).contiguous(
@@ -408,13 +409,13 @@ def kernel_checkpoint(tmp_path_factory):
 
 @pytest.mark.parametrize("config,want", [
     ("default", {"sir.conv23": 1, "sir.frontend_conv1": 1,
-                 "sir.gru_layer": 2}),
-    ("pool_torch", {"sir.frontend_conv1": 1, "sir.gru_layer": 2}),
+                 "sir.gru_layer_btc": 2}),
+    ("pool_torch", {"sir.frontend_conv1": 1, "sir.gru_layer_btc": 2}),
     ("conv23", {"sir.conv23": 1, "sir.frontend_conv1": 1,
-                "sir.gru_layer": 2}),
+                "sir.gru_layer_btc": 2}),
     ("pool_kernel", {"sir.bias_relu_pool2": 2, "sir.frontend_conv1": 1,
-                     "sir.gru_layer": 2}),
-    ("unfused", {"sir.frontend": 1, "sir.gru_layer": 2}),
+                     "sir.gru_layer_btc": 2}),
+    ("unfused", {"sir.frontend": 1, "sir.gru_layer_btc": 2}),
 ])
 def test_production_graph_census(kernel_checkpoint, config, want):
     """Each configuration's batch path traced on fake CUDA tensors (what
@@ -422,7 +423,12 @@ def test_production_graph_census(kernel_checkpoint, config, want):
     node per kernel launch of the live path, and no convolution where a
     kernel took it (conv1 inside K1; conv2 and conv3 inside K5, by default
     at this geometry and after ``enable_conv23_kernel()``).  The epilogue
-    forms go through the predictor's K1 seam (``_serve_k1``)."""
+    forms go through the predictor's K1 seam (``_serve_k1``).  The GRU
+    takes K2 on the GEMM's layout (``sir.gru_layer_btc``, no grad in a
+    trace), with no flip, stack or concatenation on what the waveforms
+    feed: the program builds the GRU's operands from the weights it loads
+    (``TorchGRU.inference_operands`` keeps none in a trace), so a swapped
+    ``variables.pt`` takes effect."""
     from speech_intent_recognizer_tpu_torch.models.cnn_gru import (
         conv1_external_params)
 
@@ -440,6 +446,15 @@ def test_production_graph_census(kernel_checkpoint, config, want):
             t.shape, t.stride(), dtype=t.dtype, device="cuda"))
         ep = trace_production(body, 8, (width // 512, 512), "cuda")
     assert kernel_ops(ep) == want
+    fed = set(ep.graph_signature.user_inputs)
+    for n in ep.graph.nodes:
+        if any(a.name in fed for a in n.all_input_nodes):
+            fed.add(n.name)
+    glue = [str(n.target) for n in ep.graph.nodes
+            if n.name in fed and n.op == "call_function" and any(
+                op in str(n.target) for op in ("flip", "stack", "cat."))]
+    assert glue == []
+    assert not any(".gru." in name for name in ep.constants)
     convs = sum(1 for n in ep.graph.nodes if n.op == "call_function"
                 and "conv2d" in str(n.target))
     assert convs == {"default": 0, "conv23": 0, "unfused": 3}.get(config, 2)

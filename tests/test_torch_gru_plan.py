@@ -37,8 +37,9 @@ from speech_intent_recognizer_tpu_torch.ops.gru import (
     CLUSTER_BWD_STEP_US, CLUSTER_ROWS, CLUSTER_ROWS_BACKWARD, CLUSTER_SIZE,
     CLUSTER_SLICES, CLUSTER_STEP_US, CLUSTER_WT_STRIDE, MMA_CLUSTER,
     MMA_HIDDEN, MMA_ROWS, MMA_ROWS_BACKWARD, SMEM_LIMIT,
-    TILE_ROWS, Plan, _gru_layer_backward_plain, _gru_layer_plain,
-    cluster_smem_bytes, gru_plan, mma_smem_bytes, tile_rows)
+    TILE_ROWS, Plan, _gru_layer_backward_plain, _gru_layer_btc_plain,
+    _gru_layer_plain, btc_view, cluster_smem_bytes, gru_plan, k2_strides,
+    mma_smem_bytes, tile_rows)
 
 H, H3 = 256, 768
 K_TILES = H // 16
@@ -107,6 +108,64 @@ class Tile:
         return self.v[idx]
 
 
+# ---- gru_mma.cuh: Strides, K2's addressing of gx and ys ----
+
+class Layout:
+    """Where the forward kernels read gx and write ys (``gru_mma::Strides``,
+    as ``ops/gru.k2_strides`` makes them), over flat buffers that count
+    every read and write.  ``"contract"``: the JAX contract's contiguous
+    (2, T, B, 3H) -> (2, T, B, H), direction 1 stored in reversed time;
+    ``"btc"``: the input GEMM's (B, T, 6H) -> (B, T, 2H), direction d at
+    column 3H d / H d, both in forward time, direction 1 stepping from
+    T - 1 down.  ``gx`` (2, T, B, 3H) holds the contract's values; the btc
+    buffer holds the same values at their forward times."""
+
+    def __init__(self, name, gx):
+        _, steps, batch, three_h = gx.shape
+        self.name, self.steps, self.batch, self.h3 = name, steps, batch, three_h
+        if name == "contract":
+            g, y = torch.empty(gx.shape), torch.empty((2, steps, batch, H))
+            self.strides = k2_strides(g, y)
+            self.gx = gx.ravel().copy()
+        else:
+            g = torch.empty((batch, steps, 2 * three_h))
+            y = torch.empty((batch, steps, 2 * H))
+            self.strides = k2_strides(btc_view(g), btc_view(y), True)
+            buf = np.empty((batch, steps, 2 * three_h), np.float32)
+            buf[:, :, :three_h] = gx[0].transpose(1, 0, 2)
+            buf[:, ::-1, three_h:] = gx[1].transpose(1, 0, 2)
+            self.gx = buf.ravel()
+        self.ys = np.full(2 * steps * batch * H, np.nan, np.float32)
+        self.reads = np.zeros(self.gx.size, np.int64)
+        self.writes = np.zeros(self.ys.size, np.int64)
+
+    def time(self, d, t):
+        """``Strides::time``: the step's place in time."""
+        return self.steps - 1 - t if self.strides[6] and d else t
+
+    def read(self, d, t, row, col):
+        """gx of direction d, step t, batch rows ``row``, columns ``col``
+        (broadcast); counted."""
+        gd, gs, gr = self.strides[:3]
+        idx = d * gd + self.time(d, t) * gs + np.asarray(row) * gr + col
+        np.add.at(self.reads, idx, 1)
+        return self.gx[idx]
+
+    def write(self, d, t, row, col, values):
+        od, os_, orow = self.strides[3:6]
+        idx = d * od + self.time(d, t) * os_ + np.asarray(row) * orow + col
+        np.add.at(self.writes, idx, 1)
+        self.ys[idx] = values
+
+    def ys_contract(self):
+        """ys as the contract lays it out, (2, T, B, H)."""
+        if self.name == "contract":
+            return self.ys.reshape(2, self.steps, self.batch, H)
+        out = self.ys.reshape(self.batch, self.steps, 2 * H)
+        return np.stack([out[:, :, :H], out[:, ::-1, H:]]).transpose(0, 2, 1,
+                                                                     3)
+
+
 # ---- gru_mma.cuh: tensor cores ----
 
 def ldmatrix_x4(tile, addr):
@@ -166,8 +225,9 @@ def recurrent_product(acc, wf, tile, rows, mt0, cluster):
                 mma_bf16(acc[i][gate], a, *wf[kt][gate])
 
 
-def load_gx_slice(tile, g_step, rows, row0, rank, cluster):
-    """``gru_mma::load_gx_slice``: rank's r, z, n columns of one step's gx
+def load_gx_slice(tile, layout, d, t, rows, row0, rank, cluster):
+    """``gru_mma::load_gx_slice`` at the step base and row stride the
+    kernel passes (``layout``): rank's r, z, n columns of one step's gx
     rows into a rows x 3 x (H / C) tile; rows past the batch are zeros."""
     units = H // cluster
     sc = units // 8
@@ -175,8 +235,8 @@ def load_gx_slice(tile, g_step, rows, row0, rank, cluster):
         row, c = divmod(i, 3 * sc)
         gate, chunk = divmod(c, sc)
         col = gate * H + rank * units + chunk * 8
-        values = (g_step[row0 + row, col:col + 8]
-                  if row0 + row < len(g_step) else np.zeros(8))
+        values = (layout.read(d, t, row0 + row, col + np.arange(8))
+                  if row0 + row < layout.batch else np.zeros(8))
         tile.put(chunk_offset(row, gate * sc + chunk, 3 * sc), values)
 
 
@@ -186,15 +246,17 @@ def sigmoid(v):
 
 # ---- gru_layer.cu: the tensor-core kernel ----
 
-def forward_model(gx, w, bn, rows, cluster=MMA_CLUSTER):
-    """``gru_layer_mma_kernel<rows / 16>`` for every cluster of the launch.
-    gx (2, T, B, 3H), w (2, H, 3H) hold bf16 values; -> ys (2, T, B, H)."""
+def forward_model(gx, w, bn, rows, cluster=MMA_CLUSTER, layout="contract"):
+    """``gru_layer_mma_kernel<rows / 16>`` for every cluster of the launch,
+    reading gx and writing ys in ``layout`` (:class:`Layout`).  gx (2, T,
+    B, 3H), w (2, H, 3H) hold bf16 values; -> the :class:`Layout`, whose
+    ``ys_contract()`` is ys (2, T, B, H)."""
     steps, batch = gx.shape[1:3]
+    mem = Layout(layout, gx)
     units = H // cluster
     warps = units // 8
     tiles16 = rows // 16
     group = min(tiles16, 2)
-    ys = np.full((2, steps, batch, H), np.nan, np.float32)
     for d in range(2):
         for row0 in range(0, batch, rows):
             h_tiles = [[Tile(rows * 2 * H, 2) for _ in range(2)]
@@ -208,7 +270,8 @@ def forward_model(gx, w, bn, rows, cluster=MMA_CLUSTER):
                 cur, nxt = t & 1, (t & 1) ^ 1
                 for rank in range(cluster):
                     gx_tile = Tile(rows * 3 * units * 2, 2)
-                    load_gx_slice(gx_tile, gx[d, t], rows, row0, rank, cluster)
+                    load_gx_slice(gx_tile, mem, d, t, rows, row0, rank,
+                                  cluster)
                     for warp in range(warps):
                         unit0 = rank * units + 8 * warp
                         b_n = bn[d, 0, unit0 + 2 * LQ[:, None] + np.arange(2)]
@@ -253,9 +316,10 @@ def forward_model(gx, w, bn, rows, cluster=MMA_CLUSTER):
                         for other in range(1, cluster):
                             h_tiles[(rank + other) % cluster][nxt].put(off, v)
                         if row0 + row < batch:
-                            ys[d, t, row0 + row,
-                               rank * units + chunk * 8:][:8] = v
-    return ys
+                            mem.write(d, t, row0 + row,
+                                      rank * units + chunk * 8
+                                      + np.arange(8), v)
+    return mem
 
 
 # ---- gru_layer_bwd.cu: the tensor-core kernel (C = 4) ----
@@ -269,6 +333,7 @@ def backward_model(gx, w, bn, ys, dys, rows, lo_half=True):
     cluster, units, warps = MMA_CLUSTER, H // MMA_CLUSTER, 8
     steps, batch = gx.shape[1:3]
     tiles16 = rows // 16
+    mem = Layout("contract", gx)      # the backward's gx is contiguous
     dgx = np.full(gx.shape, np.nan, np.float32)
     dgh = np.full(gx.shape, np.nan, np.float32)
     for d in range(2):
@@ -300,7 +365,7 @@ def backward_model(gx, w, bn, ys, dys, rows, lo_half=True):
                                ys[d, t - 1, row0 + row, c * 8:c * 8 + 8]
                                if valid else np.zeros(8))
                     gxs = Tile(rows * 384, 2)
-                    load_gx_slice(gxs, gx[d, t], rows, row0, rank, cluster)
+                    load_gx_slice(gxs, mem, d, t, rows, row0, rank, cluster)
                     dyt = Tile(rows * 128, 2)
                     for i in range(rows * 8):
                         row, c = divmod(i, 8)
@@ -556,12 +621,74 @@ def test_forward_model_matches_plain(cluster, rows, batch, steps):
     Every output element is written (none is left NaN), and no lane reads a
     shared-memory address that was not written for that step."""
     gx, w, bn, _ = operands(batch, steps, seed=rows + batch)
-    got = forward_model(gx, w, bn, rows, cluster)
+    mem = forward_model(gx, w, bn, rows, cluster)
+    got = mem.ys_contract()
     want = _gru_layer_plain(*as_bf16(gx, w), torch.from_numpy(bn))
+    assert (mem.reads == 1).all() and (mem.writes == 1).all()
     assert np.isfinite(got).all()
     np.testing.assert_array_equal(got, bf16(got))
     np.testing.assert_allclose(got, want.float().numpy(), rtol=0,
                                atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("layout", ["contract", "btc"])
+def test_k2_strides_read_gx_and_write_ys_once(layout):
+    """``Strides`` as the wrappers pass them: over every (direction, step,
+    row, column) a launch visits, each element of gx is read once and each
+    element of ys written once; step t of direction d reads the contract's
+    gx[d, t] (in the GEMM's layout direction 1 runs from time T - 1 down),
+    and the (B, T, 2H) output holds direction d at columns [H d, H d + H)
+    and at its forward time."""
+    steps, batch = 3, 5
+    gx = np.arange(2 * steps * batch * H3, dtype=np.float32).reshape(
+        2, steps, batch, H3)
+    mem = Layout(layout, gx)
+    rows, cols = np.arange(batch)[:, None], np.arange(H3)[None, :]
+    for d in range(2):
+        for t in range(steps):
+            np.testing.assert_array_equal(mem.read(d, t, rows, cols),
+                                          gx[d, t])
+            mem.write(d, t, rows, np.arange(H)[None, :],
+                      gx[d, t, :, :H] + 0.5)
+    assert (mem.reads == 1).all() and (mem.writes == 1).all()
+    np.testing.assert_array_equal(mem.ys_contract(), gx[..., :H] + 0.5)
+    if layout == "btc":
+        assert mem.strides == (3 * H, 6 * H, steps * 6 * H, H, 2 * H,
+                               steps * 2 * H, 1)
+        out = mem.ys.reshape(batch, steps, 2 * H)
+        for t in range(steps):   # direction 1's step t is time T - 1 - t
+            np.testing.assert_array_equal(out[:, t, :H], gx[0, t, :, :H] + .5)
+            np.testing.assert_array_equal(out[:, steps - 1 - t, H:],
+                                          gx[1, t, :, :H] + 0.5)
+    else:
+        assert mem.strides == (steps * batch * H3, batch * H3, H3,
+                               steps * batch * H, batch * H, H, 0)
+
+
+def _btc(gx):
+    """The contract's gx (2, T, B, 3H) as the GEMM lays it out, (B, T,
+    6H), both directions in forward time."""
+    return torch.cat([gx[0], gx[1].flip(0)], -1).transpose(0, 1) \
+        .contiguous()
+
+
+@pytest.mark.parametrize("rows,batch,steps", [(32, 37, 2)])
+def test_forward_model_in_the_served_layout(rows, batch, steps):
+    """The tensor-core kernel reading the GEMM's (B, T, 6H) and writing
+    (B, T, 2H) (``gru_layer_btc``): every gx element read once, every
+    output element written once, within one bf16 step of the plain
+    version, whose (B, T, 2H) output is the contract's laid out as
+    ``torch.nn.GRU`` gives it."""
+    gx, w, bn, _ = operands(batch, steps, seed=rows + batch + 1)
+    mem = forward_model(gx, w, bn, rows, layout="btc")
+    assert (mem.reads == 1).all() and (mem.writes == 1).all()
+    g, wt = as_bf16(gx, w)
+    want = _gru_layer_btc_plain(_btc(g), wt, torch.from_numpy(bn))
+    plain = _gru_layer_plain(g, wt, torch.from_numpy(bn))
+    assert torch.equal(want, torch.cat([plain[0], plain[1].flip(0)], -1)
+                       .transpose(0, 1))
+    np.testing.assert_allclose(mem.ys.reshape(batch, steps, 2 * H),
+                               want.float().numpy(), rtol=0, atol=2.0 ** -8)
 
 
 @pytest.mark.parametrize("rows,batch,steps", [(16, 21, 3), (32, 30, 3),
@@ -673,10 +800,12 @@ def thread_w(wt, rank, warp, lane):
     return wt[k, col]
 
 
-def cluster_forward_model(gx, w, bn, rows):
+def cluster_forward_model(gx, w, bn, rows, layout="contract"):
     """``gru_layer_cluster_kernel<rows>`` for every cluster of the
-    launch: fp32 gx (2, T, B, 3H), w (2, H, 3H), bn (2, 1, H) -> ys
-    (2, T, B, H).  Each rank's two h tiles start NaN (tile 0 zeroed);
+    launch, reading gx and writing ys in ``layout`` (:class:`Layout`):
+    fp32 gx (2, T, B, 3H), w (2, H, 3H), bn (2, 1, H) -> the
+    :class:`Layout`, whose ``ys_contract()`` is ys (2, T, B, H).  Each
+    rank's two h tiles start NaN (tile 0 zeroed);
     after a step's products every rank's tile ``cur`` is set to NaN again;
     the exchange is the gating lanes' own: a quad of lanes (four units of
     one row) gathers its float4 of h_t and lane 4 q + e stores it into
@@ -689,7 +818,7 @@ def cluster_forward_model(gx, w, bn, rows):
     prow, punit = p // units, p % units          # the pairs thread p gates
     assert (punit == np.arange(THREADS) % units).all()
     live = prow < rows
-    ys = np.full((2, steps, batch, H), np.nan, np.float32)
+    mem = Layout(layout, gx)
     for d in range(2):
         held = [[[thread_w(w[d], rank, warp, lane)
                   for lane in range(32)] for warp in range(CLUSTER_SLICES)]
@@ -731,15 +860,17 @@ def cluster_forward_model(gx, w, bn, rows):
                     valid = row0 + r_ < batch
                     gxr = np.zeros((3, len(r_)), np.float32)
                     for gate in range(3):
-                        gxr[gate, valid] = gx[d, t, row0 + r_[valid],
-                                              gate * H + unit0 + u_[valid]]
+                        gxr[gate, valid] = mem.read(
+                            d, t, row0 + r_[valid],
+                            gate * H + unit0 + u_[valid])
                     r = sigmoid(gxr[0] + s[0])
                     z = sigmoid(gxr[1] + s[1])
                     n = np.tanh(gxr[2] + r * (s[2] + bn[d, 0, unit0 + u_]))
                     new = ((1.0 - z) * n + z * h[rank][live]).astype(
                         np.float32)
                     h[rank][live] = new
-                    ys[d, t, row0 + r_[valid], unit0 + u_[valid]] = new[valid]
+                    mem.write(d, t, row0 + r_[valid], unit0 + u_[valid],
+                              new[valid])
                     if t + 1 < steps:
                         hnew = np.full((rows, units), np.nan, np.float32)
                         hnew[r_, u_] = new
@@ -756,7 +887,7 @@ def cluster_forward_model(gx, w, bn, rows):
                 tiles[:, cur] = np.nan
                 if t + 1 < steps:
                     assert (writes == 1).all(), "each unit once into each rank"
-    return ys
+    return mem
 
 
 def test_cluster_kernel_holds_each_w_element_once():
@@ -818,10 +949,30 @@ def test_cluster_forward_model_matches_plain(rows, batch, steps):
     gx = r.standard_normal((2, steps, batch, H3)).astype(np.float32)
     w = (0.05 * r.standard_normal((2, H, H3))).astype(np.float32)
     bn = (0.1 * r.standard_normal((2, 1, H))).astype(np.float32)
-    got = cluster_forward_model(gx, w, bn, rows)
+    mem = cluster_forward_model(gx, w, bn, rows)
+    assert (mem.reads == 1).all() and (mem.writes == 1).all()
+    got = mem.ys_contract()
     want = _gru_layer_plain(*(torch.from_numpy(a) for a in (gx, w, bn)))
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,batch,steps", [(2, 3, 2), (4, 5, 3)])
+def test_cluster_forward_model_in_the_served_layout(rows, batch, steps):
+    """The fp32 cluster kernel (the streaming finalize's) reading the
+    GEMM's (B, T, 6H) and writing (B, T, 2H): every gx element read once,
+    every output element written once, within 1e-5 of the plain
+    ``gru_layer_btc``."""
+    r = np.random.default_rng(rows + batch + 1)
+    gx = r.standard_normal((2, steps, batch, H3)).astype(np.float32)
+    w = (0.05 * r.standard_normal((2, H, H3))).astype(np.float32)
+    bn = (0.1 * r.standard_normal((2, 1, H))).astype(np.float32)
+    mem = cluster_forward_model(gx, w, bn, rows, layout="btc")
+    assert (mem.reads == 1).all() and (mem.writes == 1).all()
+    want = _gru_layer_btc_plain(_btc(torch.from_numpy(gx)),
+                                torch.from_numpy(w), torch.from_numpy(bn))
+    np.testing.assert_allclose(mem.ys.reshape(batch, steps, 2 * H),
+                               want.numpy(), rtol=0, atol=1e-5)
 
 
 # ---- gru_layer_bwd.cu: the fp32 cluster backward (gru_mma.cuh's maps) ----
@@ -1345,7 +1496,8 @@ def test_gru_entry_points_match_their_ctypes_signatures():
     """The GRU sources' ``extern "C"`` entry points are in
     ``_build._SIGNATURES`` with a pointer type exactly where the C parameter
     is a pointer; the tensor-core backward takes no transposed W (one
-    pointer fewer than the CUDA-core one)."""
+    pointer fewer than the CUDA-core one); every forward entry takes K2's
+    seven numbers of addressing (``k2_strides``) before the stream."""
     found = {}
     for name in ("gru_layer.cu", "gru_layer_bwd.cu"):
         for entry, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
@@ -1369,6 +1521,9 @@ def test_gru_entry_points_match_their_ctypes_signatures():
             == found["sir_gru_layer_mma_info"]
             == found["sir_gru_layer_bwd_cluster_info"])
     assert found["sir_gru_layer_bwd_cluster"] == found["sir_gru_layer_bwd_mma"]
+    assert found["sir_gru_layer_mma"] == [True] * 4 + [False] * 11 + [True]
+    assert _build._SIGNATURES["sir_gru_layer_mma"][8:15] == [
+        _build._L] * 6 + [_build._I]
 
 
 def _python(args, cwd):
