@@ -38,7 +38,6 @@ move by round-off alone and are left out of both leaf numbers.
 from __future__ import annotations
 
 import gc
-import sys
 import time
 
 import numpy as np
@@ -128,20 +127,17 @@ class Driver:
     # ------------------------------------------------------------ window
 
     def window(self, seconds: float, profiler=None) -> dict:
-        calls, ends, t0 = [], [], time.perf_counter()
+        calls, spans, t0 = [], [], time.perf_counter()
         while True:
+            start = time.perf_counter()
             calls.append(self._block())
-            ends.append(time.perf_counter())
-            if ends[-1] - t0 >= seconds:
+            spans.append((start, time.perf_counter()))
+            if spans[-1][1] - t0 >= seconds:
                 break
-        wall = ends[-1] - t0
-        ms = np.diff([t0] + ends) * 1e3 / self.traffic["steps_per_call"]
-        print(f"train: {len(calls)} calls, ms a step min / median / max "
-              f"{ms.min():.2f} / {np.median(ms):.2f} / {ms.max():.2f}",
-              file=sys.stderr)
+        wall = spans[-1][1] - t0
         rows = sum(calls)
         out = {"start": t0, "attempted": rows, "failed": 0, "seconds": wall,
-               "calls": calls,
+               "calls": calls, "call_spans": spans,
                "metrics": {"train_utt_per_s": rows / wall}}
         if profiler is not None:
             out.update(self._slice(profiler))

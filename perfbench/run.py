@@ -81,7 +81,7 @@ def run(args, device: str = "cuda", cell=None) -> dict:
     card."""
     import torch
 
-    from core import trace as tr
+    from core import host, trace as tr
     from core.bench import Cell
 
     cell = cell or Cell(args.workload)
@@ -91,8 +91,11 @@ def run(args, device: str = "cuda", cell=None) -> dict:
                                args.seed, device)
     if args.trace:
         tr.warm_profiler()
+    watch = host.Watch().start()
     window = drv.window(args.seconds, tr.Profiler() if args.trace else None)
+    watch.stop()
     setup_s = window["start"] - T0
+    report = host.summary(window, watch, args.seconds)
     result = {"correct": False, "attempted": int(window["attempted"]),
               "failed": int(window["failed"])}
     trace = window.get("trace")
@@ -113,6 +116,8 @@ def run(args, device: str = "cuda", cell=None) -> dict:
         dev["window_s"] = trace.window_s
         result["breakdown"] = {"device_ops": trace.top_ops(),
                                "idle_gaps": trace.idle_gaps()}
+    for line in host.lines(report):
+        print(line, file=sys.stderr)
     checks = drv.check()
     result["correct"] = bool(checks) and all(v <= lim
                                              for _n, v, lim in checks)

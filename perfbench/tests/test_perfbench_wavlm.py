@@ -11,30 +11,21 @@ import readings
 import run
 from core import compare, program, traffic, weights
 from core.bench import Cell
+from tiny_cells import SECONDS, small_cell as tiny
 from wavlm_faults import FAULTS
 
 NAME = "wavlm_large.infer.b64"
-# 7 convs of 32 over 16,000 samples: 49 frames, past the 24-frame reach of
-# 16 buckets, so the exact, the log-spaced and the clamped buckets are used
-SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-             intermediate_size=128, conv_dim=[32] * 7,
-             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
-             num_buckets=16, max_bucket_distance=24)
 
 
 def small_cell() -> Cell:
-    cell = Cell(NAME)
-    cell.config.update(SMALL)
-    cell.traffic.update(batch=3, pool_batches=2, warmup_calls=1,
-                        slice_calls=2, width=16000, min_seconds=0.3,
-                        max_seconds=1.0)
-    cell.bench["run_seconds"] = 0.2
+    cell = tiny(NAME)
+    cell.bench["run_seconds"] = SECONDS[NAME]
     return cell
 
 
 def _run(trace=0) -> dict:
-    args = argparse.Namespace(workload=NAME, seed=2 ** 31 + 21, seconds=0.2,
-                              trace=trace)
+    args = argparse.Namespace(workload=NAME, seed=2 ** 31 + 21,
+                              seconds=SECONDS[NAME], trace=trace)
     return run.run(args, "cpu", small_cell())
 
 
